@@ -1,0 +1,82 @@
+"""PointPillar detection, raw scan to boxes: the port of `bench.py`'s path.
+
+    cfg = load_config()                       # tools/cfgs/pointpillar.yaml
+    det = build_detector(cfg, 'cuda', seed=0)
+    points, mask = make_scans(cfg, batch=2)   # bench.py's synthetic scans
+    preds = det.detect(torch.as_tensor(points, device='cuda'),
+                       torch.as_tensor(mask, device='cuda'))
+
+`detect` runs voxelize_torch -> PointPillarNet (VFE, scatter, RPNV2) ->
+predict (masked top-k, decode of the survivors, batched rotated NMS).
+"""
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pcdet_tpu.config import cfg_from_yaml_file
+from pcdet_tpu.datasets.synthetic import make_scene
+
+from .models.pointpillar import PointPillar
+from .ops.voxelizer import grid_size, voxelize_torch
+
+DEFAULT_CFG = (Path(__file__).resolve().parent.parent / 'tools' / 'cfgs'
+               / 'pointpillar.yaml')
+
+
+def load_config(path=DEFAULT_CFG):
+    return cfg_from_yaml_file(str(path))
+
+
+def make_scans(cfg, batch):
+    """Synthetic KITTI-scale scans exactly as `bench.py` makes them: scene i
+    from RandomState(i), 24 objects on beam-structured ground, padded to
+    DATA_CONFIG.MAX_POINTS (65536, bench.py's MAX_POINTS).
+
+    :return: points (B, P, 4) f32, point_mask (B, P) bool
+    """
+    max_points = int(cfg.DATA_CONFIG.MAX_POINTS)
+    points = np.zeros((batch, max_points, 4), np.float32)
+    mask = np.zeros((batch, max_points), bool)
+    for i in range(batch):
+        pts, _, _ = make_scene(np.random.RandomState(i), list(cfg.CLASS_NAMES),
+                               num_objects=24, ground_mode='rings',
+                               pts_per_obj=400, x_range=(3, 68),
+                               y_range=(-38, 38))
+        n = min(len(pts), max_points)
+        points[i, :n] = pts[:n]
+        mask[i, :n] = True
+    return points, mask
+
+
+class Detector:
+    """PointPillar with random weights from `seed` (a CPU torch.Generator,
+    so every device gets the same weights)."""
+
+    def __init__(self, cfg, device, seed=0):
+        data_cfg = cfg.DATA_CONFIG
+        self.voxel_size = tuple(data_cfg.VOXEL_GENERATOR.VOXEL_SIZE)
+        self.pc_range = tuple(data_cfg.POINT_CLOUD_RANGE)
+        self.max_points_per_voxel = int(
+            data_cfg.VOXEL_GENERATOR.MAX_POINTS_PER_VOXEL)
+        self.max_voxels = int(data_cfg.TEST.MAX_NUMBER_OF_VOXELS)
+        gen = torch.Generator().manual_seed(seed)
+        self.model = PointPillar(cfg, grid_size(self.voxel_size, self.pc_range),
+                                 device=device, generator=gen)
+        self.device = self.model.device
+
+    def voxelize(self, points, point_mask):
+        return voxelize_torch(points, point_mask, self.voxel_size,
+                              self.pc_range, self.max_points_per_voxel,
+                              self.max_voxels)
+
+    @torch.inference_mode()
+    def detect(self, points, point_mask):
+        """(B, P, 4) f32 points, (B, P) bool mask on the detector's device
+        -> dict boxes (B, post, 7), scores, labels, valid, num (B,)."""
+        vox = self.voxelize(points, point_mask)
+        return self.model.predict(self.model.forward(vox))
+
+
+def build_detector(cfg, device, seed=0):
+    return Detector(cfg, device, seed)

@@ -1,0 +1,61 @@
+"""Box residual decode (SECOND encoding) on tensors.
+
+Twin of the jnp half of `pcdet_tpu.utils.box_coder.ResidualCoder`
+(`decode_jnp`, `decode_with_head_direction`).  Box layout
+(x, y, z, w, l, h, r [, extras]) with z at the bottom center.
+"""
+import math
+
+import torch
+
+from . import torch_common
+
+
+class ResidualCoder:
+    def __init__(self, code_size=7):
+        self.code_size = code_size
+
+    @staticmethod
+    def decode(box_encodings, anchors):
+        xa, ya, za, wa, la, ha, ra = [anchors[..., i] for i in range(7)]
+        xt, yt, zt, wt, lt, ht, rt = [box_encodings[..., i] for i in range(7)]
+        za = za + ha / 2
+        diagonal = torch.sqrt(la ** 2 + wa ** 2)
+        xg = xt * diagonal + xa
+        yg = yt * diagonal + ya
+        zg = zt * ha + za
+        lg = torch.exp(lt) * la
+        wg = torch.exp(wt) * wa
+        hg = torch.exp(ht) * ha
+        rg = rt + ra
+        zg = zg - hg / 2
+        out = torch.stack([xg, yg, zg, wg, lg, hg, rg], dim=-1)
+        if anchors.shape[-1] > 7:
+            out = torch.cat([out, box_encodings[..., 7:] + anchors[..., 7:]],
+                            dim=-1)
+        return out
+
+    def decode_with_head_direction(self, box_preds, anchors, dir_cls_preds,
+                                   num_dir_bins, dir_offset, dir_limit_offset,
+                                   use_binary_dir_classifier=False):
+        """Decode and snap the heading into the direction classifier's bin.
+
+        :param box_preds: (..., N, 7) encoded predictions
+        :param anchors:   (..., N, 7)
+        :param dir_cls_preds: (..., N, num_dir_bins) or None
+        """
+        boxes = self.decode(box_preds, anchors)
+        if dir_cls_preds is None:
+            return boxes
+        dir_cls_preds = dir_cls_preds.reshape(*box_preds.shape[:-1], -1)
+        dir_labels = torch.argmax(dir_cls_preds, dim=-1)
+        if use_binary_dir_classifier:
+            opp = (boxes[..., -1] > 0) ^ dir_labels.bool()
+            rot = boxes[..., 6] + torch.where(opp, math.pi, 0.0)
+        else:
+            period = 2 * math.pi / num_dir_bins
+            dir_rot = torch_common.limit_period(
+                boxes[..., 6] - dir_offset, dir_limit_offset, period)
+            rot = dir_rot + dir_offset + period * dir_labels.to(boxes.dtype)
+        return torch.cat([boxes[..., :6], rot[..., None], boxes[..., 7:]],
+                         dim=-1)

@@ -1,0 +1,79 @@
+"""pcdet_tpu (flax) PointPillar variables -> this port's state_dict.
+
+The inverse of `pcdet_tpu.train.torch_import` for PointPillar.  Keys follow
+the reference PCDet state_dict (`vfe.pfn_layers.{i}.linear`,
+`rpn_head.blocks.{i}.{1+3j}`, `rpn_head.deblocks.{i}.0`, `rpn_head.conv_*`),
+so the same dict also loads into the reference model.  Layout transforms:
+  flax Dense kernel (in, out)            -> Linear weight (out, in)
+  flax conv kernel HWIO (kh, kw, in, out) -> Conv2d weight OIHW
+  flax deconv kernel (kh, kw, in, out)   -> ConvTranspose2d (in, out, kh, kw)
+  BN scale / bias + batch_stats mean / var
+      -> weight / bias / running_mean / running_var (+ num_batches_tracked 0)
+"""
+import numpy as np
+import torch
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _bn(sd, key, params, stats):
+    sd[key + '.weight'] = _t(params['scale'])
+    sd[key + '.bias'] = _t(params['bias'])
+    sd[key + '.running_mean'] = _t(stats['mean'])
+    sd[key + '.running_var'] = _t(stats['var'])
+    sd[key + '.num_batches_tracked'] = torch.tensor(0, dtype=torch.long)
+
+
+def _conv(sd, key, params):
+    sd[key + '.weight'] = _t(np.transpose(params['kernel'], (3, 2, 0, 1)))
+    if 'bias' in params:
+        sd[key + '.bias'] = _t(params['bias'])
+
+
+def state_dict_from_flax(variables, layer_nums):
+    """:param variables: {'params': ..., 'batch_stats': ...} of
+        `pcdet_tpu.models.pointpillar.PointPillarNet` (numpy or jax arrays)
+    :param layer_nums: RPNV2's `layer_nums` (flax numbers its ConvBNReLUs
+        across blocks, torch within each block)
+    :return: dict[str, Tensor] for `PointPillarNet.load_state_dict`
+    """
+    params, stats = variables['params'], variables.get('batch_stats', {})
+    sd = {}
+    vp, vs = params['vfe'], stats.get('vfe', {})
+    for i in range(len(vp)):
+        name = 'PFNLayer_%d' % i
+        lin = vp[name]['TorchLinear_0']
+        key = 'vfe.pfn_layers.%d' % i
+        sd[key + '.linear.weight'] = _t(np.transpose(lin['kernel']))
+        if 'bias' in lin:
+            sd[key + '.linear.bias'] = _t(lin['bias'])
+        if 'TorchBatchNorm_0' in vp[name]:
+            _bn(sd, key + '.norm', vp[name]['TorchBatchNorm_0'],
+                vs[name]['TorchBatchNorm_0'])
+
+    rp, rs = params['rpn_head'], stats.get('rpn_head', {})
+    conv_i = 0
+    for i, ln in enumerate(layer_nums):
+        for j in range(ln + 1):
+            name = 'ConvBNReLU_%d' % conv_i
+            key = 'rpn_head.blocks.%d' % i
+            _conv(sd, '%s.%d' % (key, 1 + 3 * j), rp[name]['TorchConv_0'])
+            if 'TorchBatchNorm_0' in rp[name]:
+                _bn(sd, '%s.%d' % (key, 2 + 3 * j), rp[name]['TorchBatchNorm_0'],
+                    rs[name]['TorchBatchNorm_0'])
+            conv_i += 1
+        name = 'DeconvBNReLU_%d' % i
+        key = 'rpn_head.deblocks.%d' % i
+        deconv = rp[name]['TorchConvTranspose_0']
+        sd[key + '.0.weight'] = _t(np.transpose(deconv['kernel'], (2, 3, 0, 1)))
+        if 'bias' in deconv:
+            sd[key + '.0.bias'] = _t(deconv['bias'])
+        if 'TorchBatchNorm_0' in rp[name]:
+            _bn(sd, key + '.1', rp[name]['TorchBatchNorm_0'],
+                rs[name]['TorchBatchNorm_0'])
+    for head in ('conv_box', 'conv_cls', 'conv_dir_cls'):
+        if head in rp:
+            _conv(sd, 'rpn_head.' + head, rp[head])
+    return sd

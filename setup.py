@@ -1,8 +1,10 @@
-"""Packaging for pcdet_tpu.
+"""Packaging for pcdet_tpu and its PyTorch/CUDA port, pcdet_tpu_torch.
 
-Mirrors the reference's setup.py role (version = 0.1.0+<git sha>); there are
-no CUDA extensions — the device path is JAX/XLA/Pallas and the one native
-host component (pcdet_tpu/native) is built on demand by g++ at first use.
+Mirrors the reference's setup.py role (version = 0.1.0+<git sha>).  No
+extension is compiled at install time: pcdet_tpu's device path is
+JAX/XLA/Pallas and its native host component (pcdet_tpu/native) is built by
+g++ at first use; pcdet_tpu_torch's CUDA kernels (pcdet_tpu_torch/csrc) are
+built by nvcc at first use.
 """
 import subprocess
 
@@ -26,7 +28,9 @@ if __name__ == '__main__':
         version=version,
         description='TPU-native LiDAR 3D object detection (PCDet capabilities on JAX/XLA)',
         install_requires=['numpy', 'pyyaml', 'jax', 'flax', 'optax', 'orbax-checkpoint'],
+        extras_require={'torch': ['torch']},
         license='Apache License 2.0',
         packages=find_packages(exclude=['tools', 'tests', 'output']),
-        package_data={'pcdet_tpu.native': ['*.cpp']},
+        package_data={'pcdet_tpu.native': ['*.cpp'],
+                      'pcdet_tpu_torch': ['csrc/*.cu']},
     )
