@@ -120,6 +120,8 @@ class DeconvBNReLU(nn.Sequential):
 
 def _fan_in(module):
     w = module.weight
+    if hasattr(module, 'fan_in'):                # sparse convs: Cin * K
+        return module.fan_in
     if isinstance(module, nn.ConvTranspose2d):
         return w.shape[1] * w[0, 0].numel()      # torch: out * kh * kw
     return w[0].numel()
@@ -127,14 +129,16 @@ def _fan_in(module):
 
 @torch.no_grad()
 def init_weights(model, generator):
-    """Torch-default init of every Linear / Conv / ConvTranspose and BN of
-    `model` from `generator` (a CPU torch.Generator), in module order.
+    """Torch-default init of every Linear / Conv / ConvTranspose, sparse conv
+    (a module with a `fan_in`) and BN of `model` from `generator` (a CPU
+    torch.Generator), in module order.
     Values are drawn on the CPU and copied, so every device gets the same
     weights from the same seed."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+        if (isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d))
+                or hasattr(mod, 'fan_in')):
             bound = 1.0 / math.sqrt(_fan_in(mod))
-            for p in (mod.weight, mod.bias):
+            for p in (mod.weight, getattr(mod, 'bias', None)):
                 if p is not None:
                     v = torch.rand(p.shape, generator=generator) * 2 - 1
                     p.copy_(v * bound)

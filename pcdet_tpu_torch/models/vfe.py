@@ -1,8 +1,8 @@
-"""Pillar feature net (eval) on tensors.
+"""Voxel feature extractors (eval) on tensors.
 
-Twin of `pcdet_tpu.models.vfe.PFNLayer` / `PillarFeatureNet`, with the
-reference's parameter names (`pfn_layers.{i}.linear`, `.norm`).  Inputs are
-the voxelizer's fixed-shape batch:
+Twins of `pcdet_tpu.models.vfe.MeanVFE`, `PFNLayer` and `PillarFeatureNet`,
+with the reference's parameter names (`pfn_layers.{i}.linear`, `.norm`).
+Inputs are the voxelizer's fixed-shape batch:
   voxels      (B, V, P, C)  P = max points per voxel, zero padded
   num_points  (B, V) int32
   coords      (B, V, 3) int32 ZYX (-1 rows = padding voxels)
@@ -12,6 +12,15 @@ import torch
 import torch.nn as nn
 
 from .layers import BatchNorm, TorchLinear
+
+
+class MeanVFE(nn.Module):
+    """Mean of the points of each voxel; zero on padding voxels."""
+
+    def forward(self, voxels, num_points, coords, voxel_mask):
+        denom = torch.clamp(num_points, min=1).to(voxels.dtype)[..., None]
+        mean = voxels.sum(dim=2) / denom
+        return mean * voxel_mask[..., None].to(voxels.dtype)     # (B, V, C)
 
 
 class PFNLayer(nn.Module):

@@ -1,0 +1,132 @@
+"""Rulebook gather-GEMM of the sparse convolutions (kernels B and C).
+
+    out[b, v] = sum_k feats[b, rules[b, v, k]] @ W[k]
+
+`gather_gemm` replaces two TPU kernels of
+`pcdet_tpu.ops.pallas.gather_gemm`: `_gather_matmul_fwd_only` (B, f32
+features and weights) and `_gather_matmul_packed_call` (C, bf16-rounded
+features and weights, there packed in pairs into int32 words).  Both
+accumulate in f32 and return f32.  On a CUDA tensor it launches the
+hand-written kernel `csrc/gather_gemm.cu` (built with nvcc at first use),
+the f32 or the bf16 instance by the dtype of `feats`, or raises; on a CPU
+tensor it computes the plain version, `gather_gemm_plain`.  There is no
+fallback from the one to the other.
+
+`LAUNCHES` counts kernel launches per variant, so a run can show that its
+path went through the kernels.
+"""
+import ctypes
+import functools
+
+import torch
+
+from . import cuda_build
+
+LAUNCHES = {'gather_gemm_f32': 0, 'gather_gemm_bf16': 0}
+CIN = (4, 16, 32, 64)          # the kernel's instances (csrc/gather_gemm.cu)
+COUT = (16, 32, 64, 128)
+MAX_TAPS = 64
+_MAX_GRID_Y = 65535
+_SOURCES = ('gather_gemm.cu',)
+
+
+@functools.cache
+def build():
+    """Build (or reuse) and load the kernel library; returns it."""
+    lib = cuda_build.load_library('gather_gemm', _SOURCES)
+    fn = lib.pcdet_gather_gemm
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.pcdet_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pcdet_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def gather_gemm_plain(feats, rules, weights, n_live):
+    """The plain PyTorch version: gather, then one (V, K*Cin) @ (K*Cin, Cout)
+    product per sample, in f32 (bf16 inputs are widened exactly first, so
+    the products are those of the bf16 values and the sums are f32).  Rows
+    at or past n_live[b] are zero."""
+    b, v, k = rules.shape
+    cin, cout = feats.shape[-1], weights.shape[-1]
+    f = feats.float()
+    batch = torch.arange(b, device=feats.device)[:, None, None]
+    gathered = f[batch, rules.long()].reshape(b, v, k * cin)
+    out = torch.matmul(gathered, weights.float().reshape(k * cin, cout))
+    live = torch.arange(v, device=feats.device)[None] < n_live[:, None]
+    return out * live[..., None].to(out.dtype)
+
+
+def _check(feats, rules, weights, n_live):
+    if feats.dim() != 3 or rules.dim() != 3 or weights.dim() != 3:
+        raise ValueError('want feats (B, V_in+1, Cin), rules (B, V_out, K), '
+                         'weights (K, Cin, Cout); got %s, %s, %s' % (
+                             tuple(feats.shape), tuple(rules.shape),
+                             tuple(weights.shape)))
+    b, _, k = rules.shape
+    if (feats.shape[0] != b or weights.shape[0] != k
+            or weights.shape[1] != feats.shape[2]
+            or tuple(n_live.shape) != (b,)):
+        raise ValueError('shapes disagree: feats %s, rules %s, weights %s, '
+                         'n_live %s' % (tuple(feats.shape), tuple(rules.shape),
+                                        tuple(weights.shape),
+                                        tuple(n_live.shape)))
+    if feats.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError('feats must be float32 or bfloat16, got %s'
+                        % feats.dtype)
+    if weights.dtype != feats.dtype:
+        raise TypeError('weights (%s) must have the dtype of feats (%s)'
+                        % (weights.dtype, feats.dtype))
+    if rules.dtype != torch.int32 or n_live.dtype != torch.int32:
+        raise TypeError('rules and n_live must be int32, got %s and %s'
+                        % (rules.dtype, n_live.dtype))
+    devices = {t.device for t in (feats, rules, weights, n_live)}
+    if len(devices) != 1:
+        raise ValueError('tensors on different devices: %s' % sorted(
+            str(d) for d in devices))
+    for name, t in (('feats', feats), ('rules', rules), ('weights', weights),
+                    ('n_live', n_live)):
+        if not t.is_contiguous():
+            raise ValueError('%s must be contiguous' % name)
+
+
+def gather_gemm(feats, rules, weights, n_live):
+    """:param feats: (B, V_in + 1, Cin) f32 (kernel B) or bf16 (kernel C);
+        row V_in of every sample is zeros
+    :param rules: (B, V_out, K) int32 rows of feats, misses at V_in
+    :param weights: (K, Cin, Cout), the dtype of feats
+    :param n_live: (B,) int32 live output rows (a prefix); rows past it are
+        zero
+    :return: (B, V_out, Cout) f32
+    """
+    _check(feats, rules, weights, n_live)
+    if feats.device.type == 'cpu':
+        return gather_gemm_plain(feats, rules, weights, n_live)
+    if feats.device.type != 'cuda':
+        raise ValueError('unsupported device %s' % feats.device)
+    b, v_out, k = rules.shape
+    v_in1, cin = feats.shape[1], feats.shape[2]
+    cout = weights.shape[2]
+    if cin not in CIN or cout not in COUT or not 1 <= k <= MAX_TAPS:
+        raise ValueError('no kernel instance for Cin=%d, Cout=%d, K=%d '
+                         '(Cin in %s, Cout in %s, K <= %d)' % (
+                             cin, cout, k, CIN, COUT, MAX_TAPS))
+    if b > _MAX_GRID_Y or max(v_in1 * cin, v_out * max(k, cout)) >= 2 ** 31:
+        raise ValueError('batch or table too large: B=%d V_in+1=%d V_out=%d'
+                         % (b, v_in1, v_out))
+    bf16 = feats.dtype == torch.bfloat16
+    lib = build()
+    out = torch.empty((b, v_out, cout), dtype=torch.float32,
+                      device=feats.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pcdet_gather_gemm(
+            int(bf16), feats.data_ptr(), rules.data_ptr(), weights.data_ptr(),
+            n_live.data_ptr(), out.data_ptr(), b, v_in1, v_out, k, cin, cout,
+            stream)
+    cuda_build.check(lib, rc)
+    LAUNCHES['gather_gemm_bf16' if bf16 else 'gather_gemm_f32'] += 1
+    return out

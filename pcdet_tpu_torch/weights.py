@@ -1,12 +1,14 @@
-"""pcdet_tpu (flax) PointPillar variables -> this port's state_dict.
+"""pcdet_tpu (flax) PointPillar / SECOND variables -> this port's state_dict.
 
-The inverse of `pcdet_tpu.train.torch_import` for PointPillar.  Keys follow
-the reference PCDet state_dict (`vfe.pfn_layers.{i}.linear`,
+The inverse of `pcdet_tpu.train.torch_import` for PointPillar and SECOND.
+Keys follow the reference PCDet state_dict (`vfe.pfn_layers.{i}.linear`,
+`rpn_net.conv_input.0`, `rpn_net.conv{1..4}.{j}.0`, `rpn_net.conv_out.0`,
 `rpn_head.blocks.{i}.{1+3j}`, `rpn_head.deblocks.{i}.0`, `rpn_head.conv_*`),
 so the same dict also loads into the reference model.  Layout transforms:
   flax Dense kernel (in, out)            -> Linear weight (out, in)
   flax conv kernel HWIO (kh, kw, in, out) -> Conv2d weight OIHW
   flax deconv kernel (kh, kw, in, out)   -> ConvTranspose2d (in, out, kh, kw)
+  flax sparse kernel (K, in, out)        -> spconv (k0, k1, k2, in, out)
   BN scale / bias + batch_stats mean / var
       -> weight / bias / running_mean / running_var (+ num_batches_tracked 0)
 """
@@ -32,15 +34,33 @@ def _conv(sd, key, params):
         sd[key + '.bias'] = _t(params['bias'])
 
 
+# BackBone8x's sparse convs: flax module -> (reference prefix, kernel)
+_BACKBONE8X = [('conv_input', 'rpn_net.conv_input', (3, 3, 3)),
+               ('conv1_0', 'rpn_net.conv1.0', (3, 3, 3))] + [
+    ('conv%d_%d' % (lvl, j), 'rpn_net.conv%d.%d' % (lvl, j), (3, 3, 3))
+    for lvl in (2, 3, 4) for j in range(3)] + [
+    ('conv_out', 'rpn_net.conv_out', (3, 1, 1))]
+
+
 def state_dict_from_flax(variables, layer_nums):
     """:param variables: {'params': ..., 'batch_stats': ...} of
-        `pcdet_tpu.models.pointpillar.PointPillarNet` (numpy or jax arrays)
+        `pcdet_tpu.models.pointpillar.PointPillarNet` or
+        `pcdet_tpu.models.second.SECONDNetModule` (numpy or jax arrays)
     :param layer_nums: RPNV2's `layer_nums` (flax numbers its ConvBNReLUs
         across blocks, torch within each block)
-    :return: dict[str, Tensor] for `PointPillarNet.load_state_dict`
+    :return: dict[str, Tensor] for the port module's `load_state_dict`
     """
     params, stats = variables['params'], variables.get('batch_stats', {})
     sd = {}
+    if 'backbone_3d' in params:
+        bp, bs = params['backbone_3d'], stats.get('backbone_3d', {})
+        for name, key, kernel in _BACKBONE8X:
+            w = np.asarray(bp[name]['kernel'])
+            sd[key + '.0.weight'] = _t(w.reshape(*kernel, *w.shape[1:]))
+            _bn(sd, key + '.1', bp[name]['TorchBatchNorm_0'],
+                bs[name]['TorchBatchNorm_0'])
+        _rpnv2(sd, params, stats, layer_nums)
+        return sd
     vp, vs = params['vfe'], stats.get('vfe', {})
     for i in range(len(vp)):
         name = 'PFNLayer_%d' % i
@@ -52,7 +72,11 @@ def state_dict_from_flax(variables, layer_nums):
         if 'TorchBatchNorm_0' in vp[name]:
             _bn(sd, key + '.norm', vp[name]['TorchBatchNorm_0'],
                 vs[name]['TorchBatchNorm_0'])
+    _rpnv2(sd, params, stats, layer_nums)
+    return sd
 
+
+def _rpnv2(sd, params, stats, layer_nums):
     rp, rs = params['rpn_head'], stats.get('rpn_head', {})
     conv_i = 0
     for i, ln in enumerate(layer_nums):
@@ -76,4 +100,3 @@ def state_dict_from_flax(variables, layer_nums):
     for head in ('conv_box', 'conv_cls', 'conv_dir_cls'):
         if head in rp:
             _conv(sd, 'rpn_head.' + head, rp[head])
-    return sd

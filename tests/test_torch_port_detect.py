@@ -183,7 +183,10 @@ def test_detect_slice_matches_jax():
 
 def test_port_imports_no_jax():
     code = ('import sys, chip_smoke, pcdet_tpu_torch, pcdet_tpu_torch.detect, '
-            'pcdet_tpu_torch.weights, pcdet_tpu_torch.ops.nms; '
+            'pcdet_tpu_torch.weights, pcdet_tpu_torch.ops.nms, '
+            'pcdet_tpu_torch.ops.gather_gemm, pcdet_tpu_torch.ops.sparse, '
+            'pcdet_tpu_torch.ops.host_books, pcdet_tpu_torch.models.second, '
+            'pcdet_tpu_torch.models.backbones3d; '
             'bad = sorted(m for m in sys.modules '
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax')); "
             'print(bad); sys.exit(1 if bad else 0)')

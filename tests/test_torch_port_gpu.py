@@ -6,14 +6,18 @@ CPU mode).  On a machine with a card, run without the JAX suite's conftest
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 
-Tolerance 1e-5 absolute on the areas; the kernel is built with --fmad=false
-and is expected to be bitwise equal to the plain version.
+Rotated overlap: tolerance 1e-5 absolute on the areas; the kernel is built
+with --fmad=false and is expected to be bitwise equal to the plain version.
+Gather-GEMM (kernels B and C): 1e-5 of max |plain|; the kernel and the
+plain version sum in different orders.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
-from pcdet_tpu_torch.ops import nms, rotated_iou, rotated_overlap
+from pcdet_tpu_torch.ops import gather_gemm, nms, rotated_iou, rotated_overlap
 
 torch.set_num_threads(1)
 
@@ -73,3 +77,76 @@ def test_nms_gpu_matches_cpu(cuda, rotated):
                               valid_mask=valid.to(cuda), rotated=rotated)
     for w, x in zip(want, got):
         torch.testing.assert_close(x.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.fixture
+def no_tf32():
+    """The plain version's matmul in full f32 on the card."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _gg_inputs(rng, b, v_in, v_out, k, cin, cout, dtype, device):
+    table = rng.randn(b, v_in + 1, cin).astype(np.float32)
+    table[:, v_in] = 0
+    rules = rng.randint(0, v_in + 1, (b, v_out, k)).astype(np.int32)
+    rules[rng.rand(b, v_out, k) < 0.4] = v_in                # misses
+    rules[:, 5] = v_in                                        # an all-miss row
+    w = rng.randn(k, cin, cout).astype(np.float32) * 0.2
+    return (torch.as_tensor(table, device=device).to(dtype),
+            torch.as_tensor(rules, device=device),
+            torch.as_tensor(w, device=device).to(dtype))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('k,cin,cout', list(itertools.product(
+    (27, 3), gather_gemm.CIN, gather_gemm.COUT)))
+def test_gather_gemm_matches_plain(cuda, no_tf32, dtype, k, cin, cout):
+    rng = np.random.RandomState(k * 1000 + cin * 10 + cout)
+    v_in, v_out = 300, 200                         # 200 = 3 tiles + 8 rows
+    name = ('gather_gemm_bf16' if dtype == torch.bfloat16
+            else 'gather_gemm_f32')
+    for b in (1, 3):
+        feats, rules, w = _gg_inputs(rng, b, v_in, v_out, k, cin, cout,
+                                     dtype, cuda)
+        full = torch.full((b,), v_out, dtype=torch.int32, device=cuda)
+        scale = gather_gemm.gather_gemm_plain(feats, rules, w,
+                                              full).abs().max().item()
+        assert scale > 0
+        for live in (0, 100, v_out):               # none, mid-tile, all
+            n_live = torch.full((b,), live, dtype=torch.int32, device=cuda)
+            if b > 1:
+                n_live[-1] = v_out                 # samples gate apart
+            before = gather_gemm.LAUNCHES[name]
+            got = gather_gemm.gather_gemm(feats, rules, w, n_live)
+            assert gather_gemm.LAUNCHES[name] == before + 1
+            want = gather_gemm.gather_gemm_plain(feats, rules, w, n_live)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32 and got.shape == want.shape
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+            assert not got[0, live:].any()
+            assert not got[:, 5].any()
+
+
+def test_gather_gemm_rejects_bad_inputs(cuda):
+    rng = np.random.RandomState(0)
+    feats, rules, w = _gg_inputs(rng, 2, 50, 40, 27, 16, 32, torch.float32,
+                                 cuda)
+    n_live = torch.full((2,), 40, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):                  # f64 features
+        gather_gemm.gather_gemm(feats.double(), rules, w.double(), n_live)
+    with pytest.raises(TypeError):                  # f32 feats, bf16 weights
+        gather_gemm.gather_gemm(feats, rules, w.bfloat16(), n_live)
+    with pytest.raises(TypeError):                  # int64 rules
+        gather_gemm.gather_gemm(feats, rules.long(), w, n_live)
+    with pytest.raises(ValueError):                 # no instance for Cin 8
+        gather_gemm.gather_gemm(feats[..., :8].contiguous(), rules,
+                                w[:, :8].contiguous(), n_live)
+    with pytest.raises(ValueError):                 # K of rules != K of W
+        gather_gemm.gather_gemm(feats, rules[..., :3].contiguous(), w, n_live)
+    with pytest.raises(ValueError):                 # rules on the host
+        gather_gemm.gather_gemm(feats, rules.cpu(), w, n_live)
+    with pytest.raises(ValueError):                 # not contiguous
+        gather_gemm.gather_gemm(feats, rules[:, ::2], w, n_live)
