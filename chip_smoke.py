@@ -1,5 +1,5 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: PointPillar and
-SECOND detect.
+SECOND detect, SECOND training.
 
     python3 chip_smoke.py
 
@@ -32,14 +32,36 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       equal, boxes 1e-3);
   S5. timings at B2 and B8: frames/s, the voxelize / books / backbone /
       RPN / predict split, ms per sparse conv, a torch.profiler breakdown.
+  T1. (built in phase 1) kernel D (csrc/gather_dw.cu) and kernel B's
+      Cin=128 instances: registers and spills per instance;
+  T2. kernel D vs its plain version on the rules of real B2 TRAIN books at
+      conv2_1 (K=27, 32 -> 32) and conv_out (K=3, 64 -> 128), n_live real,
+      mid-tile and 0 (bound 1e-4 * max |plain|), two launches bitwise
+      equal; kernel B's 128 -> 64 instance on conv_out's transposed book
+      (bound 1e-5 * max |plain|); kernel and plain times;
+  T3. full-width second.yaml training at B2 (train caps 16000 voxels,
+      32000 / 25600 / 13824 / 11264 per level, adam_onecycle): 5 steps on
+      one batch, every loss term finite, the 5th loss below the 1st, per
+      step 12 forward and 11 feature-gradient launches of B and 12 of D;
+  T4. one train step at B1 from the same weights and batch: GPU vs CPU
+      loss in f32 (1e-4 relative); the 12 sparse convs' dW through kernels
+      B and D vs through their plain versions on the card (1e-3 of max
+      |dW|), and GPU vs CPU in f64 (1e-9); GPU vs CPU in f32 and each
+      against f64, printed;
+  T5. timings at B2 and B8: ms per step and samples/s with the batch built
+      in the step and prebuilt, the voxelize / books / targets / forward /
+      backward / optimizer split, a torch.profiler breakdown with kernel B's
+      and D's share and the idle share; the prebuilt step again with
+      cuDNN's autotuner on.
 
-Prints the card's name and power limit, a JSON line with the kernels, and
-as its last line {"ok": true, "device": {...}}.  Exits nonzero, with no
+Prints the card's name and power limit, a JSON line with the kernels (A,
+B, C, D), and as its last line {"ok": true, "device": {...}}.  Exits nonzero, with no
 result line, when no CUDA device is present or any phase fails.
 """
 import concurrent.futures
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -95,24 +117,39 @@ def profile_detect(det, points, mask, iters=3):
             sorted(ops, reverse=True))
 
 
-def print_ptxas(name, log):
-    """One line per library: registers and spills of each kernel instance
-    as `nvcc -Xptxas -v` reports them."""
-    regs, spills, entries = [], [], 0
+def ptxas_entries(log):
+    """[(kernel, template ints, registers, spill store bytes)] per compiled
+    instance of a library, from `nvcc -Xptxas -v`."""
+    out, cur = [], None
     for line in log['ptxas'].splitlines():
-        if 'Compiling entry function' in line:
-            entries += 1
-        elif 'spill stores' in line:
-            spills.append(int(line.split('bytes spill stores')[0]
-                              .split(',')[-1]))
-        elif 'Used' in line and 'registers' in line:
-            regs.append(int(line.split('Used')[1].split('registers')[0]))
-    if not entries:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            base = next((k for k in ('gather_dw_partial', 'sum_partials',
+                                     'gather_gemm_kernel', 'edgeclip')
+                         if k in name), name[:40])
+            cur = [base, ('bf16,' if 'bfloat16' in name else '') + ','.join(
+                re.findall(r'Li(\d+)E', name)), 0, 0]
+            out.append(cur)
+        elif cur is not None and 'spill stores' in line:
+            cur[3] = int(line.split('bytes spill stores')[0].split(',')[-1])
+        elif cur is not None and 'Used' in line and 'registers' in line:
+            cur[2] = int(line.split('Used')[1].split('registers')[0])
+    return out
+
+
+def print_ptxas(name, log):
+    """One line per library: registers and spills over its kernel
+    instances."""
+    rows = ptxas_entries(log)
+    if not rows:
         print('[build] %s: ptxas report empty (library reused)' % name)
         return
+    regs = [r[2] for r in rows]
+    spills = [r[3] for r in rows]
     print('[build] %s: %d kernel instances, %d-%d registers, spill stores '
           '%d bytes at most (%d instances spill)' % (
-              name, entries, min(regs), max(regs), max(spills),
+              name, len(rows), min(regs), max(regs), max(spills),
               sum(1 for x in spills if x)))
 
 
@@ -470,6 +507,381 @@ def run_second(dev, cfg, batches=(2, 8)):
                   'pcdet_tpu/ops/pallas/gather_gemm.py:659')]
 
 
+def dw_vs_plain(dev, trainer, batch):
+    """T2: kernel D against its plain version on the card, on the rules of
+    real B2 train books at conv2_1 and conv_out; kernel B's Cin=128
+    instance on conv_out's transposed book.
+
+    :return: {'err', 'rel', 'ms', 'plain_ms'} of D at conv2_1, and
+        {'err', 'rel'} of B's 128 -> 64 case
+    """
+    from pcdet_tpu_torch.ops import gather_dw as gd
+    from pcdet_tpu_torch.ops import gather_gemm as gg
+    from pcdet_tpu_torch.ops import sparse
+    books = batch['books']
+    spec = {op[1]: op for op in trainer.model.host_book_spec(
+        trainer.max_voxels, train=True)}
+    cases = (   # name, rules, input mask, output mask, n_in, Cin, Cout
+        ('conv2_1', books['subm2'], books['spconv2'][2], books['spconv2'][2],
+         int(spec['spconv2'][5]), 32, 32),
+        ('conv_out', books['convout'][4], books['spconv4'][2],
+         books['convout'][2], int(spec['spconv4'][5]), 64, 128))
+    gen = torch.Generator(device='cpu').manual_seed(2)
+    stats = {}
+    for name, rules, in_mask, out_mask, n_in, cin, cout in cases:
+        b, v_out, k = rules.shape
+        feats = torch.randn((b, n_in + 1, cin), generator=gen).to(dev)
+        feats[:, :n_in] *= in_mask[..., None]
+        feats[:, n_in] = 0
+        g = torch.randn((b, v_out, cout), generator=gen).to(dev)
+        live = out_mask.sum(1, dtype=torch.int32)
+        mid = torch.minimum(live, torch.full_like(live, 64 * 37 + 21))
+        errs, scale = [], 0.0
+        for n_live in (live, mid, torch.zeros_like(live)):
+            got = gd.gather_dw(feats, rules, g, n_live)
+            again = gd.gather_dw(feats, rules, g, n_live)
+            want = gd.gather_dw_plain(feats, rules, g, n_live)
+            sync()
+            require(torch.equal(got, again), '%s: two launches of kernel D '
+                    'differ' % name)
+            errs.append((got - want).abs().max().item())
+            scale = max(scale, want.abs().max().item())
+        err = max(errs)
+        require(err <= 1e-4 * scale, '%s: kernel D vs plain %g > 1e-4 * %g'
+                % (name, err, scale))
+        ms = cuda_ms(lambda: gd.gather_dw(feats, rules, g, live), 20)
+        plain_ms = cuda_ms(lambda: gd.gather_dw_plain(feats, rules, g, live),
+                           3, 1)
+        print('[train T2] kernel D %s (B=%d, V_out=%d, K=%d, %d x %d, live '
+              '%s): max |kernel - plain| %.3g (%.3g of max |plain| %.4g; '
+              'real, mid-tile %s and zero n_live); bitwise repeatable; '
+              'kernel %.4f ms, plain %.4f ms, chunk %d rows' % (
+                  name, b, v_out, k, cin, cout, live.tolist(), err,
+                  err / scale, scale, mid.tolist(), ms, plain_ms,
+                  gd.chunk_rows(b, v_out, k)))
+        if name == 'conv2_1':
+            stats['d'] = {'err': err, 'rel': err / scale, 'ms': ms,
+                          'plain_ms': plain_ms}
+            continue
+        # conv_out's feature gradient: B (128 -> 64) over the transposed book
+        n_live_in = in_mask.sum(1, dtype=torch.int32)
+        bwd = sparse.transpose_rules(rules, n_in, v_out)
+        g_table = torch.cat([g, g.new_zeros((b, 1, cout))], 1)
+        w_t = (torch.rand((k, cout, cin), generator=gen).to(dev) * 2 - 1) / 8
+        got = gg.gather_gemm(g_table, bwd, w_t, n_live_in)
+        want = gg.gather_gemm_plain(g_table, bwd, w_t, n_live_in)
+        sync()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        require(err <= 1e-5 * scale, 'kernel B 128 -> 64 vs plain %g > 1e-5 '
+                '* %g' % (err, scale))
+        ms = cuda_ms(lambda: gg.gather_gemm(g_table, bwd, w_t, n_live_in), 20)
+        plain_ms = cuda_ms(
+            lambda: gg.gather_gemm_plain(g_table, bwd, w_t, n_live_in), 3, 1)
+        print("[train T2] kernel B 128 -> 64 on conv_out's transposed book "
+              '(B=%d, V=%d, K=%d, live %s): max |kernel - plain| %.3g (%.3g of '
+              'max |plain| %.4g); kernel %.4f ms, plain %.4f ms' % (
+                  b, n_in, k, n_live_in.tolist(), err, err / scale, scale, ms,
+                  plain_ms))
+        stats['b128'] = {'err': err, 'rel': err / scale}
+    return stats
+
+
+def train_step_split(trainer, batch, iters=5):
+    """Median ms of the step's device parts by CUDA events: forward + loss,
+    backward, optimizer."""
+    model, state = trainer.model, trainer.state
+    parts = {'forward': [], 'backward': [], 'optimizer': []}
+    for _ in range(iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        model.train_mode()
+        ret = model.forward(batch)
+        loss, _ = model.loss(ret, batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, state.params)
+        ev[2].record()
+        state.optimizer.step(grads)
+        ev[3].record()
+        sync()
+        for i, key in enumerate(parts):
+            parts[key].append(ev[i].elapsed_time(ev[i + 1]))
+    return {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+
+
+def host_stages(trainer, points, mask, gt, iters=5):
+    """Median ms of make_batch's stages, each on its own: voxelize (CUDA
+    events), coords to host, host book build, targets (assign), upload +
+    decode (host clock, synchronised)."""
+    from pcdet_tpu_torch.ops import host_books
+    t = {'voxelize': [], 'd2h': [], 'build': [], 'targets': [], 'h2d': []}
+    for _ in range(iters):
+        sync()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        vox = trainer.voxelize(points, mask)
+        e1.record()
+        sync()
+        t['voxelize'].append(e0.elapsed_time(e1))
+        t0 = time.perf_counter()
+        coords = vox['coordinates'].cpu().numpy()
+        t1 = time.perf_counter()
+        flat = trainer.model.build_books(coords, train=True)
+        t2 = time.perf_counter()
+        labels, reg = trainer.targets(gt)
+        t3 = time.perf_counter()
+        spec = trainer.model.host_book_spec(coords.shape[1], train=True)
+        up = host_books.upload(host_books.wire_arrays(flat, spec) + [
+            ('box_cls_labels', labels), ('box_reg_targets', reg)],
+            trainer.device)
+        host_books.decode_books(up, spec, coords.shape[1])
+        sync()
+        t4 = time.perf_counter()
+        for key, dt in (('d2h', t1 - t0), ('build', t2 - t1),
+                        ('targets', t3 - t2), ('h2d', t4 - t3)):
+            t[key].append(1e3 * dt)
+    return {k: sorted(v)[len(v) // 2] for k, v in t.items()}
+
+
+def profile_train(trainer, batch, iters=3):
+    """Device time per step by kernel (torch.profiler), steps on a prebuilt
+    batch: (busy ms per step, [(ms per step, kernel name)] by time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            trainer.step(batch)
+        sync()
+    rows = [(e.self_device_time_total / 1e3 / iters, e.key)
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0
+            and e.device_type == DeviceType.CUDA]
+    return sum(ms for ms, _ in rows), sorted(rows, reverse=True)
+
+
+def run_train(dev, cfg, batches=(2, 8), steps=5):
+    """Phases T1-T5 on SECOND training; returns kernel D's JSON entry and
+    kernel B's training launch counts."""
+    from pcdet_tpu_torch.ops import cuda_build
+    from pcdet_tpu_torch.ops import gather_dw as gd
+    from pcdet_tpu_torch.ops import gather_gemm as gg
+    from pcdet_tpu_torch.train import train_state
+    from pcdet_tpu_torch.train.trainer import build_trainer, make_train_scans
+
+    # T1. builds (started with the others in phase 1) ---------------------
+    gd.build()
+    for lib in ('gather_dw', 'gather_gemm'):
+        log = cuda_build.BUILD_LOG[lib]
+        rows = ptxas_entries(log)
+        if lib == 'gather_gemm':             # its new Cin=128 instances
+            rows = [r for r in rows if r[1].split(',')[-2:-1] == ['128']]
+        print('[train T1] %s.cu: %.2f s (cached=%s); %s' % (
+            lib, log['seconds'], log['cached'], '; '.join(
+                '%s<%s> %d regs, %d B spilled' % tuple(r) for r in rows)
+            or 'ptxas report empty (library reused)'))
+
+    total = 50
+    trainer = build_trainer(cfg, dev, seed=0, total_steps=total)
+    pts_np, mask_np, gt_np = make_train_scans(cfg, max(batches),
+                                              ring_keep=0.35)
+    pts_all = torch.as_tensor(pts_np, device=dev)
+    mask_all = torch.as_tensor(mask_np, device=dev)
+    pts2, mask2 = pts_all[:2].contiguous(), mask_all[:2].contiguous()
+    batch2 = trainer.make_batch(pts2, mask2, gt_np[:2])
+
+    # T2. kernel D (and B's new instance) vs plain ------------------------
+    kstats = dw_vs_plain(dev, trainer, batch2)
+
+    # T3. full-width training at B2 through the kernels --------------------
+    for mod in (gg, gd):
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+    tbs = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tbs.append({k: v.item() for k, v in trainer.step(batch2).items()})
+    sync()
+    wall = time.perf_counter() - t0
+    counts = {**gg.LAUNCHES, **gd.LAUNCHES}
+    losses = [tb['loss'] for tb in tbs]
+    print('[train T3] second.yaml B2, %d steps on one batch in %.2f s: loss '
+          '%s; last tb %s; voxels %s of cap %d; launches: B forward %d, B '
+          'feature gradient %d, D %d, bf16 C %d' % (
+              steps, wall, ', '.join('%.5f' % x for x in losses),
+              {k: round(v, 5) for k, v in tbs[-1].items()
+               if not k.startswith('overflow')},
+              batch2['voxel_mask'].sum(1).tolist(), trainer.max_voxels,
+              counts['gather_gemm_f32'], counts['gather_gemm_f32_dgrad'],
+              counts['gather_dw'], counts['gather_gemm_bf16']))
+    print('[train T3] overflow/* per step: %s' % {
+        k: v for k, v in tbs[0].items() if k.startswith('overflow')})
+    require(all(np.isfinite(v) for tb in tbs for v in tb.values()),
+            'a non-finite loss term')
+    require(losses[-1] < losses[0], 'loss did not fall in %d steps: %s'
+            % (steps, losses))
+    require(counts['gather_gemm_f32'] == 12 * steps
+            and counts['gather_gemm_f32_dgrad'] == 11 * steps
+            and counts['gather_dw'] == 12 * steps
+            and counts['gather_gemm_bf16'] == 0,
+            'launches per step are not 12 / 11 / 12: %s' % counts)
+
+    # T4. one train step at B1: GPU vs CPU, kernels vs plain, f64 --------
+    # K32: the card through kernels B and D; P32 / P64: the card through
+    # their plain versions in f32 / f64; C32 / C64: the CPU in f32 / f64.
+    from pcdet_tpu_torch.ops import sparse
+    kernels = (sparse.gather_gemm, sparse.gather_dw)
+    out = {}
+    for name, d, dtype in (('K32', dev, torch.float32),
+                           ('P32', dev, torch.float32),
+                           ('P64', dev, torch.float64),
+                           ('C32', torch.device('cpu'), torch.float32),
+                           ('C64', torch.device('cpu'), torch.float64)):
+        if name.startswith('P'):
+            sparse.gather_gemm = lambda *a, dgrad=False: gg.gather_gemm_plain(
+                *a)
+            sparse.gather_dw = gd.gather_dw_plain
+        try:
+            tr = build_trainer(cfg, d, seed=0, total_steps=total)
+            tr.model.module.to(dtype)
+            t0 = time.perf_counter()
+            b1 = tr.make_batch(pts_all[:1].to(d), mask_all[:1].to(d),
+                               gt_np[:1])
+            for key in ('voxels', 'box_reg_targets'):
+                b1[key] = b1[key].to(dtype)
+            loss, _, grads = train_state.loss_and_grads(
+                tr.model, tr.state.params, b1)
+        finally:
+            sparse.gather_gemm, sparse.gather_dw = kernels
+        names = [n for n, _ in tr.model.module.named_parameters()]
+        out[name] = (float(loss), {n: g.cpu().double()
+                                   for n, g in zip(names, grads)
+                                   if n.startswith('rpn_net.')
+                                   and n.endswith('.0.weight')},
+                     b1['coordinates'].cpu())
+        print('[train T4] %s train step B1 (forward + loss + backward, batch '
+              'built): %.2f s' % (name, time.perf_counter() - t0))
+        del tr, b1, grads
+    require(torch.equal(out['K32'][2], out['C32'][2]),
+            'GPU and CPU voxel coords differ')
+    rel = abs(out['K32'][0] - out['C32'][0]) / abs(out['C32'][0])
+    print('[train T4] loss K32 %.7f, C32 %.7f (GPU vs CPU rel %.3g); f64: '
+          'P64 %.10f, C64 %.10f' % (out['K32'][0], out['C32'][0], rel,
+                                    out['P64'][0], out['C64'][0]))
+    ref = out['C64'][1]
+
+    def dw_err(a, b):
+        """Per sparse conv: max |a - b| / max |C64|."""
+        return {n[8:-9]: (out[a][1][n] - out[b][1][n]).abs().max().item()
+                / ref[n].abs().max().item() for n in ref}
+    errs = {pair: dw_err(*pair) for pair in (
+        ('K32', 'P32'), ('P64', 'C64'), ('K32', 'C32'), ('K32', 'C64'),
+        ('C32', 'C64'))}
+    for pair, e in errs.items():
+        print('[train T4] sparse conv dW %s vs %s, max error / max |dW|: %s'
+              % (pair[0], pair[1], ', '.join('%s %.2e' % x for x in e.items())))
+    require(rel <= 1e-4, 'GPU vs CPU loss %g relative' % rel)
+    # Kernels vs their plain versions inside the same step on the card
+    # (1e-3), and the same math on both devices in f64 (1e-9).  GPU f32 vs
+    # CPU f32 is printed, not bounded: the card's f32 step (cuDNN's conv
+    # backward in the RPN, plain or kernels alike) sits several times further
+    # from the f64 step than the CPU's f32 step does.
+    kp, dev64 = errs[('K32', 'P32')], errs[('P64', 'C64')]
+    require(len(kp) == 12 and max(kp.values()) <= 1e-3,
+            'sparse conv dW through the kernels vs plain on the card: %s' % kp)
+    require(max(dev64.values()) <= 1e-9,
+            'f64 sparse conv dW GPU vs CPU: %s' % dev64)
+
+    # T5. timings -----------------------------------------------------------
+    for b in batches:
+        pts, mask = pts_all[:b].contiguous(), mask_all[:b].contiguous()
+        gt = gt_np[:b]
+        batch = trainer.make_batch(pts, mask, gt)
+        trainer.step(batch)                                  # warm-up
+        sync()
+        full, pre = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                trainer.step(trainer.make_batch(pts, mask, gt))
+            sync()
+            full.append(1e3 * (time.perf_counter() - t0) / steps)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                trainer.step(batch)
+            sync()
+            pre.append(1e3 * (time.perf_counter() - t0) / steps)
+        ms_full, ms_pre = sorted(full)[1], sorted(pre)[1]
+        host = host_stages(trainer, pts, mask, gt)
+        dev_split = train_step_split(trainer, batch)
+        print('[train T5 B%d] step with the batch built: %.2f ms (%.2f '
+              'samples/s; ms per step %s); prebuilt batch: %.2f ms (%.2f '
+              'samples/s; %s); median of 3 runs of %d steps' % (
+                  b, ms_full, 1e3 * b / ms_full,
+                  ', '.join('%.2f' % x for x in full), ms_pre,
+                  1e3 * b / ms_pre, ', '.join('%.2f' % x for x in pre),
+                  steps))
+        print('[train T5 B%d] voxelize %.2f ms; books: to host %.2f, build '
+              '%.2f, upload + decode (with targets) %.2f ms; targets (host '
+              'assign) %.2f ms (%.2f per sample, %d anchors); forward + loss '
+              '%.2f ms, backward %.2f ms, optimizer %.2f ms' % (
+                  b, host['voxelize'], host['d2h'], host['build'],
+                  host['h2d'], host['targets'], host['targets'] / b,
+                  trainer.model.anchors.shape[0], dev_split['forward'],
+                  dev_split['backward'], dev_split['optimizer']))
+        busy, rows = profile_train(trainer, batch)
+        if not rows:
+            print('[train T5 B%d] no device time recorded: not measured' % b)
+            continue
+        d_ms = sum(t for t, n in rows if 'gather_dw' in n
+                   or 'sum_partials' in n)
+        b_ms = sum(t for t, n in rows if 'gather_gemm' in n)
+        idle = ('idle %.1f%% of the prebuilt step, %.1f%% of the step with '
+                'the batch built' % (100 * (1 - busy / ms_pre),
+                                     100 * (1 - busy / ms_full))
+                if busy <= ms_pre else 'idle not measured (busy under the '
+                'profiler exceeds the unprofiled prebuilt step)')
+        print('[train T5 B%d] device busy %.2f ms per step: %s; kernel B %.3f '
+              'ms (%.1f%%), kernel D %.3f ms (%.1f%%); %d kernel names' % (
+                  b, busy, idle, b_ms, 100 * b_ms / busy, d_ms,
+                  100 * d_ms / busy, len(rows)))
+        for tt, name in rows[:12]:
+            print('[train T5 B%d]   kernel %7.3f ms %5.1f%%  %s' % (
+                b, tt, 100 * tt / busy, name[:90]))
+    # the same prebuilt steps with cuDNN's autotuner choosing the RPN's
+    # f32 conv algorithms (its heuristic picks FFT convolutions above)
+    torch.backends.cudnn.benchmark = True
+    for b in batches:
+        batch = trainer.make_batch(pts_all[:b].contiguous(),
+                                   mask_all[:b].contiguous(), gt_np[:b])
+        for _ in range(2):
+            trainer.step(batch)
+        sync()
+        pre = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                trainer.step(batch)
+            sync()
+            pre.append(1e3 * (time.perf_counter() - t0) / steps)
+        print('[train T5 B%d] prebuilt batch with torch.backends.cudnn.'
+              'benchmark on: %.2f ms (%.2f samples/s; %s)' % (
+                  b, sorted(pre)[1], 1e3 * b / sorted(pre)[1],
+                  ', '.join('%.2f' % x for x in pre)))
+    torch.backends.cudnn.benchmark = False
+    sync()
+    return ({'name': 'gather_dw', 'route': 'cuda',
+             'source': 'pcdet_tpu_torch/csrc/gather_dw.cu',
+             'replaces': 'pcdet_tpu/ops/pallas/gather_gemm.py:882',
+             'launches': counts['gather_dw'],
+             'max_abs_err': kstats['d']['err'], 'ms': kstats['d']['ms'],
+             'plain_ms': kstats['d']['plain_ms']},
+            {'train_launches': counts['gather_gemm_f32'],
+             'backward_launches': counts['gather_gemm_f32_dgrad'],
+             'b128_max_abs_err': kstats['b128']['err']})
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; the port is checked on the GPU',
@@ -479,6 +891,7 @@ def main():
     from pcdet_tpu import native
     from pcdet_tpu_torch import detect as detect_mod
     from pcdet_tpu_torch.ops import cuda_build, rotated_iou
+    from pcdet_tpu_torch.ops import gather_dw as gd
     from pcdet_tpu_torch.ops import gather_gemm as gg
     from pcdet_tpu_torch.ops import rotated_overlap as ro
 
@@ -496,10 +909,10 @@ def main():
 
     # 1. build: every kernel (one nvcc each) and the host book builder at once
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         jobs = [pool.submit(ro.build), pool.submit(gg.build),
-                pool.submit(native.get_lib)]
-        native_lib = [j.result() for j in jobs][2]
+                pool.submit(gd.build), pool.submit(native.get_lib)]
+        native_lib = [j.result() for j in jobs][3]
     print('[build] all builds: %.2f s wall; native host book builder: %s'
           % (time.perf_counter() - t0,
              'built' if native_lib is not None else 'MISSING (numpy path)'))
@@ -674,6 +1087,9 @@ def main():
     sync()
 
     second = run_second(dev, detect_mod.load_config(detect_mod.SECOND_CFG))
+    dw_entry, b_train = run_train(
+        dev, detect_mod.load_config(detect_mod.SECOND_CFG))
+    second[0].update(b_train)
 
     print(json.dumps({'kernels': [{
         'name': 'rotated_overlap',
@@ -684,7 +1100,7 @@ def main():
         'max_abs_err': max_abs_err,
         'ms': kernel_ms,
         'plain_ms': plain_ms,
-    }] + second}))
+    }] + second + [dw_entry]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

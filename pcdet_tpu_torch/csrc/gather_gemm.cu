@@ -20,9 +20,13 @@
 // live tile's rows past n_live gather the zero row, which the rulebooks
 // route them to anyway.)  A rule outside [0, V_in] reads the zero row.
 //
+// The same kernel gives a conv's feature gradient over the mirrored (subm)
+// or transposed (strided) rulebook with W[k] transposed, g as the table;
+// Cin = 128 serves conv_out's 128 -> 64 feature gradient.
+//
 // Layout: one block per (tile of kTileRows output rows, sample): grid
 // (ceil(V_out / kTileRows), B).  The block loads its tile's rules once; then
-// for each tap k it stages W[k] (Cin x Cout, at most 64 x 128 f32 = 32 KB)
+// for each tap k it stages W[k] (Cin x Cout, at most 128 x 128 f32 = 64 KB)
 // and the tile's gathered rows (kTileRows x Cin, as f32) in shared memory,
 // and each thread accumulates a 4-row by Cout/16-column block of the output
 // in registers with explicit fmaf (one rounding per multiply-add, no TF32,
@@ -181,6 +185,7 @@ int dispatch(int cin, int cout, const void* feats, const int* rules,
     case 16: return dispatch_cout<T, 16>(cout, feats, rules, w, n_live, out, b, v_in1, v_out, k_taps, stream);
     case 32: return dispatch_cout<T, 32>(cout, feats, rules, w, n_live, out, b, v_in1, v_out, k_taps, stream);
     case 64: return dispatch_cout<T, 64>(cout, feats, rules, w, n_live, out, b, v_in1, v_out, k_taps, stream);
+    case 128: return dispatch_cout<T, 128>(cout, feats, rules, w, n_live, out, b, v_in1, v_out, k_taps, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -190,7 +195,7 @@ int dispatch(int cin, int cout, const void* feats, const int* rules,
 // Launches on `stream`, does not synchronise, allocates nothing.  `bf16`
 // selects kernel C (feats and w are __nv_bfloat16) over kernel B (float).
 // Returns the cudaError_t of the launch (0 on success); an unsupported
-// Cin (4, 16, 32, 64), Cout (16, 32, 64, 128) or K (1..64) returns
+// Cin (4, 16, 32, 64, 128), Cout (16, 32, 64, 128) or K (1..64) returns
 // cudaErrorInvalidValue.  The caller checks shapes, dtypes and contiguity;
 // b <= 65535.
 extern "C" int pcdet_gather_gemm(int bf16, const void* feats, const int* rules,

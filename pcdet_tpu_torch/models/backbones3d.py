@@ -1,4 +1,4 @@
-"""SECOND's sparse 3D backbone (eval) on tensors.
+"""SECOND's sparse 3D backbone on tensors, eval and training.
 
 Twin of `pcdet_tpu.models.backbones3d.SpConvBNReLU` / `BackBone8x` with the
 reference's module names (`conv_input.0`, `conv1.0.0`, `conv{2,3,4}.{0,1,2}.0`,
@@ -7,7 +7,10 @@ Sparse-conv weights keep spconv's layout (k0, k1, k2, Cin, Cout).
 
 Every conv runs over a host-built rulebook (`ops/host_books.py`, keys of
 `encoder_spec`): the 8 subm convs share the 4 subm books of their levels,
-and each strided conv's book carries its output set.
+and each strided conv's book carries its output set.  In training the
+backward of each conv runs over the mirrored (subm) or transposed
+(strided) book; a level's mirrored book is built once and shared by its
+subm convs.  BN then takes masked batch statistics.
 """
 import math
 
@@ -18,10 +21,12 @@ from ..ops import sparse
 from .layers import BatchNorm
 
 
-def effective_dtype(args):
-    """Eval compute dtype of the conv stack: `compute_dtype_test`, else
-    `compute_dtype` (`pcdet_tpu.models.backbones3d._effective_dtype`)."""
-    name = str(args.get('compute_dtype_test', '') or
+def effective_dtype(args, train=False):
+    """Compute dtype of the conv stack: `compute_dtype` in training; in eval
+    `compute_dtype_test`, else `compute_dtype`
+    (`pcdet_tpu.models.backbones3d._effective_dtype`)."""
+    name = str(args.get('compute_dtype', '') if train else
+               args.get('compute_dtype_test', '') or
                args.get('compute_dtype', ''))
     return torch.bfloat16 if name == 'bfloat16' else None
 
@@ -58,27 +63,27 @@ class SparseConv3d(nn.Module):
         self.weight = nn.Parameter(torch.zeros(*kernel, in_channels,
                                                out_channels))
 
-    def forward(self, level, book, compute_dtype=None):
+    def forward(self, level, book, compute_dtype=None, mirror=None):
         k = math.prod(self.kernel)
         w = self.weight.reshape(k, *self.weight.shape[3:])
         if self.subm:
-            return sparse.subm_conv3d(level, w, book, compute_dtype)
+            return sparse.subm_conv3d(level, w, book, compute_dtype, mirror)
         return sparse.sparse_conv3d(level, w, book, self.kernel, self.stride,
                                     self.padding, compute_dtype)
 
 
 class SpConvBNReLU(nn.Sequential):
-    """Sparse conv -> eval BN -> ReLU -> `* mask` (spconv's post_act_block:
-    conv at .0, BN at .1)."""
+    """Sparse conv -> BN (masked batch statistics in training) -> ReLU ->
+    `* mask` (spconv's post_act_block: conv at .0, BN at .1)."""
 
     def __init__(self, in_channels, out_channels, **conv_args):
         super().__init__(SparseConv3d(in_channels, out_channels, **conv_args),
                          BatchNorm(out_channels), nn.ReLU())
 
-    def forward(self, level, book, compute_dtype=None):
+    def forward(self, level, book, compute_dtype=None, mirror=None):
         conv, bn, relu = self
-        out = conv(level, book, compute_dtype)
-        feats = relu(bn(out.features))
+        out = conv(level, book, compute_dtype, mirror)
+        feats = relu(bn(out.features, out.mask))
         return out._replace(features=feats * out.mask[..., None].to(
             feats.dtype))
 
@@ -121,15 +126,21 @@ class BackBone8x(nn.Module):
         :return: BEV (B, H, W, 128 * D) f32, {conv2, conv3, conv4,
             conv_out: (B,) int32 drops of each strided conv's cap}"""
         cd = compute_dtype
-        x = self.conv_input(level, books['subm1'], cd)
-        x = self.conv1[0](x, books['subm1'], cd)
+        # the mirrored books of the subm levels, built once when a backward
+        # will run; None leaves it to each conv's backward
+        mirror = {k: (books[k].flip(-1) if self.training
+                      and torch.is_grad_enabled() else None)
+                  for k in ('subm1', 'subm2', 'subm3', 'subm4')}
+        x = self.conv_input(level, books['subm1'], cd, mirror['subm1'])
+        x = self.conv1[0](x, books['subm1'], cd, mirror['subm1'])
         overflow = {}
         for name, stage, sk, bk in (('conv2', self.conv2, 'subm2', 'spconv2'),
                                     ('conv3', self.conv3, 'subm3', 'spconv3'),
                                     ('conv4', self.conv4, 'subm4', 'spconv4')):
             x = stage[0](x, books[bk], cd)
             overflow[name] = x.overflow
-            x = stage[2](stage[1](x, books[sk], cd), books[sk], cd)
+            x = stage[1](x, books[sk], cd, mirror[sk])
+            x = stage[2](x, books[sk], cd, mirror[sk])
         out = self.conv_out(x, books['convout'], cd)
         overflow['conv_out'] = out.overflow
 

@@ -104,3 +104,18 @@ def post_process_from_head(ret_dict, anchors, box_coder, num_class,
                         if class_labels_override is None
                         else class_labels_override)
     return run_one(rank_scores, class_labels)
+
+
+def merge_overflow_tb(tb, ret_dict, batch):
+    """Cap-overflow counters as `overflow/*` scalars
+    (`pcdet_tpu.models.detector3d.merge_overflow_tb`): the sparse levels'
+    drops from `ret_dict['overflow']`, the voxelizer's from
+    `batch['voxel_overflow']`.  Any nonzero count means a static cap
+    truncated the scene."""
+    for k, v in (ret_dict.get('overflow') or {}).items():
+        if v is not None:
+            tb['overflow/' + k] = torch.as_tensor(v).sum()
+    if 'voxel_overflow' in batch:
+        tb['overflow/voxelizer'] = torch.as_tensor(
+            batch['voxel_overflow']).sum()
+    return tb

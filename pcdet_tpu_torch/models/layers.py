@@ -1,9 +1,9 @@
 """Building blocks with the reference's parameter names and BN semantics.
 
-Twins of `pcdet_tpu.models.layers`, forward (eval) only: BatchNorm with
-eps 1e-3 and momentum 0.01 normalises by its running statistics, as the
-JAX eval path does.  Training statistics (masked, grouped) come with the
-training port.
+Twins of `pcdet_tpu.models.layers`: BatchNorm with eps 1e-3 and momentum
+0.01 normalises by its running statistics in eval and by the batch's in
+training (`TorchBatchNorm`, one BN group), optionally over the rows a mask
+keeps.
 
 Parameters keep PyTorch's own layouts (Linear (out, in), Conv2d OIHW,
 ConvTranspose2d (in, out, kh, kw)), so a reference state_dict loads as it is.
@@ -11,9 +11,10 @@ ConvTranspose2d (in, out, kh, kw)), so a reference state_dict loads as it is.
 default distribution, U(-1/sqrt(fan_in), 1/sqrt(fan_in)).
 
 ``compute_dtype`` (bfloat16 for the shipped eval config) casts activations
-and weights for the convolution.  JAX keeps an f32 result there
-(`preferred_element_type`); cuDNN and torch return bf16, so the port rounds
-once more per conv before its f32 BatchNorm.
+and weights for the convolution in eval mode only; training runs f32, as
+`pcdet_tpu`'s RPNV2 does (`compute_dtype_test`).  JAX keeps an f32 result
+there (`preferred_element_type`); cuDNN and torch return bf16, so the port
+rounds once more per conv before its f32 BatchNorm.
 """
 import math
 
@@ -23,7 +24,16 @@ import torch.nn.functional as F
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm over the last axis (channels-last) or axis 1 (NCHW)."""
+    """BatchNorm over the last axis (channels-last) or axis 1 (NCHW).
+
+    Training (`pcdet_tpu.models.layers.TorchBatchNorm`, BN_GROUPS 1):
+    normalise by the batch mean and biased variance over every axis but the
+    channel's, or over the rows `mask` keeps (a (B, V) mask of a
+    channels-last (B, V, C) input: the live voxels of the whole batch); the
+    running statistics take momentum 0.01 of the mean and of the unbiased
+    variance var * n / (n - 1).  Written out by hand: F.batch_norm takes no
+    mask.  `mask` is ignored in eval.
+    """
 
     def __init__(self, features, eps=1e-3, momentum=0.01, channel_dim=-1):
         super().__init__()
@@ -37,14 +47,33 @@ class BatchNorm(nn.Module):
         self.register_buffer('num_batches_tracked',
                              torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError('training BatchNorm is not ported yet')
+    def forward(self, x, mask=None):
         shape = [1] * x.dim()
         shape[self.channel_dim] = -1
-        mean = self.running_mean.view(shape)
-        inv = torch.rsqrt(self.running_var + self.eps).view(shape)
-        return (x - mean) * inv * self.weight.view(shape) + self.bias.view(shape)
+        if not self.training:
+            mean = self.running_mean.view(shape)
+            inv = torch.rsqrt(self.running_var + self.eps).view(shape)
+            return ((x - mean) * inv * self.weight.view(shape)
+                    + self.bias.view(shape))
+        dims = [d for d in range(x.dim()) if d != self.channel_dim % x.dim()]
+        if mask is None:
+            n = torch.tensor(float(x.numel() // x.shape[self.channel_dim]),
+                             dtype=x.dtype, device=x.device)
+            mean = x.mean(dim=dims)
+            var = torch.square(x - mean.view(shape)).mean(dim=dims)
+        else:
+            w = mask.to(x.dtype)[..., None]
+            n = torch.clamp(w.sum(), min=1.0)
+            mean = (x * w).sum(dim=dims) / n
+            var = (torch.square(x - mean.view(shape)) * w).sum(dim=dims) / n
+        with torch.no_grad():
+            m = self.momentum
+            unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+            self.num_batches_tracked += 1
+        y = (x - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
+        return y * self.weight.view(shape) + self.bias.view(shape)
 
 
 class TorchLinear(nn.Linear):
@@ -52,7 +81,8 @@ class TorchLinear(nn.Linear):
 
 
 class TorchConv(nn.Conv2d):
-    """nn.Conv2d (NCHW, any memory format) with an optional compute dtype."""
+    """nn.Conv2d (NCHW, any memory format) with an optional eval compute
+    dtype."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  padding=0, bias=True, compute_dtype=None):
@@ -61,7 +91,7 @@ class TorchConv(nn.Conv2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        if self.compute_dtype is None:
+        if self.compute_dtype is None or self.training:
             return super().forward(x)
         y = F.conv2d(x.to(self.compute_dtype),
                      self.weight.to(self.compute_dtype), None, self.stride,
@@ -79,7 +109,7 @@ class TorchConvTranspose(nn.ConvTranspose2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        if self.compute_dtype is None:
+        if self.compute_dtype is None or self.training:
             return super().forward(x)
         y = F.conv_transpose2d(x.to(self.compute_dtype),
                                self.weight.to(self.compute_dtype), None,

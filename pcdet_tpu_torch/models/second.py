@@ -1,10 +1,13 @@
-"""SECOND detector (eval): MeanVFE -> BackBone8x sparse convs -> RPNV2 -> predict.
+"""SECOND detector: MeanVFE -> BackBone8x sparse convs -> RPNV2 -> predict
+or the anchor-head loss.
 
 Twin of `pcdet_tpu.models.second` (`SECONDNetModule` and the `SECONDNet`
 wrapper).  The sparse backbone runs over host-built rulebooks
 (`ops/host_books.py`) that `forward` takes from the batch: `books`, decoded
-on the device, or the loader's `hb_*` wire arrays.  Anchors come from
-`pcdet_tpu.models.anchors.AnchorHeadTargets` (numpy, framework-free).
+on the device, or the loader's `hb_*` wire arrays.  Anchors and the
+training targets come from `pcdet_tpu.models.anchors.AnchorHeadTargets`
+(numpy, framework-free).  `train_mode()` / `eval_mode()` switch the caps,
+the compute dtypes and BN between the two, as `train=` does in JAX.
 """
 import numpy as np
 import torch
@@ -15,9 +18,9 @@ from pcdet_tpu.models.anchors import AnchorHeadTargets
 from ..ops import host_books, sparse
 from ..utils.box_coder import ResidualCoder
 from .backbones3d import BackBone8x, effective_dtype, resolve_caps
-from .detector3d import post_process_from_head
+from .detector3d import merge_overflow_tb, post_process_from_head
 from .layers import init_weights
-from .rpn_head import RPNV2
+from .rpn_head import RPNV2, anchor_head_loss
 from .vfe import MeanVFE
 
 
@@ -28,7 +31,8 @@ class SECONDNetModule(nn.Module):
                  last_pad, num_point_features, backbone_args, rpn_args):
         super().__init__()
         self.sparse_shape = tuple(sparse_shape)
-        self.compute_dtype = effective_dtype(backbone_args)
+        self.train_dtype = effective_dtype(backbone_args, train=True)
+        self.eval_dtype = effective_dtype(backbone_args, train=False)
         a = rpn_args
         self.vfe = MeanVFE()
         self.rpn_net = BackBone8x(num_point_features, last_pad)
@@ -50,6 +54,11 @@ class SECONDNetModule(nn.Module):
             use_direction_classifier=a.get('use_direction_classifier', True),
             num_direction_bins=a.get('num_direction_bins', 2),
             compute_dtype=torch.bfloat16 if bf16 else None)
+
+    @property
+    def compute_dtype(self):
+        """The sparse conv stack's dtype in the current mode (None: f32)."""
+        return self.train_dtype if self.training else self.eval_dtype
 
     def forward(self, voxels, num_points, coords, voxel_mask, books):
         feats = self.vfe(voxels, num_points, coords, voxel_mask)
@@ -75,8 +84,10 @@ class SECONDNet:
         head_cfg = cfg.MODEL.RPN.RPN_HEAD
         self.head_args = dict(head_cfg.ARGS)
         self.box_coder = ResidualCoder()
+        # targets are assigned on the host with the numpy coder
         targets = AnchorHeadTargets(head_cfg.TARGET_CONFIG,
                                     np.asarray(grid_size), self.class_names)
+        self.anchor_targets = targets
         self.device = torch.device(device)
         self.anchors = torch.as_tensor(targets.anchors, device=self.device)
         vz = cfg.DATA_CONFIG.VOXEL_GENERATOR.VOXEL_SIZE[-1]
@@ -95,25 +106,48 @@ class SECONDNet:
         # the BEV is NHWC, so the head's convolutions run channels-last
         self.module.rpn_head.to(memory_format=torch.channels_last)
 
-    def host_book_spec(self, input_cap):
-        """`encoder_spec` at this model's eval caps for `input_cap` voxels."""
+    @property
+    def training(self):
+        return self.module.training
+
+    def train_mode(self):
+        """Train caps, `compute_dtype`, BN on batch statistics."""
+        self.module.train()
+        return self
+
+    def eval_mode(self):
+        """Eval caps, `compute_dtype_test`, BN on running statistics."""
+        self.module.eval()
+        return self
+
+    def host_book_spec(self, input_cap, train=False):
+        """`encoder_spec` at this model's train or eval caps for `input_cap`
+        voxels: `level_caps` in train, `level_caps_test` (else
+        `level_caps`) in eval (`pcdet_tpu.models.second.host_book_spec`)."""
         a = self.backbone_args
-        absolute = a.get('level_caps_test') or a.get('level_caps', (0, 0, 0))
+        train_caps = a.get('level_caps', (0, 0, 0))
+        absolute = (train_caps if train or not a.get('level_caps_test')
+                    else a['level_caps_test'])
         caps = resolve_caps(int(input_cap), tuple(absolute),
                             tuple(a.get('level_caps_frac', (0.,) * 4)))
         return host_books.encoder_spec(self.sparse_shape, caps, self.last_pad)
 
-    def build_books(self, coords):
+    def build_books(self, coords, train=None):
         """Host books of a batch from its (B, V, 3) coords (numpy, -1 rows
-        for padding voxels): the `hb_*` wire arrays."""
+        for padding voxels): the `hb_*` wire arrays, at the current mode's
+        caps unless `train` says which."""
+        train = self.training if train is None else train
         coords = np.asarray(coords)
         return host_books.build_books_batch(
             coords, coords[..., 0] >= 0, self.sparse_shape,
-            self.host_book_spec(coords.shape[1]))
+            self.host_book_spec(coords.shape[1], train))
 
-    def upload_books(self, flat, input_cap):
-        return host_books.upload_books(flat, self.host_book_spec(input_cap),
-                                       input_cap, self.device)
+    def upload_books(self, flat, input_cap, train=None):
+        """Decoded device books of `build_books`' wire arrays, one copy."""
+        train = self.training if train is None else train
+        return host_books.upload_books(
+            flat, self.host_book_spec(input_cap, train), input_cap,
+            self.device)
 
     def forward(self, batch):
         """:param batch: voxelizer outputs plus the books: `books` (decoded,
@@ -125,6 +159,30 @@ class SECONDNet:
                 batch['coordinates'].shape[1])
         return self.module(batch['voxels'], batch['num_points_per_voxel'],
                            batch['coordinates'], batch['voxel_mask'], books)
+
+    def loss(self, ret_dict, batch):
+        """Anchor-head loss and tb scalars, `overflow/*` included
+        (`pcdet_tpu.models.second.SECONDNet.loss`): batch carries
+        `box_cls_labels` (B, A) int32 and `box_reg_targets` (B, A, 7)."""
+        lw = self.cfg.MODEL.LOSSES.LOSS_WEIGHTS
+        a = self.head_args
+        loss, tb = anchor_head_loss(
+            ret_dict, self.anchors, batch['box_cls_labels'],
+            batch['box_reg_targets'], num_class=self.num_class,
+            loss_weights={
+                'rpn_cls_weight': float(lw['rpn_cls_weight']),
+                'rpn_loc_weight': float(lw['rpn_loc_weight']),
+                'rpn_dir_weight': float(lw.get('rpn_dir_weight', 0.2)),
+                'code_weights': list(lw['code_weights']),
+            },
+            box_code_size=self.box_coder.code_size,
+            encode_background_as_zeros=a.get('encode_background_as_zeros',
+                                             True),
+            use_direction_classifier=a.get('use_direction_classifier', True),
+            dir_offset=a.get('dir_offset', 0.78539),
+            num_direction_bins=a.get('num_direction_bins', 2))
+        merge_overflow_tb(tb, ret_dict, batch)
+        return loss, tb
 
     def predict(self, ret_dict):
         """Decoded, NMS'd fixed-shape predictions (B, post_max, ...)."""

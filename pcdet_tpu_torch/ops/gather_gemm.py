@@ -13,7 +13,8 @@ tensor it computes the plain version, `gather_gemm_plain`.  There is no
 fallback from the one to the other.
 
 `LAUNCHES` counts kernel launches per variant, so a run can show that its
-path went through the kernels.
+path went through the kernels; a call with `dgrad=True` (a feature
+gradient, `ops/sparse.py:RulebookConv`) counts under the `_dgrad` key.
 """
 import ctypes
 import functools
@@ -22,8 +23,9 @@ import torch
 
 from . import cuda_build
 
-LAUNCHES = {'gather_gemm_f32': 0, 'gather_gemm_bf16': 0}
-CIN = (4, 16, 32, 64)          # the kernel's instances (csrc/gather_gemm.cu)
+LAUNCHES = {'gather_gemm_f32': 0, 'gather_gemm_bf16': 0,
+            'gather_gemm_f32_dgrad': 0, 'gather_gemm_bf16_dgrad': 0}
+CIN = (4, 16, 32, 64, 128)     # the kernel's instances (csrc/gather_gemm.cu)
 COUT = (16, 32, 64, 128)
 MAX_TAPS = 64
 _MAX_GRID_Y = 65535
@@ -46,14 +48,16 @@ def build():
 def gather_gemm_plain(feats, rules, weights, n_live):
     """The plain PyTorch version: gather, then one (V, K*Cin) @ (K*Cin, Cout)
     product per sample, in f32 (bf16 inputs are widened exactly first, so
-    the products are those of the bf16 values and the sums are f32).  Rows
-    at or past n_live[b] are zero."""
+    the products are those of the bf16 values and the sums are f32; f64
+    inputs, a CPU reference, stay f64).  Rows at or past n_live[b] are
+    zero."""
     b, v, k = rules.shape
     cin, cout = feats.shape[-1], weights.shape[-1]
-    f = feats.float()
+    dt = torch.float64 if feats.dtype == torch.float64 else torch.float32
+    f = feats.to(dt)
     batch = torch.arange(b, device=feats.device)[:, None, None]
     gathered = f[batch, rules.long()].reshape(b, v, k * cin)
-    out = torch.matmul(gathered, weights.float().reshape(k * cin, cout))
+    out = torch.matmul(gathered, weights.to(dt).reshape(k * cin, cout))
     live = torch.arange(v, device=feats.device)[None] < n_live[:, None]
     return out * live[..., None].to(out.dtype)
 
@@ -72,7 +76,7 @@ def _check(feats, rules, weights, n_live):
                          'n_live %s' % (tuple(feats.shape), tuple(rules.shape),
                                         tuple(weights.shape),
                                         tuple(n_live.shape)))
-    if feats.dtype not in (torch.float32, torch.bfloat16):
+    if feats.dtype not in (torch.float32, torch.bfloat16, torch.float64):
         raise TypeError('feats must be float32 or bfloat16, got %s'
                         % feats.dtype)
     if weights.dtype != feats.dtype:
@@ -91,13 +95,14 @@ def _check(feats, rules, weights, n_live):
             raise ValueError('%s must be contiguous' % name)
 
 
-def gather_gemm(feats, rules, weights, n_live):
+def gather_gemm(feats, rules, weights, n_live, dgrad=False):
     """:param feats: (B, V_in + 1, Cin) f32 (kernel B) or bf16 (kernel C);
         row V_in of every sample is zeros
     :param rules: (B, V_out, K) int32 rows of feats, misses at V_in
     :param weights: (K, Cin, Cout), the dtype of feats
     :param n_live: (B,) int32 live output rows (a prefix); rows past it are
         zero
+    :param dgrad: count the launch as a feature gradient's
     :return: (B, V_out, Cout) f32
     """
     _check(feats, rules, weights, n_live)
@@ -105,6 +110,8 @@ def gather_gemm(feats, rules, weights, n_live):
         return gather_gemm_plain(feats, rules, weights, n_live)
     if feats.device.type != 'cuda':
         raise ValueError('unsupported device %s' % feats.device)
+    if feats.dtype == torch.float64:
+        raise TypeError('no float64 kernel: float64 runs on the CPU only')
     b, v_out, k = rules.shape
     v_in1, cin = feats.shape[1], feats.shape[2]
     cout = weights.shape[2]
@@ -128,5 +135,6 @@ def gather_gemm(feats, rules, weights, n_live):
             n_live.data_ptr(), out.data_ptr(), b, v_in1, v_out, k, cin, cout,
             stream)
     cuda_build.check(lib, rc)
-    LAUNCHES['gather_gemm_bf16' if bf16 else 'gather_gemm_f32'] += 1
+    LAUNCHES['gather_gemm_%s%s' % ('bf16' if bf16 else 'f32',
+                                   '_dgrad' if dgrad else '')] += 1
     return out

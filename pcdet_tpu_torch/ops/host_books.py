@@ -21,7 +21,7 @@ _STRIDED_FIELDS = ('ids', 'crd', 'msk', 'drp', 'rows', 'fnd')
 _ALIGN = 16
 
 
-def _wire_arrays(flat, spec):
+def wire_arrays(flat, spec):
     """The spec's wire arrays in a fixed order, as (name, array) pairs;
     uint16 rows travel as int16 and the uint32 masks as int32 (K <= 27, so
     bit 31 is never set)."""
@@ -42,7 +42,8 @@ def _wire_arrays(flat, spec):
 
 
 _TORCH = {np.dtype(np.int16): torch.int16, np.dtype(np.int32): torch.int32,
-          np.dtype(np.uint8): torch.uint8}
+          np.dtype(np.uint8): torch.uint8,
+          np.dtype(np.float32): torch.float32}
 
 
 def decode_rules(rows, fnd, n_in):
@@ -55,17 +56,9 @@ def decode_rules(rows, fnd, n_in):
     return torch.where(found, rows.to(torch.int32) & 0xFFFF, n_in)
 
 
-def upload_books(flat, spec, input_cap, device):
-    """A batch's `hb_*` books (numpy, wire format) -> decoded device books.
-
-    :param spec: `encoder_spec` op list the books were built for
-    :param input_cap: voxel cap of the input level (its zero row index)
-    :return: {key: rules} for subm books and {key: (ids, coords, mask,
-        dropped, rules)} for strided books: ids (B, O) int32, coords
-        (B, O, 3) int32, mask (B, O) bool, dropped (B,) int32, rules
-        (B, O, K) int32
-    """
-    arrays = _wire_arrays(flat, spec)
+def upload(arrays, device):
+    """(name, numpy array) pairs -> {name: device tensor} in ONE host to
+    device copy (each array 16-byte aligned in one staging buffer)."""
     offsets, total = [], 0
     for _, a in arrays:
         offsets.append(total)
@@ -74,10 +67,15 @@ def upload_books(flat, spec, input_cap, device):
     for (_, a), off in zip(arrays, offsets):
         host[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
     dev = torch.from_numpy(host).to(device)
-    t = {}
-    for (name, a), off in zip(arrays, offsets):
-        t[name] = dev[off:off + a.nbytes].view(_TORCH[a.dtype]).view(a.shape)
+    return {name: dev[off:off + a.nbytes].view(_TORCH[a.dtype]).view(a.shape)
+            for (name, a), off in zip(arrays, offsets)}
 
+
+def decode_books(t, spec, input_cap):
+    """Uploaded wire tensors (`upload(wire_arrays(..))`) -> decoded books:
+    {key: rules} for subm books and {key: (ids, coords, mask, dropped,
+    rules)} for strided books: ids (B, O) int32, coords (B, O, 3) int32,
+    mask (B, O) bool, dropped (B,) int32, rules (B, O, K) int32."""
     books, n_in = {}, int(input_cap)
     for op in spec:
         key = op[1]
@@ -89,3 +87,14 @@ def upload_books(flat, spec, input_cap, device):
                       decode_rules(t[key + '_rows'], t[key + '_fnd'], n_in))
         n_in = int(op[5])
     return books
+
+
+def upload_books(flat, spec, input_cap, device):
+    """A batch's `hb_*` books (numpy, wire format) -> decoded device books
+    (`decode_books`), in one copy.
+
+    :param spec: `encoder_spec` op list the books were built for
+    :param input_cap: voxel cap of the input level (its zero row index)
+    """
+    return decode_books(upload(wire_arrays(flat, spec), device), spec,
+                        input_cap)

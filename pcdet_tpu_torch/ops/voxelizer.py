@@ -29,7 +29,9 @@ def voxelize_torch(points, point_mask, voxel_size, point_cloud_range,
         voxel_mask (B, max_voxels) bool,
         point_voxel_idx (B, P) int32, voxel row of each point (-1 = dropped),
         voxel_pt_indices_into_original_pt_cloud (B, max_voxels,
-            max_num_points) int32, gather map, -1 pad.
+            max_num_points) int32, gather map, -1 pad,
+        voxel_overflow (B,) int32, occupied in-range voxels past the cap
+            (the JAX loader's `voxel_overflow` telemetry).
     """
     dev = points.device
     b, p, c = points.shape
@@ -97,4 +99,6 @@ def voxelize_torch(points, point_mask, voxel_size, point_cloud_range,
         'point_voxel_idx': point_voxel_idx,
         'voxel_pt_indices_into_original_pt_cloud':
             pt_indices[:rows].view(b, max_voxels, max_num_points),
+        'voxel_overflow': torch.clamp(
+            first.sum(dim=1, dtype=torch.int32) - max_voxels, min=0),
     }

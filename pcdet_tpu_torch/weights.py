@@ -11,6 +11,9 @@ so the same dict also loads into the reference model.  Layout transforms:
   flax sparse kernel (K, in, out)        -> spconv (k0, k1, k2, in, out)
   BN scale / bias + batch_stats mean / var
       -> weight / bias / running_mean / running_var (+ num_batches_tracked 0)
+A gradient tree has the params' structure and transforms like them:
+`state_dict_from_flax({'params': grads}, ...)` (no batch_stats) maps it onto
+the port's parameter names, with no buffers.
 """
 import numpy as np
 import torch
@@ -23,9 +26,16 @@ def _t(x):
 def _bn(sd, key, params, stats):
     sd[key + '.weight'] = _t(params['scale'])
     sd[key + '.bias'] = _t(params['bias'])
+    if stats is None:
+        return
     sd[key + '.running_mean'] = _t(stats['mean'])
     sd[key + '.running_var'] = _t(stats['var'])
     sd[key + '.num_batches_tracked'] = torch.tensor(0, dtype=torch.long)
+
+
+def _sub(tree, key):
+    """tree[key] ({} where absent), or None for a missing batch_stats tree."""
+    return None if tree is None else tree.get(key, {})
 
 
 def _conv(sd, key, params):
@@ -48,20 +58,21 @@ def state_dict_from_flax(variables, layer_nums):
         `pcdet_tpu.models.second.SECONDNetModule` (numpy or jax arrays)
     :param layer_nums: RPNV2's `layer_nums` (flax numbers its ConvBNReLUs
         across blocks, torch within each block)
-    :return: dict[str, Tensor] for the port module's `load_state_dict`
+    :return: dict[str, Tensor] for the port module's `load_state_dict`;
+        parameters only when `variables` has no 'batch_stats'
     """
-    params, stats = variables['params'], variables.get('batch_stats', {})
+    params, stats = variables['params'], variables.get('batch_stats')
     sd = {}
     if 'backbone_3d' in params:
-        bp, bs = params['backbone_3d'], stats.get('backbone_3d', {})
+        bp, bs = params['backbone_3d'], _sub(stats, 'backbone_3d')
         for name, key, kernel in _BACKBONE8X:
             w = np.asarray(bp[name]['kernel'])
             sd[key + '.0.weight'] = _t(w.reshape(*kernel, *w.shape[1:]))
             _bn(sd, key + '.1', bp[name]['TorchBatchNorm_0'],
-                bs[name]['TorchBatchNorm_0'])
+                _sub(_sub(bs, name), 'TorchBatchNorm_0'))
         _rpnv2(sd, params, stats, layer_nums)
         return sd
-    vp, vs = params['vfe'], stats.get('vfe', {})
+    vp, vs = params['vfe'], _sub(stats, 'vfe')
     for i in range(len(vp)):
         name = 'PFNLayer_%d' % i
         lin = vp[name]['TorchLinear_0']
@@ -71,13 +82,13 @@ def state_dict_from_flax(variables, layer_nums):
             sd[key + '.linear.bias'] = _t(lin['bias'])
         if 'TorchBatchNorm_0' in vp[name]:
             _bn(sd, key + '.norm', vp[name]['TorchBatchNorm_0'],
-                vs[name]['TorchBatchNorm_0'])
+                _sub(_sub(vs, name), 'TorchBatchNorm_0'))
     _rpnv2(sd, params, stats, layer_nums)
     return sd
 
 
 def _rpnv2(sd, params, stats, layer_nums):
-    rp, rs = params['rpn_head'], stats.get('rpn_head', {})
+    rp, rs = params['rpn_head'], _sub(stats, 'rpn_head')
     conv_i = 0
     for i, ln in enumerate(layer_nums):
         for j in range(ln + 1):
@@ -86,7 +97,7 @@ def _rpnv2(sd, params, stats, layer_nums):
             _conv(sd, '%s.%d' % (key, 1 + 3 * j), rp[name]['TorchConv_0'])
             if 'TorchBatchNorm_0' in rp[name]:
                 _bn(sd, '%s.%d' % (key, 2 + 3 * j), rp[name]['TorchBatchNorm_0'],
-                    rs[name]['TorchBatchNorm_0'])
+                    _sub(_sub(rs, name), 'TorchBatchNorm_0'))
             conv_i += 1
         name = 'DeconvBNReLU_%d' % i
         key = 'rpn_head.deblocks.%d' % i
@@ -96,7 +107,7 @@ def _rpnv2(sd, params, stats, layer_nums):
             sd[key + '.0.bias'] = _t(deconv['bias'])
         if 'TorchBatchNorm_0' in rp[name]:
             _bn(sd, key + '.1', rp[name]['TorchBatchNorm_0'],
-                rs[name]['TorchBatchNorm_0'])
+                _sub(_sub(rs, name), 'TorchBatchNorm_0'))
     for head in ('conv_box', 'conv_cls', 'conv_dir_cls'):
         if head in rp:
             _conv(sd, 'rpn_head.' + head, rp[head])

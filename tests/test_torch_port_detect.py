@@ -186,7 +186,8 @@ def test_port_imports_no_jax():
             'pcdet_tpu_torch.weights, pcdet_tpu_torch.ops.nms, '
             'pcdet_tpu_torch.ops.gather_gemm, pcdet_tpu_torch.ops.sparse, '
             'pcdet_tpu_torch.ops.host_books, pcdet_tpu_torch.models.second, '
-            'pcdet_tpu_torch.models.backbones3d; '
+            'pcdet_tpu_torch.models.backbones3d, pcdet_tpu_torch.ops.gather_dw, '
+            'pcdet_tpu_torch.utils.loss, pcdet_tpu_torch.train.trainer; '
             'bad = sorted(m for m in sys.modules '
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax')); "
             'print(bad); sys.exit(1 if bad else 0)')

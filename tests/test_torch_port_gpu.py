@@ -9,7 +9,11 @@ CPU mode).  On a machine with a card, run without the JAX suite's conftest
 Rotated overlap: tolerance 1e-5 absolute on the areas; the kernel is built
 with --fmad=false and is expected to be bitwise equal to the plain version.
 Gather-GEMM (kernels B and C): 1e-5 of max |plain|; the kernel and the
-plain version sum in different orders.
+plain version sum in different orders.  dW (kernel D): 1e-5 of max |plain|
+at these short sums (chip_smoke.py holds the full-size sums to 1e-4), and
+two launches bitwise equal.  The sparse convs' autograd backward on the
+card (kernels B over the mirrored / transposed books, D) against the same
+backward on the CPU (plain versions): 1e-5 of max |grad|.
 """
 import itertools
 
@@ -17,7 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from pcdet_tpu_torch.ops import gather_gemm, nms, rotated_iou, rotated_overlap
+from pcdet_tpu.ops import host_books as np_books
+from pcdet_tpu_torch.ops import (gather_dw, gather_gemm, host_books, nms,
+                                 rotated_iou, rotated_overlap, sparse)
 
 torch.set_num_threads(1)
 
@@ -150,3 +156,121 @@ def test_gather_gemm_rejects_bad_inputs(cuda):
         gather_gemm.gather_gemm(feats, rules.cpu(), w, n_live)
     with pytest.raises(ValueError):                 # not contiguous
         gather_gemm.gather_gemm(feats, rules[:, ::2], w, n_live)
+
+
+def _dw_inputs(rng, b, v_in, v_out, k, cin, cout, device):
+    table = rng.randn(b, v_in + 1, cin).astype(np.float32)
+    table[:, v_in] = 0
+    rules = rng.randint(0, v_in + 1, (b, v_out, k)).astype(np.int32)
+    rules[rng.rand(b, v_out, k) < 0.4] = v_in                # misses
+    g = rng.randn(b, v_out, cout).astype(np.float32)
+    return (torch.as_tensor(table, device=device),
+            torch.as_tensor(rules, device=device),
+            torch.as_tensor(g, device=device))
+
+
+@pytest.mark.parametrize('k,cin,cout', [(k, *p) for k in (27, 3)
+                                        for p in gather_dw.PAIRS])
+def test_gather_dw_matches_plain(cuda, no_tf32, k, cin, cout):
+    rng = np.random.RandomState(k * 1000 + cin * 10 + cout)
+    v_in, v_out = 300, 200                         # 200 = 3 tiles + 8 rows
+    for b in (1, 3):
+        feats, rules, g = _dw_inputs(rng, b, v_in, v_out, k, cin, cout, cuda)
+        for live in (0, 100, v_out):               # none, mid-tile, all
+            n_live = torch.full((b,), live, dtype=torch.int32, device=cuda)
+            if b > 1:
+                n_live[-1] = v_out                 # samples gate apart
+            before = gather_dw.LAUNCHES['gather_dw']
+            got = gather_dw.gather_dw(feats, rules, g, n_live)
+            again = gather_dw.gather_dw(feats, rules, g, n_live)
+            assert gather_dw.LAUNCHES['gather_dw'] == before + 2
+            want = gather_dw.gather_dw_plain(feats, rules, g, n_live)
+            torch.cuda.synchronize()
+            assert got.shape == (k, cin, cout) and got.dtype == torch.float32
+            assert torch.equal(got, again)
+            if not want.any():
+                assert not got.any()
+                continue
+            scale = want.abs().max().item()
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+
+
+def test_gather_dw_rejects_bad_inputs(cuda):
+    rng = np.random.RandomState(0)
+    feats, rules, g = _dw_inputs(rng, 2, 50, 40, 27, 16, 32, cuda)
+    n_live = torch.full((2,), 40, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                 # no (16, 64) instance
+        gather_dw.gather_dw(feats, rules, torch.cat([g, g], -1), n_live)
+    with pytest.raises(ValueError):                 # K = 65
+        gather_dw.gather_dw(feats, torch.cat([rules] * 3, -1)[..., :65]
+                            .contiguous(), g, n_live)
+    with pytest.raises(TypeError):                  # bf16 table
+        gather_dw.gather_dw(feats.bfloat16(), rules, g, n_live)
+    with pytest.raises(ValueError):                 # g on the host
+        gather_dw.gather_dw(feats, rules, g.cpu(), n_live)
+    with pytest.raises(ValueError):                 # not contiguous
+        gather_dw.gather_dw(feats, rules[:, ::2], g[:, ::2], n_live)
+
+
+def _sorted_coords(rng, n_live, cap, shape):
+    coords = np.full((len(n_live), cap, 3), -1, np.int32)
+    for b, n in enumerate(n_live):
+        ids = np.sort(rng.choice(int(np.prod(shape)), n, replace=False))
+        coords[b, :n] = np.stack([ids // (shape[1] * shape[2]),
+                                  (ids // shape[2]) % shape[1],
+                                  ids % shape[2]], axis=-1)
+    return coords
+
+
+@pytest.mark.parametrize('conv,cin,cout', [('subm', 16, 16),
+                                           ('spconv2', 16, 32),
+                                           ('convout', 64, 128)])
+def test_conv_backward_on_card_matches_cpu(cuda, no_tf32, conv, cin, cout):
+    """RulebookConv's backward on CUDA (B over the mirrored or transposed
+    book, D) equals its backward on the CPU (the plain versions)."""
+    rng = np.random.RandomState(1)
+    shape, cap = (5, 40, 40), 600
+    coords = _sorted_coords(rng, (560, 410), cap, shape)
+    mask = coords[..., 0] >= 0
+    spec = np_books.encoder_spec(shape, (640, 512, 384, 320), (1, 0, 0))
+    flat = np_books.build_books_batch(coords, mask, shape, spec)
+    if conv == 'convout':                       # conv_out reads spconv4's set
+        _, crd, msk, _, _ = host_books.upload_books(flat, spec, cap,
+                                                    'cpu')['spconv4']
+        coords, mask = crd.numpy(), msk.numpy()
+        for op in spec[:6]:
+            if op[0] == 'spconv':
+                shape = sparse.conv_out_shape(shape, *op[2:5])
+    feats = (rng.randn(*mask.shape, cin) * mask[..., None]).astype(np.float32)
+    k = 3 if conv == 'convout' else 27
+    w = (rng.randn(k, cin, cout) * 0.2).astype(np.float32)
+    out_rows = {'subm': mask.shape[1], 'spconv2': 640, 'convout': 320}[conv]
+    g = rng.randn(2, out_rows, cout).astype(np.float32)
+    grads = {}
+    for dev in ('cpu', cuda):
+        books = host_books.upload_books(flat, spec, cap, dev)
+        x = torch.as_tensor(feats, device=dev).requires_grad_()
+        wt = torch.as_tensor(w, device=dev).requires_grad_()
+        level = sparse.from_voxelizer(x, torch.as_tensor(coords, device=dev),
+                                      torch.as_tensor(mask, device=dev),
+                                      shape)
+        if conv == 'subm':
+            out = sparse.subm_conv3d(level, wt, books['subm1'])
+        elif conv == 'spconv2':
+            out = sparse.sparse_conv3d(level, wt, books['spconv2'], 3, 2, 1)
+        else:
+            out = sparse.sparse_conv3d(level, wt, books['convout'],
+                                       (3, 1, 1), (2, 1, 1), (1, 0, 0))
+        before = (gather_gemm.LAUNCHES['gather_gemm_f32_dgrad'],
+                  gather_dw.LAUNCHES['gather_dw'])
+        gx, gw = torch.autograd.grad(out.features, (x, wt),
+                                     torch.as_tensor(g, device=dev))
+        after = (gather_gemm.LAUNCHES['gather_gemm_f32_dgrad'],
+                 gather_dw.LAUNCHES['gather_dw'])
+        assert after == (before if torch.device(dev).type == 'cpu' else
+                         (before[0] + 1, before[1] + 1))
+        grads[str(dev)] = (gx.cpu(), gw.cpu())
+    for got, want in zip(grads[str(cuda)], grads['cpu']):
+        scale = want.abs().max().item()
+        assert scale > 0
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
