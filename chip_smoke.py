@@ -1,5 +1,5 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: PointPillar and
-SECOND detect, SECOND training.
+SECOND detect, SECOND training, and the sparse convs' load strategies.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,8 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
 211,200 anchors, NMS 4096 -> 500).  Phases, each fatal on failure:
 
   1. build every kernel from csrc/ with nvcc (sm_90a), and the host
-     rulebook builder with g++, all at once;
+     rulebook builder (csrc/host_books_native.cpp) with g++, all at once;
+     registers and spills per kernel instance of the window kernels;
   2. kernel vs its plain PyTorch version on the card, at the NMS shape
      (G=2, M=64, N=4096) and on crafted boxes (bound 1e-5 abs);
   3. full-width detect at B2 through the kernel (launch count > 0, num > 0);
@@ -26,8 +27,9 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       rules of the real B2 books at conv2_1 (K=27, 32 -> 32) and conv_out
       (K=3, 64 -> 128), with all-miss rows, n_live 0 and n_live mid-tile
       (bound 1e-5 * max |plain|), and their times;
-  S3. shipped second.yaml detect at B2 through kernel C (launches > 0,
-      num > 0), with the voxel count, voxelizer overflow and per-level drops;
+  S3. shipped second.yaml detect at B2 under the default loads (launches
+      of C, E or E' as the loads choose, num > 0), with the voxel count,
+      voxelizer overflow and per-level drops;
   S4. the same config in f32 at B1 through kernel B: GPU vs CPU (counts
       equal, boxes 1e-3);
   S5. timings at B2 and B8: frames/s, the voxelize / books / backbone /
@@ -39,13 +41,14 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       mid-tile and 0 (bound 1e-4 * max |plain|), two launches bitwise
       equal; kernel B's 128 -> 64 instance on conv_out's transposed book
       (bound 1e-5 * max |plain|); kernel and plain times;
-  T3. full-width second.yaml training at B2 (train caps 16000 voxels,
-      32000 / 25600 / 13824 / 11264 per level, adam_onecycle): 5 steps on
-      one batch, every loss term finite, the 5th loss below the 1st, per
-      step 12 forward and 11 feature-gradient launches of B and 12 of D;
+  T3. full-width second.yaml training at B2 under the default loads (train
+      caps 16000 voxels, 32000 / 25600 / 13824 / 11264 per level,
+      adam_onecycle): 5 steps on one batch, every loss term finite, the 5th
+      loss below the 1st, the launches per step the loads predict (rows: 12
+      forward and 11 feature-gradient launches of B and 12 of D);
   T4. one train step at B1 from the same weights and batch: GPU vs CPU
-      loss in f32 (1e-4 relative); the 12 sparse convs' dW through kernels
-      B and D vs through their plain versions on the card (1e-3 of max
+      loss in f32 (1e-4 relative); the 12 sparse convs' dW through the
+      kernels vs through their plain versions on the card (1e-3 of max
       |dW|), and GPU vs CPU in f64 (1e-9); GPU vs CPU in f32 and each
       against f64, printed;
   T5. timings at B2 and B8: ms per step and samples/s with the batch built
@@ -53,9 +56,35 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       backward / optimizer split, a torch.profiler breakdown with kernel B's
       and D's share and the idle share; the prebuilt step again with
       cuDNN's autotuner on.
+  X1. the x-window and segment kernels E, E' (f32, bf16; csrc/
+      gather_gemm_xwin.cu) and D'', D' (csrc/gather_dw_xwin.cu) vs their
+      plain versions on real B2 books at conv2_1 (subm, 32 -> 32), conv3's
+      strided conv (32 -> 64) and its transposed book (64 -> 32): n_live
+      real, mid-tile and 0, bound 1e-5 * max |plain| (E, E') and 1e-4 (D'',
+      D'), D'' and D' bitwise repeatable, E' and D' at S = 256 and 16 with
+      the segment and window branches counted on the card equal to the
+      descriptors' count and both > 0; no tap dropped by any book's
+      selectors;
+  X2. second.yaml detect at B2 under loads.fwd xwin and seg: 11 launches of
+      E / E' and 1 of C, num > 0, boxes equal to the rows run within 1e-3;
+  X3. training at B2 under loads (xwin, xwin), (seg, seg) and the default:
+      5 steps, finite losses, the 5th below the 1st, the launches per step;
+      one B1 step's sparse-conv dW through each equal to the rows step's
+      within 1e-3 of max |dW|;
+  X4. times on CUDA events: each kw=3 conv's kernels B / C, E, E' (forward
+      f32 and bf16, feature gradient) and D, D'', D' at B2, the selector
+      builds; detect frames/s and backbone ms at B2 and B8 under each
+      loads.fwd; the prebuilt train step and its forward / backward split
+      at B2 and B8 under each loads choice.
 
 Prints the card's name and power limit, a JSON line with the kernels (A,
-B, C, D), and as its last line {"ok": true, "device": {...}}.  Exits nonzero, with no
+B, C, D, E, E', D'', D'), each with its launches on its main path, its error
+against its plain version, its time and the plain version's, and its bound
+(`bound_ms`, the larger of its bytes over 3.35 TB/s and its operations over
+the peak rate of their type, 67 TFLOP/s for f32 outside the tensor cores
+and 989 TFLOP/s for bf16, the H100 SXM's published dense rates, for this
+run's inputs),
+and as its last line {"ok": true, "device": {...}}.  Exits nonzero, with no
 result line, when no CUDA device is present or any phase fails.
 """
 import concurrent.futures
@@ -70,9 +99,55 @@ import numpy as np
 import torch
 
 
+# the H100 SXM's published peaks (NVIDIA data sheet, dense): HBM bytes per
+# second; operations per second by the operands' type, f32 outside the tensor
+# cores and bf16 (f32 sums) on them
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# kernel A's operations per (A box, B box) pair: about 460 flops and 32
+# divisions (csrc/rotated_overlap.cu)
+A_OPS_PER_PAIR = 492
+
+
 def require(cond, msg):
     if not cond:
         raise RuntimeError('chip_smoke: ' + msg)
+
+
+def bound_ms(ops, nbytes, dtype=torch.float32):
+    """(least ms the card could take, 'bytes' or 'operations'), with the
+    operations at the peak rate of operands of `dtype`."""
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S[dtype]
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
+                                 else 'bytes')
+
+
+def gather_work(table, rules, n_live, cout, index_bytes_per_row, tail_bytes):
+    """(operations, bytes, operand dtype) of one gather-GEMM or dW call on
+    these inputs: 2 Cin Cout per found tap of a live row; the distinct table
+    rows the live rows read, the index data of the live rows
+    (`index_bytes_per_row`), and `tail_bytes` (weights and output, or g and
+    dW), each once."""
+    b, v, k = rules.shape
+    n_in, cin = table.shape[1] - 1, table.shape[2]
+    live = torch.arange(v, device=rules.device)[None] < n_live[:, None]
+    found = (rules != n_in) & live[..., None]
+    rows = sum(int(torch.unique(rules[i][found[i]]).numel())
+               for i in range(b))
+    ops = 2 * cin * cout * int(found.sum())
+    nbytes = (rows * cin * table.element_size()
+              + int(live.sum()) * index_bytes_per_row + tail_bytes)
+    return ops, nbytes, table.dtype
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, work):
+    """One element of the `kernels` JSON line."""
+    b_ms, b_by = bound_ms(*work)
+    return {'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': launches, 'max_abs_err': err,
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+            'bound_by': b_by, 'library_ms': None}
 
 
 def sync():
@@ -125,11 +200,14 @@ def ptxas_entries(log):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-            base = next((k for k in ('gather_dw_partial', 'sum_partials',
+            base = next((k for k in ('gather_dw_xwin_partial',
+                                     'gather_gemm_xwin_kernel',
+                                     'gather_dw_partial', 'sum_partials',
                                      'gather_gemm_kernel', 'edgeclip')
                          if k in name), name[:40])
-            cur = [base, ('bf16,' if 'bfloat16' in name else '') + ','.join(
-                re.findall(r'Li(\d+)E', name)), 0, 0]
+            cur = [base, ('bf16,' if 'bfloat16' in name else '')
+                   + ('seg,' if 'Lb1E' in name else '') + ','.join(
+                       re.findall(r'Li(\d+)E', name)), 0, 0]
             out.append(cur)
         elif cur is not None and 'spill stores' in line:
             cur[3] = int(line.split('bytes spill stores')[0].split(',')[-1])
@@ -200,11 +278,11 @@ def run_nms(cand, tc, overlap_fn=None):
         overlap_fn=overlap_fn or ro.pair_overlap_batched)
 
 
-def second_detector(cfg, dev):
+def second_detector(cfg, dev, loads=None):
     """SECOND with random weights from seed 0 and conv_cls's bias zeroed:
     the focal prior puts every score near 0.01, under SCORE_THRESH 0.3."""
     from pcdet_tpu_torch import detect as detect_mod
-    det = detect_mod.build_detector(cfg, dev, seed=0)
+    det = detect_mod.build_detector(cfg, dev, seed=0, loads=loads)
     with torch.no_grad():
         det.model.module.rpn_head.conv_cls.bias.zero_()
     return det
@@ -280,7 +358,10 @@ def gather_gemm_vs_plain(dev, det, books):
                                mid.tolist(), ms, plain_ms))
             if name == 'conv2_1':
                 stats[tag] = {'err': err, 'rel': err / scale, 'ms': ms,
-                              'plain_ms': plain_ms}
+                              'plain_ms': plain_ms, 'work': gather_work(
+                                  table, rules, live, cout, 4 * k,
+                                  w.numel() * w.element_size()
+                                  + 4 * b * v_out * cout)}
     return stats
 
 
@@ -334,15 +415,64 @@ def conv_ms(det, vox, books, iters=3):
             for n, _ in blocks]
 
 
+def forward_launches(loads, dtype, steps=1, train=False):
+    """The sparse-conv launches a SECOND batch (or `steps` train steps)
+    makes under `loads`: {LAUNCHES key: count}.  Of the 12 convs, the 11
+    kw=3 ones take loads.fwd's kernel (E, E' or B / C) and conv_out B / C;
+    in training 11 feature gradients (not conv_input's) and 12 dW; window
+    loads build the books' selectors once per batch or step."""
+    t = 'bf16' if dtype == torch.bfloat16 else 'f32'
+    name = {'rows': 'gather_gemm', 'xwin': 'gather_gemm_xwin',
+            'seg': 'gather_gemm_seg'}[loads.fwd]
+    out = {}
+
+    def add(key, n):
+        out[key] = out.get(key, 0) + n * steps
+    add('gather_gemm_' + t, 1)
+    add('%s_%s' % (name, t), 11)
+    if loads.fwd != 'rows' or (train and loads.dw != 'rows'):
+        # selectors of the 7 kw=3 books, and in training under window
+        # forward loads of the 3 transposed strided books
+        add('xwin_selectors', 7 + (3 if train and loads.fwd != 'rows' else 0))
+    if train:
+        add('gather_gemm_%s_dgrad' % t, 1)
+        add('%s_%s_dgrad' % (name, t), 10)
+        dw = {'rows': 'gather_dw', 'xwin': 'gather_dw_xwin',
+              'seg': 'gather_dw_seg'}[loads.dw]
+        add('gather_dw', 1)
+        add(dw, 11)
+    return out
+
+
+def all_launches():
+    """Every launch counter of the sparse-conv kernels, by key."""
+    from pcdet_tpu_torch.ops import gather_dw as gd
+    from pcdet_tpu_torch.ops import gather_gemm as gg
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    return {**gg.LAUNCHES, **gx.LAUNCHES, **gd.LAUNCHES}
+
+
+def reset_launches():
+    from pcdet_tpu_torch.ops import gather_dw as gd
+    from pcdet_tpu_torch.ops import gather_gemm as gg
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    for counts in (gg.LAUNCHES, gx.LAUNCHES, gd.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    gx.reset_seg_tiles()
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
 def run_second(dev, cfg, batches=(2, 8)):
     """Phases S1-S5 on SECOND; returns the kernels' JSON entries."""
-    from pcdet_tpu import native
     from pcdet_tpu_torch import detect as detect_mod
-    from pcdet_tpu_torch.ops import cuda_build, sparse
+    from pcdet_tpu_torch.ops import cuda_build, host_books, sparse
     from pcdet_tpu_torch.ops import gather_gemm as gg
     tc = cfg.MODEL.TEST
     post = int(tc.NMS_POST_MAXSIZE_LAST)
-    counts = gg.LAUNCHES
 
     # S1. build (started with the others in phase 1) ----------------------
     gg.build()
@@ -363,26 +493,27 @@ def run_second(dev, cfg, batches=(2, 8)):
         books = det.books(vox)
     kstats = gather_gemm_vs_plain(dev, det, books)
 
-    # S3. shipped config (bf16 sparse stack) at B2 through kernel C --------
+    # S3. shipped config (bf16 sparse stack) at B2 under the default loads -
     det.detect(pts2, mask2)                          # warm-up
     sync()
-    for k in counts:
-        counts[k] = 0
+    reset_launches()
     preds = det.detect(pts2, mask2)
     sync()
-    launches_c, stray_b = counts['gather_gemm_bf16'], counts['gather_gemm_f32']
+    counts = nonzero(all_launches())
+    launches_c = counts.get('gather_gemm_bf16', 0)
     num = second_detect_checks(preds, post, 2)
     with torch.inference_mode():
         ret = det.model.forward(dict(vox, books=books))
     drops = {k: v.tolist() for k, v in ret['overflow'].items()}
-    print('[second S3] detect B2 (second.yaml, bf16 sparse stack): num %s; '
-          'kernel C launches %d (12 convs per batch), kernel B %d; input '
-          'voxels %s of cap %d, voxelizer overflow %s; per-level drops %s'
-          % (num, launches_c, stray_b,
+    expect = forward_launches(det.loads, det.model.module.compute_dtype)
+    print('[second S3] detect B2 (second.yaml, bf16 sparse stack, loads %s): '
+          'num %s; launches %s (12 convs per batch); input voxels %s of cap '
+          '%d, voxelizer overflow %s; per-level drops %s'
+          % (tuple(det.loads), num, counts,
              vox['voxel_mask'].sum(1).tolist(), det.max_voxels,
              voxel_overflow(det, pts2, mask2), drops))
     require(launches_c > 0, 'the SECOND path launched no kernel C')
-    require(stray_b == 0, 'the bf16 path launched kernel B')
+    require(counts == expect, 'launches %s, want %s' % (counts, expect))
 
     # S4. f32 config through kernel B: GPU vs CPU at B1 ---------------------
     cfg32 = copy.deepcopy(cfg)
@@ -390,16 +521,15 @@ def run_second(dev, cfg, batches=(2, 8)):
     cfg32.MODEL.RPN.RPN_HEAD.ARGS['compute_dtype_test'] = ''
     outs = {}
     for name, d in (('gpu', dev), ('cpu', torch.device('cpu'))):
-        det32 = second_detector(cfg32, d)
-        for k in counts:
-            counts[k] = 0
+        det32 = second_detector(cfg32, d, sparse.ROWS)
+        reset_launches()
         t0 = time.perf_counter()
         outs[name] = {k: v.cpu() for k, v in det32.detect(
             pts_all[:1].to(d), mask_all[:1].to(d)).items()}
         if name == 'gpu':
             sync()
-            launches_b = counts['gather_gemm_f32']
-            stray_c = counts['gather_gemm_bf16']
+            launches_b = gg.LAUNCHES['gather_gemm_f32']
+            stray_c = gg.LAUNCHES['gather_gemm_bf16']
         print('[second S4] %s detect B1 f32: %.2f s' % (
             name, time.perf_counter() - t0))
         del det32
@@ -415,7 +545,7 @@ def run_second(dev, cfg, batches=(2, 8)):
 
     # S5. timings -----------------------------------------------------------
     print('[second S5] host books by the native builder: %s'
-          % (native.get_lib() is not None))
+          % (host_books.native_lib() is not None))
     module = det.model.module
     for b in batches:
         pts, mask = pts_all[:b].contiguous(), mask_all[:b].contiguous()
@@ -496,11 +626,11 @@ def run_second(dev, cfg, batches=(2, 8)):
     sync()
 
     def entry(tag, launches, replaces):
-        return {'name': 'gather_gemm_' + tag, 'route': 'cuda',
-                'source': 'pcdet_tpu_torch/csrc/gather_gemm.cu',
-                'replaces': replaces, 'launches': launches,
-                'max_abs_err': kstats[tag]['err'], 'ms': kstats[tag]['ms'],
-                'plain_ms': kstats[tag]['plain_ms']}
+        k = kstats[tag]
+        return kernel_entry('gather_gemm_' + tag,
+                            'pcdet_tpu_torch/csrc/gather_gemm.cu', replaces,
+                            launches, k['err'], k['ms'], k['plain_ms'],
+                            k['work'])
     return [entry('f32', launches_b,
                   'pcdet_tpu/ops/pallas/gather_gemm.py:700'),
             entry('bf16', launches_c,
@@ -561,7 +691,9 @@ def dw_vs_plain(dev, trainer, batch):
                   gd.chunk_rows(b, v_out, k)))
         if name == 'conv2_1':
             stats['d'] = {'err': err, 'rel': err / scale, 'ms': ms,
-                          'plain_ms': plain_ms}
+                          'plain_ms': plain_ms, 'work': gather_work(
+                              feats, rules, live, cout, 4 * k,
+                              4 * cout * int(live.sum()) + 4 * k * cin * cout)}
             continue
         # conv_out's feature gradient: B (128 -> 64) over the transposed book
         n_live_in = in_mask.sum(1, dtype=torch.int32)
@@ -695,43 +827,47 @@ def run_train(dev, cfg, batches=(2, 8), steps=5):
     kstats = dw_vs_plain(dev, trainer, batch2)
 
     # T3. full-width training at B2 through the kernels --------------------
-    for mod in (gg, gd):
-        for k in mod.LAUNCHES:
-            mod.LAUNCHES[k] = 0
+    reset_launches()
     tbs = []
     t0 = time.perf_counter()
     for _ in range(steps):
         tbs.append({k: v.item() for k, v in trainer.step(batch2).items()})
     sync()
     wall = time.perf_counter() - t0
-    counts = {**gg.LAUNCHES, **gd.LAUNCHES}
+    counts = nonzero(all_launches())
     losses = [tb['loss'] for tb in tbs]
+    loads = trainer.model.module.rpn_net.loads
     print('[train T3] second.yaml B2, %d steps on one batch in %.2f s: loss '
-          '%s; last tb %s; voxels %s of cap %d; launches: B forward %d, B '
-          'feature gradient %d, D %d, bf16 C %d' % (
+          '%s; last tb %s; voxels %s of cap %d; loads %s, launches %s' % (
               steps, wall, ', '.join('%.5f' % x for x in losses),
               {k: round(v, 5) for k, v in tbs[-1].items()
                if not k.startswith('overflow')},
               batch2['voxel_mask'].sum(1).tolist(), trainer.max_voxels,
-              counts['gather_gemm_f32'], counts['gather_gemm_f32_dgrad'],
-              counts['gather_dw'], counts['gather_gemm_bf16']))
+              tuple(loads), counts))
     print('[train T3] overflow/* per step: %s' % {
         k: v for k, v in tbs[0].items() if k.startswith('overflow')})
     require(all(np.isfinite(v) for tb in tbs for v in tb.values()),
             'a non-finite loss term')
     require(losses[-1] < losses[0], 'loss did not fall in %d steps: %s'
             % (steps, losses))
-    require(counts['gather_gemm_f32'] == 12 * steps
-            and counts['gather_gemm_f32_dgrad'] == 11 * steps
-            and counts['gather_dw'] == 12 * steps
-            and counts['gather_gemm_bf16'] == 0,
-            'launches per step are not 12 / 11 / 12: %s' % counts)
+    expect = forward_launches(loads, torch.float32, steps, train=True)
+    require(counts == expect, 'launches over %d steps %s, want %s'
+            % (steps, counts, expect))
 
     # T4. one train step at B1: GPU vs CPU, kernels vs plain, f64 --------
     # K32: the card through kernels B and D; P32 / P64: the card through
     # their plain versions in f32 / f64; C32 / C64: the CPU in f32 / f64.
+    from pcdet_tpu_torch.ops import gather_xwin as gx
     from pcdet_tpu_torch.ops import sparse
-    kernels = (sparse.gather_gemm, sparse.gather_dw)
+    names = ('gather_gemm', 'gather_gemm_xwin', 'gather_gemm_seg',
+             'gather_dw', 'gather_dw_xwin', 'gather_dw_seg')
+    kernels = {n: getattr(sparse, n) for n in names}
+    plains = {'gather_gemm': gg.gather_gemm_plain,
+              'gather_gemm_xwin': gx.gather_gemm_xwin_plain,
+              'gather_gemm_seg': gx.gather_gemm_seg_plain,
+              'gather_dw': gd.gather_dw_plain,
+              'gather_dw_xwin': gd.gather_dw_xwin_plain,
+              'gather_dw_seg': gd.gather_dw_seg_plain}
     out = {}
     for name, d, dtype in (('K32', dev, torch.float32),
                            ('P32', dev, torch.float32),
@@ -739,9 +875,8 @@ def run_train(dev, cfg, batches=(2, 8), steps=5):
                            ('C32', torch.device('cpu'), torch.float32),
                            ('C64', torch.device('cpu'), torch.float64)):
         if name.startswith('P'):
-            sparse.gather_gemm = lambda *a, dgrad=False: gg.gather_gemm_plain(
-                *a)
-            sparse.gather_dw = gd.gather_dw_plain
+            for n, fn in plains.items():
+                setattr(sparse, n, lambda *a, _fn=fn, dgrad=False: _fn(*a))
         try:
             tr = build_trainer(cfg, d, seed=0, total_steps=total)
             tr.model.module.to(dtype)
@@ -753,7 +888,8 @@ def run_train(dev, cfg, batches=(2, 8), steps=5):
             loss, _, grads = train_state.loss_and_grads(
                 tr.model, tr.state.params, b1)
         finally:
-            sparse.gather_gemm, sparse.gather_dw = kernels
+            for n, fn in kernels.items():
+                setattr(sparse, n, fn)
         names = [n for n, _ in tr.model.module.named_parameters()]
         out[name] = (float(loss), {n: g.cpu().double()
                                    for n, g in zip(names, grads)
@@ -834,18 +970,23 @@ def run_train(dev, cfg, batches=(2, 8), steps=5):
         if not rows:
             print('[train T5 B%d] no device time recorded: not measured' % b)
             continue
-        d_ms = sum(t for t, n in rows if 'gather_dw' in n
-                   or 'sum_partials' in n)
-        b_ms = sum(t for t, n in rows if 'gather_gemm' in n)
+        def share(*keys):
+            return sum(t for t, n in rows if any(k in n for k in keys))
+        parts = (('B', share('gather_gemm_kernel')),
+                 ("E / E'", share('gather_gemm_xwin_kernel')),
+                 ('D', share('gather_dw_partial<')),
+                 ("D'' / D'", share('gather_dw_xwin_partial')),
+                 ("dW sum pass (D, D'', D')", share('sum_partials(')),
+                 ('selectors', share('xwin_selectors_kernel')))
         idle = ('idle %.1f%% of the prebuilt step, %.1f%% of the step with '
                 'the batch built' % (100 * (1 - busy / ms_pre),
                                      100 * (1 - busy / ms_full))
                 if busy <= ms_pre else 'idle not measured (busy under the '
                 'profiler exceeds the unprofiled prebuilt step)')
-        print('[train T5 B%d] device busy %.2f ms per step: %s; kernel B %.3f '
-              'ms (%.1f%%), kernel D %.3f ms (%.1f%%); %d kernel names' % (
-                  b, busy, idle, b_ms, 100 * b_ms / busy, d_ms,
-                  100 * d_ms / busy, len(rows)))
+        print('[train T5 B%d] device busy %.2f ms per step: %s; %s; %d '
+              'kernel names' % (b, busy, idle, ', '.join(
+                  'kernel %s %.3f ms (%.1f%%)' % (k, t, 100 * t / busy)
+                  for k, t in parts), len(rows)))
         for tt, name in rows[:12]:
             print('[train T5 B%d]   kernel %7.3f ms %5.1f%%  %s' % (
                 b, tt, 100 * tt / busy, name[:90]))
@@ -871,15 +1012,610 @@ def run_train(dev, cfg, batches=(2, 8), steps=5):
                   ', '.join('%.2f' % x for x in pre)))
     torch.backends.cudnn.benchmark = False
     sync()
-    return ({'name': 'gather_dw', 'route': 'cuda',
-             'source': 'pcdet_tpu_torch/csrc/gather_dw.cu',
-             'replaces': 'pcdet_tpu/ops/pallas/gather_gemm.py:882',
-             'launches': counts['gather_dw'],
-             'max_abs_err': kstats['d']['err'], 'ms': kstats['d']['ms'],
-             'plain_ms': kstats['d']['plain_ms']},
-            {'train_launches': counts['gather_gemm_f32'],
-             'backward_launches': counts['gather_gemm_f32_dgrad'],
+    d = kstats['d']
+    return (kernel_entry('gather_dw', 'pcdet_tpu_torch/csrc/gather_dw.cu',
+                         'pcdet_tpu/ops/pallas/gather_gemm.py:882',
+                         counts.get('gather_dw', 0), d['err'], d['ms'],
+                         d['plain_ms'], d['work']),
+            {'train_launches': counts.get('gather_gemm_f32', 0),
+             'backward_launches': counts.get('gather_gemm_f32_dgrad', 0),
              'b128_max_abs_err': kstats['b128']['err']})
+
+
+# ----------------------------------------------------------------------------
+# X1-X4: the x-window and segment loads of the kw=3 sparse convs
+# ----------------------------------------------------------------------------
+
+KW3_CONVS = (   # SpConvBNReLU of BackBone8x, its book, Cin, Cout
+    ('conv_input', 'subm1', 4, 16), ('conv1.0', 'subm1', 16, 16),
+    ('conv2.0', 'spconv2', 16, 32), ('conv2.1', 'subm2', 32, 32),
+    ('conv2.2', 'subm2', 32, 32), ('conv3.0', 'spconv3', 32, 64),
+    ('conv3.1', 'subm3', 64, 64), ('conv3.2', 'subm3', 64, 64),
+    ('conv4.0', 'spconv4', 64, 64), ('conv4.1', 'subm4', 64, 64),
+    ('conv4.2', 'subm4', 64, 64))
+SEG_SMALL = 16
+GEMM_SRC = 'pcdet_tpu_torch/csrc/gather_gemm_xwin.cu'
+DW_SRC = 'pcdet_tpu_torch/csrc/gather_dw_xwin.cu'
+REPLACES = {'gather_gemm_xwin': 'pcdet_tpu/ops/pallas/gather_gemm.py:272',
+            'gather_gemm_seg': 'pcdet_tpu/ops/pallas/gather_gemm.py:493',
+            'gather_dw_xwin': 'pcdet_tpu/ops/pallas/gather_gemm.py:843',
+            'gather_dw_seg': 'pcdet_tpu/ops/pallas/gather_gemm.py:577',
+            # not a Pallas kernel: the XLA selector build the TPU ran
+            'xwin_selectors': 'pcdet_tpu/ops/sparse.py:474'}
+
+
+def level_books(books, spec, input_cap, input_mask):
+    """Per book key: (rules, zero-row index of its input level, input mask,
+    output mask)."""
+    out, n_in, mask = {}, int(input_cap), input_mask
+    for op in spec:
+        key = op[1]
+        if op[0] == 'subm':
+            out[key] = (books[key], n_in, mask, mask)
+        else:
+            out[key] = (books[key][4], n_in, mask, books[key][2])
+            n_in, mask = int(op[5]), books[key][2]
+    return out
+
+
+def bwd_book(case, subm):
+    """A conv's feature-gradient book: the mirrored (subm) or transposed
+    (strided) book, as (rules, n_in, input mask, output mask)."""
+    from pcdet_tpu_torch.ops import sparse
+    rules, n_in, in_mask, out_mask = case
+    if subm:
+        return rules.flip(-1), n_in, in_mask, out_mask
+    n_out = rules.shape[1]
+    return (sparse.transpose_rules(rules, n_in, n_out), n_out, out_mask,
+            in_mask)
+
+
+def rand_table(gen, case, cin, dev):
+    rules, n_in, in_mask, _ = case
+    t = torch.randn((rules.shape[0], n_in + 1, cin), generator=gen).to(dev)
+    t[:, :n_in] *= in_mask[..., None]
+    t[:, n_in] = 0
+    return t
+
+
+def expected_tiles(base, sel, live, s):
+    """The (segment, window) (tile, group)s a segment kernel takes on the
+    tiles its n_live reaches, from `segment_desc`."""
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    _, ok, _ = gx.segment_desc(base, sel, gx.TILE, s)
+    tiles = torch.arange(ok.shape[1], device=ok.device) * gx.TILE
+    reach = (tiles[None] < live[:, None])[..., None]
+    ok = ok > 0
+    return int((ok & reach).sum()), int((~ok & reach).sum())
+
+
+def xwin_vs_plain(dev, eval_books, train_books):
+    """X1: E, E' (f32, bf16), D'', D' against their plain versions on real
+    B2 books.  Returns {entry name: {'err', 'ms', 'plain_ms', 'work'}} at
+    conv2_1 (subm2, 32 -> 32)."""
+    from pcdet_tpu_torch.ops import gather_dw as gd
+    from pcdet_tpu_torch.ops import gather_gemm as gg
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    from pcdet_tpu_torch.ops import sparse
+    gen = torch.Generator(device='cpu').manual_seed(4)
+    stats, tiles_seen = {}, [0, 0]
+    # the selector kernel against its plain version on every kw=3 book, its
+    # mirrored or transposed book, eval and train
+    n_books = 0
+    for books, tag in ((eval_books, 'eval'), (train_books, 'train')):
+        for key, case in books.items():
+            if key == 'convout':
+                continue
+            for kind, (rules, n_in, _, out_mask) in (
+                    ('fwd', case), ('bwd', bwd_book(case, 'subm' in key))):
+                got = sparse.xwin_selectors(rules, n_in)
+                want = gx.xwin_selectors_plain(rules, n_in)
+                require(all(torch.equal(a, c) for a, c in zip(got, want)),
+                        'selectors of %s %s %s: kernel != plain'
+                        % (tag, key, kind))
+                require(int(got[2]) == 0, '%s %s %s: %d taps outside their '
+                        'window' % (tag, key, kind, int(got[2])))
+                n_books += 1
+                if (tag, key, kind) == ('eval', 'subm2', 'fwd'):
+                    ms = cuda_ms(lambda: sparse.xwin_selectors(rules, n_in),
+                                 20)
+                    plain_ms = cuda_ms(lambda: gx.xwin_selectors_plain(
+                        rules, n_in), 5)
+                    stats['xwin_selectors'] = {
+                        'err': 0.0, 'ms': ms, 'plain_ms': plain_ms,
+                        'work': (0, rules.numel() * 4 + 2 * got[0].numel() * 4)}
+    print('[xwin X1] selectors: kernel == plain on %d books (eval and train, '
+          'forward and mirrored / transposed), no tap dropped; subm2 B2: '
+          'kernel %.4f ms, plain %.4f ms' % (
+              n_books, stats['xwin_selectors']['ms'],
+              stats['xwin_selectors']['plain_ms']))
+    fwd_cases = (('conv2_1', eval_books['subm2'], 32, 32),
+                 ('conv3_0', eval_books['spconv3'], 32, 64),
+                 ('conv3_0 transposed', bwd_book(eval_books['spconv3'],
+                                                 False), 64, 32))
+    for name, case, cin, cout in fwd_cases:
+        rules, n_in, _, out_mask = case
+        b, v_out, k = rules.shape
+        base, sel, clamped = sparse.xwin_selectors(rules, n_in)
+        require(int(clamped) == 0, '%s: %d taps outside their window'
+                % (name, int(clamped)))
+        feats = rand_table(gen, case, cin, dev)
+        w32 = (torch.rand((k, cin, cout), generator=gen) * 2 - 1).to(dev)
+        w32 /= (cin * k) ** 0.5
+        live = out_mask.sum(1, dtype=torch.int32)
+        mid = torch.minimum(live, torch.full_like(live, 64 * 37 + 21))
+        all_miss = (rules == n_in).all(-1)
+        for dtype, tag in ((torch.float32, 'f32'), (torch.bfloat16, 'bf16')):
+            table, w = feats.to(dtype), w32.to(dtype)
+            rows_out = gg.gather_gemm(table, rules, w, live)
+            for variant, s in (('xwin', 0), ('seg', gx.SEG_S),
+                               ('seg', SEG_SMALL)):
+                errs, scale, want_tiles = [], 0.0, [0, 0]
+                gx.reset_seg_tiles()
+                for n_live in (live, mid, torch.zeros_like(live)):
+                    if variant == 'xwin':
+                        got = gx.gather_gemm_xwin(table, base, sel, w, n_live)
+                        want = gx.gather_gemm_xwin_plain(table, base, sel, w,
+                                                         n_live)
+                    else:
+                        got = gx.gather_gemm_seg(table, base, sel, w, n_live,
+                                                 s=s)
+                        want = gx.gather_gemm_seg_plain(table, base, sel, w,
+                                                        n_live, s=s)
+                        for i, n in enumerate(expected_tiles(base, sel,
+                                                             n_live, s)):
+                            want_tiles[i] += n
+                    sync()
+                    errs.append((got - want).abs().max().item())
+                    scale = max(scale, want.abs().max().item())
+                    rows = torch.arange(v_out, device=dev)[None]
+                    require(not bool(got[rows >= n_live[:, None]].any())
+                            and not bool(got[all_miss].any()),
+                            '%s %s %s: a dead or all-miss row is not zero'
+                            % (name, variant, tag))
+                err = max(errs)
+                require(err <= 1e-5 * scale, '%s %s %s S=%d: kernel vs plain '
+                        '%g > 1e-5 * %g' % (name, variant, tag, s, err, scale))
+                msg = ''
+                if variant == 'seg':
+                    got_tiles = gx.seg_tiles()
+                    got_tiles = [got_tiles['segment'], got_tiles['window']]
+                    require(got_tiles == want_tiles, '%s %s S=%d: tiles %s, '
+                            'the descriptors say %s' % (name, tag, s,
+                                                        got_tiles, want_tiles))
+                    tiles_seen = [a + c for a, c in zip(tiles_seen,
+                                                        got_tiles)]
+                    msg = '; (tile, group)s by segment / window %d / %d' % (
+                        tuple(got_tiles))
+                fn = (gx.gather_gemm_xwin if variant == 'xwin' else
+                      (lambda *a, s=s: gx.gather_gemm_seg(*a, s=s)))
+                same_as_b = bool(torch.equal(fn(table, base, sel, w, live),
+                                             rows_out))
+                print('[xwin X1] %s %s %s%s (B=%d, V_out=%d, %d -> %d, live '
+                      '%s, mid %s, 0): max |kernel - plain| %.3g (%.3g of max '
+                      '|plain| %.4g); bitwise equal to kernel %s: %s%s' % (
+                          variant, tag, name, ' S=%d' % s if s else '', b,
+                          v_out, cin, cout, live.tolist(), mid.tolist(), err,
+                          err / scale, scale, 'C' if tag == 'bf16' else 'B',
+                          same_as_b, msg))
+                if name == 'conv2_1' and s != SEG_SMALL:
+                    key = 'gather_gemm_%s_%s' % (variant, tag)
+                    ms = cuda_ms(lambda: fn(table, base, sel, w, live), 20)
+                    plain = (gx.gather_gemm_xwin_plain if variant == 'xwin'
+                             else gx.gather_gemm_seg_plain)
+                    plain_ms = cuda_ms(lambda: plain(table, base, sel, w,
+                                                     live), 3, 1)
+                    stats[key] = {'err': err, 'ms': ms, 'plain_ms': plain_ms,
+                                  'work': gather_work(
+                                      table, rules, live, cout,
+                                      8 * base.shape[2],
+                                      w.numel() * w.element_size()
+                                      + 4 * b * v_out * cout)}
+                    print('[xwin X1] %s %s conv2_1: kernel %.4f ms, plain '
+                          '%.4f ms' % (variant, tag, ms, plain_ms))
+    for name, case, cin, cout in (('conv2_1', train_books['subm2'], 32, 32),
+                                  ('conv3_0', train_books['spconv3'], 32,
+                                   64)):
+        rules, n_in, _, out_mask = case
+        b, v_out, k = rules.shape
+        base, sel, clamped = sparse.xwin_selectors(rules, n_in)
+        require(int(clamped) == 0, 'train %s: %d taps outside their window'
+                % (name, int(clamped)))
+        feats = rand_table(gen, case, cin, dev)
+        g = torch.randn((b, v_out, cout), generator=gen).to(dev)
+        live = out_mask.sum(1, dtype=torch.int32)
+        mid = torch.minimum(live, torch.full_like(live, 64 * 37 + 21))
+        for variant, s in (('xwin', 0), ('seg', gx.SEG_S), ('seg', SEG_SMALL)):
+            fn = (gd.gather_dw_xwin if variant == 'xwin' else
+                  (lambda *a, s=s: gd.gather_dw_seg(*a, s=s)))
+            plain = (gd.gather_dw_xwin_plain if variant == 'xwin' else
+                     (lambda *a, s=s: gd.gather_dw_seg_plain(*a, s=s)))
+            errs, scale, want_tiles = [], 0.0, [0, 0]
+            gx.reset_seg_tiles()
+            for n_live in (live, mid, torch.zeros_like(live)):
+                got = fn(feats, base, sel, g, n_live)
+                again = fn(feats, base, sel, g, n_live)
+                want = plain(feats, base, sel, g, n_live)
+                if variant == 'seg':
+                    for i, n in enumerate(expected_tiles(base, sel, n_live,
+                                                         s)):
+                        want_tiles[i] += 2 * n
+                sync()
+                require(torch.equal(got, again), 'train %s: two launches of '
+                        '%s differ' % (name, variant))
+                errs.append((got - want).abs().max().item())
+                scale = max(scale, want.abs().max().item())
+            err = max(errs)
+            require(err <= 1e-4 * scale, 'train %s %s S=%d: kernel vs plain '
+                    '%g > 1e-4 * %g' % (name, variant, s, err, scale))
+            msg = ''
+            if variant == 'seg':
+                got_tiles = gx.seg_tiles()
+                got_tiles = [got_tiles['segment'], got_tiles['window']]
+                require(got_tiles == want_tiles, 'dW %s S=%d: tiles %s, the '
+                        'descriptors say %s' % (name, s, got_tiles,
+                                                want_tiles))
+                tiles_seen = [a + c for a, c in zip(tiles_seen, got_tiles)]
+                msg = '; (tile, group)s by segment / window %d / %d' % (
+                    tuple(got_tiles))
+            print('[xwin X1] dW %s %s%s (B=%d, V_out=%d, %d x %d): max |kernel'
+                  ' - plain| %.3g (%.3g of max |plain| %.4g; live %s, mid %s, '
+                  '0); bitwise repeatable%s' % (
+                      variant, name, ' S=%d' % s if s else '', b, v_out, cin,
+                      cout, err, err / scale, scale, live.tolist(),
+                      mid.tolist(), msg))
+            if name == 'conv2_1' and s != SEG_SMALL:
+                ms = cuda_ms(lambda: fn(feats, base, sel, g, live), 20)
+                plain_ms = cuda_ms(lambda: plain(feats, base, sel, g, live),
+                                   3, 1)
+                stats['gather_dw_' + variant] = {
+                    'err': err, 'ms': ms, 'plain_ms': plain_ms,
+                    'work': gather_work(feats, rules, live, cout,
+                                        8 * base.shape[2],
+                                        4 * cout * int(live.sum())
+                                        + 4 * k * cin * cout)}
+                print('[xwin X1] dW %s conv2_1: kernel %.4f ms, plain %.4f ms'
+                      % (variant, ms, plain_ms))
+    require(min(tiles_seen) > 0, 'a segment branch never ran: %s'
+            % tiles_seen)
+    return stats
+
+
+def xwin_detect(dev, cfg, pts2, mask2):
+    """X2: second.yaml detect at B2 under loads.fwd xwin and seg against the
+    rows run.  Returns the launches per LAUNCHES key."""
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    from pcdet_tpu_torch.ops import sparse
+    post = int(cfg.MODEL.TEST.NMS_POST_MAXSIZE_LAST)
+    det = second_detector(cfg, dev, sparse.ROWS)
+    det.detect(pts2, mask2)
+    ref = det.detect(pts2, mask2)
+    sync()
+    launches = {}
+    for fwd in ('xwin', 'seg'):
+        det = second_detector(cfg, dev, sparse.Loads(fwd, 'rows'))
+        det.detect(pts2, mask2)                      # warm-up
+        sync()
+        reset_launches()
+        preds = det.detect(pts2, mask2)
+        sync()
+        counts = nonzero(all_launches())
+        tiles = gx.seg_tiles()
+        launches.update(counts)
+        num = second_detect_checks(preds, post, 2)
+        clamped = {k: int(v) for k, v in
+                   det.model.module.rpn_net.xwin_clamped.items()}
+        same = torch.equal(preds['num'], ref['num'])
+        box_err = ((preds['boxes'] - ref['boxes']).abs().max().item()
+                   if same else float('inf'))
+        print('[xwin X2] detect B2 (%s sparse stack) loads.fwd=%s: num %s '
+              '(rows %s), max |box - rows box| %.3g; launches %s; segment / '
+              'window (tile, group)s %d / %d; dropped taps %s' % (
+                  det.model.module.compute_dtype or torch.float32, fwd, num, ref['num'].tolist(), box_err, counts,
+                  tiles['segment'], tiles['window'], clamped))
+        expect = forward_launches(det.loads, det.model.module.compute_dtype)
+        require(counts == expect, 'launches %s, want %s' % (counts, expect))
+        require(same and box_err <= 1e-3, 'loads.fwd=%s: boxes differ from '
+                'the rows run (%s vs %s, %g)' % (fwd, num,
+                                                 ref['num'].tolist(), box_err))
+        require(not any(clamped.values()), 'dropped taps %s' % clamped)
+    return launches
+
+
+def sparse_dw(trainer, batch):
+    """The 12 sparse convs' dW of one step (no optimizer step)."""
+    from pcdet_tpu_torch.train import train_state
+    _, _, grads = train_state.loss_and_grads(trainer.model,
+                                             trainer.state.params, batch)
+    names = [n for n, _ in trainer.model.module.named_parameters()]
+    return {n[8:-9]: g for n, g in zip(names, grads)
+            if n.startswith('rpn_net.') and n.endswith('.0.weight')}
+
+
+def xwin_train(dev, cfg, pts, mask, gt, steps=5):
+    """X3: training at B2 under (xwin, xwin), (seg, seg) and the default
+    loads; one B1 step's dW against the rows step's.  Returns the launches
+    per LAUNCHES key of the window runs."""
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    from pcdet_tpu_torch.ops import sparse
+    from pcdet_tpu_torch.train.trainer import build_trainer
+    choices = [sparse.Loads('xwin', 'xwin'), sparse.Loads('seg', 'seg')]
+    if sparse.DEFAULT_LOADS not in choices:
+        choices.append(sparse.DEFAULT_LOADS)
+    launches = {}
+    for loads in choices:
+        trainer = build_trainer(cfg, dev, seed=0, total_steps=50, loads=loads)
+        batch = trainer.make_batch(pts[:2].contiguous(), mask[:2].contiguous(),
+                                   gt[:2])
+        trainer.step(batch)                          # warm-up
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        losses = [trainer.step(batch)['loss'].item() for _ in range(steps)]
+        sync()
+        wall = time.perf_counter() - t0
+        counts = nonzero(all_launches())
+        tiles = gx.seg_tiles()
+        clamped = {k: int(v) for k, v in
+                   trainer.model.module.rpn_net.xwin_clamped.items()}
+        if loads in choices[:2]:
+            launches.update(counts)
+        print('[xwin X3] train B2 loads %s: %d steps in %.2f s, loss %s; '
+              'launches %s; segment / window (tile, group)s %d / %d; dropped '
+              'taps %s' % (tuple(loads), steps, wall,
+                           ', '.join('%.5f' % x for x in losses), counts,
+                           tiles['segment'], tiles['window'], clamped))
+        expect = forward_launches(loads, torch.float32, steps, train=True)
+        require(counts == expect, 'launches %s, want %s' % (counts, expect))
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                'loads %s: losses %s' % (tuple(loads), losses))
+        require(not any(clamped.values()), 'dropped taps %s' % clamped)
+        del trainer, batch
+    ref = None
+    for loads in [sparse.ROWS] + choices:
+        trainer = build_trainer(cfg, dev, seed=0, total_steps=50, loads=loads)
+        dw = sparse_dw(trainer, trainer.make_batch(pts[:1].contiguous(),
+                                                   mask[:1].contiguous(),
+                                                   gt[:1]))
+        if ref is None:
+            ref = dw
+            continue
+        errs = {k: (dw[k] - ref[k]).abs().max().item()
+                / ref[k].abs().max().item() for k in ref}
+        print('[xwin X3] B1 step, sparse conv dW under loads %s vs rows, max '
+              'error / max |dW|: %s' % (tuple(loads), ', '.join(
+                  '%s %.2e' % x for x in errs.items())))
+        require(len(errs) == 12 and max(errs.values()) <= 1e-3,
+                'loads %s: dW vs rows %s' % (tuple(loads), errs))
+    return launches
+
+
+def xwin_times(dev, cfg, eval_books, train_books, pts, mask, gt):
+    """X4: kernel times per kw=3 conv at B2 and the selector builds; detect
+    and train under each loads choice at B2 and B8."""
+    from pcdet_tpu_torch.ops import gather_dw as gd
+    from pcdet_tpu_torch.ops import gather_gemm as gg
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    from pcdet_tpu_torch.ops import sparse
+    from pcdet_tpu_torch.train.trainer import build_trainer
+    gen = torch.Generator(device='cpu').manual_seed(5)
+    sums = {}
+
+    def add(key, ms):
+        sums[key] = sums.get(key, 0.0) + ms
+
+    cache = {}
+    for conv, key, cin, cout in KW3_CONVS:
+        subm = key.startswith('subm')
+        if (key, cin, cout) not in cache:
+            row = {}
+            for books, tag in ((eval_books, 'eval'), (train_books, 'train')):
+                case = books[key]
+                rules, n_in, _, out_mask = case
+                base, sel, _ = sparse.xwin_selectors(rules, n_in)
+                live = out_mask.sum(1, dtype=torch.int32)
+                feats = rand_table(gen, case, cin, dev)
+                w = ((torch.rand((27, cin, cout), generator=gen) * 2 - 1)
+                     / (27 * cin) ** 0.5).to(dev)
+                dts = ((torch.bfloat16, 'bf16'),) if tag == 'eval' else (
+                    (torch.float32, 'f32'),)
+                for dtype, t in dts:
+                    tb, wb = feats.to(dtype), w.to(dtype)
+                    row['fwd_%s rows' % t] = cuda_ms(
+                        lambda: gg.gather_gemm(tb, rules, wb, live), 10)
+                    row['fwd_%s xwin' % t] = cuda_ms(
+                        lambda: gx.gather_gemm_xwin(tb, base, sel, wb, live),
+                        10)
+                    row['fwd_%s seg' % t] = cuda_ms(
+                        lambda: gx.gather_gemm_seg(tb, base, sel, wb, live),
+                        10)
+                if tag == 'eval':
+                    row['fwd plain'] = cuda_ms(
+                        lambda: gg.gather_gemm_plain(feats, rules, w, live),
+                        2, 1)
+                    continue
+                g = torch.randn((rules.shape[0], rules.shape[1], cout),
+                                generator=gen).to(dev)
+                row['dw rows'] = cuda_ms(
+                    lambda: gd.gather_dw(feats, rules, g, live), 10)
+                row['dw xwin'] = cuda_ms(
+                    lambda: gd.gather_dw_xwin(feats, base, sel, g, live), 10)
+                row['dw seg'] = cuda_ms(
+                    lambda: gd.gather_dw_seg(feats, base, sel, g, live), 10)
+                row['dw plain'] = cuda_ms(
+                    lambda: gd.gather_dw_plain(feats, rules, g, live), 2, 1)
+                if conv == 'conv_input':       # no feature gradient
+                    continue
+                bcase = bwd_book(case, subm)
+                brules, bn_in, _, bout = bcase
+                bb, bs, _ = sparse.xwin_selectors(brules, bn_in)
+                blive = bout.sum(1, dtype=torch.int32)
+                g_table = rand_table(gen, bcase, cout, dev)
+                wt = w.transpose(1, 2).contiguous()
+                row['dgrad rows'] = cuda_ms(lambda: gg.gather_gemm(
+                    g_table, brules, wt, blive, dgrad=True), 10)
+                row['dgrad xwin'] = cuda_ms(lambda: gx.gather_gemm_xwin(
+                    g_table, bb, bs, wt, blive), 10)
+                row['dgrad seg'] = cuda_ms(lambda: gx.gather_gemm_seg(
+                    g_table, bb, bs, wt, blive), 10)
+            cache[(key, cin, cout)] = row
+        row = cache[(key, cin, cout)]
+        for k, ms in row.items():
+            if not (conv == 'conv_input' and k.startswith('dgrad')):
+                add(k, ms)
+        print('[xwin X4] %-10s %-7s %2d -> %-3d %s' % (
+            conv, key, cin, cout, ', '.join('%s %.4f' % x
+                                            for x in row.items())))
+    print('[xwin X4] sums over the 11 kw=3 convs (ms, B2): %s' % ', '.join(
+        '%s %.4f' % x for x in sums.items()))
+    for direction, keys in (('detect forward (bf16)', ('fwd_bf16',)),
+                            ('train forward + feature gradient (f32)',
+                             ('fwd_f32', 'dgrad')),
+                            ('train dW', ('dw',))):
+        tot = {v: sum(sums['%s %s' % (k, v)] for k in keys)
+               for v in ('rows', 'xwin', 'seg')}
+        print('[xwin X4] %s: rows %.4f ms, xwin %.4f ms (%+.1f%%), seg %.4f '
+              'ms (%+.1f%%)' % (direction, tot['rows'], tot['xwin'],
+                                100 * (tot['xwin'] / tot['rows'] - 1),
+                                tot['seg'], 100 * (tot['seg'] / tot['rows']
+                                                    - 1)))
+    # the per-step book work each choice adds: selectors of the 7 kw=3
+    # books, the mirrored books' (4) and the transposed books' (3)
+    keys = ('subm1', 'spconv2', 'subm2', 'spconv3', 'subm3', 'spconv4',
+            'subm4')
+
+    def selectors_fwd():
+        return [sparse.xwin_selectors(*train_books[k][:2]) for k in keys]
+
+    def selectors_bwd():
+        out = []
+        for k in keys:
+            rules, n_in = train_books[k][:2]
+            base, sel, _ = sparse.xwin_selectors(rules, n_in)
+            if k.startswith('subm'):
+                out.append(sparse.mirror_xwin(base, sel))
+            else:
+                n_out = rules.shape[1]
+                out.append(sparse.xwin_selectors(
+                    sparse.transpose_rules(rules, n_in, n_out), n_out))
+        return out
+    def selectors_plain():
+        return [gx.xwin_selectors_plain(*train_books[k][:2]) for k in keys]
+    print('[xwin X4] selector builds per step at B2 (train books): forward '
+          '%.4f ms (by PyTorch ops %.4f ms), forward + backward books %.4f '
+          'ms; mirrored books (rows) %.4f ms' % (
+              cuda_ms(selectors_fwd, 10), cuda_ms(selectors_plain, 10),
+              cuda_ms(selectors_bwd, 10),
+              cuda_ms(lambda: [train_books[k][0].flip(-1)
+                               for k in keys if 'subm' in k], 10)))
+
+    # end to end: detect under each loads.fwd, in two passes
+    dets = {fwd: second_detector(cfg, dev, sparse.Loads(fwd, 'rows'))
+            for fwd in ('rows', 'xwin', 'seg')}
+    for b in (2, 8):
+        p, m = pts[:b].contiguous(), mask[:b].contiguous()
+        for order in (('rows', 'xwin', 'seg'), ('seg', 'xwin', 'rows')):
+            for fwd in order:
+                det = dets[fwd]
+                det.detect(p, m)
+                sync()
+                runs = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    for _ in range(5):
+                        det.detect(p, m)
+                    sync()
+                    runs.append(1e3 * (time.perf_counter() - t0) / 5)
+                module = det.model.module
+                with torch.inference_mode():
+                    vox = det.voxelize(p, m)
+                    books = det.books(vox)
+                    feats = module.vfe(vox['voxels'],
+                                       vox['num_points_per_voxel'],
+                                       vox['coordinates'], vox['voxel_mask'])
+                    level = sparse.from_voxelizer(
+                        feats, vox['coordinates'], vox['voxel_mask'],
+                        module.sparse_shape)
+                    backbone = cuda_ms(lambda: module.rpn_net(
+                        level, books, module.compute_dtype), 5)
+                ms = sorted(runs)[1]
+                print('[xwin X4 B%d] detect loads.fwd=%s: %.2f frames/s (ms '
+                      'per batch %s); backbone %.3f ms (CUDA events)' % (
+                          b, fwd, 1e3 * b / ms, ', '.join('%.2f' % x
+                                                          for x in runs),
+                          backbone))
+    del dets
+    # end to end: the prebuilt train step under each loads choice
+    choices = (sparse.ROWS, sparse.Loads('xwin', 'rows'),
+               sparse.Loads('seg', 'rows'), sparse.Loads('rows', 'xwin'),
+               sparse.Loads('rows', 'seg'))
+    for b in (2, 8):
+        for loads in choices:
+            trainer = build_trainer(cfg, dev, seed=0, total_steps=50,
+                                    loads=loads)
+            batch = trainer.make_batch(pts[:b].contiguous(),
+                                       mask[:b].contiguous(), gt[:b])
+            trainer.step(batch)
+            sync()
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    trainer.step(batch)
+                sync()
+                runs.append(1e3 * (time.perf_counter() - t0) / 3)
+            split = train_step_split(trainer, batch, 3)
+            ms = sorted(runs)[1]
+            print('[xwin X4 B%d] train loads %s: prebuilt step %.2f ms (%.2f '
+                  'samples/s; %s); forward + loss %.2f ms, backward %.2f ms, '
+                  'optimizer %.2f ms (CUDA events)' % (
+                      b, tuple(loads), ms, 1e3 * b / ms,
+                      ', '.join('%.2f' % x for x in runs), split['forward'],
+                      split['backward'], split['optimizer']))
+            del trainer, batch
+    sync()
+
+
+def run_xwin(dev, cfg):
+    """Phases X1-X4; returns the JSON entries of E, E', D'' and D'."""
+    from pcdet_tpu_torch.ops import sparse
+    from pcdet_tpu_torch.train.trainer import build_trainer, make_train_scans
+    pts_np, mask_np, gt_np = make_train_scans(cfg, 8, ring_keep=0.35)
+    pts = torch.as_tensor(pts_np, device=dev)
+    mask = torch.as_tensor(mask_np, device=dev)
+    pts2, mask2 = pts[:2].contiguous(), mask[:2].contiguous()
+
+    det = second_detector(cfg, dev, sparse.ROWS)
+    with torch.inference_mode():
+        vox = det.voxelize(pts2, mask2)
+        books = det.books(vox)
+    eval_books = level_books(books, det.model.host_book_spec(det.max_voxels),
+                             det.max_voxels, vox['voxel_mask'])
+    trainer = build_trainer(cfg, dev, seed=0, loads=sparse.ROWS)
+    batch = trainer.make_batch(pts2, mask2, gt_np[:2])
+    train_books = level_books(
+        batch['books'], trainer.model.host_book_spec(trainer.max_voxels,
+                                                     train=True),
+        trainer.max_voxels, batch['voxel_mask'])
+    del det, trainer
+
+    stats = xwin_vs_plain(dev, eval_books, train_books)          # X1
+    launches = xwin_detect(dev, cfg, pts2, mask2)                # X2
+    launches.update(xwin_train(dev, cfg, pts, mask, gt_np))      # X3
+    xwin_times(dev, cfg, eval_books, train_books, pts, mask, gt_np)  # X4
+
+    entries = []
+    for name in ('gather_gemm_xwin_f32', 'gather_gemm_xwin_bf16',
+                 'gather_gemm_seg_f32', 'gather_gemm_seg_bf16',
+                 'gather_dw_xwin', 'gather_dw_seg', 'xwin_selectors'):
+        st = stats[name]
+        n = launches.get(name, 0) + launches.get(name + '_dgrad', 0)
+        require(n > 0, '%s: no launch on its main path' % name)
+        base = name.rsplit('_', 1)[0] if 'gemm' in name else name
+        entries.append(kernel_entry(
+            name, DW_SRC if 'dw' in name else GEMM_SRC, REPLACES[base], n,
+            st['err'], st['ms'], st['plain_ms'], st['work']))
+    return entries
 
 
 def main():
@@ -888,11 +1624,11 @@ def main():
               file=sys.stderr)
         return 2
 
-    from pcdet_tpu import native
     from pcdet_tpu_torch import detect as detect_mod
-    from pcdet_tpu_torch.ops import cuda_build, rotated_iou
+    from pcdet_tpu_torch.ops import cuda_build, host_books, rotated_iou
     from pcdet_tpu_torch.ops import gather_dw as gd
     from pcdet_tpu_torch.ops import gather_gemm as gg
+    from pcdet_tpu_torch.ops import gather_xwin as gx
     from pcdet_tpu_torch.ops import rotated_overlap as ro
 
     dev = torch.device('cuda')
@@ -909,17 +1645,48 @@ def main():
 
     # 1. build: every kernel (one nvcc each) and the host book builder at once
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        jobs = [pool.submit(ro.build), pool.submit(gg.build),
-                pool.submit(gd.build), pool.submit(native.get_lib)]
-        native_lib = [j.result() for j in jobs][3]
+    builds = (ro.build, gg.build, gd.build, gx.build, gd.build_xwin,
+              host_books.native_lib)
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        jobs = [pool.submit(fn) for fn in builds]
+        native_lib = [j.result() for j in jobs][-1]
     print('[build] all builds: %.2f s wall; native host book builder: %s'
-          % (time.perf_counter() - t0,
-             'built' if native_lib is not None else 'MISSING (numpy path)'))
+          % (time.perf_counter() - t0, host_books._NATIVE.get('path')))
+    require(native_lib is not None, 'the host book builder did not build: %s'
+            % host_books.native_error())
+    # the port's native books are pcdet_tpu's: the numpy builders (the
+    # same algorithm as pcdet_tpu's numpy oracle) agree wherever a tap is
+    # found, on a small batch of sorted coords
+    rng = np.random.RandomState(0)
+    shape = (9, 40, 40)
+    ids = np.stack([np.sort(rng.choice(np.prod(shape), 700, replace=False))
+                    for _ in range(2)])
+    crd = np.stack([ids // (shape[1] * shape[2]), (ids // shape[2]) % shape[1],
+                    ids % shape[2]], -1).astype(np.int32)
+    crd[1, 600:] = -1
+    spec = host_books.encoder_spec(shape, (768, 512, 384, 256), (1, 0, 0))
+    books = [host_books.upload_books(build(crd, crd[..., 0] >= 0, shape,
+                                           spec), spec, 700, 'cpu')
+             for build in (host_books.build_books_batch,
+                           host_books.build_books_batch_np)]
+    for key, book in books[0].items():
+        other = books[1][key]
+        for a, b in zip(*((book, other) if isinstance(book, tuple)
+                          else ((book,), (other,)))):
+            require(torch.equal(a, b), 'native and numpy book %s differ' % key)
+    print('[build] native host books == numpy host books on %d keys'
+          % len(books[0]))
     log = cuda_build.BUILD_LOG['rotated_overlap']
     print('[build] rotated_overlap.cu: %.2f s (cached=%s)'
           % (log['seconds'], log['cached']))
     print_ptxas('rotated_overlap.cu', log)
+    for lib in ('gather_gemm_xwin', 'gather_dw_xwin'):
+        log = cuda_build.BUILD_LOG[lib]
+        print('[build] %s.cu: %.2f s (cached=%s); %s' % (
+            lib, log['seconds'], log['cached'], '; '.join(
+                '%s<%s> %d regs, %d B spilled' % tuple(r)
+                for r in ptxas_entries(log))
+            or 'ptxas report empty (library reused)'))
 
     # 2. kernel vs plain, on the card -------------------------------------
     rng = np.random.RandomState(0)
@@ -955,6 +1722,9 @@ def main():
         lambda: ro.pair_overlap_batched_plain(corners_a, corners_b), 20)
     print('[kernel] G=2 M=64 N=4096: kernel %.4f ms, plain %.4f ms'
           % (kernel_ms, plain_ms))
+    a_work = (A_OPS_PER_PAIR * corners_a.shape[0] * corners_a.shape[1]
+              * corners_b.shape[1],
+              4 * (corners_a.numel() + corners_b.numel() + got.numel()))
     sync()
 
     # 3. full-width detect at B2 through the kernel -----------------------
@@ -1090,17 +1860,13 @@ def main():
     dw_entry, b_train = run_train(
         dev, detect_mod.load_config(detect_mod.SECOND_CFG))
     second[0].update(b_train)
+    xwin = run_xwin(dev, detect_mod.load_config(detect_mod.SECOND_CFG))
 
-    print(json.dumps({'kernels': [{
-        'name': 'rotated_overlap',
-        'route': 'cuda',
-        'source': 'pcdet_tpu_torch/csrc/rotated_overlap.cu',
-        'replaces': 'pcdet_tpu/ops/pallas/rotated_overlap.py:280',
-        'launches': launches_b2,
-        'max_abs_err': max_abs_err,
-        'ms': kernel_ms,
-        'plain_ms': plain_ms,
-    }] + second + [dw_entry]}))
+    print(json.dumps({'kernels': [kernel_entry(
+        'rotated_overlap', 'pcdet_tpu_torch/csrc/rotated_overlap.cu',
+        'pcdet_tpu/ops/pallas/rotated_overlap.py:280', launches_b2,
+        max_abs_err, kernel_ms, plain_ms, a_work)] + second + [dw_entry]
+        + xwin}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -28,8 +28,9 @@
 // one __fmaf_rn per product.  Row groups (kThreads / micro-tiles of them)
 // are summed through shared memory in a fixed order, and the block writes
 // one partial (Cin x Cout) for its (sample, chunk, tap).  Pass 2 sums the
-// partials per output element in a fixed order (sample, then chunk).  No
-// atomics: two launches on the same inputs give the same bits.
+// partials per output element in a fixed order (sample, then chunk;
+// gather_common.cuh's sum_partials, shared with D'' and D').  No atomics:
+// two launches on the same inputs give the same bits.
 //
 // What bounds it: per row a thread does TI * TO FMAs for TI + TO shared
 // loads, as in kernel B; g is re-read from L2 once per tap (27x for a
@@ -37,13 +38,12 @@
 // (n_chunks * K * Cin * Cout floats per sample).  Staging g once per block
 // for every tap, wgmma on the (Cin x rows) x (rows x Cout) products and a
 // persistent grid are later work.
-#include <cuda_runtime.h>
+#include "gather_common.cuh"
 
 namespace {
 
 constexpr int kRows = 64;          // rows per staged sub-tile
 constexpr int kThreads = 256;
-constexpr int kReduceThreads = 256;
 
 template <int CIN, int COUT>
 struct Cfg {
@@ -157,17 +157,6 @@ gather_dw_partial(const float* __restrict__ feats, const int* __restrict__ rules
   }
 }
 
-// out[e] = sum_p partial[p, e] for p = 0 .. n_parts-1 in order.
-__global__ void __launch_bounds__(kReduceThreads)
-sum_partials(const float* __restrict__ partial, float* __restrict__ out,
-             int n_parts, int n_elems) {
-  const int e = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (e >= n_elems) return;
-  float s = partial[e];
-  for (int p = 1; p < n_parts; ++p) s += partial[static_cast<long long>(p) * n_elems + e];
-  out[e] = s;
-}
-
 template <int CIN, int COUT>
 int launch(const float* feats, const int* rules, const float* g,
            const int* n_live, float* partial, float* out, int b, int v_in1,
@@ -182,11 +171,8 @@ int launch(const float* feats, const int* rules, const float* g,
       feats, rules, g, n_live, partial, v_in1, v_out, k_taps, chunk_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_elems = k_taps * CIN * COUT;
-  sum_partials<<<(n_elems + kReduceThreads - 1) / kReduceThreads,
-                 kReduceThreads, 0, stream>>>(partial, out, b * n_chunks,
-                                              n_elems);
-  return static_cast<int>(cudaGetLastError());
+  return gather_common::launch_sum_partials(partial, out, b * n_chunks,
+                                            k_taps * CIN * COUT, stream);
 }
 
 }  // namespace

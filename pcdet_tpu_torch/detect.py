@@ -11,16 +11,17 @@ runs voxelize_torch -> PointPillarNet (VFE, scatter, RPNV2) -> predict
 (masked top-k, decode of the survivors, batched rotated NMS).  SECOND's
 (`load_config(SECOND_CFG)`) runs voxelize_torch on the device, one copy of
 the coords to the host, the host rulebook build, one upload of the books,
-SECONDNetModule (MeanVFE, BackBone8x sparse convs, RPNV2) and predict.
+SECONDNetModule (MeanVFE, BackBone8x sparse convs, RPNV2) and predict;
+`build_detector(cfg, device, loads=ops.sparse.Loads(fwd, dw))` chooses the
+sparse convs' load strategy (`ops.sparse.DEFAULT_LOADS` unless given).
 """
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from pcdet_tpu.config import cfg_from_yaml_file
-from pcdet_tpu.datasets.synthetic import make_scene
-
+from .config import cfg_from_yaml_file
+from .datasets.synthetic import make_scene
 from .models.pointpillar import PointPillar
 from .models.second import SECONDNet
 from .ops.voxelizer import grid_size, voxelize_torch
@@ -61,7 +62,7 @@ class Detector:
     so every device gets the same weights)."""
     model_class = PointPillar
 
-    def __init__(self, cfg, device, seed=0):
+    def __init__(self, cfg, device, seed=0, **model_args):
         data_cfg = cfg.DATA_CONFIG
         self.voxel_size = tuple(data_cfg.VOXEL_GENERATOR.VOXEL_SIZE)
         self.pc_range = tuple(data_cfg.POINT_CLOUD_RANGE)
@@ -71,7 +72,7 @@ class Detector:
         gen = torch.Generator().manual_seed(seed)
         self.model = self.model_class(
             cfg, grid_size(self.voxel_size, self.pc_range), device=device,
-            generator=gen)
+            generator=gen, **model_args)
         self.device = self.model.device
 
     def voxelize(self, points, point_mask):
@@ -89,8 +90,17 @@ class Detector:
 
 class SecondDetector(Detector):
     """SECOND with random weights from `seed`; the sparse backbone runs over
-    rulebooks built on the host from the voxelizer's coords."""
+    rulebooks built on the host from the voxelizer's coords, its kw=3 convs
+    by `loads` (`ops.sparse.Loads`)."""
     model_class = SECONDNet
+
+    def __init__(self, cfg, device, seed=0, loads=None):
+        super().__init__(cfg, device, seed, loads=loads)
+
+    @property
+    def loads(self):
+        """The backbone's `ops.sparse.Loads` (its default when given None)."""
+        return self.model.module.rpn_net.loads
 
     def books(self, vox):
         """One device -> host copy of the coords (the mask is coords >= 0),
@@ -114,11 +124,19 @@ class SecondDetector(Detector):
         return self.model.predict(self.model.forward(batch))
 
 
-def build_detector(cfg, device, seed=0):
-    """PointPillar or SECOND by `cfg.MODEL.NAME`."""
+def build_detector(cfg, device, seed=0, loads=None):
+    """PointPillar or SECOND by `cfg.MODEL.NAME`.
+
+    :param loads: SECOND's `ops.sparse.Loads` (None: the backbone's
+        default, `ops.sparse.DEFAULT_LOADS`);
+        PointPillar has no sparse convs and takes none
+    """
     name = cfg.MODEL.NAME          # the names pcdet_tpu.models.build takes
     if name in ('SECOND', 'second_net'):
-        return SecondDetector(cfg, device, seed)
+        return SecondDetector(cfg, device, seed, loads)
+    if loads is not None:
+        raise ValueError('loads apply to SECOND\'s sparse convs, not %r'
+                         % name)
     if name == 'PointPillar':
         return Detector(cfg, device, seed)
     raise ValueError('no port of model %r' % cfg.MODEL.NAME)

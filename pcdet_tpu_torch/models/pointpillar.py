@@ -1,15 +1,14 @@
 """PointPillar detector (eval): PillarVFE -> BEV scatter -> RPNV2 -> predict.
 
 Twin of `pcdet_tpu.models.pointpillar` (`PointPillarNet` and the
-`PointPillar` wrapper).  Anchors come from
-`pcdet_tpu.models.anchors.AnchorHeadTargets` (numpy, framework-free).
+`PointPillar` wrapper).  Anchors come from `models/anchors.py`
+(`AnchorHeadTargets`, numpy).
 """
 import torch
 import torch.nn as nn
 
-from pcdet_tpu.models.anchors import AnchorHeadTargets
-
 from ..utils.box_coder import ResidualCoder
+from .anchors import AnchorHeadTargets
 from .detector3d import post_process_from_head
 from .layers import init_weights
 from .pillar_scatter import pillar_scatter

@@ -5,18 +5,18 @@ Twin of `pcdet_tpu.models.second` (`SECONDNetModule` and the `SECONDNet`
 wrapper).  The sparse backbone runs over host-built rulebooks
 (`ops/host_books.py`) that `forward` takes from the batch: `books`, decoded
 on the device, or the loader's `hb_*` wire arrays.  Anchors and the
-training targets come from `pcdet_tpu.models.anchors.AnchorHeadTargets`
-(numpy, framework-free).  `train_mode()` / `eval_mode()` switch the caps,
-the compute dtypes and BN between the two, as `train=` does in JAX.
+training targets come from `models/anchors.py` (`AnchorHeadTargets`,
+numpy, on the host).  `train_mode()` / `eval_mode()` switch the caps, the
+compute dtypes and BN between the two, as `train=` does in JAX.  `loads`
+(`ops/sparse.Loads`) chooses how the sparse convs load their rows.
 """
 import numpy as np
 import torch
 import torch.nn as nn
 
-from pcdet_tpu.models.anchors import AnchorHeadTargets
-
 from ..ops import host_books, sparse
 from ..utils.box_coder import ResidualCoder
+from .anchors import AnchorHeadTargets
 from .backbones3d import BackBone8x, effective_dtype, resolve_caps
 from .detector3d import merge_overflow_tb, post_process_from_head
 from .layers import init_weights
@@ -28,14 +28,15 @@ class SECONDNetModule(nn.Module):
     """voxels + books -> NHWC head outputs, BEV and per-level drops."""
 
     def __init__(self, num_class, num_anchors_per_location, sparse_shape,
-                 last_pad, num_point_features, backbone_args, rpn_args):
+                 last_pad, num_point_features, backbone_args, rpn_args,
+                 loads=None):
         super().__init__()
         self.sparse_shape = tuple(sparse_shape)
         self.train_dtype = effective_dtype(backbone_args, train=True)
         self.eval_dtype = effective_dtype(backbone_args, train=False)
         a = rpn_args
         self.vfe = MeanVFE()
-        self.rpn_net = BackBone8x(num_point_features, last_pad)
+        self.rpn_net = BackBone8x(num_point_features, last_pad, loads)
         bev_channels = 128 * BackBone8x.out_depth(sparse_shape, last_pad)
         bf16 = str(a.get('compute_dtype_test', '')) == 'bfloat16'
         self.rpn_head = RPNV2(
@@ -72,9 +73,14 @@ class SECONDNetModule(nn.Module):
 
 
 class SECONDNet:
-    """Detector wrapper: module + anchors + host book spec + predict."""
+    """Detector wrapper: module + anchors + host book spec + predict.
 
-    def __init__(self, cfg, grid_size, device='cpu', generator=None):
+    :param loads: `ops.sparse.Loads` of the backbone's kw=3 convs (None:
+        `BackBone8x`'s default)
+    """
+
+    def __init__(self, cfg, grid_size, device='cpu', generator=None,
+                 loads=None):
         self.cfg = cfg
         self.class_names = list(cfg.CLASS_NAMES)
         self.num_class = len(self.class_names)
@@ -98,7 +104,8 @@ class SECONDNet:
             num_anchors_per_location=targets.num_anchors_per_location,
             sparse_shape=self.sparse_shape, last_pad=self.last_pad,
             num_point_features=int(cfg.DATA_CONFIG.NUM_POINT_FEATURES['use']),
-            backbone_args=self.backbone_args, rpn_args=self.head_args)
+            backbone_args=self.backbone_args, rpn_args=self.head_args,
+            loads=loads)
         if generator is not None:
             init_weights(self.module, generator)
             self.module.rpn_head.init_focal_bias(0.01)

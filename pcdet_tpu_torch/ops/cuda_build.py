@@ -2,8 +2,10 @@
 
 Each library has a plain C interface (no PyTorch headers), so nvcc takes
 seconds.  Libraries go to `build/pcdet_tpu_torch/` at the repository root,
-named by a hash of their sources and flags, so an edited source rebuilds and
-an unchanged one is reused.  Nothing here runs at import time.
+named by a hash of their sources, the shared headers (`csrc/*.cuh`) and
+the flags, so an edited source rebuilds and an unchanged one is reused.
+`check_operands` holds the operand contract the C entries share.  Nothing
+here runs at import time.
 """
 import ctypes
 import hashlib
@@ -12,6 +14,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'pcdet_tpu_torch'
@@ -41,7 +45,7 @@ def load_library(name, sources):
     cache the loaded library."""
     paths = [CSRC_DIR / s for s in sources]
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + sorted(CSRC_DIR.glob('*.cuh')):
         h.update(p.read_bytes())
     lib_path = BUILD_DIR / ('lib%s-%s.so' % (name, h.hexdigest()[:16]))
     t0 = time.perf_counter()
@@ -70,3 +74,20 @@ def check(lib, rc):
         msg = lib.pcdet_cuda_error_string(rc)
         raise RuntimeError('CUDA launch failed: %d %s' % (
             rc, msg.decode() if msg else '?'))
+
+
+def check_operands(int32, others):
+    """The operand contract of every C entry: the (name, tensor) pairs of
+    `int32` are int32 (else TypeError); those and the pairs of `others`
+    lie on one device and are contiguous (else ValueError)."""
+    for name, t in int32:
+        if t.dtype != torch.int32:
+            raise TypeError('%s must be int32, got %s' % (name, t.dtype))
+    named = list(others) + list(int32)
+    devices = {t.device for _, t in named}
+    if len(devices) != 1:
+        raise ValueError('tensors on different devices: %s' % sorted(
+            str(d) for d in devices))
+    for name, t in named:
+        if not t.is_contiguous():
+            raise ValueError('%s must be contiguous' % name)

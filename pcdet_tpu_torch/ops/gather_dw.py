@@ -1,30 +1,36 @@
-"""Weight gradient of the rulebook sparse convolutions (kernel D).
+"""Weight gradient of the rulebook sparse convolutions (kernels D, D″, D′).
 
     dW[k] = sum_b sum_{v < n_live[b]} feats[b, rules[b, v, k]] (outer) g[b, v]
 
-`gather_dw` replaces `pcdet_tpu.ops.pallas.gather_gemm.gather_dw` (D) and
-computes what its segment- and window-load variants `gather_dw_seg` (D′)
-and `gather_dw_xwin` (D″) compute.  JAX vmaps those per sample and sums
-the weight's cotangent; here the kernel sums over the batch itself.  On a
-CUDA tensor it launches the hand-written kernel `csrc/gather_dw.cu` (built
-with nvcc at first use) or raises; on a CPU tensor it computes the plain
-version, `gather_dw_plain`.  There is no fallback from the one to the other.
+`gather_dw` (D) replaces `pcdet_tpu.ops.pallas.gather_gemm.gather_dw`: per
+tap, it loads each output row's table row.  For a kw=3 book given as
+x-window selectors (`ops/gather_xwin.xwin_selectors`), `gather_dw_xwin`
+(D″, replacing `gather_dw_xwin`) loads each row's 3-row window once per
+tap group, and `gather_dw_seg` (D′, replacing `gather_dw_seg`) loads a
+64-row tile's whole span once per tap group where it is at most `s` rows,
+the windows where it is not.  JAX vmaps those per sample and sums the
+weight's cotangent; here each kernel sums over the batch itself.  On a
+CUDA tensor each launches its hand-written kernel (`csrc/gather_dw.cu`,
+`csrc/gather_dw_xwin.cu`, nvcc at first use) or raises; on a CPU tensor it
+computes its plain version: `gather_dw_plain`, and for D″ / D′ the same
+over the rules rebuilt from the selectors (and the segment descriptors).
+There is no fallback from the one to the other.
 
-The kernel writes one partial per (sample, row chunk, tap) and sums them in
-a fixed order in a second launch: two calls on the same inputs give the
-same bits.
+Each kernel writes one partial per (sample, row chunk, tap or tap group)
+and sums them in a fixed order in a second launch: two calls on the same
+inputs give the same bits.
 
-`LAUNCHES` counts kernel launches, so a run can show that its path went
-through the kernel.
+`LAUNCHES` counts kernel launches per variant, so a run can show that its
+path went through the kernels.
 """
 import ctypes
 import functools
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, gather_xwin
 
-LAUNCHES = {'gather_dw': 0}
+LAUNCHES = {'gather_dw': 0, 'gather_dw_xwin': 0, 'gather_dw_seg': 0}
 # (Cin, Cout) of the kernel's instances: the forward pairs of BackBone8x
 PAIRS = ((4, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64), (64, 128))
 MAX_TAPS = 64
@@ -32,6 +38,9 @@ _ROWS = 64                   # the kernel's sub-tile; chunks are multiples
 _MAX_CHUNK_TILES = 32
 _TARGET_BLOCKS = 4 * 132     # a few blocks per SM of an H100
 _SOURCES = ('gather_dw.cu',)
+_XWIN_SOURCES = ('gather_dw_xwin.cu',)
+# (Cin, Cout) of the window and segment instances: the kw=3 convs' pairs
+XWIN_PAIRS = PAIRS[:-1]
 
 
 @functools.cache
@@ -75,22 +84,14 @@ def _check(feats, rules, g, n_live):
                                                      torch.float64):
         raise TypeError('feats and g must be float32 (float64 on the CPU), '
                         'got %s and %s' % (feats.dtype, g.dtype))
-    if rules.dtype != torch.int32 or n_live.dtype != torch.int32:
-        raise TypeError('rules and n_live must be int32, got %s and %s'
-                        % (rules.dtype, n_live.dtype))
-    devices = {t.device for t in (feats, rules, g, n_live)}
-    if len(devices) != 1:
-        raise ValueError('tensors on different devices: %s' % sorted(
-            str(d) for d in devices))
-    for name, t in (('feats', feats), ('rules', rules), ('g', g),
-                    ('n_live', n_live)):
-        if not t.is_contiguous():
-            raise ValueError('%s must be contiguous' % name)
+    cuda_build.check_operands((('rules', rules), ('n_live', n_live)),
+                              (('feats', feats), ('g', g)))
 
 
 def chunk_rows(b, v_out, k):
-    """Rows per block of the kernel's first pass: enough chunks that the
-    (chunk, tap, sample) grid fills the card, at most 32 sub-tiles each."""
+    """Rows per block of a kernel's first pass: enough chunks that the
+    (chunk, tap or tap group, sample) grid fills the card, at most 32
+    sub-tiles each."""
     tiles = -(-v_out // _ROWS)
     n_chunks = -(-_TARGET_BLOCKS // (k * b))
     per_chunk = max(1, min(_MAX_CHUNK_TILES, -(-tiles // n_chunks)))
@@ -140,3 +141,95 @@ def gather_dw(feats, rules, g, n_live):
     cuda_build.check(lib, rc)
     LAUNCHES['gather_dw'] += 1
     return out
+
+
+@functools.cache
+def build_xwin():
+    """Build (or reuse) and load D″ and D′'s library; returns it."""
+    lib = cuda_build.load_library('gather_dw_xwin', _XWIN_SOURCES)
+    fn = lib.pcdet_gather_dw_xwin
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 \
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.pcdet_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pcdet_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def gather_dw_xwin_plain(feats, base, sel, g, n_live):
+    """D″'s plain version: `gather_dw_plain` over `rules_from_xwin`."""
+    return gather_dw_plain(feats, gather_xwin.rules_from_xwin(
+        base, sel, feats.shape[1] - 1), g, n_live)
+
+
+def gather_dw_seg_plain(feats, base, sel, g, n_live, s=gather_xwin.SEG_S):
+    """D′'s plain version: `gather_dw_plain` over the rules rebuilt from
+    `segment_desc` and the selectors."""
+    anchor, ok, seloff = gather_xwin.segment_desc(base, sel,
+                                                  gather_xwin.TILE, s)
+    rules = gather_xwin.rules_from_segment(anchor, ok, seloff, base, sel,
+                                           feats.shape[1] - 1)
+    return gather_dw_plain(feats, rules, g, n_live)
+
+
+def _dw_window(seg, feats, base, sel, g, n_live, s):
+    gather_xwin.check_selectors(feats, base, sel, None, n_live, g, 'g')
+    if feats.dtype != g.dtype or feats.dtype not in (torch.float32,
+                                                     torch.float64):
+        raise TypeError('feats and g must be float32 (float64 on the CPU), '
+                        'got %s and %s' % (feats.dtype, g.dtype))
+    if seg and not 1 <= s <= gather_xwin.SEG_MISS - 1:
+        raise ValueError('segment rows must be in 1..%d, got %d'
+                         % (gather_xwin.SEG_MISS - 1, s))
+    if feats.device.type == 'cpu':
+        if seg:
+            return gather_dw_seg_plain(feats, base, sel, g, n_live, s)
+        return gather_dw_xwin_plain(feats, base, sel, g, n_live)
+    if feats.device.type != 'cuda':
+        raise ValueError('unsupported device %s' % feats.device)
+    if feats.dtype != torch.float32:
+        raise TypeError('no float64 kernel: float64 runs on the CPU only')
+    b, v_out, groups = base.shape
+    cin, cout = feats.shape[2], g.shape[2]
+    if (cin, cout) not in XWIN_PAIRS:
+        raise ValueError('no kernel instance for Cin=%d, Cout=%d (pairs %s)'
+                         % (cin, cout, XWIN_PAIRS))
+    k = 3 * groups
+    out = torch.empty((k, cin, cout), dtype=torch.float32, device=feats.device)
+    if b == 0 or v_out == 0:
+        return out.zero_()
+    rows = chunk_rows(b, v_out, groups)
+    n_chunks = -(-v_out // rows)
+    partial = torch.empty((b, n_chunks, k, cin, cout), dtype=torch.float32,
+                          device=feats.device)
+    counter = gather_xwin.tally(feats.device)
+    lib = build_xwin()
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pcdet_gather_dw_xwin(
+            int(seg), feats.data_ptr(), base.data_ptr(), sel.data_ptr(),
+            g.data_ptr(), n_live.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), counter.data_ptr(), b, feats.shape[1], v_out,
+            groups, cin, cout, rows, s, stream)
+    cuda_build.check(lib, rc)
+    LAUNCHES['gather_dw_seg' if seg else 'gather_dw_xwin'] += 1
+    return out
+
+
+def gather_dw_xwin(feats, base, sel, g, n_live):
+    """Kernel D″.
+
+    :param feats: (B, V_in + 1, Cin) f32 (f64 on the CPU, a reference);
+        row V_in of every sample is zeros
+    :param base, sel: (B, V_out, G) int32 selectors of a kw=3 book
+    :param g: (B, V_out, Cout) gradient of the conv's output, feats' dtype
+    :param n_live: (B,) int32 live output rows (a prefix); rows past it
+        contribute nothing
+    :return: (3G, Cin, Cout) in feats' dtype, summed over the batch
+    """
+    return _dw_window(False, feats, base, sel, g, n_live, 0)
+
+
+def gather_dw_seg(feats, base, sel, g, n_live, s=gather_xwin.SEG_S):
+    """Kernel D′: `gather_dw_xwin`'s contract, `s` segment rows (1..1022)."""
+    return _dw_window(True, feats, base, sel, g, n_live, s)

@@ -82,17 +82,8 @@ def _check(feats, rules, weights, n_live):
     if weights.dtype != feats.dtype:
         raise TypeError('weights (%s) must have the dtype of feats (%s)'
                         % (weights.dtype, feats.dtype))
-    if rules.dtype != torch.int32 or n_live.dtype != torch.int32:
-        raise TypeError('rules and n_live must be int32, got %s and %s'
-                        % (rules.dtype, n_live.dtype))
-    devices = {t.device for t in (feats, rules, weights, n_live)}
-    if len(devices) != 1:
-        raise ValueError('tensors on different devices: %s' % sorted(
-            str(d) for d in devices))
-    for name, t in (('feats', feats), ('rules', rules), ('weights', weights),
-                    ('n_live', n_live)):
-        if not t.is_contiguous():
-            raise ValueError('%s must be contiguous' % name)
+    cuda_build.check_operands((('rules', rules), ('n_live', n_live)),
+                              (('feats', feats), ('weights', weights)))
 
 
 def gather_gemm(feats, rules, weights, n_live, dgrad=False):

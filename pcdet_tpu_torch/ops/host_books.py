@@ -1,24 +1,329 @@
-"""Host-built sparse-conv rulebooks, uploaded and decoded for the port.
+"""Sparse-conv rulebooks built on the host, uploaded and decoded for the port.
 
-The books are built by `pcdet_tpu.ops.host_books` (numpy, with its native
-C++ builders through `pcdet_tpu.native`; neither imports jax) from the
-voxelizer's sorted coords, in the compact wire format of `hb_*` arrays:
-rows uint16 (B, V, K) per sample, the found taps as one uint32 bitmask per
-output row, and for a strided conv its output set (ids, coords, mask) and
-drop count.  `upload_books` moves a batch's books to the device in ONE
-copy and decodes them there into the gather-GEMM's rules: (B, V_out, K)
-int32, misses routed to the input level's zero row V_in.
+The books (which input row feeds which output row at which kernel tap) are
+integer metadata of a batch's sorted voxel coords.  `build_books_batch`
+builds them from the coords the voxelizer copies to the host, by the
+native C++ builders of `csrc/host_books_native.cpp` (g++ at first use into
+`build/pcdet_tpu_torch/`, ctypes), or by the numpy builders here where the
+library cannot be built or the masks are not prefixes.  Both give the
+books `pcdet_tpu.ops.host_books` gives, bit for bit, in its compact wire
+format of `hb_*` arrays: rows uint16 (B, V, K) per sample, the found taps
+as one uint32 bitmask per output row, and for a strided conv its output
+set (ids, coords, mask) and drop count.  Taps are in `_kernel_offsets`
+order, x fastest, so the three x-taps of a (dz, dy) pair are consecutive
+(`ops/sparse.xwin_selectors` relies on it).
+
+`upload_books` moves a batch's books to the device in ONE copy and decodes
+them there into the gather-GEMM's rules: (B, V_out, K) int32, misses
+routed to the input level's zero row V_in.
 """
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import torch
 
-from pcdet_tpu.ops import host_books as _books
+from .cuda_build import BUILD_DIR, CSRC_DIR
 
-encoder_spec = _books.encoder_spec
-build_books_batch = _books.build_books_batch
+INT_MAX = np.iinfo(np.int32).max
 
+_SUBM_FIELDS = ('rows', 'fnd')
 _STRIDED_FIELDS = ('ids', 'crd', 'msk', 'drp', 'rows', 'fnd')
 _ALIGN = 16
+_NATIVE_SRC = 'host_books_native.cpp'
+_GXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
+_NATIVE = {}          # 'lib': the loaded library or None, 'error': why not
+
+
+def _triple(x):
+    if isinstance(x, (tuple, list)):
+        return tuple(int(v) for v in x)
+    return (int(x),) * 3
+
+
+def _linearize(coords, shape):
+    _, h, w = shape
+    return (coords[..., 0].astype(np.int64) * h
+            + coords[..., 1].astype(np.int64)) * w + coords[..., 2]
+
+
+def _kernel_offsets(kernel):
+    """Tap order of every book: (dz, dy, dx) with dx fastest."""
+    kd, kh, kw = kernel
+    return np.asarray([(i, j, l) for i in range(kd) for j in range(kh)
+                       for l in range(kw)], dtype=np.int64)
+
+
+def _out_shape(shape, kernel, stride, padding):
+    return tuple((shape[i] + 2 * padding[i] - kernel[i]) // stride[i] + 1
+                 for i in range(3))
+
+
+# --------------------------------------------------------------- native ---
+
+def native_lib():
+    """Build (once per source hash) and load the native book builders;
+    None where g++ fails, with the reason in `native_error()`."""
+    if 'lib' in _NATIVE:
+        return _NATIVE['lib']
+    src = CSRC_DIR / _NATIVE_SRC
+    h = hashlib.sha256(' '.join(_GXX_FLAGS).encode() + src.read_bytes())
+    path = BUILD_DIR / ('libhost_books-%s.so' % h.hexdigest()[:16])
+    lib, error = None, None
+    try:
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_name('%s.tmp%d' % (path.name, os.getpid()))
+            cmd = ['g++', *_GXX_FLAGS, '-fopenmp', '-o', str(tmp), str(src)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:               # again without OpenMP
+                cmd.remove('-fopenmp')
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError('g++ failed (%d): %s' % (proc.returncode,
+                                                            proc.stderr))
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(str(path))
+        i32p = ctypes.POINTER(ctypes.c_int)
+        u16p = ctypes.POINTER(ctypes.c_uint16)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        lib.subm_books_batch.argtypes = (
+            [i32p, i32p] + [ctypes.c_int] * 8 + [u16p, u32p])
+        lib.subm_books_batch.restype = None
+        lib.strided_books_batch.argtypes = (
+            [i32p, i32p] + [ctypes.c_int] * 15 + [i32p] * 4 + [u16p, u32p])
+        lib.strided_books_batch.restype = None
+    except (OSError, RuntimeError) as e:
+        lib, error = None, str(e)
+    _NATIVE.update(lib=lib, error=error, path=Path(path))
+    return lib
+
+
+def native_error():
+    """Why the native builders are unavailable (None if they are built)."""
+    native_lib()
+    return _NATIVE['error']
+
+
+def _ptr(a, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _subm_native(lib, coords, n_valid, shape):
+    b, v, _ = coords.shape
+    k = 27
+    assert v < 65536, v
+    rows = np.empty((b, v, k), np.uint16)
+    found = np.empty((b, v), np.uint32)
+    lib.subm_books_batch(_ptr(coords, ctypes.c_int), _ptr(n_valid, ctypes.c_int),
+                         b, v, *shape, 3, 3, 3, _ptr(rows, ctypes.c_uint16),
+                         _ptr(found, ctypes.c_uint32))
+    return rows, found
+
+
+def _strided_native(lib, coords, n_valid, shape, kernel, stride, padding,
+                    out_cap):
+    b, v, _ = coords.shape
+    k = int(np.prod(kernel))
+    assert v < 65536 and k <= 32 and out_cap < 65536, (v, k, out_cap)
+    out_ids = np.empty((b, out_cap), np.int32)
+    out_coords = np.empty((b, out_cap, 3), np.int32)
+    out_n = np.empty((b,), np.int32)
+    dropped = np.empty((b,), np.int32)
+    rows = np.empty((b, out_cap, k), np.uint16)
+    found = np.empty((b, out_cap), np.uint32)
+    i32 = ctypes.c_int
+    lib.strided_books_batch(
+        _ptr(coords, i32), _ptr(n_valid, i32), b, v, *shape, *kernel,
+        *stride, *padding, int(out_cap), _ptr(out_ids, i32),
+        _ptr(out_coords, i32), _ptr(out_n, i32), _ptr(dropped, i32),
+        _ptr(rows, ctypes.c_uint16), _ptr(found, ctypes.c_uint32))
+    return out_ids, out_coords, out_n, dropped, rows, found
+
+
+def _build_books_batch_native(lib, coords_b, mask_b, sparse_shape, spec):
+    flat = {}
+    shape = tuple(int(s) for s in sparse_shape)
+    cur = np.ascontiguousarray(coords_b, dtype=np.int32)
+    n_valid = np.ascontiguousarray(mask_b.sum(axis=1), dtype=np.int32)
+    for op in spec:
+        if op[0] == 'subm':
+            flat['hb_%s_rows' % op[1]], flat['hb_%s_fnd' % op[1]] = \
+                _subm_native(lib, cur, n_valid, shape)
+            continue
+        _, key, kernel, stride, padding, cap = op
+        kernel, stride, padding = (_triple(kernel), _triple(stride),
+                                   _triple(padding))
+        out_ids, out_coords, out_n, dropped, rows, fnd = _strided_native(
+            lib, cur, n_valid, shape, kernel, stride, padding, int(cap))
+        flat['hb_%s_ids' % key] = out_ids
+        flat['hb_%s_crd' % key] = out_coords
+        flat['hb_%s_msk' % key] = out_ids < INT_MAX
+        flat['hb_%s_drp' % key] = dropped
+        flat['hb_%s_rows' % key] = rows
+        flat['hb_%s_fnd' % key] = fnd
+        cur, n_valid = out_coords, out_n
+        shape = _out_shape(shape, kernel, stride, padding)
+    return flat
+
+
+# ---------------------------------------------------------------- numpy ---
+
+def subm_book_np(coords, mask, shape, kernel=(3, 3, 3)):
+    """Subm book of one sample: rows (V, K) int32, found (V, K) bool."""
+    kernel = _triple(kernel)
+    v = coords.shape[0]
+    ids = np.where(mask, _linearize(coords, shape), np.int64(INT_MAX))
+    center = np.asarray([k // 2 for k in kernel], np.int64)
+    eoffs = _kernel_offsets(kernel) - center                   # (K, 3)
+    _, h, w = shape
+    lin_off = (eoffs[:, 0] * h + eoffs[:, 1]) * w + eoffs[:, 2]
+    nc = coords[None, :, :].astype(np.int64) + eoffs[:, None, :]  # (K, V, 3)
+    inb = np.all((nc >= 0) & (nc < np.asarray(shape, np.int64)), axis=-1)
+    q = ids[None, :] + lin_off[:, None]                           # (K, V)
+    idx = np.searchsorted(ids, q).astype(np.int64)
+    idx_c = np.minimum(idx, v - 1)
+    found = (idx < v) & (np.take(ids, idx_c) == q) & inb & mask[None, :]
+    rows = np.clip(idx_c, 0, v - 1).astype(np.int32)
+    return np.ascontiguousarray(rows.T), np.ascontiguousarray(found.T)
+
+
+def strided_book_np(coords, mask, shape, kernel, stride, padding, out_cap):
+    """Strided conv output set and forward book of one sample: out_ids (O,)
+    int32, out_coords (O, 3) int32, out_mask (O,), dropped () int32, rows
+    (O, K) int32, found (O, K) bool."""
+    kernel, stride, padding = _triple(kernel), _triple(stride), _triple(padding)
+    v = coords.shape[0]
+    _, kh, kw = kernel
+    out_shape = _out_shape(shape, kernel, stride, padding)
+    ncand = tuple(-(-kernel[i] // stride[i]) for i in range(3))
+    i_c = coords.astype(np.int64)
+    o_lo = [-(-(i_c[:, d] + padding[d] - kernel[d] + 1) // stride[d])
+            for d in range(3)]
+    o_hi = [(i_c[:, d] + padding[d]) // stride[d] for d in range(3)]
+    in_row = np.arange(v, dtype=np.int64)
+    cand_ids, cand_origin = [], []
+    for dz in range(ncand[0]):
+        for dy in range(ncand[1]):
+            for dx in range(ncand[2]):
+                oz, oy, ox = o_lo[0] + dz, o_lo[1] + dy, o_lo[2] + dx
+                val = ((oz <= o_hi[0]) & (oy <= o_hi[1]) & (ox <= o_hi[2])
+                       & (oz >= 0) & (oy >= 0) & (ox >= 0)
+                       & (oz < out_shape[0]) & (oy < out_shape[1])
+                       & (ox < out_shape[2]) & mask)
+                oid = (oz * out_shape[1] + oy) * out_shape[2] + ox
+                tz = i_c[:, 0] + padding[0] - oz * stride[0]
+                ty = i_c[:, 1] + padding[1] - oy * stride[1]
+                tx = i_c[:, 2] + padding[2] - ox * stride[2]
+                cand_ids.append(np.where(val, oid, np.int64(INT_MAX)))
+                cand_origin.append(((tz * kh + ty) * kw + tx) * v + in_row)
+    cand_ids = np.concatenate(cand_ids)
+    cand_origin = np.concatenate(cand_origin)
+    order = np.argsort(cand_ids, kind='stable')
+    cs, co = cand_ids[order], cand_origin[order]
+    valid = cs < INT_MAX
+    first = np.empty_like(valid)
+    first[:1] = valid[:1]
+    first[1:] = (cs[1:] != cs[:-1]) & valid[1:]
+    run_rank = np.cumsum(first) - 1                  # out row per candidate
+    dropped = np.int32(max(int(first.sum()) - out_cap, 0))
+    out_ids = np.full((out_cap,), INT_MAX, np.int64)
+    sel = first & (run_rank < out_cap)
+    out_ids[run_rank[sel]] = cs[sel]
+    out_mask = out_ids < INT_MAX
+    out_coords = np.full((out_cap, 3), -1, np.int32)
+    plane = out_shape[1] * out_shape[2]
+    full = np.stack([out_ids // plane, (out_ids % plane) // out_shape[2],
+                     out_ids % out_shape[2]], axis=-1)
+    out_coords[out_mask] = full[out_mask]
+    k_total = int(np.prod(kernel))
+    rows = np.zeros((out_cap, k_total), np.int32)
+    found = np.zeros((out_cap, k_total), bool)
+    keep = valid & (run_rank < out_cap)
+    rows[run_rank[keep], co[keep] // v] = (co[keep] % v).astype(np.int32)
+    found[run_rank[keep], co[keep] // v] = True
+    return (out_ids.astype(np.int32), out_coords, out_mask, dropped, rows,
+            found)
+
+
+def _pack_found(found):
+    """(.., K) bool -> (..,) uint32, bit t = tap t."""
+    k = found.shape[-1]
+    bits = (found.astype(np.uint32)
+            << np.arange(k, dtype=np.uint32)).sum(axis=-1, dtype=np.uint64)
+    return bits.astype(np.uint32)
+
+
+def _books_sample_np(coords, mask, sparse_shape, spec):
+    """One sample's books in the wire format, by the numpy builders."""
+    flat = {}
+    shape = tuple(int(s) for s in sparse_shape)
+    for op in spec:
+        if op[0] == 'subm':
+            rows, found = subm_book_np(coords, mask, shape)
+            flat['hb_%s_rows' % op[1]] = rows.astype(np.uint16)
+            flat['hb_%s_fnd' % op[1]] = _pack_found(found)
+            continue
+        _, key, kernel, stride, padding, cap = op
+        out_ids, coords, mask, dropped, rows, found = strided_book_np(
+            coords, mask, shape, kernel, stride, padding, int(cap))
+        for name, arr in zip(_STRIDED_FIELDS, (
+                out_ids, coords, mask, np.int32(dropped),
+                rows.astype(np.uint16), _pack_found(found))):
+            flat['hb_%s_%s' % (key, name)] = np.asarray(arr)
+        shape = _out_shape(shape, _triple(kernel), _triple(stride),
+                           _triple(padding))
+    return flat
+
+
+# ------------------------------------------------------------------ API ---
+
+def encoder_spec(sparse_shape, caps, last_pad):
+    """Book spec of BackBone8x's encoder geometry.
+
+    :param caps: resolved per-level caps (conv2, conv3, conv4, conv_out)
+    :return: ordered op list of ('subm', key) |
+        ('spconv', key, kernel, stride, padding, cap)
+    """
+    return [
+        ('subm', 'subm1'),
+        ('spconv', 'spconv2', (3, 3, 3), (2, 2, 2), (1, 1, 1), caps[0]),
+        ('subm', 'subm2'),
+        ('spconv', 'spconv3', (3, 3, 3), (2, 2, 2), (1, 1, 1), caps[1]),
+        ('subm', 'subm3'),
+        ('spconv', 'spconv4', (3, 3, 3), (2, 2, 2), (0, 1, 1), caps[2]),
+        ('subm', 'subm4'),
+        ('spconv', 'convout', (3, 1, 1), (2, 1, 1), _triple(last_pad),
+         caps[3]),
+    ]
+
+
+def build_books_batch_np(coords_b, mask_b, sparse_shape, spec):
+    """`build_books_batch` by the numpy builders, sample by sample."""
+    m = np.asarray(mask_b).astype(bool)
+    per = [_books_sample_np(np.asarray(coords_b)[i], m[i], sparse_shape, spec)
+           for i in range(m.shape[0])]
+    return {k: np.stack([p[k] for p in per]) for k in per[0]}
+
+
+def build_books_batch(coords_b, mask_b, sparse_shape, spec):
+    """Every book of `spec` for a batch, in the wire format ('hb_*' arrays):
+    by the native builders where the masks are prefixes and the library
+    builds, else by `build_books_batch_np`.
+
+    :param coords_b: (B, V, 3) int32 ZYX sorted by linear id, -1 padded
+    :param mask_b: (B, V) bool live voxels
+    """
+    coords_b, mask_b = np.asarray(coords_b), np.asarray(mask_b)
+    m = mask_b.astype(bool)
+    lib = native_lib()
+    if lib is not None and bool(np.all(m[:, :-1] >= m[:, 1:])):
+        return _build_books_batch_native(lib, coords_b, mask_b, sparse_shape,
+                                         spec)
+    return build_books_batch_np(coords_b, m, sparse_shape, spec)
 
 
 def wire_arrays(flat, spec):
@@ -28,7 +333,7 @@ def wire_arrays(flat, spec):
     out = []
     for op in spec:
         key = op[1]
-        fields = ('rows', 'fnd') if op[0] == 'subm' else _STRIDED_FIELDS
+        fields = _SUBM_FIELDS if op[0] == 'subm' else _STRIDED_FIELDS
         for f in fields:
             a = np.asarray(flat['hb_%s_%s' % (key, f)])
             if a.dtype == np.uint16:

@@ -8,23 +8,65 @@ by the mask).  The rulebooks come from `ops/host_books.py` (the CLI
 default in `pcdet_tpu`); the device builders of `pcdet_tpu.ops.sparse`
 (`_rules_subm`, `_strided_out_set`) are not ported yet.
 
-Each conv is one launch of the gather-GEMM (`ops/gather_gemm.py`) for the
-whole batch, through `RulebookConv`, whose backward is two more kernel
-launches: the feature gradient is the gather-GEMM over the mirrored
-(subm) or transposed (strided) rulebook, the weight gradient is kernel D
-(`ops/gather_dw.py`).  On CPU tensors both run their plain versions, so the
-CPU tests hold the same backward formulas that the card runs.  Features
-stay f32 between layers; with compute_dtype bf16 a conv casts its input
-table to bf16 once (JAX rounds inside the conv too).
+Each conv is one launch of a gather-GEMM for the whole batch, through
+`RulebookConv`, whose backward is two more launches: the feature gradient
+is a gather-GEMM over the mirrored (subm) or transposed (strided)
+rulebook, the weight gradient a dW kernel.  `Loads` chooses how a conv
+whose kernel is 3 wide in x (`kw3`, every conv of BackBone8x but
+conv_out) loads its rows, as the JAX package's four load switches do
+(`PCDET_XWIN_FWD`, `PCDET_GATHER_SEG`, `PCDET_XWIN_DW`,
+`PCDET_GATHER_SEG_DW`): `fwd` for the forward and the feature gradient,
+`dw` for the weight gradient, each `rows` (kernels B / C and D: each row
+of each tap), `xwin` (E and D″: a 3-row window per tap group) or `seg` (E′
+and D′: a tile's span of windows per tap group).  The window kernels take
+the book as x-window selectors (`xwin_selectors`), built once per book
+and level.  On CPU tensors every kernel runs its plain version, so the CPU
+tests hold the same formulas that the card runs.  Features stay f32
+between layers; with compute_dtype bf16 a conv casts its input table to
+bf16 once (JAX rounds inside the conv too).
 """
 from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from pcdet_tpu.ops.host_books import INT_MAX
-
-from .gather_dw import gather_dw
+from .gather_dw import gather_dw, gather_dw_seg, gather_dw_xwin
 from .gather_gemm import gather_gemm
+# xwin_selectors and its inverse rules_from_xwin live beside kernels E / E′
+from .gather_xwin import (gather_gemm_seg, gather_gemm_xwin, rules_from_xwin,
+                          xwin_selectors)
+from .host_books import INT_MAX
+
+LOAD_CHOICES = ('rows', 'xwin', 'seg')
+
+
+class Loads(NamedTuple):
+    """How the kw=3 convs load rows: `fwd` for the forward and the feature
+    gradient, `dw` for the weight gradient; each in `LOAD_CHOICES`."""
+    fwd: str = 'rows'
+    dw: str = 'rows'
+
+    def check(self):
+        for name, v in zip(self._fields, self):
+            if v not in LOAD_CHOICES:
+                raise ValueError('loads.%s must be one of %s, got %r'
+                                 % (name, LOAD_CHOICES, v))
+        return self
+
+
+ROWS = Loads('rows', 'rows')
+# The model's default (`models/backbones3d.BackBone8x`, the one layer that
+# picks one): per direction the variant with the least kernel time
+# over BackBone8x's 11 kw=3 convs in chip_smoke.py's X4 on an H100 (PERF.md
+# §6): the forward's B / C beat E and E′, D′ beats D and D″.
+DEFAULT_LOADS = Loads('rows', 'seg')
+
+
+def mirror_xwin(base, sel):
+    """The selectors of the mirrored book `rules.flip(-1)` from those of
+    `rules`: group g of the mirror is group G-1-g with its x-taps
+    reversed, over the same window."""
+    s = sel.flip(-1)
+    return base.flip(-1), ((s & 3) << 4) | (s & 12) | ((s >> 4) & 3)
 
 
 class SparseLevel(NamedTuple):
@@ -90,96 +132,143 @@ def transpose_rules(rules, n_in, n_out):
     return torch.where((packed & 1) > 0, packed >> 1, n_out)
 
 
+def _gemm(loads_fwd, table, rules, xwin, weights, n_live, dgrad=False):
+    """One gather-GEMM by the chosen loads (`xwin` None: rows)."""
+    if xwin is None or loads_fwd == 'rows':
+        return gather_gemm(table, rules, weights, n_live, dgrad=dgrad)
+    fn = gather_gemm_xwin if loads_fwd == 'xwin' else gather_gemm_seg
+    return fn(table, *xwin, weights, n_live, dgrad=dgrad)
+
+
 class RulebookConv(torch.autograd.Function):
-    """out = gather_gemm(table, rules, W, n_live_out), differentiated by
-    gather-GEMMs and kernel D (`_gm_subm_bwd` and
+    """out = gather-GEMM(table, rules, W, n_live_out), differentiated by
+    gather-GEMMs and a dW kernel (`_gm_subm_bwd` and
     `_apply_rules_transpose_bwd` of `pcdet_tpu`):
 
-        d table = gather_gemm(g ‖ 0, bwd_rules, W^T, n_live_in)
-        dW      = gather_dw(table, rules, g, n_live_out)
+        d table = gather-GEMM(g ‖ 0, bwd_rules, W^T, n_live_in)
+        dW      = dW kernel(table, rules, g, n_live_out)
 
     `bwd_rules` is the mirrored book `rules.flip(-1)` for a subm conv (its
     tap-reversed book is its own transpose; outputs are its inputs, so
     n_live_in == n_live_out) and `transpose_rules(rules, ...)` for a
-    strided one; None builds it in the backward.  The feature gradient is
-    skipped when the table needs none (the input level's MeanVFE features
-    have no parameters behind them).
+    strided one; None builds it in the backward.  `xwin` / `bwd_xwin` are
+    the books' (base, sel) selectors for a kw=3 conv, None for rows loads
+    (or, for `bwd_xwin`, built in the backward); `loads.fwd` picks the
+    forward's and the feature gradient's kernel, `loads.dw` the weight
+    gradient's.  The feature gradient is skipped when the table needs none
+    (the input level's MeanVFE features have no parameters behind them).
     """
 
     @staticmethod
     def forward(ctx, table, weights, rules, n_live_out, n_live_in,
-                bwd_rules, subm):
+                bwd_rules, subm, loads, xwin, bwd_xwin):
+        base, sel = xwin if xwin is not None else (None, None)
+        bb, bs = bwd_xwin if bwd_xwin is not None else (None, None)
         ctx.save_for_backward(table, weights, rules, n_live_out, n_live_in,
-                              bwd_rules)
-        ctx.subm = subm
-        return gather_gemm(table, rules, weights, n_live_out)
+                              bwd_rules, base, sel, bb, bs)
+        ctx.subm, ctx.loads = subm, loads
+        return _gemm(loads.fwd, table, rules, xwin, weights, n_live_out)
 
     @staticmethod
     def backward(ctx, g):
-        table, weights, rules, n_live_out, n_live_in, bwd_rules = \
-            ctx.saved_tensors
+        (table, weights, rules, n_live_out, n_live_in, bwd_rules, base, sel,
+         bb, bs) = ctx.saved_tensors
+        loads = ctx.loads
+        kw3 = base is not None
         g = g.contiguous()
         d_table = d_w = None
         if ctx.needs_input_grad[0]:
             b, v_in1, cin = table.shape
-            n_in = v_in1 - 1
-            if bwd_rules is None:
+            n_in, n_out = v_in1 - 1, rules.shape[1]
+            bwd_xwin = (bb, bs) if bb is not None else None
+            if kw3 and loads.fwd != 'rows' and bwd_xwin is None:
+                bwd_xwin = (mirror_xwin(base, sel) if ctx.subm else
+                            xwin_selectors(transpose_rules(rules, n_in, n_out),
+                                           n_out)[:2])
+            if bwd_rules is None and (not kw3 or loads.fwd == 'rows'):
                 bwd_rules = (rules.flip(-1) if ctx.subm else
-                             transpose_rules(rules, n_in, rules.shape[1]))
+                             transpose_rules(rules, n_in, n_out))
             g_table = torch.cat([g.to(table.dtype),
                                  g.new_zeros((b, 1, g.shape[2]),
                                              dtype=table.dtype)], dim=1)
             w_t = weights.transpose(1, 2).to(table.dtype).contiguous()
-            df = gather_gemm(g_table, bwd_rules, w_t, n_live_in, dgrad=True)
+            df = _gemm(loads.fwd, g_table, bwd_rules,
+                       bwd_xwin if kw3 else None, w_t, n_live_in, dgrad=True)
             d_table = torch.cat([df.to(table.dtype),
                                  df.new_zeros((b, 1, cin), dtype=table.dtype)],
                                 dim=1)
         if ctx.needs_input_grad[1]:
-            d_w = gather_dw(table, rules, g, n_live_out).to(weights.dtype)
-        return d_table, d_w, None, None, None, None, None
+            if kw3 and loads.dw != 'rows':
+                fn = gather_dw_xwin if loads.dw == 'xwin' else gather_dw_seg
+                d_w = fn(table, base, sel, g, n_live_out)
+            else:
+                d_w = gather_dw(table, rules, g, n_live_out)
+            d_w = d_w.to(weights.dtype)
+        return d_table, d_w, None, None, None, None, None, None, None, None
 
 
-def _apply_rules(level, out_mask, rules, weights, compute_dtype, subm,
-                 bwd_rules=None):
+def _apply_rules(level, out_mask, rules, weights, compute_dtype, subm, loads,
+                 kw3, bwd_rules=None, xwin=None, bwd_xwin=None):
     """out = sum_k feats[rules[.., k]] @ W[k], masked; (B, V_out, Cout) f32.
 
     The input table gets its zero row (index V_in, where the books route
-    misses) and, for bf16, is cast once here."""
+    misses) and, for bf16, is cast once here.  A kw=3 conv whose loads are
+    not all `rows` builds its selectors here unless the caller shares
+    them (the weight gradient's only when one will be taken)."""
     features = level.features
-    b, _, cin = features.shape
+    b, v_in, cin = features.shape
     dtype = compute_dtype or features.dtype
     table = torch.cat([features.to(dtype),
                        features.new_zeros((b, 1, cin), dtype=dtype)], dim=1)
     n_live = out_mask.sum(dim=1, dtype=torch.int32)
     n_live_in = n_live if subm else level.mask.sum(dim=1, dtype=torch.int32)
+    loads = Loads(*loads).check()
+    dw_window = (loads.dw != 'rows' and torch.is_grad_enabled()
+                 and weights.requires_grad)
+    if not kw3 or (loads.fwd == 'rows' and not dw_window):
+        xwin = bwd_xwin = None
+    elif xwin is None:
+        xwin = xwin_selectors(rules, v_in)[:2]
     out = RulebookConv.apply(table, weights.to(dtype).contiguous(), rules,
-                             n_live, n_live_in, bwd_rules, subm)
+                             n_live, n_live_in, bwd_rules, subm, loads, xwin,
+                             bwd_xwin)
     return out * out_mask[..., None].to(out.dtype)
 
 
-def subm_conv3d(level, weights, rules, compute_dtype=None, mirror=None):
+def subm_conv3d(level, weights, rules, compute_dtype=None, mirror=None, *,
+                loads, kw3, xwin=None, mirror_xwin=None):
     """Submanifold conv: output sites == input sites.
 
     :param weights: (K, Cin, Cout) f32; :param rules: (B, V, K) int32 book
     :param mirror: `rules.flip(-1)` when the caller shares it between the
         convs of a level (training); None flips in the backward
+    :param loads: `Loads` (the model's choice; no default here); `kw3`:
+        the kernel is 3 wide in x, so `loads` apply
+    :param xwin, mirror_xwin: the selectors of `rules` and of the mirror
+        when the caller shares them; None builds them where needed
     """
     feats = _apply_rules(level, level.mask, rules, weights, compute_dtype,
-                         True, mirror)
+                         True, loads, kw3, mirror, xwin, mirror_xwin)
     return level._replace(features=feats, overflow=None)
 
 
 def sparse_conv3d(level, weights, book, kernel, stride, padding,
-                  compute_dtype=None):
+                  compute_dtype=None, *, loads, xwin=None, bwd_xwin=None):
     """Strided sparse conv: output sites = every position whose receptive
     field touches an active input, as the host book lists them.
 
     :param book: (out_ids, out_coords, out_mask, dropped, rules) from
         `ops.host_books.upload_books`
+    :param loads: `Loads` (the model's choice; no default here), for a
+        kernel 3 wide in x
+    :param xwin, bwd_xwin: the selectors of the rules and of the
+        transposed book when the caller built them; None builds them where
+        needed
     """
     out_ids, out_coords, out_mask, dropped, rules = book
     feats = _apply_rules(level, out_mask, rules, weights, compute_dtype,
-                         False)
+                         False, loads, _triple(kernel)[2] == 3, None, xwin,
+                         bwd_xwin)
     return SparseLevel(feats, out_ids, out_coords, out_mask,
                        conv_out_shape(level.shape, kernel, stride, padding),
                        overflow=dropped)

@@ -10,18 +10,20 @@
 `make_batch` does what the JAX loader and the train step's input side do,
 in order: voxelize_torch at the TRAIN voxel cap on the device; one copy of
 the coords to the host; the host rulebooks at the train level caps
-(`pcdet_tpu.ops.host_books`, native builder); the anchor targets per sample
-on the host (`pcdet_tpu.models.anchors.AnchorHeadTargets.assign`, as
+(`ops/host_books.py`, native builder); the anchor targets per sample
+on the host (`models/anchors.AnchorHeadTargets.assign`, as
 `pcdet_tpu.datasets.dataset` assigns them); one upload of books and
 targets.  `step` is `train_state.TrainState.train_step`: train-mode
-forward (masked-BN statistics, kernel B), anchor loss, backward (kernel B
-over the mirrored / transposed books, kernel D), adam_onecycle.
+forward (masked-BN statistics, the gather-GEMMs), anchor loss, backward
+(gather-GEMMs over the mirrored / transposed books, the dW kernels),
+adam_onecycle.  `loads` (`ops.sparse.Loads`) picks the kernels of the kw=3
+sparse convs: B / E / E′ for the forward and feature gradient, D / D″ / D′
+for the weight gradient.
 """
 import numpy as np
 import torch
 
-from pcdet_tpu.datasets.synthetic import make_scene
-
+from ..datasets.synthetic import make_scene
 from ..models.second import SECONDNet
 from ..ops import host_books
 from ..ops.voxelizer import grid_size, voxelize_torch
@@ -56,9 +58,11 @@ def make_train_scans(cfg, batch, ring_keep=1.0, num_objects=24):
 
 class Trainer:
     """SECOND, its optimizer and step count, with random weights from
-    `seed` (a CPU torch.Generator, so every device gets the same ones)."""
+    `seed` (a CPU torch.Generator, so every device gets the same ones) and
+    the kw=3 sparse convs' `loads`."""
 
-    def __init__(self, cfg, device, seed=0, total_steps=1):
+    def __init__(self, cfg, device, seed=0, total_steps=1,
+                 loads=None):
         data_cfg = cfg.DATA_CONFIG
         self.cfg = cfg
         self.voxel_size = tuple(data_cfg.VOXEL_GENERATOR.VOXEL_SIZE)
@@ -68,7 +72,8 @@ class Trainer:
         self.max_voxels = int(data_cfg.TRAIN.MAX_NUMBER_OF_VOXELS)
         self.model = SECONDNet(cfg, grid_size(self.voxel_size, self.pc_range),
                                device=device,
-                               generator=torch.Generator().manual_seed(seed))
+                               generator=torch.Generator().manual_seed(seed),
+                               loads=loads)
         self.model.train_mode()
         self.device = self.model.device
         params = list(self.model.module.parameters())
@@ -109,9 +114,10 @@ class Trainer:
         return self.state.train_step(batch)
 
 
-def build_trainer(cfg, device, seed=0, total_steps=1):
+def build_trainer(cfg, device, seed=0, total_steps=1, loads=None):
     """A SECOND trainer (`cfg.MODEL.NAME` SECOND / second_net); the OneCycle
-    schedules span `total_steps`."""
+    schedules span `total_steps`; `loads` (None: the backbone's default,
+    `sparse.DEFAULT_LOADS`) picks the sparse convs' kernels."""
     if cfg.MODEL.NAME not in ('SECOND', 'second_net'):
         raise ValueError('no training port of model %r' % cfg.MODEL.NAME)
-    return Trainer(cfg, device, seed, total_steps)
+    return Trainer(cfg, device, seed, total_steps, loads)

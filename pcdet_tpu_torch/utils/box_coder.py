@@ -1,11 +1,14 @@
-"""Box residual decode (SECOND encoding) on tensors.
+"""Box residual coder (SECOND encoding): decode on tensors, encode in numpy.
 
-Twin of the jnp half of `pcdet_tpu.utils.box_coder.ResidualCoder`
-(`decode_jnp`, `decode_with_head_direction`).  Box layout
-(x, y, z, w, l, h, r [, extras]) with z at the bottom center.
+Twin of `pcdet_tpu.utils.box_coder.ResidualCoder`: `decode` and
+`decode_with_head_direction` of its jnp half run on the device; `encode_np`
+is its numpy encode, which the host target assignment
+(`models/anchors.py`) calls.  Box layout (x, y, z, w, l, h, r [, extras])
+with z at the bottom center.
 """
 import math
 
+import numpy as np
 import torch
 
 from . import torch_common
@@ -14,6 +17,28 @@ from . import torch_common
 class ResidualCoder:
     def __init__(self, code_size=7):
         self.code_size = code_size
+
+    @staticmethod
+    def encode_np(boxes, anchors):
+        """(N, 7+) gt boxes vs (N, 7+) anchors -> (N, 7+) regression
+        targets, numpy."""
+        box_ndim = anchors.shape[-1]
+        xa, ya, za, wa, la, ha, ra = [anchors[..., i:i + 1] for i in range(7)]
+        xg, yg, zg, wg, lg, hg, rg = [boxes[..., i:i + 1] for i in range(7)]
+        cas = [anchors[..., i:i + 1] for i in range(7, box_ndim)]
+        cgs = [boxes[..., i:i + 1] for i in range(7, box_ndim)]
+        zg = zg + hg / 2
+        za = za + ha / 2
+        diagonal = np.sqrt(la ** 2 + wa ** 2)
+        xt = (xg - xa) / diagonal
+        yt = (yg - ya) / diagonal
+        zt = (zg - za) / ha
+        lt = np.log(lg / la)
+        wt = np.log(wg / wa)
+        ht = np.log(hg / ha)
+        rt = rg - ra
+        cts = [g - a for g, a in zip(cgs, cas)]
+        return np.concatenate([xt, yt, zt, wt, lt, ht, rt, *cts], axis=-1)
 
     @staticmethod
     def decode(box_encodings, anchors):

@@ -4,7 +4,7 @@ Mirrors the reference's setup.py role (version = 0.1.0+<git sha>).  No
 extension is compiled at install time: pcdet_tpu's device path is
 JAX/XLA/Pallas and its native host component (pcdet_tpu/native) is built by
 g++ at first use; pcdet_tpu_torch's CUDA kernels (pcdet_tpu_torch/csrc) are
-built by nvcc at first use.
+built by nvcc, and its host rulebook builder by g++, at first use.
 """
 import subprocess
 
@@ -32,5 +32,5 @@ if __name__ == '__main__':
         license='Apache License 2.0',
         packages=find_packages(exclude=['tools', 'tests', 'output']),
         package_data={'pcdet_tpu.native': ['*.cpp'],
-                      'pcdet_tpu_torch': ['csrc/*.cu']},
+                      'pcdet_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh', 'csrc/*.cpp']},
     )

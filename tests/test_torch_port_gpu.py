@@ -13,7 +13,15 @@ plain version sum in different orders.  dW (kernel D): 1e-5 of max |plain|
 at these short sums (chip_smoke.py holds the full-size sums to 1e-4), and
 two launches bitwise equal.  The sparse convs' autograd backward on the
 card (kernels B over the mirrored / transposed books, D) against the same
-backward on the CPU (plain versions): 1e-5 of max |grad|.
+backward on the CPU (plain versions): 1e-5 of max |grad|.  The x-window
+and segment kernels (E, E′ in f32 and bf16, D″, D′) against their plain
+versions on selectors of window-structured books, windows running up to
+the table's last row, all-miss rows, n_live none / mid-tile / all: E, E′
+1e-5 and D″, D′ 1e-5 of max |plain| (short sums), D″, D′ bitwise
+repeatable, E′ and D′ counting each (tile, group) on the branch the
+segment descriptors give; the selector kernel equal to its plain version
+as integers, dropped taps counted; the convs' backward under each `Loads`
+on the card against the CPU.
 """
 import itertools
 
@@ -22,8 +30,9 @@ import pytest
 import torch
 
 from pcdet_tpu.ops import host_books as np_books
-from pcdet_tpu_torch.ops import (gather_dw, gather_gemm, host_books, nms,
-                                 rotated_iou, rotated_overlap, sparse)
+from pcdet_tpu_torch.ops import (gather_dw, gather_gemm, gather_xwin,
+                                 host_books, nms, rotated_iou,
+                                 rotated_overlap, sparse)
 
 torch.set_num_threads(1)
 
@@ -255,12 +264,15 @@ def test_conv_backward_on_card_matches_cpu(cuda, no_tf32, conv, cin, cout):
                                       torch.as_tensor(mask, device=dev),
                                       shape)
         if conv == 'subm':
-            out = sparse.subm_conv3d(level, wt, books['subm1'])
+            out = sparse.subm_conv3d(level, wt, books['subm1'],
+                                     loads=sparse.ROWS, kw3=True)
         elif conv == 'spconv2':
-            out = sparse.sparse_conv3d(level, wt, books['spconv2'], 3, 2, 1)
+            out = sparse.sparse_conv3d(level, wt, books['spconv2'], 3, 2, 1,
+                                       loads=sparse.ROWS)
         else:
             out = sparse.sparse_conv3d(level, wt, books['convout'],
-                                       (3, 1, 1), (2, 1, 1), (1, 0, 0))
+                                       (3, 1, 1), (2, 1, 1), (1, 0, 0),
+                                       loads=sparse.ROWS)
         before = (gather_gemm.LAUNCHES['gather_gemm_f32_dgrad'],
                   gather_dw.LAUNCHES['gather_dw'])
         gx, gw = torch.autograd.grad(out.features, (x, wt),
@@ -271,6 +283,191 @@ def test_conv_backward_on_card_matches_cpu(cuda, no_tf32, conv, cin, cout):
                          (before[0] + 1, before[1] + 1))
         grads[str(dev)] = (gx.cpu(), gw.cpu())
     for got, want in zip(grads[str(cuda)], grads['cpu']):
+        scale = want.abs().max().item()
+        assert scale > 0
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+
+
+def _xwin_inputs(rng, b, v_in, v_out, g, cin, cout, device):
+    """A table, window selectors (bases ascending along the rows, as a
+    sorted book's are; some windows end at or past the last row; rows 5
+    and 6 all-miss), weights and an output gradient."""
+    table = rng.randn(b, v_in + 1, cin).astype(np.float32)
+    table[:, v_in] = 0
+    base = np.sort(rng.randint(0, v_in - 2, (b, v_out, g)), axis=1)
+    off = rng.randint(0, 4, (b, v_out, g, 3))
+    base[:, -3:] = v_in - 1                  # window rows v_in - 1 .. v_in + 1
+    off[:, -3:] = [0, 3, 3]
+    sel = off[..., 0] | (off[..., 1] << 2) | (off[..., 2] << 4)
+    sel[:, 5:7], base[:, 5:7] = 0x3f, 0
+    w = rng.randn(3 * g, cin, cout).astype(np.float32) * 0.2
+    grad = rng.randn(b, v_out, cout).astype(np.float32)
+    return [torch.as_tensor(x, device=device) for x in (
+        table, base.astype(np.int32), sel.astype(np.int32), w, grad)]
+
+
+_VARIANTS = [('xwin', 0), ('seg', gather_xwin.SEG_S), ('seg', 16)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('variant,s', _VARIANTS)
+@pytest.mark.parametrize('cin,cout', gather_xwin.PAIRS)
+def test_gather_gemm_window_matches_plain(cuda, no_tf32, variant, s, dtype,
+                                         cin, cout):
+    rng = np.random.RandomState(cin * 10 + cout + s)
+    v_in, v_out = 300, 200
+    for b in (1, 3):
+        table, base, sel, w, _ = _xwin_inputs(rng, b, v_in, v_out, 9, cin,
+                                              cout, cuda)
+        table, w = table.to(dtype), w.to(dtype)
+        if variant == 'xwin':
+            fn, plain = gather_xwin.gather_gemm_xwin, \
+                gather_xwin.gather_gemm_xwin_plain
+        else:
+            def fn(*a):
+                return gather_xwin.gather_gemm_seg(*a, s=s)
+
+            def plain(*a):
+                return gather_xwin.gather_gemm_seg_plain(*a, s=s)
+        key = 'gather_gemm_%s_%s' % (variant, 'bf16' if dtype == torch.bfloat16
+                                     else 'f32')
+        for live in (0, 100, v_out):
+            n_live = torch.full((b,), live, dtype=torch.int32, device=cuda)
+            if b > 1:
+                n_live[-1] = v_out
+            gather_xwin.reset_seg_tiles()
+            before = gather_xwin.LAUNCHES[key]
+            got = fn(table, base, sel, w, n_live)
+            assert gather_xwin.LAUNCHES[key] == before + 1
+            want = plain(table, base, sel, w, n_live)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float32 and got.shape == want.shape
+            scale = max(want.abs().max().item(), 1e-30)
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+            assert not got[0, live:].any() and not got[:, 5:7].any()
+            tiles = gather_xwin.seg_tiles()
+            if variant == 'seg':
+                _, ok, _ = gather_xwin.segment_desc(base, sel, 64, s)
+                reach = ((torch.arange(ok.shape[1], device=cuda) * 64)[None]
+                         < n_live[:, None])[..., None]
+                assert tiles == {'segment': int(((ok > 0) & reach).sum()),
+                                 'window': int(((ok == 0) & reach).sum())}
+            else:
+                assert tiles == {'segment': 0, 'window': 0}
+
+
+@pytest.mark.parametrize('variant,s', _VARIANTS)
+@pytest.mark.parametrize('cin,cout', gather_dw.XWIN_PAIRS)
+def test_gather_dw_window_matches_plain(cuda, no_tf32, variant, s, cin, cout):
+    rng = np.random.RandomState(cin * 10 + cout + s + 1)
+    v_in, v_out = 300, 200
+    for b in (1, 3):
+        table, base, sel, _, grad = _xwin_inputs(rng, b, v_in, v_out, 9, cin,
+                                                 cout, cuda)
+        if variant == 'xwin':
+            fn, plain = gather_dw.gather_dw_xwin, gather_dw.gather_dw_xwin_plain
+        else:
+            def fn(*a):
+                return gather_dw.gather_dw_seg(*a, s=s)
+
+            def plain(*a):
+                return gather_dw.gather_dw_seg_plain(*a, s=s)
+        key = 'gather_dw_' + variant
+        for live in (0, 100, v_out):
+            n_live = torch.full((b,), live, dtype=torch.int32, device=cuda)
+            if b > 1:
+                n_live[-1] = v_out
+            before = gather_dw.LAUNCHES[key]
+            got = fn(table, base, sel, grad, n_live)
+            again = fn(table, base, sel, grad, n_live)
+            assert gather_dw.LAUNCHES[key] == before + 2
+            want = plain(table, base, sel, grad, n_live)
+            torch.cuda.synchronize()
+            assert got.shape == (27, cin, cout) and got.dtype == torch.float32
+            assert torch.equal(got, again)
+            if not want.any():
+                assert not got.any()
+                continue
+            scale = want.abs().max().item()
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize('b,v,g', [(1, 5, 1), (2, 300, 9), (3, 1000, 9)])
+def test_xwin_selectors_kernel_matches_plain(cuda, b, v, g):
+    """Rules with found taps in and out of their 3-row window and misses."""
+    rng = np.random.RandomState(b * 100 + v)
+    n_in = 5000
+    start = rng.randint(0, n_in - 6, (b, v, g, 1))
+    rules = start + rng.randint(0, 3, (b, v, g, 3))
+    rules[rng.rand(b, v, g, 3) < 0.4] = n_in                 # misses
+    far = rng.rand(b, v, g, 3) < 0.05                        # out of window
+    rules[far] = np.minimum(start + 3 + rng.randint(0, 3, far.shape),
+                            n_in - 1)[far]
+    rules = torch.as_tensor(rules.reshape(b, v, 3 * g).astype(np.int32),
+                            device=cuda)
+    before = gather_xwin.LAUNCHES['xwin_selectors']
+    got = gather_xwin.xwin_selectors(rules, n_in)
+    assert gather_xwin.LAUNCHES['xwin_selectors'] == before + 1
+    want = gather_xwin.xwin_selectors_plain(rules, n_in)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert int(got[2]) > 0 or v < 10
+
+
+def test_window_kernels_reject_bad_inputs(cuda):
+    rng = np.random.RandomState(0)
+    table, base, sel, w, grad = _xwin_inputs(rng, 2, 50, 40, 9, 16, 32, cuda)
+    n_live = torch.full((2,), 40, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):                  # f64 on the card
+        gather_xwin.gather_gemm_xwin(table.double(), base, sel, w.double(),
+                                     n_live)
+    with pytest.raises(ValueError):                 # no (16, 128) instance
+        gather_xwin.gather_gemm_seg(table, base, sel,
+                                    torch.cat([w] * 4, -1), n_live)
+    with pytest.raises(ValueError):                 # no (16, 128) dW instance
+        gather_dw.gather_dw_xwin(table, base, sel, torch.cat([grad] * 4, -1),
+                                 n_live)
+    with pytest.raises(ValueError):                 # selectors on the host
+        gather_dw.gather_dw_seg(table, base.cpu(), sel.cpu(), grad, n_live)
+
+
+@pytest.mark.parametrize('loads', [sparse.Loads('xwin', 'xwin'),
+                                   sparse.Loads('seg', 'seg'),
+                                   sparse.Loads('xwin', 'seg')])
+@pytest.mark.parametrize('conv,cin,cout', [('subm', 16, 16),
+                                           ('spconv2', 16, 32)])
+def test_window_conv_backward_on_card_matches_cpu(cuda, no_tf32, loads, conv,
+                                                  cin, cout):
+    """RulebookConv under window loads: forward, feature gradient (E / E′
+    over the mirrored or transposed book) and dW (D″ / D′) on the card equal
+    the CPU's plain versions."""
+    rng = np.random.RandomState(2)
+    shape, cap = (5, 40, 40), 600
+    coords = _sorted_coords(rng, (560, 410), cap, shape)
+    mask = coords[..., 0] >= 0
+    spec = np_books.encoder_spec(shape, (640, 512, 384, 320), (1, 0, 0))
+    flat = np_books.build_books_batch(coords, mask, shape, spec)
+    feats = (rng.randn(*mask.shape, cin) * mask[..., None]).astype(np.float32)
+    w = (rng.randn(27, cin, cout) * 0.2).astype(np.float32)
+    g = rng.randn(2, cap if conv == 'subm' else 640, cout).astype(np.float32)
+    out = {}
+    for dev in ('cpu', cuda):
+        books = host_books.upload_books(flat, spec, cap, dev)
+        x = torch.as_tensor(feats, device=dev).requires_grad_()
+        wt = torch.as_tensor(w, device=dev).requires_grad_()
+        level = sparse.from_voxelizer(x, torch.as_tensor(coords, device=dev),
+                                      torch.as_tensor(mask, device=dev),
+                                      shape)
+        if conv == 'subm':
+            y = sparse.subm_conv3d(level, wt, books['subm1'], loads=loads,
+                                   kw3=True)
+        else:
+            y = sparse.sparse_conv3d(level, wt, books['spconv2'], 3, 2, 1,
+                                     loads=loads)
+        gx, gw = torch.autograd.grad(y.features, (x, wt),
+                                     torch.as_tensor(g, device=dev))
+        out[str(dev)] = (y.features.detach().cpu(), gx.cpu(), gw.cpu())
+    for got, want in zip(out[str(cuda)], out['cpu']):
         scale = want.abs().max().item()
         assert scale > 0
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)

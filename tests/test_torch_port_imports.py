@@ -1,0 +1,199 @@
+"""pcdet_tpu_torch stands alone: it imports nothing of pcdet_tpu, and its
+own copies of pcdet_tpu's framework-free helpers give the same results.
+
+- a subprocess imports `pcdet_tpu_torch.detect`, `pcdet_tpu_torch.train.
+  trainer` and `chip_smoke` and finds no `pcdet_tpu` module loaded;
+- no source of the package, nor `chip_smoke.py`, has an import of
+  `pcdet_tpu` (other than of `pcdet_tpu_torch`);
+- the copies against pcdet_tpu, exactly: the host books (native and numpy
+  builders) at the tiny config and at `tools/cfgs/second.yaml`'s eval and
+  train caps at B2, the anchors and `AnchorHeadTargets.assign`, `make_scene`
+  in both ground modes, and the loaded `second.yaml` / `pointpillar.yaml`.
+"""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tiny_config import tiny_second_cfg
+
+from pcdet_tpu import config as jax_config
+from pcdet_tpu.datasets import synthetic as jax_synthetic
+from pcdet_tpu.models.anchors import AnchorHeadTargets as JaxTargets
+from pcdet_tpu.ops import host_books as jax_books
+from pcdet_tpu_torch import config, detect
+from pcdet_tpu_torch.datasets import synthetic
+from pcdet_tpu_torch.models.anchors import AnchorHeadTargets
+from pcdet_tpu_torch.ops import host_books
+from pcdet_tpu_torch.ops.voxelizer import grid_size
+from pcdet_tpu_torch.train.trainer import make_train_scans
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+CFGS = REPO / 'tools' / 'cfgs'
+
+
+def test_port_loads_no_pcdet_tpu_module():
+    code = ('import sys, chip_smoke, pcdet_tpu_torch.detect, '
+            'pcdet_tpu_torch.train.trainer; '
+            "bad = sorted(m for m in sys.modules if m == 'pcdet_tpu' "
+            "or m.startswith('pcdet_tpu.')); print(bad); "
+            'sys.exit(1 if bad else 0)')
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_IMPORT = re.compile(r'^\s*(from|import)\s+pcdet_tpu(\.|\s|$)', re.M)
+
+
+def test_port_sources_have_no_pcdet_tpu_import():
+    sources = sorted((REPO / 'pcdet_tpu_torch').rglob('*.py')) + [
+        REPO / 'chip_smoke.py']
+    assert len(sources) > 20
+    bad = {str(p.relative_to(REPO)): m.group(0).strip()
+           for p in sources for m in [_IMPORT.search(p.read_text())] if m}
+    assert bad == {}
+
+
+def _plain(x):
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    return x
+
+
+@pytest.mark.parametrize('name', ['second.yaml', 'pointpillar.yaml'])
+def test_config_equals_pcdet_tpu(name):
+    got = config.cfg_from_yaml_file(str(CFGS / name))
+    want = jax_config.cfg_from_yaml_file(str(CFGS / name))
+    assert _plain(got) == _plain(want)
+    assert got.MODEL.NAME == want.MODEL.NAME and got.TAG == name[:-5]
+
+
+@pytest.mark.parametrize('mode,keep', [('uniform', 1.0), ('rings', 0.35)])
+def test_make_scene_equals_pcdet_tpu(mode, keep):
+    for seed in (0, 5):
+        got = synthetic.make_scene(np.random.RandomState(seed),
+                                   ['Car', 'Pedestrian', 'Cyclist'],
+                                   num_objects=9, ground_mode=mode,
+                                   ring_keep=keep)
+        want = jax_synthetic.make_scene(np.random.RandomState(seed),
+                                        ['Car', 'Pedestrian', 'Cyclist'],
+                                        num_objects=9, ground_mode=mode,
+                                        ring_keep=keep)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def _coords(cfg, points, mask, train):
+    det = detect.build_detector(cfg, 'cpu')
+    if train:
+        det.max_voxels = int(cfg.DATA_CONFIG.TRAIN.MAX_NUMBER_OF_VOXELS)
+    vox = det.voxelize(torch.as_tensor(points), torch.as_tensor(mask))
+    return det.model, vox['coordinates'].numpy(), vox['voxel_mask'].numpy()
+
+
+def _second_scans():
+    cfg = config.cfg_from_yaml_file(str(CFGS / 'second.yaml'))
+    points, mask, gt = make_train_scans(cfg, 2, ring_keep=0.35)
+    return cfg, points, mask, gt
+
+
+@pytest.fixture(scope='module')
+def second():
+    return _second_scans()
+
+
+def _tiny_scans():
+    cfg = tiny_second_cfg(num_class=3)
+    rng = np.random.RandomState(0)
+    p = int(cfg.DATA_CONFIG.MAX_POINTS)
+    points = np.zeros((2, p, 4), np.float32)
+    mask = np.zeros((2, p), bool)
+    for i in range(2):
+        pts, _, _ = synthetic.make_scene(rng, list(cfg.CLASS_NAMES),
+                                         num_objects=6, x_range=(3, 30),
+                                         y_range=(-14, 14))
+        n = min(len(pts), p)
+        points[i, :n], mask[i, :n] = pts[:n], True
+    return cfg, points, mask
+
+
+@pytest.mark.parametrize('which,train', [('tiny', False), ('tiny', True),
+                                         ('second', False), ('second', True)])
+def test_host_books_equal_pcdet_tpu(second, which, train):
+    if which == 'tiny':
+        cfg, points, mask = _tiny_scans()
+    else:
+        cfg, points, mask, _ = second
+    model, coords, vmask = _coords(cfg, points, mask, train)
+    spec = model.host_book_spec(coords.shape[1], train)
+    assert host_books.native_lib() is not None, host_books.native_error()
+    got = host_books.build_books_batch(coords, vmask, model.sparse_shape, spec)
+    want = jax_books.build_books_batch(coords, vmask, model.sparse_shape, spec)
+    assert list(got) == list(want) and len(got) == 6 * 4 + 2 * 4
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert got['hb_spconv2_msk'].sum() > 0
+    if which == 'tiny':
+        # the numpy builders give pcdet_tpu's numpy bits, and the native
+        # books wherever a tap is found (a miss's row is arbitrary)
+        slow = host_books.build_books_batch_np(coords, vmask,
+                                               model.sparse_shape, spec)
+        per = [jax_books.pack_books(jax_books.build_books_sample(
+            coords[i], vmask[i], model.sparse_shape, spec)) for i in range(2)]
+        for k in want:
+            np.testing.assert_array_equal(
+                slow[k], np.stack([p[k] for p in per]), err_msg=k)
+        cap = coords.shape[1]
+        dec = [host_books.upload_books(f, spec, cap, 'cpu')
+               for f in (slow, got)]
+        for k in dec[0]:
+            a, b = dec[0][k], dec[1][k]
+            for x, y in zip(*((a, b) if isinstance(a, tuple) else
+                              ((a,), (b,)))):
+                assert torch.equal(x, y), k
+
+
+@pytest.mark.parametrize('which', ['tiny', 'second'])
+def test_anchor_targets_equal_pcdet_tpu(second, which):
+    if which == 'tiny':
+        cfg = tiny_second_cfg(num_class=3)
+        rng = np.random.RandomState(3)
+        gts = []
+        for _ in range(2):
+            pts, boxes, names = synthetic.make_scene(
+                rng, list(cfg.CLASS_NAMES), num_objects=7, x_range=(3, 30),
+                y_range=(-14, 14))
+            gt = np.zeros((10, 8), np.float32)
+            gt[:7, :7] = boxes
+            gt[:7, 7] = [list(cfg.CLASS_NAMES).index(n) + 1 for n in names]
+            gts.append(gt)
+        gts.append(np.zeros((10, 8), np.float32))       # no boxes at all
+    else:
+        cfg, _, _, gts = second
+    dc = cfg.DATA_CONFIG
+    grid = np.asarray(grid_size(tuple(dc.VOXEL_GENERATOR.VOXEL_SIZE),
+                                tuple(dc.POINT_CLOUD_RANGE)))
+    target_cfg = cfg.MODEL.RPN.RPN_HEAD.TARGET_CONFIG
+    got = AnchorHeadTargets(target_cfg, grid, list(cfg.CLASS_NAMES))
+    want = JaxTargets(target_cfg, grid, list(cfg.CLASS_NAMES))
+    np.testing.assert_array_equal(got.anchors, want.anchors)
+    assert got.num_anchors_per_location == want.num_anchors_per_location
+    positives = 0
+    for gt in gts:
+        a, b = got.assign(gt), want.assign(gt)
+        assert sorted(a) == sorted(b)
+        for k in b:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        positives += int((a['labels'] > 0).sum())
+    assert positives > 0

@@ -235,7 +235,8 @@ def test_sparse_conv_matches_jax(books, conv, dtype):
             jax_level, jnp.asarray(w), kernel=3, compute_dtype=cd_jax,
             book=books['jax']['subm1'])
         got = sparse.subm_conv3d(port_level, torch.as_tensor(w),
-                                 books['port']['subm1'], cd)
+                                 books['port']['subm1'], cd,
+                                 loads=sparse.ROWS, kw3=True)
     else:
         key = 'spconv2' if conv == 'conv2_0' else 'convout'
         cap = CAPS[0] if conv == 'conv2_0' else CAPS[3]
@@ -244,7 +245,8 @@ def test_sparse_conv_matches_jax(books, conv, dtype):
             padding=geom[2], out_cap=cap, compute_dtype=cd_jax,
             book=books['jax'][key])
         got = sparse.sparse_conv3d(port_level, torch.as_tensor(w),
-                                   books['port'][key], *geom, cd)
+                                   books['port'][key], *geom, cd,
+                                   loads=sparse.ROWS)
         np.testing.assert_array_equal(got.overflow.numpy(),
                                       np.asarray(want.overflow))
     assert got.shape == want.shape

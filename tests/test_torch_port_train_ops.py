@@ -268,10 +268,11 @@ def test_conv_backward_matches_jax_vjp(books, conv, cin, cout):
     level = sparse.from_voxelizer(x, torch.as_tensor(coords),
                                   torch.as_tensor(mask), shape)
     if conv == 'subm':
-        out = sparse.subm_conv3d(level, wt, rules)
+        out = sparse.subm_conv3d(level, wt, rules, loads=sparse.ROWS,
+                                 kw3=True)
     else:
         out = sparse.sparse_conv3d(level, wt, books['port'][conv],
-                                   *_GEOM[conv][:3])
+                                   *_GEOM[conv][:3], loads=sparse.ROWS)
     df, dw = torch.autograd.grad(out.features, (x, wt), torch.as_tensor(g))
     _close(out.features.detach().numpy(), out_j)
     _close(df.numpy(), df_j)
@@ -305,7 +306,8 @@ def test_backward_skips_the_feature_gradient(books, monkeypatch):
         SHAPE)
     w = torch.as_tensor(rng.randn(27, 4, 16).astype(np.float32)
                         ).requires_grad_()
-    out = sparse.subm_conv3d(level, w, rules, mirror=rules.flip(-1))
+    out = sparse.subm_conv3d(level, w, rules, mirror=rules.flip(-1),
+                             loads=sparse.ROWS, kw3=True)
     (dw,) = torch.autograd.grad(out.features.sum(), (w,))
     assert calls == [False] and dw.abs().sum() > 0
 
@@ -461,7 +463,8 @@ def test_float64_reference_path(books):
         wt = torch.as_tensor(w, dtype=dtype).requires_grad_()
         level = sparse.from_voxelizer(x, torch.as_tensor(books['coords']),
                                       torch.as_tensor(books['mask']), SHAPE)
-        out = sparse.subm_conv3d(level, wt, rules)
+        out = sparse.subm_conv3d(level, wt, rules, loads=sparse.ROWS,
+                                 kw3=True)
         assert out.features.dtype == dtype
         got[dtype] = (out.features.detach(), *torch.autograd.grad(
             out.features, (x, wt), torch.as_tensor(g, dtype=dtype)))
