@@ -1,5 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: PointPillar and
-SECOND detect, SECOND training, and the sparse convs' load strategies.
+SECOND detect, SECOND training, the sparse convs' load strategies, and the
+evaluation (recall and KITTI AP) of both models.
 
     python3 chip_smoke.py
 
@@ -76,9 +77,28 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       builds; detect frames/s and backbone ms at B2 and B8 under each
       loads.fwd; the prebuilt train step and its forward / backward split
       at B2 and B8 under each loads choice.
+  V1. kernel A'' (csrc/rotated_overlap_sorted.cu, built in phase 1, its
+      registers and spills reported there) vs its plain version at the NMS
+      shape, within 6 m of the origin, on the CPU test's 12 x 140 boxes and
+      on crafted boxes: bound 1e-5 * max |plain| (bitwise expected), two
+      launches bitwise equal; A'' vs kernel A, the other method, within a
+      bound that grows with the boxes' range (2e-5 within 6 m);
+  V2. the evaluation (train.eval_loop.eval_one_epoch) of second.yaml, then
+      pointpillar.yaml, at B2 on 16 SyntheticDataset scenes at bench density
+      (DATA_CONFIG.SYNTHETIC): the result dict (recall, AP, overflow,
+      sec_per_example), one launch of A per batch for recall, A'' beside it
+      as A's cross-check, C in SECOND's convs; recall/gt > 0, all finite;
+  V3. on V2's batches: (a) A'' vs A within 5e-4 m^2 over the live pairs of
+      every recall grid, the recall counts through either equal; (b) the
+      card's counts equal to the CPU's on the same predictions; (c) the GT
+      as detections give recall 1.0 and AP >= 99.99 for every class;
+  V4. SECOND eval frames/s at B2 and B8 with the detect / recall /
+      annotate / evaluate split (host clock, median of 3); A, A' (G = 1)
+      and A'' on the B8 recall grid and at the NMS shape, kernel and plain
+      ms beside the bound (A's operation count for all three).
 
 Prints the card's name and power limit, a JSON line with the kernels (A,
-B, C, D, E, E', D'', D'), each with its launches on its main path, its error
+B, C, D, E, E', D'', D', A', A''), each with its launches on its main path, its error
 against its plain version, its time and the plain version's, and its bound
 (`bound_ms`, the larger of its bytes over 3.35 TB/s and its operations over
 the peak rate of their type, 67 TFLOP/s for f32 outside the tensor cores
@@ -107,6 +127,14 @@ PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # kernel A's operations per (A box, B box) pair: about 460 flops and 32
 # divisions (csrc/rotated_overlap.cu)
 A_OPS_PER_PAIR = 492
+# kernel A''s, counted from csrc/rotated_overlap_sorted.cu the same way
+# (each arithmetic op, compare and select one): the successor scan 576 x 10,
+# the dedup 276 x 7, the 16 edge crossings 16 x 26 + 8, the 8 inside tests
+# 8 x 32, the centroid and angles 24 x 17 + 3, the shoelace 24 x 6 + 2
+A2_OPS_PER_PAIR = 8929
+# the evaluation's scenes: DATA_CONFIG.SYNTHETIC at bench density
+EVAL_SYNTHETIC = {'NUM_SAMPLES': 16, 'NUM_OBJECTS': 24, 'GROUND_MODE': 'rings',
+                  'PTS_PER_OBJ': 400, 'RING_KEEP': 0.35}
 
 
 def require(cond, msg):
@@ -168,6 +196,27 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters, warmup=3):
+    """(mean device ms per call of fn(), host ms to enqueue the calls): the
+    calls are queued behind a spin kernel of some 25 ms, so they run back to
+    back on the card and a kernel shorter than its Python launch is timed,
+    not the launch (valid while the host ms stay below the spin)."""
+    for _ in range(warmup):
+        fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    sync()
+    return start.elapsed_time(end) / iters, host_ms
+
+
 def profile_detect(det, points, mask, iters=3):
     """Device time per batch by kernel, from torch.profiler (CUPTI).
 
@@ -203,7 +252,9 @@ def ptxas_entries(log):
             base = next((k for k in ('gather_dw_xwin_partial',
                                      'gather_gemm_xwin_kernel',
                                      'gather_dw_partial', 'sum_partials',
-                                     'gather_gemm_kernel', 'edgeclip')
+                                     'gather_gemm_kernel',
+                                     'rotated_overlap_sorted_kernel',
+                                     'edgeclip')
                          if k in name), name[:40])
             cur = [base, ('bf16,' if 'bfloat16' in name else '')
                    + ('seg,' if 'Lb1E' in name else '') + ','.join(
@@ -238,6 +289,18 @@ def rand_boxes5(rng, shape, spread=30.0):
     l = rng.uniform(0.5, 7.0, shape)
     ang = rng.uniform(-np.pi, np.pi, shape)
     return np.stack([cx - w / 2, cy - l / 2, cx + w / 2, cy + l / 2, ang],
+                    axis=-1).astype(np.float32)
+
+
+def near_boxes5(rng, n, scale=6.0):
+    """n boxes with centres within `scale` m of the origin and sides 0.5-5 m
+    (tests/test_torch_port_eval.py's random boxes)."""
+    cx = rng.uniform(-scale, scale, n)
+    cy = rng.uniform(-scale, scale, n)
+    dx = rng.uniform(0.5, 5.0, n)
+    dy = rng.uniform(0.5, 5.0, n)
+    ang = rng.uniform(-np.pi, np.pi, n)
+    return np.stack([cx - dx / 2, cy - dy / 2, cx + dx / 2, cy + dy / 2, ang],
                     axis=-1).astype(np.float32)
 
 
@@ -1618,6 +1681,406 @@ def run_xwin(dev, cfg):
     return entries
 
 
+# --------------------------------------------------------------- eval ---
+
+def overlap_work(ca, cb):
+    """(kernel A's operations, bytes) of one overlap grid: A's count is the
+    least work for the function, so A, A' and A'' share it as their bound."""
+    pairs = ca.shape[0] * ca.shape[1] * cb.shape[1]
+    return (A_OPS_PER_PAIR * pairs,
+            4 * (ca.numel() + cb.numel() + pairs))
+
+
+def overlap_times(ca, cb, iters=20):
+    """Kernel ms and plain ms of A, A' (group 0, G = 1) and A'' on one
+    grid, on CUDA events, with each one's max |kernel - plain| and bound.
+    The kernel's 'ms' is queued behind a spin (`queued_ms`): A and A' at
+    these shapes take less than their Python launch; 'launch_ms' is the
+    plain event loop, launch included."""
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    a0, b0 = ca[:1].contiguous(), cb[:1].contiguous()
+    cases = {
+        'A': (lambda: ro.pair_overlap_batched(ca, cb),
+              lambda: ro.pair_overlap_batched_plain(ca, cb), (ca, cb)),
+        "A'": (lambda: ro.pair_overlap(a0[0], b0[0]),
+               lambda: ro.pair_overlap_batched_plain(a0, b0)[0], (a0, b0)),
+        "A''": (lambda: ro.pair_overlap_sorted_batched(ca, cb),
+                lambda: ro.pair_overlap_sorted_plain(ca, cb), (ca, cb)),
+    }
+    out = {}
+    for name, (kernel, plain, grid) in cases.items():
+        got, want = kernel(), plain()
+        sync()
+        ms, host_ms = queued_ms(kernel, iters)
+        out[name] = {'err': (got - want).abs().max().item(), 'ms': ms,
+                     'host_ms': host_ms, 'launch_ms': cuda_ms(kernel, iters),
+                     'plain_ms': cuda_ms(plain, 3, 1),
+                     'work': overlap_work(*grid)}
+        out[name]['bound_ms'] = bound_ms(*out[name]['work'])[0]
+    return out
+
+
+def print_overlap_times(tag, shape, times, iters=20):
+    print('[eval V4] %s %s: %s' % (tag, shape, '; '.join(
+        '%s kernel %.4f ms (%.4f ms a call with its launch; %d calls '
+        'enqueued in %.2f ms), plain %.4f ms, bound %.4f ms, max |kernel - '
+        'plain| %.3g' % (k, t['ms'], t['launch_ms'], iters, t['host_ms'],
+                         t['plain_ms'], t['bound_ms'], t['err'])
+        for k, t in times.items())))
+
+
+class RecallCrossCheck:
+    """Stands in for the eval loop's `batch_recall`: the counts come from
+    kernel A as before; kernel A's overlaps of each recall grid are kept,
+    kernel A'' runs on the same grid (A's cross-check on the card), and the
+    counts from A'''s overlaps are kept beside A's."""
+
+    def __init__(self):
+        self.grids = []
+
+    def __call__(self, boxes, valid, gt_boxes, thresh_list):
+        from pcdet_tpu_torch.models import detector3d
+        from pcdet_tpu_torch.ops import rotated_overlap as ro
+        grid = {}
+
+        def kernel_a(ca, cb):
+            before = ro.LAUNCHES
+            grid.update(ca=ca, cb=cb, a=ro.pair_overlap_batched(ca, cb))
+            grid['a_launches'] = ro.LAUNCHES - before
+            return grid['a']
+
+        counts = detector3d.batch_recall(boxes, valid, gt_boxes, thresh_list,
+                                         kernel_a)
+        grid['a2'] = ro.pair_overlap_sorted_batched(grid['ca'], grid['cb'])
+        grid['counts_a2'] = detector3d.batch_recall(
+            boxes, valid, gt_boxes, thresh_list, lambda ca, cb: grid['a2'])
+        grid.update(counts=counts, boxes=boxes, valid=valid, gt=gt_boxes,
+                    thresh=thresh_list)
+        self.grids.append(grid)
+        return counts
+
+
+def eval_config(path):
+    """The shipped config at `path` with the evaluation's scenes."""
+    from pcdet_tpu_torch import detect as detect_mod
+    cfg = detect_mod.load_config(path)
+    cfg.DATA_CONFIG.SYNTHETIC = dict(EVAL_SYNTHETIC)
+    return cfg
+
+
+def eval_detector(cfg, dev):
+    """Random weights from seed 0, conv_cls's bias zeroed (the focal prior
+    keeps every score under SCORE_THRESH otherwise)."""
+    from pcdet_tpu_torch import detect as detect_mod
+    det = detect_mod.build_detector(cfg, dev, seed=0)
+    with torch.no_grad():
+        det.model.module.rpn_head.conv_cls.bias.zero_()
+    return det
+
+
+def run_eval_checked(det, dataset, batches, cfg):
+    """eval_one_epoch with the recall through `RecallCrossCheck`; the
+    launch counters set to 0 just before and read just after.  Returns
+    (result dict, checker, {counter: launches})."""
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    from pcdet_tpu_torch.train import eval_loop
+    checker = RecallCrossCheck()
+    real = eval_loop.batch_recall
+    eval_loop.batch_recall = checker
+    try:
+        reset_launches()
+        ro.LAUNCHES = 0
+        ro.LAUNCHES_SORTED = 0
+        result = eval_loop.eval_one_epoch(det, iter(batches), dataset, cfg)
+        sync()
+        counts = dict(nonzero(all_launches()), rotated_overlap=ro.LAUNCHES,
+                      rotated_overlap_sorted=ro.LAUNCHES_SORTED)
+    finally:
+        eval_loop.batch_recall = real
+    return result, checker, counts
+
+
+def eval_checks(name, result, checker, counts):
+    keys = ['recall/gt', 'recall/rcnn_0.5', 'recall/rcnn_0.7'] + [
+        'Car_%s_%s' % (m, d) for m in ('3d', 'bev', 'image')
+        for d in ('easy', 'moderate', 'hard')]
+    keys += sorted(k for k in result if k.startswith('overflow/'))
+    keys.append('sec_per_example')
+    print('[eval V2] %s: %s' % (name, ', '.join(
+        '%s %s' % (k, result[k]) for k in keys)))
+    recall_a = sum(g['a_launches'] for g in checker.grids)
+    print('[eval V2] %s launches: A %d (of them %d for recall, one per batch '
+          'of %d), A\'\' %d; sparse convs %s' % (
+              name, counts['rotated_overlap'], recall_a, len(checker.grids),
+              counts['rotated_overlap_sorted'],
+              {k: v for k, v in counts.items()
+               if not k.startswith('rotated_overlap')}))
+    require(result['recall/gt'] > 0, '%s: recall/gt is 0' % name)
+    require(all(np.isfinite(float(v)) for v in result.values()),
+            '%s: a result is not finite' % name)
+    require(recall_a == len(checker.grids) > 0,
+            '%s: kernel A not launched once per recall grid' % name)
+    require(counts['rotated_overlap_sorted'] == len(checker.grids),
+            '%s: kernel A\'\' not launched on every recall grid' % name)
+
+
+def cross_checks(name, checker, far_tol=5e-4):
+    """V3 (a) A'' against A over every live pair (valid prediction x real
+    GT) of every recall grid, counts from either equal; (b) the card's
+    counts against the same predictions counted on the CPU through the plain
+    version.  A zero-padded GT row is a zero-area quad, outside both
+    methods' domain (every point lies on its edges, so each returns some
+    area); the recall masks those pairs, and so does (a)."""
+    from pcdet_tpu_torch.models import detector3d
+    from pcdet_tpu_torch.ops import rotated_iou
+    worst, worst_r, knife, n_live, n_pos = 0.0, 0.0, [], 0, 0
+    for i, g in enumerate(checker.grids):
+        gt_valid = g['gt'][..., :7].abs().sum(-1) > 0
+        live = g['valid'][..., :, None] & gt_valid[..., None, :]
+        n_live += int(live.sum())
+        n_pos += int((live & (g['a'] > 0)).sum())
+        diff = torch.where(live, (g['a'] - g['a2']).abs(), 0.0)
+        d = diff.max().item()
+        if d > worst:
+            idx = np.unravel_index(int(diff.argmax()), diff.shape)
+            worst = d
+            worst_r = float(torch.linalg.vector_norm(
+                g['gt'][idx[0], idx[2], :2]).item())
+        require(d <= far_tol, '%s grid %d: |A - A\'\'| %g > %g'
+                % (name, i, d, far_tol))
+        a_counts = {k: int(v) for k, v in g['counts'].items()}
+        a2_counts = {k: int(v) for k, v in g['counts_a2'].items()}
+        require(a_counts == a2_counts, '%s grid %d: recall through A %s, '
+                'through A\'\' %s' % (name, i, a_counts, a2_counts))
+        cpu = detector3d.batch_recall(g['boxes'].cpu(), g['valid'].cpu(),
+                                      g['gt'].cpu(), g['thresh'])
+        cpu = {k: int(v) for k, v in cpu.items()}
+        require(cpu == a_counts, '%s grid %d: card %s, CPU %s'
+                % (name, i, a_counts, cpu))
+        iou = rotated_iou.boxes_iou3d_batched(
+            g['boxes'], g['gt'][..., :7], lambda ca, cb: g['a'])
+        for t in g['thresh']:
+            near = live & ((iou - t).abs() < 1e-3)
+            for j in near.nonzero().tolist()[:4]:
+                knife.append('grid %d pair %s IoU %.6f (A) vs %.6f (A\'\')' % (
+                    i, tuple(j), iou[tuple(j)].item(),
+                    rotated_iou.boxes_iou3d_batched(
+                        g['boxes'], g['gt'][..., :7],
+                        lambda ca, cb: g['a2'])[tuple(j)].item()))
+    print('[eval V3] %s (a) max |A - A\'\'| over the %d live pairs (%d with '
+          'overlap) of %d recall grids %.3g m^2 (GT at %.1f m), bound %g; '
+          'recall through A\'\' == through A; pairs within 1e-3 of a '
+          'threshold: %s' % (
+              name, n_live, n_pos, len(checker.grids), worst, worst_r,
+              far_tol, '; '.join(knife) or 'none'))
+    print('[eval V3] %s (b) recall on the card == the same predictions '
+          'counted on the CPU (plain version), every batch' % name)
+
+
+def oracle_check(dev, dataset, batches, cfg):
+    """V3 (c): the GT given as detections (score 1, valid, its label)
+    through `batch_recall` and the evaluator: recall 1.0, AP 100."""
+    from pcdet_tpu_torch.models import detector3d
+    thresh = tuple(cfg.MODEL.TEST.RECALL_THRESH_LIST)
+    names = list(cfg.CLASS_NAMES)
+    total, annos = None, []
+    for batch in batches:
+        gt = torch.as_tensor(batch['gt_boxes'], device=dev)
+        gt_valid = gt[..., :7].abs().sum(-1) > 0
+        rc = detector3d.batch_recall(gt[..., :7], gt_valid, gt, thresh)
+        total = rc if total is None else {k: total[k] + v
+                                          for k, v in rc.items()}
+        host = batch['gt_boxes']
+        annos += dataset.generate_annotations(batch, {
+            'boxes': host[..., :7], 'scores': np.ones(host.shape[:2]),
+            'labels': host[..., 7].astype(np.int32),
+            'valid': gt_valid.cpu().numpy()}, names)
+    total = {k: int(v) for k, v in total.items()}
+    _, ap = dataset.evaluation(annos, names)
+    present = sorted({str(n) for a in dataset.gt_annos() for n in a['name']})
+    aps = {k: float(v) for k, v in ap.items()
+           if k.split('_')[0] in present and 'aos' not in k}
+    print('[eval V3] (c) oracle: recall %s; AP of %s: min %.4f over %d keys'
+          % (total, present, min(aps.values()), len(aps)))
+    require(all(v == total['gt'] for v in total.values()) and total['gt'] > 0,
+            'oracle recall is not 1.0: %s' % total)
+    require(len(aps) == 18 * len(present) and min(aps.values()) >= 99.99,
+            'oracle AP below 99.99: %s' % {k: v for k, v in aps.items()
+                                           if v < 99.99})
+
+
+def eval_split(det, dataset, batches, cfg):
+    """Host seconds of the eval's stages over the batches, each stage
+    ending in a synchronise: detect (upload, forward, predict), recall,
+    annotate (fetch and annotations), evaluate.  Also the first batch's
+    recall grid (corners of predictions and GT)."""
+    from pcdet_tpu_torch.models import detector3d
+    from pcdet_tpu_torch.ops import rotated_iou
+    thresh = tuple(cfg.MODEL.TEST.RECALL_THRESH_LIST)
+    names = list(cfg.CLASS_NAMES)
+    t = {}
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        preds, gts = [], []
+        for batch in batches:
+            pts = torch.as_tensor(batch['points'], device=det.device)
+            mask = torch.as_tensor(batch['point_mask'], device=det.device)
+            preds.append(det.model.predict(det.forward(pts, mask)[1]))
+            gts.append(torch.as_tensor(batch['gt_boxes'], device=det.device))
+        sync()
+        t['detect'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for p, gt in zip(preds, gts):
+            detector3d.batch_recall(p['boxes'], p['valid'], gt, thresh)
+        sync()
+        t['recall'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        annos = []
+        for batch, p in zip(batches, preds):
+            host = {k: v.cpu().numpy() for k, v in p.items()}
+            annos += dataset.generate_annotations(batch, host, names)
+        t['annotate'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dataset.evaluation(annos, names)
+        t['evaluate'] = time.perf_counter() - t0
+    grid = (rotated_iou.boxes7_to_corners(preds[0]['boxes']),
+            rotated_iou.boxes7_to_corners(gts[0][..., :7]))
+    return t, grid
+
+
+def run_eval(dev, g1_launches, cfgs):
+    """Phases V1-V4; returns the JSON entries of A' and A''.
+
+    :param g1_launches: kernel A's launches at G = 1 (A') in phase 5's B1
+        detect
+    :param cfgs: {name: config} of the evaluations, SECOND's first
+    """
+    from pcdet_tpu_torch.datasets.synthetic import (SyntheticDataset,
+                                                    eval_batches)
+    from pcdet_tpu_torch.ops import cuda_build, rotated_iou
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    from pcdet_tpu_torch.train.eval_loop import eval_one_epoch
+
+    # V1. kernel A'' vs its plain version -----------------------------------
+    def corners(*boxes):
+        return tuple(rotated_iou.boxes5_to_corners(torch.as_tensor(
+            x, device=dev)).contiguous() for x in boxes)
+
+    rng = np.random.RandomState(2)
+    cb, = corners(rand_boxes5(rng, (2, 4096)))
+    sets = {'NMS shape': (cb[:, :64].contiguous(), cb)}
+    cb, = corners(near_boxes5(rng, (2, 4096)))
+    sets['within 6 m'] = (cb[:, :64].contiguous(), cb)
+    rng = np.random.RandomState(0)       # the CPU test's 12 x 140 boxes
+    sets['12 x 140 within 6 m'] = corners(near_boxes5(rng, 12)[None],
+                                          near_boxes5(rng, 140)[None])
+    sets['crafted'] = corners(*(x[None] for x in crafted_boxes5()))
+    # |A'' - A|: both round on raw f32 coordinates, so the bound grows with
+    # the range, most at slivers (nearly parallel edges).  2e-5 within 6 m
+    # on the CPU test's boxes; over 524,288 pairs within 6 m 1.34e-4 on an
+    # H100; at the NMS shape (centres to 42 m) a 0.005 m^2 sliver at 30 m
+    # differs by 1.12e-3 (A 7.7e-4 off the f64 area, A'' 3.5e-4)
+    vs_a_tol = {'NMS shape': 2e-3, 'within 6 m': 2e-4,
+                '12 x 140 within 6 m': 2e-5, 'crafted': 2e-5}
+    v1_err = 0.0
+    for tag, (a, b) in sets.items():
+        got = ro.pair_overlap_sorted_batched(a, b)
+        again = ro.pair_overlap_sorted_batched(a, b)
+        want = ro.pair_overlap_sorted_plain(a, b)
+        edge = ro.pair_overlap_batched(a, b)
+        sync()
+        err = (got - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        diff = (got - edge).abs()
+        g, i, j = np.unravel_index(int(diff.argmax()), diff.shape)
+        f64 = rotated_iou.quad_intersection_area(a[g, i].double(),
+                                                 b[g, j].double()).item()
+        print('[eval V1] A\'\' %s %s: max |kernel - plain| %.3g (bitwise %s, '
+              'bound %.3g), two launches bitwise equal %s; max |A\'\' - A| '
+              '%.3g (bound %g; %d pairs over 2e-5) at a pair of area %.6f '
+              '(A\'\') / %.6f (A) / %.6f (f64); %d pairs > 0' % (
+                  tag, tuple(got.shape), err, torch.equal(got, want),
+                  1e-5 * scale, torch.equal(got, again), diff.max().item(),
+                  vs_a_tol[tag], int((diff > 2e-5).sum()), got[g, i, j].item(),
+                  edge[g, i, j].item(), f64, int((want > 0).sum())))
+        require(err <= 1e-5 * scale, 'A\'\' %s: kernel vs plain %g' % (tag,
+                                                                       err))
+        require(torch.equal(got, again), 'A\'\' %s: launches differ' % tag)
+        require(diff.max().item() <= vs_a_tol[tag], 'A\'\' vs A %s: %g > %g'
+                % (tag, diff.max().item(), vs_a_tol[tag]))
+        if tag == 'crafted':
+            diag = torch.diagonal(got[0]).tolist()
+            require(all(abs(x - v) <= 1e-3 * max(v, 1.0) for x, v in
+                        zip(diag, (4.0, 0.0, 0.0, 100.0, 100.0, 8.0))),
+                    'A\'\' crafted pairs: %s' % diag)
+        v1_err = max(v1_err, err)
+    nms_times = overlap_times(*sets['NMS shape'])
+    print_overlap_times('NMS shape', 'G=2 M=64 N=4096', nms_times)
+    log = cuda_build.BUILD_LOG['rotated_overlap_sorted']
+    print('[eval V1] A\'\' operations per pair %d (counted from the source) vs '
+          'A\'s %d; build %.2f s (cached=%s)' % (
+              A2_OPS_PER_PAIR, A_OPS_PER_PAIR, log['seconds'], log['cached']))
+
+    # V2. full-width evaluation, SECOND then PointPillar, at B2 --------------
+    runs = {}
+    for name, cfg in cfgs.items():
+        det = eval_detector(cfg, dev)
+        dataset = SyntheticDataset(cfg)
+        batches = list(eval_batches(dataset, 2))
+        det.detect(torch.as_tensor(batches[0]['points'], device=dev),
+                   torch.as_tensor(batches[0]['point_mask'], device=dev))
+        result, checker, counts = run_eval_checked(det, dataset, batches, cfg)
+        eval_checks(name, result, checker, counts)
+        if not runs:
+            require(counts.get('gather_gemm_bf16', 0) > 0,
+                    'the SECOND eval launched no kernel C')
+        # V3. cross-checks on V2's own batches
+        cross_checks(name, checker)
+        oracle_check(dev, dataset, batches, cfg)
+        runs[name] = (cfg, det, dataset, counts)
+        sync()
+
+    # V4. times --------------------------------------------------------------
+    name = next(iter(runs))
+    cfg, det, dataset, counts = runs[name]
+    for b in (2, 8):
+        batches = list(eval_batches(dataset, b))
+        fps, splits = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            result = eval_one_epoch(det, iter(batches), dataset, cfg)
+            fps.append(len(dataset) / (time.perf_counter() - t0))
+            split, grid = eval_split(det, dataset, batches, cfg)
+            splits.append(split)
+        med = {k: sorted(s[k] for s in splits)[1] for k in splits[0]}
+        print('[eval V4 B%d] %s eval %.2f frames/s (median of %s), '
+              'sec_per_example %.4f; split over %d frames (host clock, median '
+              'of 3): detect %.1f ms (%.2f frames/s), recall %.1f ms, '
+              'annotate %.1f ms, evaluate %.1f ms' % (
+                  b, name, sorted(fps)[1], ', '.join('%.2f' % x for x in fps),
+                  result['sec_per_example'], len(dataset),
+                  1e3 * med['detect'], len(dataset) / med['detect'],
+                  1e3 * med['recall'], 1e3 * med['annotate'],
+                  1e3 * med['evaluate']))
+    recall_times = overlap_times(*grid)
+    print_overlap_times('B8 recall grid', 'G=8 M=%d N=%d' % (
+        grid[0].shape[1], grid[1].shape[1]), recall_times)
+
+    a1, a2 = recall_times["A'"], recall_times["A''"]
+    return [
+        kernel_entry('rotated_overlap_g1',
+                     'pcdet_tpu_torch/csrc/rotated_overlap.cu',
+                     'pcdet_tpu/ops/pallas/rotated_overlap.py:252',
+                     g1_launches, max(a1['err'], nms_times["A'"]['err']),
+                     a1['ms'], a1['plain_ms'], a1['work']),
+        kernel_entry('rotated_overlap_sorted',
+                     'pcdet_tpu_torch/csrc/rotated_overlap_sorted.cu',
+                     'pcdet_tpu/ops/pallas/rotated_overlap.py:320',
+                     counts['rotated_overlap_sorted'], max(v1_err, a2['err']),
+                     a2['ms'], a2['plain_ms'], a2['work'])]
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; the port is checked on the GPU',
@@ -1625,6 +2088,8 @@ def main():
         return 2
 
     from pcdet_tpu_torch import detect as detect_mod
+    from pcdet_tpu_torch.datasets.kitti.kitti_eval import (
+        native as kitti_native)
     from pcdet_tpu_torch.ops import cuda_build, host_books, rotated_iou
     from pcdet_tpu_torch.ops import gather_dw as gd
     from pcdet_tpu_torch.ops import gather_gemm as gg
@@ -1645,8 +2110,8 @@ def main():
 
     # 1. build: every kernel (one nvcc each) and the host book builder at once
     t0 = time.perf_counter()
-    builds = (ro.build, gg.build, gd.build, gx.build, gd.build_xwin,
-              host_books.native_lib)
+    builds = (ro.build, ro.build_sorted, gg.build, gd.build, gx.build,
+              gd.build_xwin, kitti_native.get_lib, host_books.native_lib)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         jobs = [pool.submit(fn) for fn in builds]
         native_lib = [j.result() for j in jobs][-1]
@@ -1680,7 +2145,7 @@ def main():
     print('[build] rotated_overlap.cu: %.2f s (cached=%s)'
           % (log['seconds'], log['cached']))
     print_ptxas('rotated_overlap.cu', log)
-    for lib in ('gather_gemm_xwin', 'gather_dw_xwin'):
+    for lib in ('rotated_overlap_sorted', 'gather_gemm_xwin', 'gather_dw_xwin'):
         log = cuda_build.BUILD_LOG[lib]
         print('[build] %s.cu: %.2f s (cached=%s); %s' % (
             lib, log['seconds'], log['cached'], '; '.join(
@@ -1785,8 +2250,12 @@ def main():
         with torch.no_grad():
             det32.model.module.rpn_head.conv_cls.bias.zero_()
         t0 = time.perf_counter()
+        ro.LAUNCHES = 0
         outs[name] = {k: v.cpu() for k, v in det32.detect(
             pts8[:1].to(d), mask8[:1].to(d)).items()}
+        if name == 'gpu':
+            sync()
+            g1_launches = ro.LAUNCHES      # kernel A at G = 1: A'
         print('[gpu vs cpu] %s detect B1 f32: %.2f s' % (
             name, time.perf_counter() - t0))
         del det32
@@ -1794,8 +2263,8 @@ def main():
     g, c = outs['gpu'], outs['cpu']
     n_g, n_c = int(g['num'][0]), int(c['num'][0])
     box_err = (g['boxes'] - c['boxes']).abs().max().item()
-    print('[gpu vs cpu] num %d vs %d, max |box diff| %.3g' % (n_g, n_c,
-                                                             box_err))
+    print('[gpu vs cpu] num %d vs %d, max |box diff| %.3g; kernel A launches '
+          'at G = 1 (A\') %d' % (n_g, n_c, box_err, g1_launches))
     require(n_g == n_c, 'GPU and CPU detection counts differ')
     require(box_err <= 1e-3, 'GPU and CPU boxes differ by %g' % box_err)
 
@@ -1861,12 +2330,16 @@ def main():
         dev, detect_mod.load_config(detect_mod.SECOND_CFG))
     second[0].update(b_train)
     xwin = run_xwin(dev, detect_mod.load_config(detect_mod.SECOND_CFG))
+    require(g1_launches > 0, 'the B1 detect launched no kernel A at G = 1')
+    evals = run_eval(dev, g1_launches, {
+        'second.yaml': eval_config(detect_mod.SECOND_CFG),
+        'pointpillar.yaml': eval_config(detect_mod.DEFAULT_CFG)})
 
     print(json.dumps({'kernels': [kernel_entry(
         'rotated_overlap', 'pcdet_tpu_torch/csrc/rotated_overlap.cu',
         'pcdet_tpu/ops/pallas/rotated_overlap.py:280', launches_b2,
         max_abs_err, kernel_ms, plain_ms, a_work)] + second + [dw_entry]
-        + xwin}))
+        + xwin + evals}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -1,1 +1,2 @@
-"""Synthetic LiDAR scenes for the detect and train entry points."""
+"""Synthetic LiDAR scenes for the detect, train and eval entry points, and
+the KITTI evaluator."""

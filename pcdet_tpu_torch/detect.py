@@ -6,7 +6,9 @@
     preds = det.detect(torch.as_tensor(points, device='cuda'),
                        torch.as_tensor(mask, device='cuda'))
 
-`build_detector` dispatches on `cfg.MODEL.NAME`.  PointPillar's `detect`
+`build_detector` dispatches on `cfg.MODEL.NAME`.  The evaluation
+(`train.eval_loop.eval_one_epoch`) runs a detector's `forward` and
+`model.predict` itself.  PointPillar's `detect`
 runs voxelize_torch -> PointPillarNet (VFE, scatter, RPNV2) -> predict
 (masked top-k, decode of the survivors, batched rotated NMS).  SECOND's
 (`load_config(SECOND_CFG)`) runs voxelize_torch on the device, one copy of
@@ -80,12 +82,17 @@ class Detector:
                               self.pc_range, self.max_points_per_voxel,
                               self.max_voxels)
 
+    def forward(self, points, point_mask):
+        """A batch's voxelizer outputs and the model's raw outputs, (vox,
+        ret); the predictions are `self.model.predict(ret)`."""
+        vox = self.voxelize(points, point_mask)
+        return vox, self.model.forward(vox)
+
     @torch.inference_mode()
     def detect(self, points, point_mask):
         """(B, P, 4) f32 points, (B, P) bool mask on the detector's device
         -> dict boxes (B, post, 7), scores, labels, valid, num (B,)."""
-        vox = self.voxelize(points, point_mask)
-        return self.model.predict(self.model.forward(vox))
+        return self.model.predict(self.forward(points, point_mask)[1])
 
 
 class SecondDetector(Detector):
@@ -109,13 +116,12 @@ class SecondDetector(Detector):
         return self.model.upload_books(self.model.build_books(coords),
                                        coords.shape[1])
 
-    @torch.inference_mode()
-    def detect(self, points, point_mask):
-        """(B, P, 4) f32 points, (B, P) bool mask on the detector's device
-        -> dict boxes (B, post, 7), scores, labels, valid, num (B,)."""
+    def forward(self, points, point_mask):
+        """`Detector.forward` with the books built between the voxelizer and
+        the model."""
         vox = self.voxelize(points, point_mask)
         vox['books'] = self.books(vox)
-        return self.model.predict(self.model.forward(vox))
+        return vox, self.model.forward(vox)
 
     @torch.inference_mode()
     def detect_batch(self, batch):

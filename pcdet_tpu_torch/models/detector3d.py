@@ -9,6 +9,7 @@ exactly equal logits) break by lower anchor index, as `jax.lax.top_k` does.
 import torch
 
 from ..ops import nms as nms_ops
+from ..ops import rotated_iou
 from ..utils import torch_common
 
 
@@ -119,3 +120,38 @@ def merge_overflow_tb(tb, ret_dict, batch):
         tb['overflow/voxelizer'] = torch.as_tensor(
             batch['voxel_overflow']).sum()
     return tb
+
+
+def batch_recall(boxes, valid, gt_boxes, thresh_list=(0.5, 0.7),
+                 overlap_fn=None):
+    """IoU3D recall counters of a batch against its (padded) GT, summed over
+    the batch and kept on the device (`pcdet_tpu.train.eval_loop.
+    _batch_recall`): a GT counts where its |box| sums > 0; the IoU is 0
+    outside valid x valid; a GT is recalled at t when its best IoU > t.
+
+    :param boxes: (B, K, 7); :param valid: (B, K) bool
+    :param gt_boxes: (B, G, 8) zero-padded, class in the last column
+    :param overlap_fn: the BEV overlap of `rotated_iou.boxes_iou3d_batched`
+        (default kernel A)
+    :return: {'gt': count, 'rcnn_<t>': recalled count} as 0-dim tensors
+    """
+    gt_valid = torch.abs(gt_boxes[..., :7]).sum(dim=-1) > 0
+    iou = rotated_iou.boxes_iou3d_batched(boxes, gt_boxes[..., :7],
+                                          overlap_fn)
+    iou = torch.where(valid[..., :, None] & gt_valid[..., None, :], iou, 0.0)
+    best_per_gt = torch.amax(iou, dim=-2)
+    out = {'gt': gt_valid.sum()}
+    for t in thresh_list:
+        out['rcnn_%s' % str(t)] = ((best_per_gt > t) & gt_valid).sum()
+    return out
+
+
+def recall_counts(final_boxes, final_valid, gt_boxes, thresh_list=(0.5, 0.7)):
+    """One sample's recall counters (`pcdet_tpu.models.detector3d.
+    recall_counts`): `batch_recall` of a batch of one.
+
+    :param final_boxes: (K, 7), :param final_valid: (K,) bool
+    :param gt_boxes: (G, 8) zero-padded
+    """
+    return batch_recall(final_boxes[None], final_valid[None], gt_boxes[None],
+                        thresh_list)

@@ -4,8 +4,9 @@ Each library has a plain C interface (no PyTorch headers), so nvcc takes
 seconds.  Libraries go to `build/pcdet_tpu_torch/` at the repository root,
 named by a hash of their sources, the shared headers (`csrc/*.cuh`) and
 the flags, so an edited source rebuilds and an unchanged one is reused.
-`check_operands` holds the operand contract the C entries share.  Nothing
-here runs at import time.
+The host libraries (`csrc/*.cpp`) build the same way with g++
+(`build_host_library`).  `check_operands` holds the operand contract the C
+entries share.  Nothing here runs at import time.
 """
 import ctypes
 import hashlib
@@ -66,6 +67,37 @@ def load_library(name, sources):
     BUILD_LOG[name] = {'seconds': time.perf_counter() - t0, 'cached': cached,
                        'ptxas': ptxas}
     return lib
+
+
+GXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
+
+
+def host_library_path(name, source):
+    """Where `build_host_library` puts lib<name> built from csrc/`source`:
+    named by a hash of the source and the flags."""
+    h = hashlib.sha256(' '.join(GXX_FLAGS).encode()
+                       + (CSRC_DIR / source).read_bytes())
+    return BUILD_DIR / ('lib%s-%s.so' % (name, h.hexdigest()[:16]))
+
+
+def build_host_library(path, source):
+    """Build `path` (from `host_library_path`) from csrc/`source` with g++,
+    with OpenMP where it builds, unless it exists.  Raises RuntimeError
+    when g++ fails."""
+    if path.exists():
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name('%s.tmp%d' % (path.name, os.getpid()))
+    cmd = ['g++', *GXX_FLAGS, '-fopenmp', '-o', str(tmp),
+           str(CSRC_DIR / source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:                       # again without OpenMP
+        cmd.remove('-fopenmp')
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError('g++ failed (%d): %s' % (proc.returncode,
+                                                    proc.stderr))
+    os.replace(tmp, path)
 
 
 def check(lib, rc):

@@ -18,15 +18,11 @@ them there into the gather-GEMM's rules: (B, V_out, K) int32, misses
 routed to the input level's zero row V_in.
 """
 import ctypes
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from .cuda_build import BUILD_DIR, CSRC_DIR
+from .cuda_build import build_host_library, host_library_path
 
 INT_MAX = np.iinfo(np.int32).max
 
@@ -34,7 +30,6 @@ _SUBM_FIELDS = ('rows', 'fnd')
 _STRIDED_FIELDS = ('ids', 'crd', 'msk', 'drp', 'rows', 'fnd')
 _ALIGN = 16
 _NATIVE_SRC = 'host_books_native.cpp'
-_GXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
 _NATIVE = {}          # 'lib': the loaded library or None, 'error': why not
 
 
@@ -69,23 +64,10 @@ def native_lib():
     None where g++ fails, with the reason in `native_error()`."""
     if 'lib' in _NATIVE:
         return _NATIVE['lib']
-    src = CSRC_DIR / _NATIVE_SRC
-    h = hashlib.sha256(' '.join(_GXX_FLAGS).encode() + src.read_bytes())
-    path = BUILD_DIR / ('libhost_books-%s.so' % h.hexdigest()[:16])
+    path = host_library_path('host_books', _NATIVE_SRC)
     lib, error = None, None
     try:
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_name('%s.tmp%d' % (path.name, os.getpid()))
-            cmd = ['g++', *_GXX_FLAGS, '-fopenmp', '-o', str(tmp), str(src)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:               # again without OpenMP
-                cmd.remove('-fopenmp')
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError('g++ failed (%d): %s' % (proc.returncode,
-                                                            proc.stderr))
-            os.replace(tmp, path)
+        build_host_library(path, _NATIVE_SRC)
         lib = ctypes.CDLL(str(path))
         i32p = ctypes.POINTER(ctypes.c_int)
         u16p = ctypes.POINTER(ctypes.c_uint16)
@@ -98,7 +80,7 @@ def native_lib():
         lib.strided_books_batch.restype = None
     except (OSError, RuntimeError) as e:
         lib, error = None, str(e)
-    _NATIVE.update(lib=lib, error=error, path=Path(path))
+    _NATIVE.update(lib=lib, error=error, path=path)
     return lib
 
 

@@ -1,14 +1,24 @@
 """Rotated-rectangle intersection areas over a batched pair grid.
 
-`pair_overlap_batched` replaces the TPU kernel
-`pcdet_tpu.ops.pallas.rotated_overlap.pair_overlap_batched`.  On a CUDA
-tensor it launches the hand-written kernel `csrc/rotated_overlap.cu` (built
-with nvcc at first use) or raises; on a CPU tensor it computes the plain
-version, `pair_overlap_batched_plain`.  There is no fallback from the one to
-the other.
+Two kernels compute this function by different methods:
 
-`LAUNCHES` counts kernel launches, so a run can show that its path went
-through the kernel.
+- A, `pair_overlap_batched`, replaces the TPU kernel
+  `pcdet_tpu.ops.pallas.rotated_overlap.pair_overlap_batched` (Green's
+  theorem over clipped edges; `csrc/rotated_overlap.cu`).  NMS and the
+  evaluation's recall run it; `pair_overlap` is its G = 1 case (A′).
+- A″, `pair_overlap_sorted_batched`, replaces
+  `pcdet_tpu.ops.pallas.rotated_overlap.pair_overlap_sorted` (24 candidate
+  vertices, dedup, an angular successor scan; `csrc/rotated_overlap_sorted.cu`).
+  It is A's independent cross-check, as in the JAX package;
+  `pair_overlap_sorted` is its G = 1 case.
+
+On a CUDA tensor each wrapper launches its hand-written kernel (built with
+nvcc at first use) or raises; on a CPU tensor it computes its plain version
+(`pair_overlap_batched_plain`, `pair_overlap_sorted_plain`).  There is no
+fallback from the one to the other.
+
+`LAUNCHES` (A) and `LAUNCHES_SORTED` (A″) count kernel launches, so a run
+can show that its path went through the kernel.
 """
 import ctypes
 import functools
@@ -18,16 +28,21 @@ import torch
 from . import cuda_build, rotated_iou
 
 LAUNCHES = 0
-_SOURCES = ('rotated_overlap.cu',)
+LAUNCHES_SORTED = 0
 _MAX_GRID_YZ = 65535
-_ROWS_PER_BLOCK = 4     # kRowsM in the kernel
+_ROWS_PER_BLOCK = 4     # kRowsM in both kernels
+
+# the Pallas kernel's constants (pcdet_tpu/ops/pallas/rotated_overlap.py)
+EPS = 1e-8
+INSIDE_EPS = 1e-6
+DUP_TOL = 1e-6
+BIG = 1e9
+N_CAND = 24
 
 
-@functools.cache
-def build():
-    """Build (or reuse) and load the kernel library; returns it."""
-    lib = cuda_build.load_library('rotated_overlap', _SOURCES)
-    fn = lib.pcdet_rotated_overlap_batched
+def _load(name, source, entry):
+    lib = cuda_build.load_library(name, (source,))
+    fn = getattr(lib, entry)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -36,10 +51,132 @@ def build():
     return lib
 
 
+@functools.cache
+def build():
+    """Build (or reuse) and load kernel A's library; returns it."""
+    return _load('rotated_overlap', 'rotated_overlap.cu',
+                 'pcdet_rotated_overlap_batched')
+
+
+@functools.cache
+def build_sorted():
+    """Build (or reuse) and load kernel A″'s library; returns it."""
+    return _load('rotated_overlap_sorted', 'rotated_overlap_sorted.cu',
+                 'pcdet_rotated_overlap_sorted_batched')
+
+
 def pair_overlap_batched_plain(corners_a, corners_b):
     """(G, M, 4, 2) x (G, N, 4, 2) -> (G, M, N) areas, in plain PyTorch."""
     return rotated_iou.quad_intersection_area(corners_a[:, :, None],
                                               corners_b[:, None])
+
+
+def _cross(ox, oy, px, py, qx, qy):
+    return (px - ox) * (qy - oy) - (qx - ox) * (py - oy)
+
+
+def _inside(qx, qy, px, py):
+    ok = None
+    for e in range(4):
+        c = _cross(qx[e], qy[e], qx[(e + 1) % 4], qy[(e + 1) % 4], px, py)
+        cond = c >= -INSIDE_EPS
+        ok = cond if ok is None else (ok & cond)
+    return ok
+
+
+def _diamond_angle(dx, dy):
+    """Monotonic-in-angle pseudo-angle in [0, 4), no transcendentals."""
+    adx = torch.abs(dx)
+    ady = torch.abs(dy)
+    denom = torch.clamp(adx + ady, min=EPS)
+    q1 = dy / denom
+    q2 = 1.0 + adx / denom
+    q3 = 2.0 + ady / denom
+    q4 = 3.0 + dx / denom
+    pos_x = dx >= 0
+    pos_y = dy >= 0
+    return torch.where(pos_x & pos_y, q1,
+                       torch.where(~pos_x & pos_y, q2,
+                                   torch.where(~pos_x & ~pos_y, q3, q4)))
+
+
+def pair_overlap_sorted_plain(corners_a, corners_b):
+    """(G, M, 4, 2) x (G, N, 4, 2) -> (G, M, N) areas by kernel A″'s method,
+    in plain PyTorch over a candidate axis of 24, step by step as the
+    Pallas `_overlap_kernel` runs: the candidates in slot order, the
+    sequential dedup, the centroid and the shoelace summed over slots in
+    order, the successor scan with j ascending and a strict `<`."""
+    shape = torch.broadcast_shapes(corners_a[:, :, None].shape,
+                                   corners_b[:, None].shape)[:-2]
+    ca = corners_a[:, :, None].expand(*shape, 4, 2)
+    cb = corners_b[:, None].expand(*shape, 4, 2)
+    ax = [ca[..., k, 0] for k in range(4)]
+    ay = [ca[..., k, 1] for k in range(4)]
+    bx = [cb[..., k, 0] for k in range(4)]
+    by = [cb[..., k, 1] for k in range(4)]
+
+    # 1. candidates: A's corners inside B, B's inside A, 16 edge crossings
+    px, py, va = list(ax) + list(bx), list(ay) + list(by), []
+    va += [_inside(bx, by, ax[k], ay[k]) for k in range(4)]
+    va += [_inside(ax, ay, bx[k], by[k]) for k in range(4)]
+    for i in range(4):
+        i1 = (i + 1) % 4
+        rx, ry = ax[i1] - ax[i], ay[i1] - ay[i]
+        for j in range(4):
+            j1 = (j + 1) % 4
+            sx, sy = bx[j1] - bx[j], by[j1] - by[j]
+            denom = rx * sy - ry * sx
+            nonpar = torch.abs(denom) > EPS
+            safe = torch.where(nonpar, denom, 1.0)
+            qpx, qpy = bx[j] - ax[i], by[j] - ay[i]
+            t = (qpx * sy - qpy * sx) / safe
+            u = (qpx * ry - qpy * rx) / safe
+            px.append(ax[i] + t * rx)
+            py.append(ay[i] + t * ry)
+            va.append(nonpar & (t >= 0) & (t <= 1) & (u >= 0) & (u <= 1))
+    px = torch.stack(px, -1)                             # (..., 24)
+    py = torch.stack(py, -1)
+    va = torch.stack(va, -1)
+
+    # 2. sequential dedup: j against the candidates still valid below it
+    for j in range(1, N_CAND):
+        same = (va[..., :j]
+                & (torch.abs(px[..., :j] - px[..., j:j + 1]) < DUP_TOL)
+                & (torch.abs(py[..., :j] - py[..., j:j + 1]) < DUP_TOL))
+        va[..., j] &= ~same.any(-1)
+
+    # 3. centroid (sums over slots in order) and pseudo-angles
+    count = torch.zeros_like(px[..., 0])
+    sx = torch.zeros_like(count)
+    sy = torch.zeros_like(count)
+    for k in range(N_CAND):
+        count = count + torch.where(va[..., k], 1.0, 0.0)
+        sx = sx + torch.where(va[..., k], px[..., k], 0.0)
+        sy = sy + torch.where(va[..., k], py[..., k], 0.0)
+    denom_c = torch.clamp(count, min=1.0)
+    cx, cy = sx / denom_c, sy / denom_c
+    ang = torch.where(va, _diamond_angle(px - cx[..., None],
+                                         py - cy[..., None]), BIG)
+
+    # 4. successor of each i by the least positive gap, j ascending
+    best = torch.full_like(px, BIG)
+    nx, ny = px.clone(), py.clone()
+    for j in range(N_CAND):
+        gap = ang[..., j:j + 1] - ang
+        gap = torch.where(gap <= 0.0, gap + 4.0, gap)
+        ok = va[..., j:j + 1] & va
+        ok[..., j] = False
+        gap = torch.where(ok, gap, BIG)
+        take = gap < best
+        best = torch.where(take, gap, best)
+        nx = torch.where(take, px[..., j:j + 1], nx)
+        ny = torch.where(take, py[..., j:j + 1], ny)
+    terms = px * ny - nx * py
+    terms = torch.where(va & (best < BIG / 2), terms, 0.0)
+    area2 = torch.zeros_like(count)
+    for k in range(N_CAND):
+        area2 = area2 + terms[..., k]
+    return torch.where(count >= 3.0, 0.5 * torch.abs(area2), 0.0)
 
 
 def _check(corners_a, corners_b):
@@ -59,13 +196,8 @@ def _check(corners_a, corners_b):
                          % (corners_a.device, corners_b.device))
 
 
-def pair_overlap_batched(corners_a, corners_b):
-    """(G, M, 4, 2) x (G, N, 4, 2) f32 CCW corners -> (G, M, N) f32
-    intersection areas; independent pair problems per group."""
-    global LAUNCHES
-    _check(corners_a, corners_b)
-    if corners_a.device.type == 'cpu':
-        return pair_overlap_batched_plain(corners_a, corners_b)
+def _launch(build_lib, entry, corners_a, corners_b):
+    """One launch of a kernel on checked CUDA operands -> (G, M, N)."""
     if corners_a.device.type != 'cuda':
         raise ValueError('unsupported device %s' % corners_a.device)
     g, m, n = corners_a.shape[0], corners_a.shape[1], corners_b.shape[1]
@@ -73,20 +205,49 @@ def pair_overlap_batched(corners_a, corners_b):
         raise ValueError('grid too large: G=%d M=%d' % (g, m))
     if n >= 2 ** 31:
         raise ValueError('N=%d does not fit the kernel\'s int' % n)
-    lib = build()
+    lib = build_lib()
     out = torch.empty((g, m, n), dtype=torch.float32, device=corners_a.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(corners_a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pcdet_rotated_overlap_batched(
-            corners_a.data_ptr(), corners_b.data_ptr(), out.data_ptr(),
-            g, m, n, stream)
+        rc = getattr(lib, entry)(corners_a.data_ptr(), corners_b.data_ptr(),
+                                 out.data_ptr(), g, m, n, stream)
     cuda_build.check(lib, rc)
-    LAUNCHES += 1
+    return out
+
+
+def pair_overlap_batched(corners_a, corners_b):
+    """(G, M, 4, 2) x (G, N, 4, 2) f32 CCW corners -> (G, M, N) f32
+    intersection areas; independent pair problems per group (kernel A)."""
+    global LAUNCHES
+    _check(corners_a, corners_b)
+    if corners_a.device.type == 'cpu':
+        return pair_overlap_batched_plain(corners_a, corners_b)
+    out = _launch(build, 'pcdet_rotated_overlap_batched', corners_a,
+                  corners_b)
+    LAUNCHES += int(out.numel() > 0)
     return out
 
 
 def pair_overlap(corners_a, corners_b):
-    """(M, 4, 2) x (N, 4, 2) -> (M, N): the G = 1 case of the same kernel."""
+    """(M, 4, 2) x (N, 4, 2) -> (M, N): the G = 1 case of kernel A."""
     return pair_overlap_batched(corners_a[None], corners_b[None])[0]
+
+
+def pair_overlap_sorted_batched(corners_a, corners_b):
+    """(G, M, 4, 2) x (G, N, 4, 2) f32 CCW corners -> (G, M, N) f32
+    intersection areas by kernel A″ (A's cross-check)."""
+    global LAUNCHES_SORTED
+    _check(corners_a, corners_b)
+    if corners_a.device.type == 'cpu':
+        return pair_overlap_sorted_plain(corners_a, corners_b)
+    out = _launch(build_sorted, 'pcdet_rotated_overlap_sorted_batched',
+                  corners_a, corners_b)
+    LAUNCHES_SORTED += int(out.numel() > 0)
+    return out
+
+
+def pair_overlap_sorted(corners_a, corners_b):
+    """(M, 4, 2) x (N, 4, 2) -> (M, N): the G = 1 case of kernel A″."""
+    return pair_overlap_sorted_batched(corners_a[None], corners_b[None])[0]

@@ -1,1 +1,2 @@
-"""SECOND training: trainer, train step, adam_onecycle."""
+"""SECOND training (trainer, train step, adam_onecycle) and the evaluation
+loop."""

@@ -1,1 +1,1 @@
-"""Math helpers on tensors."""
+"""Math helpers on tensors, and numpy helpers of the data path."""

@@ -3,8 +3,9 @@
 Mirrors the reference's setup.py role (version = 0.1.0+<git sha>).  No
 extension is compiled at install time: pcdet_tpu's device path is
 JAX/XLA/Pallas and its native host component (pcdet_tpu/native) is built by
-g++ at first use; pcdet_tpu_torch's CUDA kernels (pcdet_tpu_torch/csrc) are
-built by nvcc, and its host rulebook builder by g++, at first use.
+g++ at first use; pcdet_tpu_torch's CUDA kernels (pcdet_tpu_torch/csrc/*.cu)
+are built by nvcc, and its host rulebook builder and KITTI evaluator
+(csrc/*.cpp) by g++, at first use.
 """
 import subprocess
 

@@ -21,7 +21,11 @@ the table's last row, all-miss rows, n_live none / mid-tile / all: E, E′
 repeatable, E′ and D′ counting each (tile, group) on the branch the
 segment descriptors give; the selector kernel equal to its plain version
 as integers, dropped taps counted; the convs' backward under each `Loads`
-on the card against the CPU.
+on the card against the CPU.  Kernel A″ (the sorted-candidate overlap)
+bitwise equal to its plain version on random and crafted boxes, one launch
+counted per call, bad operands refused; `boxes_iou3d_batched` through one
+launch of kernel A equal to its plain version on the card and within 1e-5
+of the CPU (sin / cos round differently on the two devices).
 """
 import itertools
 
@@ -68,6 +72,81 @@ def test_kernel_matches_plain(cuda, g, m, n):
     want = rotated_overlap.pair_overlap_batched_plain(ca, cb)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize('g,m,n', [(2, 64, 4096), (3, 37, 1000), (1, 5, 7)])
+def test_sorted_kernel_matches_plain(cuda, g, m, n):
+    rng = np.random.RandomState(5)
+    cb = rotated_iou.boxes5_to_corners(
+        torch.as_tensor(_boxes5(rng, (g, n)), device=cuda)).contiguous()
+    ca = cb[:, :m].contiguous()
+    before = rotated_overlap.LAUNCHES_SORTED
+    got = rotated_overlap.pair_overlap_sorted_batched(ca, cb)
+    assert rotated_overlap.LAUNCHES_SORTED == before + 1
+    again = rotated_overlap.pair_overlap_sorted_batched(ca, cb)
+    want = rotated_overlap.pair_overlap_sorted_plain(ca, cb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+    assert (want > 0).sum() > 0
+
+
+def test_sorted_kernel_crafted_pairs(cuda):
+    a = np.array([[-5, -5, 5, 5, 0.0]] * 5 + [[0, 0, 2, 4, 0.7]], np.float32)
+    b = np.array([[-1, -1, 1, 1, 0.9], [5, -1, 7, 1, 0.0],
+                  [100, 100, 102, 102, 0.3], [-5, -5, 5, 5, np.pi / 2],
+                  [-5, -5, 5, 5, 0.0], [0, 0, 2, 4, 0.7]], np.float32)
+    ca = rotated_iou.boxes5_to_corners(torch.as_tensor(a, device=cuda))
+    cb = rotated_iou.boxes5_to_corners(torch.as_tensor(b, device=cuda))
+    got = rotated_overlap.pair_overlap_sorted(ca.contiguous(), cb.contiguous())
+    want = rotated_overlap.pair_overlap_sorted_plain(ca[None], cb[None])[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    torch.testing.assert_close(
+        torch.diagonal(got).cpu(), torch.tensor([4.0, 0, 0, 100, 100, 8]),
+        rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize('bad', ['dtype', 'shape', 'groups', 'strides',
+                                 'device'])
+def test_sorted_kernel_rejects_bad_input(cuda, bad):
+    c = torch.zeros(2, 8, 4, 2, device=cuda)
+    a, b = c[:, :4].contiguous(), c
+    if bad == 'device':                   # one operand on the CPU
+        a = a.cpu()
+    elif bad == 'dtype':
+        a = a.double()
+    elif bad == 'shape':
+        a = a.reshape(2, 4, 8)
+    elif bad == 'groups':
+        a = a[:1]
+    else:
+        a = torch.zeros(2, 4, 2, 4, device=cuda).transpose(2, 3)
+    before = rotated_overlap.LAUNCHES_SORTED
+    with pytest.raises((TypeError, ValueError)):
+        rotated_overlap.pair_overlap_sorted_batched(a, b)
+    assert rotated_overlap.LAUNCHES_SORTED == before
+
+
+def test_boxes_iou3d_batched_through_kernel_a(cuda):
+    rng = np.random.RandomState(6)
+    boxes = np.concatenate([rng.uniform(-20, 20, (3, 500, 2)),
+                            rng.uniform(-2, 0, (3, 500, 1)),
+                            rng.uniform(0.5, 4.5, (3, 500, 3)),
+                            rng.uniform(-np.pi, np.pi, (3, 500, 1))],
+                           -1).astype(np.float32)
+    a = torch.as_tensor(boxes, device=cuda)
+    b = a[:, :128] + 0.1
+    before = rotated_overlap.LAUNCHES
+    got = rotated_iou.boxes_iou3d_batched(a, b)
+    assert rotated_overlap.LAUNCHES == before + 1
+    plain = rotated_iou.boxes_iou3d_batched(
+        a, b, rotated_overlap.pair_overlap_batched_plain)
+    cpu = rotated_iou.boxes_iou3d_batched(a.cpu(), b.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=0, atol=1e-5)
+    assert (cpu > 0.5).sum() > 300
 
 
 def test_kernel_rejects_non_contiguous(cuda):

@@ -2,14 +2,21 @@
 own copies of pcdet_tpu's framework-free helpers give the same results.
 
 - a subprocess imports `pcdet_tpu_torch.detect`, `pcdet_tpu_torch.train.
-  trainer` and `chip_smoke` and finds no `pcdet_tpu` module loaded;
+  trainer`, the evaluation's modules (`train.eval_loop`, the KITTI
+  evaluator and its native bindings) and `chip_smoke` and finds no
+  `pcdet_tpu` module loaded;
 - no source of the package, nor `chip_smoke.py`, has an import of
   `pcdet_tpu` (other than of `pcdet_tpu_torch`);
 - the copies against pcdet_tpu, exactly: the host books (native and numpy
   builders) at the tiny config and at `tools/cfgs/second.yaml`'s eval and
   train caps at B2, the anchors and `AnchorHeadTargets.assign`, `make_scene`
-  in both ground modes, and the loaded `second.yaml` / `pointpillar.yaml`.
+  in both ground modes, and the loaded `second.yaml` / `pointpillar.yaml`;
+  the KITTI evaluator's four native functions (`csrc/kitti_eval_native.cpp`)
+  on random inputs; `SyntheticDataset`'s eval examples (points, point mask,
+  padded GT with classes), GT annotations and annotations of predictions at
+  the tiny config and at `second.yaml`.
 """
+import copy
 import re
 import subprocess
 import sys
@@ -22,11 +29,13 @@ import torch
 from tiny_config import tiny_second_cfg
 
 from pcdet_tpu import config as jax_config
+from pcdet_tpu import native as jax_native
 from pcdet_tpu.datasets import synthetic as jax_synthetic
 from pcdet_tpu.models.anchors import AnchorHeadTargets as JaxTargets
 from pcdet_tpu.ops import host_books as jax_books
 from pcdet_tpu_torch import config, detect
 from pcdet_tpu_torch.datasets import synthetic
+from pcdet_tpu_torch.datasets.kitti.kitti_eval import native
 from pcdet_tpu_torch.models.anchors import AnchorHeadTargets
 from pcdet_tpu_torch.ops import host_books
 from pcdet_tpu_torch.ops.voxelizer import grid_size
@@ -40,7 +49,9 @@ CFGS = REPO / 'tools' / 'cfgs'
 
 def test_port_loads_no_pcdet_tpu_module():
     code = ('import sys, chip_smoke, pcdet_tpu_torch.detect, '
-            'pcdet_tpu_torch.train.trainer; '
+            'pcdet_tpu_torch.train.trainer, pcdet_tpu_torch.train.eval_loop, '
+            'pcdet_tpu_torch.datasets.kitti.kitti_eval.eval, '
+            'pcdet_tpu_torch.datasets.kitti.kitti_eval.native; '
             "bad = sorted(m for m in sys.modules if m == 'pcdet_tpu' "
             "or m.startswith('pcdet_tpu.')); print(bad); "
             'sys.exit(1 if bad else 0)')
@@ -197,3 +208,122 @@ def test_anchor_targets_equal_pcdet_tpu(second, which):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
         positives += int((a['labels'] > 0).sum())
     assert positives > 0
+
+
+def _eval_boxes(rng, n):
+    return np.stack([rng.uniform(-8, 8, n), rng.uniform(-8, 8, n),
+                     rng.uniform(0.5, 5.0, n), rng.uniform(0.5, 5.0, n),
+                     rng.uniform(-np.pi, np.pi, n)], axis=1)
+
+
+def _image_boxes(rng, n):
+    lo = rng.uniform(0, 100, (n, 2))
+    return np.concatenate([lo, lo + rng.uniform(1, 60, (n, 2))], axis=1)
+
+
+def test_kitti_eval_native_equals_pcdet_tpu():
+    assert jax_native.get_lib() is not None
+    rng = np.random.RandomState(7)
+    a, b = _eval_boxes(rng, 40), _eval_boxes(rng, 33)
+    for criterion in (-1, 0, 1, 2):
+        got = native.rotate_iou_eval(a, b, criterion)
+        np.testing.assert_array_equal(
+            got, jax_native.rotate_iou_eval(a, b, criterion))
+    assert (got > 0).sum() > 20
+    ia, ib = _image_boxes(rng, 30), _image_boxes(rng, 25)
+    for criterion in (-1, 0, 1):
+        np.testing.assert_array_equal(
+            native.image_box_overlap(ia, ib, criterion),
+            jax_native.image_box_overlap(ia, ib, criterion))
+
+    # matching statistics: 3 frames of detections vs GT, ignore flags of
+    # every kind, DontCare boxes, with and without false positives and aos
+    frames = []
+    for _ in range(3):
+        nd, ng, ndc = rng.randint(5, 12), rng.randint(3, 9), rng.randint(0, 3)
+        frames.append({
+            'overlaps': rng.uniform(0, 1, (nd, ng)),
+            'gt': np.concatenate([_image_boxes(rng, ng),
+                                  rng.uniform(-3, 3, (ng, 1))], axis=1),
+            'dt': np.concatenate([_image_boxes(rng, nd),
+                                  rng.uniform(-3, 3, (nd, 1)),
+                                  rng.uniform(0, 1, (nd, 1))], axis=1),
+            'igt': rng.randint(-1, 2, ng).astype(np.int64),
+            'idt': rng.randint(-1, 2, nd).astype(np.int64),
+            'dc': _image_boxes(rng, ndc)})
+    for f in frames:
+        for fp, aos in ((False, False), (True, False), (True, True)):
+            for metric in (0, 1):
+                args = (f['overlaps'], f['gt'], f['dt'], f['igt'], f['idt'],
+                        f['dc'], metric, 0.5, 0.3, fp, aos)
+                got = native.compute_statistics(*args)
+                want = jax_native.compute_statistics(*args)
+                assert got[:4] == want[:4]
+                np.testing.assert_array_equal(got[4], want[4])
+    total_gt = sum(f['overlaps'].shape[1] for f in frames)
+    parted = np.zeros((sum(f['overlaps'].shape[0] for f in frames), total_gt))
+    r = c = 0
+    for f in frames:
+        nd, ng = f['overlaps'].shape
+        parted[r:r + nd, c:c + ng] = f['overlaps']
+        r, c = r + nd, c + ng
+    thresholds = np.sort(rng.uniform(0, 1, 6))
+    prs = []
+    for lib in (native, jax_native):
+        pr = np.zeros((len(thresholds), 4))
+        lib.fused_compute_statistics(
+            parted, pr, np.array([f['overlaps'].shape[1] for f in frames]),
+            np.array([f['overlaps'].shape[0] for f in frames]),
+            np.array([len(f['dc']) for f in frames]),
+            np.concatenate([f['gt'] for f in frames]),
+            np.concatenate([f['dt'] for f in frames]),
+            np.concatenate([f['dc'] for f in frames]),
+            np.concatenate([f['igt'] for f in frames]),
+            np.concatenate([f['idt'] for f in frames]), 0, 0.5, thresholds,
+            compute_aos=True)
+        prs.append(pr)
+    np.testing.assert_array_equal(prs[0], prs[1])
+    assert prs[0][:, 0].sum() > 0
+
+
+def _annos_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            assert np.asarray(g[k]).dtype == np.asarray(w[k]).dtype, k
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+@pytest.mark.parametrize('which', ['tiny', 'second'])
+def test_synthetic_dataset_equals_pcdet_tpu(which):
+    if which == 'tiny':
+        cfg = tiny_second_cfg(num_class=3)
+        cfg.DATA_CONFIG.SYNTHETIC = {'NUM_SAMPLES': 3, 'NUM_OBJECTS': 9}
+    else:
+        cfg = config.cfg_from_yaml_file(str(CFGS / 'second.yaml'))
+        cfg.DATA_CONFIG.SYNTHETIC = {
+            'NUM_SAMPLES': 2, 'NUM_OBJECTS': 24, 'GROUND_MODE': 'rings',
+            'PTS_PER_OBJ': 400, 'RING_KEEP': 0.35}
+    got = synthetic.SyntheticDataset(cfg, seed=4)
+    jcfg = copy.deepcopy(cfg)
+    jcfg.TORCH_VOXEL_GENERATOR = True      # the device voxelizer's layout
+    want = jax_synthetic.SyntheticDataset(jcfg, training=False, seed=4)
+    assert len(got) == len(want)
+    for i in range(len(got)):
+        g, w = got[i], want[i]
+        assert g['sample_idx'] == w['sample_idx']
+        for k in ('points', 'point_mask', 'gt_boxes'):
+            assert g[k].dtype == w[k].dtype, k
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+        assert g['point_mask'].sum() > 0 and g['gt_boxes'][:, 7].max() > 0
+    _annos_equal(got.gt_annos(), want.gt_annos())
+    batch = next(synthetic.eval_batches(got, 2))
+    rng = np.random.RandomState(1)
+    preds = {'boxes': rng.uniform(0.5, 3, (2, 20, 7)).astype(np.float32),
+             'scores': rng.rand(2, 20).astype(np.float32),
+             'labels': rng.randint(1, 4, (2, 20)).astype(np.int32),
+             'valid': rng.rand(2, 20) > 0.3}
+    names = list(cfg.CLASS_NAMES)
+    _annos_equal(got.generate_annotations(batch, preds, names),
+                 want.generate_annotations(batch, preds, names))
