@@ -24,10 +24,13 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
      split (predict as top-k + decode and NMS), the NMS round count, a
      torch.profiler breakdown by kernel and by op; the kernel beside the
      plain version comes from phase 2.
-  S2. gather-GEMM kernels B (f32) and C (bf16) vs their plain versions on
-      rules of the real B2 books at conv2_1 (K=27, 32 -> 32) and conv_out
-      (K=3, 64 -> 128), with all-miss rows, n_live 0 and n_live mid-tile
-      (bound 1e-5 * max |plain|), and their times;
+  S2. gather-GEMM kernels B (f32, FFMA) and C (bf16, tensor cores) vs their
+      plain versions on rules of the real B2 books at conv2_1 (K=27, 32 ->
+      32) and conv_out (K=3, 64 -> 128), with all-miss rows, n_live 0 and
+      n_live mid-tile (bound 1e-5 * max |plain|), two launches bitwise
+      equal, their device times, the share of (tile, tap) pairs they skip,
+      and at conv2_1 cuBLAS on the pre-gathered rows (`gemm_only_ms`, the
+      math without the gather: a yardstick, not the same function);
   S3. shipped second.yaml detect at B2 under the default loads (launches
       of C, E or E' as the loads choose, num > 0), with the voxel count,
       voxelizer overflow and per-level drops;
@@ -67,13 +70,18 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       descriptors' count and both > 0; no tap dropped by any book's
       selectors;
   X2. second.yaml detect at B2 under loads.fwd xwin and seg: 11 launches of
-      E / E' and 1 of C, num > 0, boxes equal to the rows run within 1e-3;
+      E / E' and 1 of C, num > 0, the RPN head's dense outputs within 5e-2
+      of max |rows output| (C sums in the tensor cores' order, E / E' bf16
+      in kernel B's, so bf16 roundings flip); the same in f32, where E / E'
+      give B's bits: num and boxes equal to the rows run within 1e-3;
   X3. training at B2 under loads (xwin, xwin), (seg, seg) and the default:
       5 steps, finite losses, the 5th below the 1st, the launches per step;
       one B1 step's sparse-conv dW through each equal to the rows step's
       within 1e-3 of max |dW|;
-  X4. times on CUDA events: each kw=3 conv's kernels B / C, E, E' (forward
-      f32 and bf16, feature gradient) and D, D'', D' at B2, the selector
+  X4. device times (queued behind a spin kernel): each kw=3 conv's kernels
+      B / C, E, E' (forward f32 and bf16, feature gradient) and D, D'', D'
+      at B2, with the (tile, tap) pairs B / C skip, conv_out's B and C, and
+      the sums of B per train step and of C per detect batch; the selector
       builds; detect frames/s and backbone ms at B2 and B8 under each
       loads.fwd; the prebuilt train step and its forward / backward split
       at B2 and B8 under each loads choice.
@@ -167,6 +175,21 @@ def gather_work(table, rules, n_live, cout, index_bytes_per_row, tail_bytes):
     nbytes = (rows * cin * table.element_size()
               + int(live.sum()) * index_bytes_per_row + tail_bytes)
     return ops, nbytes, table.dtype
+
+
+def skipped_share(rules, n_in, n_live, tile):
+    """Share of the (live tile, tap) pairs that kernels B / C skip: taps
+    found (a rule in [0, n_in)) in no live row of a tile of `tile` rows."""
+    b, v, k = rules.shape
+    rows = torch.arange(v, device=rules.device)
+    found = ((rules >= 0) & (rules < n_in)
+             & (rows[None] < n_live[:, None])[..., None])
+    found = torch.cat([found, found.new_zeros((b, (-v) % tile, k))], 1)
+    per_tile = found.reshape(b, -1, tile, k).any(2)
+    live_tiles = (torch.arange(per_tile.shape[1], device=rules.device)
+                  * tile)[None] < n_live[:, None]
+    pairs = int(live_tiles.sum()) * k
+    return 1.0 - int(per_tile[live_tiles].sum()) / pairs if pairs else 0.0
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, work):
@@ -366,9 +389,28 @@ def voxel_overflow(det, points, mask):
     return out
 
 
+def device_ms(fn, iters):
+    """Mean device ms per call of fn(), queued behind a spin kernel (a short
+    kernel is timed, not its Python launch)."""
+    return queued_ms(fn, iters)[0]
+
+
+def gemm_yardstick(table, rules, w, live):
+    """ms of cuBLAS's (sum of live rows, K Cin) @ (K Cin, Cout) on the
+    pre-gathered rows of every tap, in the operands' dtype: the math of a
+    gather-GEMM without its gather (not the same function)."""
+    k, cin, cout = w.shape
+    gathered = torch.cat([table[i, rules[i, :int(n)].long()].reshape(-1, k * cin)
+                          for i, n in enumerate(live.tolist())])
+    flat = w.reshape(k * cin, cout)
+    return device_ms(lambda: torch.matmul(gathered, flat), 20)
+
+
 def gather_gemm_vs_plain(dev, det, books):
     """S2: kernels B and C against their plain versions on the card, on
-    the rules of real books at conv2_1 and conv_out.
+    the rules of real books at conv2_1 and conv_out; two launches bitwise
+    equal; device times, the share of (tile, tap) pairs skipped and, at
+    conv2_1, cuBLAS on the pre-gathered rows as a yardstick.
 
     :return: {'f32'|'bf16': {'err': max abs error, 'rel': error / max
         |plain|, 'ms': kernel ms, 'plain_ms': plain ms}} at conv2_1
@@ -398,8 +440,11 @@ def gather_gemm_vs_plain(dev, det, books):
             errs, scale = [], 0.0
             for n_live in (live, mid, torch.zeros_like(live)):
                 got = gg.gather_gemm(table, rules, w, n_live)
+                again = gg.gather_gemm(table, rules, w, n_live)
                 want = gg.gather_gemm_plain(table, rules, w, n_live)
                 sync()
+                require(torch.equal(got, again), '%s %s: two launches differ'
+                        % (name, tag))
                 errs.append((got - want).abs().max().item())
                 scale = max(scale, want.abs().max().item())
                 require(not bool(got[all_miss].any()),
@@ -410,16 +455,24 @@ def gather_gemm_vs_plain(dev, det, books):
             err = max(errs)
             require(err <= 1e-5 * scale, '%s %s: kernel vs plain %g > 1e-5 '
                     '* %g' % (name, tag, err, scale))
-            ms = cuda_ms(lambda: gg.gather_gemm(table, rules, w, live), 20)
+            ms = device_ms(lambda: gg.gather_gemm(table, rules, w, live), 20)
             plain_ms = cuda_ms(
                 lambda: gg.gather_gemm_plain(table, rules, w, live), 3, 1)
+            tile = gg.tile_rows(dtype, cin, cout)
             print('[second S2] %s %s (B=%d, V_out=%d, K=%d, %d -> %d, live %s):'
                   ' max |kernel - plain| %.3g (%.3g of max |plain| %.4g; '
-                  'real, mid-tile %s and zero n_live); kernel %.4f ms, plain '
-                  '%.4f ms' % (name, tag, b, v_out, k, cin, cout,
-                               live.tolist(), err, err / scale, scale,
-                               mid.tolist(), ms, plain_ms))
+                  'real, mid-tile %s and zero n_live); two launches bitwise '
+                  'equal; kernel %.4f ms (device), plain %.4f ms; %d-row '
+                  'tiles, (tile, tap) pairs skipped %.1f%%' % (
+                      name, tag, b, v_out, k, cin, cout, live.tolist(), err,
+                      err / scale, scale, mid.tolist(), ms, plain_ms, tile,
+                      100 * skipped_share(rules, n_in, live, tile)))
             if name == 'conv2_1':
+                gemm_ms = gemm_yardstick(table, rules, w, live)
+                print('[second S2] conv2_1 %s yardstick gemm_only_ms %.4f: '
+                      'cuBLAS on the pre-gathered rows of all 27 taps, the '
+                      'math without the gather (not the same function; '
+                      'kernel %.4f ms)' % (tag, gemm_ms, ms))
                 stats[tag] = {'err': err, 'rel': err / scale, 'ms': ms,
                               'plain_ms': plain_ms, 'work': gather_work(
                                   table, rules, live, cout, 4 * k,
@@ -543,6 +596,10 @@ def run_second(dev, cfg, batches=(2, 8)):
     print('[second S1] gather_gemm.cu: %.2f s (cached=%s)'
           % (log['seconds'], log['cached']))
     print_ptxas('gather_gemm.cu', log)
+    print('[second S1] per instance (B: Cin, Cout, rows, stages, rows x '
+          'columns a thread; C: Cin, Cout, rows): %s' % ('; '.join(
+              '%s<%s> %d regs, %d B spilled' % tuple(r)
+              for r in ptxas_entries(log)) or 'ptxas report empty'))
 
     det = second_detector(cfg, dev)
     pts_np, mask_np = detect_mod.make_scans(cfg, max(batches), ring_keep=0.35)
@@ -871,7 +928,8 @@ def run_train(dev, cfg, batches=(2, 8), steps=5):
         log = cuda_build.BUILD_LOG[lib]
         rows = ptxas_entries(log)
         if lib == 'gather_gemm':             # its new Cin=128 instances
-            rows = [r for r in rows if r[1].split(',')[-2:-1] == ['128']]
+            rows = [r for r in rows
+                    if r[1].replace('bf16,', '').split(',')[0] == '128']
         print('[train T1] %s.cu: %.2f s (cached=%s); %s' % (
             lib, log['seconds'], log['cached'], '; '.join(
                 '%s<%s> %d regs, %d B spilled' % tuple(r) for r in rows)
@@ -1344,44 +1402,100 @@ def xwin_vs_plain(dev, eval_books, train_books):
     return stats
 
 
+def head_outputs(det, pts, mask):
+    """The RPN head's dense outputs of one detect batch, as f32."""
+    with torch.inference_mode():
+        vox = det.voxelize(pts, mask)
+        ret = det.model.forward(dict(vox, books=det.books(vox)))
+    return {k: ret[k].float() for k in ('cls_preds', 'box_preds',
+                                        'dir_cls_preds')}
+
+
+def kept_matches(preds, ref, tol=1e-3):
+    """Per sample, how many of the boxes `preds` keeps lie within `tol` of a
+    box `ref` keeps."""
+    out = []
+    for i in range(preds['num'].shape[0]):
+        a = preds['boxes'][i, :int(preds['num'][i])]
+        c = ref['boxes'][i, :int(ref['num'][i])]
+        if not len(a) or not len(c):
+            out.append(0)
+            continue
+        d = (a[:, None] - c[None]).abs().amax(-1)
+        out.append(int((d.amin(1) <= tol).sum()))
+    return out
+
+
 def xwin_detect(dev, cfg, pts2, mask2):
     """X2: second.yaml detect at B2 under loads.fwd xwin and seg against the
-    rows run.  Returns the launches per LAUNCHES key."""
+    rows run.
+
+    In f32 E and E' give kernel B's bits, so detect must give the rows run's
+    num and boxes (1e-3).  In bf16 (the shipped stack) C sums on the tensor
+    cores while E and E' keep the f32 FFMA order: a conv's f32 sums differ
+    in their last bits, the next layer's bf16 rounding flips where they
+    straddle a rounding boundary, and the RPN head's dense outputs are held
+    to 5e-2 of max |rows output|.  Their boxes are printed against the
+    rows run's: with random weights every class logit is near 0 (scores
+    near 0.5), so the NMS order, and the kept set, follow the last bits.
+    Returns the launches per LAUNCHES key of the bf16 runs."""
     from pcdet_tpu_torch.ops import gather_xwin as gx
     from pcdet_tpu_torch.ops import sparse
     post = int(cfg.MODEL.TEST.NMS_POST_MAXSIZE_LAST)
-    det = second_detector(cfg, dev, sparse.ROWS)
-    det.detect(pts2, mask2)
-    ref = det.detect(pts2, mask2)
-    sync()
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.MODEL.RPN.BACKBONE.ARGS['compute_dtype_test'] = ''
+    cfg32.MODEL.RPN.RPN_HEAD.ARGS['compute_dtype_test'] = ''
     launches = {}
-    for fwd in ('xwin', 'seg'):
-        det = second_detector(cfg, dev, sparse.Loads(fwd, 'rows'))
-        det.detect(pts2, mask2)                      # warm-up
+    for c, tag in ((cfg, 'bf16'), (cfg32, 'f32')):
+        det = second_detector(c, dev, sparse.ROWS)
+        det.detect(pts2, mask2)
+        ref = det.detect(pts2, mask2)
+        ref_dense = head_outputs(det, pts2, mask2)
         sync()
-        reset_launches()
-        preds = det.detect(pts2, mask2)
-        sync()
-        counts = nonzero(all_launches())
-        tiles = gx.seg_tiles()
-        launches.update(counts)
-        num = second_detect_checks(preds, post, 2)
-        clamped = {k: int(v) for k, v in
-                   det.model.module.rpn_net.xwin_clamped.items()}
-        same = torch.equal(preds['num'], ref['num'])
-        box_err = ((preds['boxes'] - ref['boxes']).abs().max().item()
-                   if same else float('inf'))
-        print('[xwin X2] detect B2 (%s sparse stack) loads.fwd=%s: num %s '
-              '(rows %s), max |box - rows box| %.3g; launches %s; segment / '
-              'window (tile, group)s %d / %d; dropped taps %s' % (
-                  det.model.module.compute_dtype or torch.float32, fwd, num, ref['num'].tolist(), box_err, counts,
-                  tiles['segment'], tiles['window'], clamped))
-        expect = forward_launches(det.loads, det.model.module.compute_dtype)
-        require(counts == expect, 'launches %s, want %s' % (counts, expect))
-        require(same and box_err <= 1e-3, 'loads.fwd=%s: boxes differ from '
-                'the rows run (%s vs %s, %g)' % (fwd, num,
-                                                 ref['num'].tolist(), box_err))
-        require(not any(clamped.values()), 'dropped taps %s' % clamped)
+        for fwd in ('xwin', 'seg'):
+            det = second_detector(c, dev, sparse.Loads(fwd, 'rows'))
+            det.detect(pts2, mask2)                      # warm-up
+            sync()
+            reset_launches()
+            preds = det.detect(pts2, mask2)
+            sync()
+            counts = nonzero(all_launches())
+            tiles = gx.seg_tiles()
+            num = second_detect_checks(preds, post, 2)
+            clamped = {k: int(v) for k, v in
+                       det.model.module.rpn_net.xwin_clamped.items()}
+            dense = head_outputs(det, pts2, mask2)
+            rel = {k: (dense[k] - ref_dense[k]).abs().max().item()
+                   / ref_dense[k].abs().max().item() for k in dense}
+            same = torch.equal(preds['num'], ref['num'])
+            box_err = ((preds['boxes'] - ref['boxes']).abs().max().item()
+                       if same else float('inf'))
+            logits = ref_dense['cls_preds']
+            print('[xwin X2] detect B2 (%s sparse stack) loads.fwd=%s: num %s '
+                  '(rows %s), max |box - rows box| %.3g, kept boxes within '
+                  '1e-3 of a rows box %s; head outputs vs rows, max |diff| / '
+                  'max |rows|: %s (class logits of the rows run in [%.3g, '
+                  '%.3g]); launches %s; segment / window (tile, group)s %d / '
+                  '%d; dropped taps %s' % (
+                      tag, fwd, num, ref['num'].tolist(), box_err,
+                      kept_matches(preds, ref), ', '.join(
+                          '%s %.3g' % x for x in rel.items()),
+                      logits.min().item(), logits.max().item(), counts,
+                      tiles['segment'], tiles['window'], clamped))
+            expect = forward_launches(det.loads,
+                                      det.model.module.compute_dtype)
+            require(counts == expect, 'launches %s, want %s' % (counts,
+                                                                expect))
+            require(not any(clamped.values()), 'dropped taps %s' % clamped)
+            if tag == 'f32':
+                require(same and box_err <= 1e-3, 'f32 loads.fwd=%s: boxes '
+                        'differ from the rows run (%s vs %s, %g)' % (
+                            fwd, num, ref['num'].tolist(), box_err))
+            else:
+                launches.update(counts)
+                require(max(rel.values()) <= 5e-2, 'bf16 loads.fwd=%s: '
+                        'head outputs differ from the rows run: %s' % (fwd,
+                                                                      rel))
     return launches
 
 
@@ -1467,11 +1581,11 @@ def xwin_times(dev, cfg, eval_books, train_books, pts, mask, gt):
     def add(key, ms):
         sums[key] = sums.get(key, 0.0) + ms
 
-    cache = {}
+    cache, bc = {}, []
     for conv, key, cin, cout in KW3_CONVS:
         subm = key.startswith('subm')
         if (key, cin, cout) not in cache:
-            row = {}
+            row, skips = {}, {}
             for books, tag in ((eval_books, 'eval'), (train_books, 'train')):
                 case = books[key]
                 rules, n_in, _, out_mask = case
@@ -1484,14 +1598,16 @@ def xwin_times(dev, cfg, eval_books, train_books, pts, mask, gt):
                     (torch.float32, 'f32'),)
                 for dtype, t in dts:
                     tb, wb = feats.to(dtype), w.to(dtype)
-                    row['fwd_%s rows' % t] = cuda_ms(
+                    row['fwd_%s rows' % t] = device_ms(
                         lambda: gg.gather_gemm(tb, rules, wb, live), 10)
-                    row['fwd_%s xwin' % t] = cuda_ms(
+                    row['fwd_%s xwin' % t] = device_ms(
                         lambda: gx.gather_gemm_xwin(tb, base, sel, wb, live),
                         10)
-                    row['fwd_%s seg' % t] = cuda_ms(
+                    row['fwd_%s seg' % t] = device_ms(
                         lambda: gx.gather_gemm_seg(tb, base, sel, wb, live),
                         10)
+                    skips['fwd_' + t] = skipped_share(
+                        rules, n_in, live, gg.tile_rows(dtype, cin, cout))
                 if tag == 'eval':
                     row['fwd plain'] = cuda_ms(
                         lambda: gg.gather_gemm_plain(feats, rules, w, live),
@@ -1499,11 +1615,11 @@ def xwin_times(dev, cfg, eval_books, train_books, pts, mask, gt):
                     continue
                 g = torch.randn((rules.shape[0], rules.shape[1], cout),
                                 generator=gen).to(dev)
-                row['dw rows'] = cuda_ms(
+                row['dw rows'] = device_ms(
                     lambda: gd.gather_dw(feats, rules, g, live), 10)
-                row['dw xwin'] = cuda_ms(
+                row['dw xwin'] = device_ms(
                     lambda: gd.gather_dw_xwin(feats, base, sel, g, live), 10)
-                row['dw seg'] = cuda_ms(
+                row['dw seg'] = device_ms(
                     lambda: gd.gather_dw_seg(feats, base, sel, g, live), 10)
                 row['dw plain'] = cuda_ms(
                     lambda: gd.gather_dw_plain(feats, rules, g, live), 2, 1)
@@ -1515,22 +1631,62 @@ def xwin_times(dev, cfg, eval_books, train_books, pts, mask, gt):
                 blive = bout.sum(1, dtype=torch.int32)
                 g_table = rand_table(gen, bcase, cout, dev)
                 wt = w.transpose(1, 2).contiguous()
-                row['dgrad rows'] = cuda_ms(lambda: gg.gather_gemm(
+                row['dgrad rows'] = device_ms(lambda: gg.gather_gemm(
                     g_table, brules, wt, blive, dgrad=True), 10)
-                row['dgrad xwin'] = cuda_ms(lambda: gx.gather_gemm_xwin(
+                row['dgrad xwin'] = device_ms(lambda: gx.gather_gemm_xwin(
                     g_table, bb, bs, wt, blive), 10)
-                row['dgrad seg'] = cuda_ms(lambda: gx.gather_gemm_seg(
+                row['dgrad seg'] = device_ms(lambda: gx.gather_gemm_seg(
                     g_table, bb, bs, wt, blive), 10)
-            cache[(key, cin, cout)] = row
-        row = cache[(key, cin, cout)]
+                skips['dgrad'] = skipped_share(
+                    brules, bn_in, blive, gg.tile_rows(torch.float32, cout,
+                                                       cin))
+            cache[(key, cin, cout)] = row, skips
+        row, skips = cache[(key, cin, cout)]
+        bc.append((conv, row['fwd_f32 rows'], row.get('dgrad rows'),
+                   row['fwd_bf16 rows']))
         for k, ms in row.items():
             if not (conv == 'conv_input' and k.startswith('dgrad')):
                 add(k, ms)
-        print('[xwin X4] %-10s %-7s %2d -> %-3d %s' % (
-            conv, key, cin, cout, ', '.join('%s %.4f' % x
-                                            for x in row.items())))
+        print('[xwin X4] %-10s %-7s %2d -> %-3d %s; (tile, tap) pairs kernels '
+              'B / C skip: %s' % (
+                  conv, key, cin, cout, ', '.join('%s %.4f' % x
+                                                  for x in row.items()),
+                  ', '.join('%s %.1f%%' % (k, 100 * v)
+                            for k, v in skips.items())))
     print('[xwin X4] sums over the 11 kw=3 convs (ms, B2): %s' % ', '.join(
         '%s %.4f' % x for x in sums.items()))
+    # conv_out (K = 3, not kw=3): B forward 64 -> 128 and feature gradient
+    # 128 -> 64 on the train book, C forward on the eval book
+    times = {}
+    for books, dtype, kind in ((train_books, torch.float32, 'fwd_f32'),
+                               (train_books, torch.float32, 'dgrad'),
+                               (eval_books, torch.bfloat16, 'fwd_bf16')):
+        case = books['convout'] if kind != 'dgrad' else bwd_book(
+            books['convout'], False)
+        rules, n_in, _, out_mask = case
+        live = out_mask.sum(1, dtype=torch.int32)
+        cin, cout = (128, 64) if kind == 'dgrad' else (64, 128)
+        table = rand_table(gen, case, cin, dev).to(dtype)
+        w = ((torch.rand((rules.shape[2], cin, cout), generator=gen) * 2 - 1)
+             / (rules.shape[2] * cin) ** 0.5).to(dev).to(dtype)
+        times[kind] = device_ms(lambda: gg.gather_gemm(
+            table, rules, w, live, dgrad=kind == 'dgrad'), 10)
+        print('[xwin X4] conv_out %s %d -> %d (V_out %d, live %s): kernel %s '
+              '%.4f ms; (tile, tap) pairs skipped %.1f%%' % (
+                  kind, cin, cout, rules.shape[1], live.tolist(),
+                  'C' if dtype == torch.bfloat16 else 'B', times[kind],
+                  100 * skipped_share(rules, n_in, live, gg.tile_rows(
+                      dtype, cin, cout))))
+    bc.append(('conv_out', times['fwd_f32'], times['dgrad'],
+               times['fwd_bf16']))
+    b_step = sum(f + (d or 0.0) for _, f, d, _ in bc)
+    c_batch = sum(c for _, _, _, c in bc)
+    print('[xwin X4] kernel B per train step at B2 (12 forward + 11 feature '
+          'gradient launches, device time): %.4f ms; kernel C per detect '
+          'batch at B2 (12 launches): %.4f ms; per conv (B forward, B '
+          'feature gradient, C): %s' % (b_step, c_batch, '; '.join(
+              '%s %.4f %s %.4f' % (n, f, '-' if d is None else '%.4f' % d, c)
+              for n, f, d, c in bc)))
     for direction, keys in (('detect forward (bf16)', ('fwd_bf16',)),
                             ('train forward + feature gradient (f32)',
                              ('fwd_f32', 'dgrad')),

@@ -65,7 +65,7 @@ class PointPillarNet(nn.Module):
 class PointPillar:
     """Detector wrapper: module + anchors + predict."""
 
-    def __init__(self, cfg, grid_size, device='cpu', generator=None):
+    def __init__(self, cfg, grid_size, device='cuda', generator=None):
         self.cfg = cfg
         self.class_names = list(cfg.CLASS_NAMES)
         self.num_class = len(self.class_names)

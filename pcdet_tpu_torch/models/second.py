@@ -79,7 +79,7 @@ class SECONDNet:
         `BackBone8x`'s default)
     """
 
-    def __init__(self, cfg, grid_size, device='cpu', generator=None,
+    def __init__(self, cfg, grid_size, device='cuda', generator=None,
                  loads=None):
         self.cfg = cfg
         self.class_names = list(cfg.CLASS_NAMES)

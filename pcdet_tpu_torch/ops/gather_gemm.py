@@ -7,8 +7,10 @@
 features and weights) and `_gather_matmul_packed_call` (C, bf16-rounded
 features and weights, there packed in pairs into int32 words).  Both
 accumulate in f32 and return f32.  On a CUDA tensor it launches the
-hand-written kernel `csrc/gather_gemm.cu` (built with nvcc at first use),
-the f32 or the bf16 instance by the dtype of `feats`, or raises; on a CPU
+hand-written kernel `csrc/gather_gemm.cu` (built with nvcc at first use) by
+the dtype of `feats`: B (f32, FFMA, tap-major and channel-inner `fmaf`, the
+order of the plain version's per-element sum) or C (bf16 on the tensor
+cores, f32 sums in their order, bitwise repeatable), or raises; on a CPU
 tensor it computes the plain version, `gather_gemm_plain`.  There is no
 fallback from the one to the other.
 
@@ -40,9 +42,18 @@ def build():
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.pcdet_gather_gemm_tile_rows.argtypes = [ctypes.c_int] * 3
+    lib.pcdet_gather_gemm_tile_rows.restype = ctypes.c_int
     lib.pcdet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pcdet_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def tile_rows(dtype, cin, cout):
+    """Output rows per block of the (dtype, Cin, Cout) instance (builds the
+    library)."""
+    return build().pcdet_gather_gemm_tile_rows(int(dtype == torch.bfloat16),
+                                               cin, cout)
 
 
 def gather_gemm_plain(feats, rules, weights, n_live):
@@ -114,6 +125,11 @@ def gather_gemm(feats, rules, weights, n_live, dgrad=False):
         raise ValueError('batch or table too large: B=%d V_in+1=%d V_out=%d'
                          % (b, v_in1, v_out))
     bf16 = feats.dtype == torch.bfloat16
+    # the kernels copy rows and W[k] in 16-byte pieces (8 for bf16 Cin 4)
+    if feats.data_ptr() % min(16, cin * feats.element_size()) \
+            or weights.data_ptr() % 16:
+        raise ValueError('feats and weights must start on a 16-byte '
+                         'boundary (8 for bf16 Cin=4)')
     lib = build()
     out = torch.empty((b, v_out, cout), dtype=torch.float32,
                       device=feats.device)

@@ -9,9 +9,13 @@ CPU mode).  On a machine with a card, run without the JAX suite's conftest
 Rotated overlap: tolerance 1e-5 absolute on the areas; the kernel is built
 with --fmad=false and is expected to be bitwise equal to the plain version.
 Gather-GEMM (kernels B and C): 1e-5 of max |plain|; the kernel and the
-plain version sum in different orders.  dW (kernel D): 1e-5 of max |plain|
-at these short sums (chip_smoke.py holds the full-size sums to 1e-4), and
-two launches bitwise equal.  The sparse convs' autograd backward on the
+plain version (cuBLAS) may sum in different orders at these small shapes.
+B keeps its tap-major, channel-inner `fmaf` order; C sums on the tensor
+cores in their order; both are bitwise repeatable (two launches equal), on
+n_live at, one row short of and one row past the instance's row tile, with
+taps that miss in every row of a tile (skipped), K 1 to 64.  dW (kernel
+D): 1e-5 of max |plain| at these short sums (chip_smoke.py holds the
+full-size sums to 1e-4), and two launches bitwise equal.  The sparse convs' autograd backward on the
 card (kernels B over the mirrored / transposed books, D) against the same
 backward on the CPU (plain versions): 1e-5 of max |grad|.  The x-window
 and segment kernels (E, E′ in f32 and bf16, D″, D′) against their plain
@@ -182,12 +186,18 @@ def no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def _gg_inputs(rng, b, v_in, v_out, k, cin, cout, dtype, device):
+def _gg_inputs(rng, b, v_in, v_out, k, cin, cout, dtype, device,
+               skip_rows=0):
+    """A table (row v_in zero), rules with misses and an all-miss row 5,
+    weights; taps k // 2 .. k - 1 miss in every one of the first
+    `skip_rows` rows (a tile whose kernel skips them; all its taps at
+    K = 1)."""
     table = rng.randn(b, v_in + 1, cin).astype(np.float32)
     table[:, v_in] = 0
     rules = rng.randint(0, v_in + 1, (b, v_out, k)).astype(np.int32)
     rules[rng.rand(b, v_out, k) < 0.4] = v_in                # misses
     rules[:, 5] = v_in                                        # an all-miss row
+    rules[:, :skip_rows, k // 2:] = v_in
     w = rng.randn(k, cin, cout).astype(np.float32) * 0.2
     return (torch.as_tensor(table, device=device).to(dtype),
             torch.as_tensor(rules, device=device),
@@ -196,29 +206,33 @@ def _gg_inputs(rng, b, v_in, v_out, k, cin, cout, dtype, device):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('k,cin,cout', list(itertools.product(
-    (27, 3), gather_gemm.CIN, gather_gemm.COUT)))
+    (27, 3, 1, 64), gather_gemm.CIN, gather_gemm.COUT)))
 def test_gather_gemm_matches_plain(cuda, no_tf32, dtype, k, cin, cout):
     rng = np.random.RandomState(k * 1000 + cin * 10 + cout)
-    v_in, v_out = 300, 200                         # 200 = 3 tiles + 8 rows
+    tile = gather_gemm.tile_rows(dtype, cin, cout)  # 64, 128 or 256 rows
+    v_in, v_out = 300, 2 * tile + 72  # not a multiple of the tile
     name = ('gather_gemm_bf16' if dtype == torch.bfloat16
             else 'gather_gemm_f32')
     for b in (1, 3):
         feats, rules, w = _gg_inputs(rng, b, v_in, v_out, k, cin, cout,
-                                     dtype, cuda)
+                                     dtype, cuda, skip_rows=tile)
         full = torch.full((b,), v_out, dtype=torch.int32, device=cuda)
         scale = gather_gemm.gather_gemm_plain(feats, rules, w,
                                               full).abs().max().item()
         assert scale > 0
-        for live in (0, 100, v_out):               # none, mid-tile, all
+        # none, mid-tile, all; at a tile edge and one row either side
+        for live in (0, 100, v_out, tile - 1, tile, tile + 1):
             n_live = torch.full((b,), live, dtype=torch.int32, device=cuda)
             if b > 1:
                 n_live[-1] = v_out                 # samples gate apart
             before = gather_gemm.LAUNCHES[name]
             got = gather_gemm.gather_gemm(feats, rules, w, n_live)
-            assert gather_gemm.LAUNCHES[name] == before + 1
+            again = gather_gemm.gather_gemm(feats, rules, w, n_live)
+            assert gather_gemm.LAUNCHES[name] == before + 2
             want = gather_gemm.gather_gemm_plain(feats, rules, w, n_live)
             torch.cuda.synchronize()
             assert got.dtype == torch.float32 and got.shape == want.shape
+            assert torch.equal(got, again)
             torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
             assert not got[0, live:].any()
             assert not got[:, 5].any()
@@ -244,6 +258,9 @@ def test_gather_gemm_rejects_bad_inputs(cuda):
         gather_gemm.gather_gemm(feats, rules.cpu(), w, n_live)
     with pytest.raises(ValueError):                 # not contiguous
         gather_gemm.gather_gemm(feats, rules[:, ::2], w, n_live)
+    shifted = torch.empty(feats.numel() + 1, device=cuda)[1:]
+    with pytest.raises(ValueError):                 # 4 bytes off 16
+        gather_gemm.gather_gemm(shifted.view_as(feats), rules, w, n_live)
 
 
 def _dw_inputs(rng, b, v_in, v_out, k, cin, cout, device):

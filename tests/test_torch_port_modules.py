@@ -16,6 +16,7 @@ Tolerances:
 - the scatter moves values and must be exact.
 """
 import copy
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +35,7 @@ from pcdet_tpu.ops.voxelizer import VoxelGenerator, voxelize_jnp
 from pcdet_tpu.train import torch_import
 from pcdet_tpu_torch.models.pillar_scatter import pillar_scatter
 from pcdet_tpu_torch.models.pointpillar import PointPillar
+from pcdet_tpu_torch.models.second import SECONDNet
 from pcdet_tpu_torch.weights import state_dict_from_flax
 
 torch.set_num_threads(1)
@@ -88,7 +90,7 @@ def _setup(compute_dtype='', num_class=1, vfe_args=None, rpn_args=None):
     variables = {k: dict(v) for k, v in variables.items()}
     _randomise_bn(variables['params'], variables.get('batch_stats', {}), rng)
 
-    tmodel = PointPillar(cfg, vg.grid_size)
+    tmodel = PointPillar(cfg, vg.grid_size, device='cpu')
     layer_nums = cfg.MODEL.RPN.RPN_HEAD.ARGS['layer_nums']
     tmodel.module.load_state_dict(state_dict_from_flax(variables, layer_nums))
     vox_np = {k: np.asarray(v) for k, v in vox.items()}
@@ -232,3 +234,10 @@ def test_weight_bridge_round_trip(f32):
     for path, v in flat_orig.items():
         np.testing.assert_array_equal(flat_back[path], v,
                                       err_msg='/'.join(path))
+
+
+def test_model_classes_default_to_the_card():
+    """The model classes, like the detector and trainer entry points, run on
+    the card unless the caller asks for the CPU, as these tests do."""
+    for cls in (PointPillar, SECONDNet):
+        assert inspect.signature(cls).parameters['device'].default == 'cuda'
