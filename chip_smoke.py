@@ -39,12 +39,15 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
   S5. timings at B2 and B8: frames/s, the voxelize / books / backbone /
       RPN / predict split, ms per sparse conv, a torch.profiler breakdown.
   T1. (built in phase 1) kernel D (csrc/gather_dw.cu) and kernel B's
-      Cin=128 instances: registers and spills per instance;
-  T2. kernel D vs its plain version on the rules of real B2 TRAIN books at
-      conv2_1 (K=27, 32 -> 32) and conv_out (K=3, 64 -> 128), n_live real,
-      mid-tile and 0 (bound 1e-4 * max |plain|), two launches bitwise
+      Cin=128 instances: registers and spills per instance (no dW instance
+      may spill);
+  T2. kernel D vs its plain version on the rules of real B2 and B8 TRAIN
+      books at conv2_1 (K=27, 32 -> 32) and conv_out (K=3, 64 -> 128, D's
+      shape under the default loads), n_live real, mid-sub-tile and 0, each
+      book as built and with a sub-tile where no tap is found and a tap no
+      row of a chunk finds (bound 1e-4 * max |plain|), two launches bitwise
       equal; kernel B's 128 -> 64 instance on conv_out's transposed book
-      (bound 1e-5 * max |plain|); kernel and plain times;
+      (bound 1e-5 * max |plain|); kernel (device) and plain times at B2;
   T3. full-width second.yaml training at B2 under the default loads (train
       caps 16000 voxels, 32000 / 25600 / 13824 / 11264 per level,
       adam_onecycle): 5 steps on one batch, every loss term finite, the 5th
@@ -67,7 +70,9 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       real, mid-tile and 0, bound 1e-5 * max |plain| (E, E') and 1e-4 (D'',
       D'), D'' and D' bitwise repeatable, E' and D' at S = 256 and 16 with
       the segment and window branches counted on the card equal to the
-      descriptors' count and both > 0; no tap dropped by any book's
+      descriptors' count and both > 0; D'' and D' also on the B8 book of
+      conv2_1 and on selectors with a sub-tile where no tap is found and an
+      x-tap no row of a chunk finds; no tap dropped by any book's
       selectors;
   X2. second.yaml detect at B2 under loads.fwd xwin and seg: 11 launches of
       E / E' and 1 of C, num > 0, the RPN head's dense outputs within 5e-2
@@ -117,6 +122,7 @@ result line, when no CUDA device is present or any phase fails.
 """
 import concurrent.futures
 import copy
+import itertools
 import json
 import re
 import subprocess
@@ -757,13 +763,33 @@ def run_second(dev, cfg, batches=(2, 8)):
                   'pcdet_tpu/ops/pallas/gather_gemm.py:659')]
 
 
-def dw_vs_plain(dev, trainer, batch):
-    """T2: kernel D against its plain version on the card, on the rules of
-    real B2 train books at conv2_1 and conv_out; kernel B's Cin=128
-    instance on conv_out's transposed book.
+def dw_first_chunk(rules, blocks, kind, cin, cout, s=0):
+    """Rows of a dW kernel's first chunk on this book."""
+    from pcdet_tpu_torch.ops import gather_dw as gd
+    b, v_out = rules.shape[:2]
+    return gd.chunk_rows(b, v_out, blocks, gd.resident_blocks(
+        rules.device.index, kind, cin, cout, s))
 
-    :return: {'err', 'rel', 'ms', 'plain_ms'} of D at conv2_1, and
-        {'err', 'rel'} of B's 128 -> 64 case
+
+def dw_edge_rules(rules, n_in, chunk):
+    """A book's rules with sample 0's second 64-row sub-tile missing every
+    tap and tap 1 missing in every row of its first chunk (`chunk` rows)."""
+    edge = rules.clone()
+    edge[0, 64:128] = n_in
+    edge[0, :chunk, 1] = n_in
+    return edge
+
+
+def dw_vs_plain(dev, trainer, batch, timed=True):
+    """T2: kernel D against its plain version on the card, on the rules of
+    real train books at conv2_1 and conv_out (and, where `timed`, kernel
+    B's Cin=128 instance on conv_out's transposed book).  Each book as
+    built and with `dw_edge_rules`' misses; n_live real, mid-sub-tile and
+    0; two launches bitwise equal.
+
+    :return: where `timed`, {'err', 'rel', 'ms', 'plain_ms', 'work'} of D
+        at conv_out (its shape under the default loads), and {'err',
+        'rel'} of B's 128 -> 64 case
     """
     from pcdet_tpu_torch.ops import gather_dw as gd
     from pcdet_tpu_torch.ops import gather_gemm as gg
@@ -786,35 +812,43 @@ def dw_vs_plain(dev, trainer, batch):
         g = torch.randn((b, v_out, cout), generator=gen).to(dev)
         live = out_mask.sum(1, dtype=torch.int32)
         mid = torch.minimum(live, torch.full_like(live, 64 * 37 + 21))
+        chunk = dw_first_chunk(rules, -(-k // 3), 'rows', cin, cout)
+        edge = dw_edge_rules(rules, n_in, chunk)
         errs, scale = [], 0.0
-        for n_live in (live, mid, torch.zeros_like(live)):
-            got = gd.gather_dw(feats, rules, g, n_live)
-            again = gd.gather_dw(feats, rules, g, n_live)
-            want = gd.gather_dw_plain(feats, rules, g, n_live)
-            sync()
-            require(torch.equal(got, again), '%s: two launches of kernel D '
-                    'differ' % name)
-            errs.append((got - want).abs().max().item())
-            scale = max(scale, want.abs().max().item())
+        for book in (rules, edge):
+            for n_live in (live, mid, torch.zeros_like(live)):
+                got = gd.gather_dw(feats, book, g, n_live)
+                again = gd.gather_dw(feats, book, g, n_live)
+                want = gd.gather_dw_plain(feats, book, g, n_live)
+                sync()
+                require(torch.equal(got, again), '%s: two launches of kernel D '
+                        'differ' % name)
+                errs.append((got - want).abs().max().item())
+                scale = max(scale, want.abs().max().item())
         err = max(errs)
-        require(err <= 1e-4 * scale, '%s: kernel D vs plain %g > 1e-4 * %g'
-                % (name, err, scale))
-        ms = cuda_ms(lambda: gd.gather_dw(feats, rules, g, live), 20)
+        require(err <= 1e-4 * scale, '%s B%d: kernel D vs plain %g > 1e-4 * %g'
+                % (name, b, err, scale))
+        msg = ('[train T2] kernel D %s (B=%d, V_out=%d, K=%d, %d x %d, live '
+               '%s): max |kernel - plain| %.3g (%.3g of max |plain| %.4g; '
+               'real, mid-sub-tile %s and zero n_live, on the book and with '
+               'sample 0 missing every tap in rows 64-127 and tap 1 in its '
+               'first chunk of %d rows); bitwise repeatable' % (
+                   name, b, v_out, k, cin, cout, live.tolist(), err,
+                   err / scale, scale, mid.tolist(), chunk))
+        if not timed:
+            print(msg)
+            continue
+        ms = device_ms(lambda: gd.gather_dw(feats, rules, g, live), 20)
         plain_ms = cuda_ms(lambda: gd.gather_dw_plain(feats, rules, g, live),
                            3, 1)
-        print('[train T2] kernel D %s (B=%d, V_out=%d, K=%d, %d x %d, live '
-              '%s): max |kernel - plain| %.3g (%.3g of max |plain| %.4g; '
-              'real, mid-tile %s and zero n_live); bitwise repeatable; '
-              'kernel %.4f ms, plain %.4f ms, chunk %d rows' % (
-                  name, b, v_out, k, cin, cout, live.tolist(), err,
-                  err / scale, scale, mid.tolist(), ms, plain_ms,
-                  gd.chunk_rows(b, v_out, k)))
-        if name == 'conv2_1':
-            stats['d'] = {'err': err, 'rel': err / scale, 'ms': ms,
-                          'plain_ms': plain_ms, 'work': gather_work(
-                              feats, rules, live, cout, 4 * k,
-                              4 * cout * int(live.sum()) + 4 * k * cin * cout)}
+        print(msg + '; kernel %.4f ms (device), plain %.4f ms' % (
+            ms, plain_ms))
+        if name != 'conv_out':
             continue
+        stats['d'] = {'err': err, 'rel': err / scale, 'ms': ms,
+                      'plain_ms': plain_ms, 'work': gather_work(
+                          feats, rules, live, cout, 4 * k,
+                          4 * cout * int(live.sum()) + 4 * k * cin * cout)}
         # conv_out's feature gradient: B (128 -> 64) over the transposed book
         n_live_in = in_mask.sum(1, dtype=torch.int32)
         bwd = sparse.transpose_rules(rules, n_in, v_out)
@@ -927,6 +961,9 @@ def run_train(dev, cfg, batches=(2, 8), steps=5):
     for lib in ('gather_dw', 'gather_gemm'):
         log = cuda_build.BUILD_LOG[lib]
         rows = ptxas_entries(log)
+        if lib == 'gather_dw':
+            require(not any(r[3] for r in rows), 'a kernel D instance spills: '
+                    '%s' % rows)
         if lib == 'gather_gemm':             # its new Cin=128 instances
             rows = [r for r in rows
                     if r[1].replace('bf16,', '').split(',')[0] == '128']
@@ -946,6 +983,9 @@ def run_train(dev, cfg, batches=(2, 8), steps=5):
 
     # T2. kernel D (and B's new instance) vs plain ------------------------
     kstats = dw_vs_plain(dev, trainer, batch2)
+    dw_vs_plain(dev, trainer, trainer.make_batch(                  # a B8 book
+        pts_all[:8].contiguous(), mask_all[:8].contiguous(), gt_np[:8]),
+        timed=False)
 
     # T3. full-width training at B2 through the kernels --------------------
     reset_launches()
@@ -1210,10 +1250,21 @@ def expected_tiles(base, sel, live, s):
     return int((ok & reach).sum()), int((~ok & reach).sum())
 
 
-def xwin_vs_plain(dev, eval_books, train_books):
+def dw_edge_selectors(base, sel, chunk):
+    """Selectors with sample 0's second 64-row sub-tile finding no tap and
+    x-tap 1 of group 0 missing in every row of its first chunk (`chunk`
+    rows): `dw_edge_rules` for D'' and D'."""
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    edge = sel.clone()
+    edge[0, 64:128] = gx.NO_TAP
+    edge[0, :chunk, 0] |= 3 << 2
+    return edge
+
+
+def xwin_vs_plain(dev, eval_books, train_books, train_books8):
     """X1: E, E' (f32, bf16), D'', D' against their plain versions on real
-    B2 books.  Returns {entry name: {'err', 'ms', 'plain_ms', 'work'}} at
-    conv2_1 (subm2, 32 -> 32)."""
+    B2 books (D'', D' also at B8).  Returns {entry name: {'err', 'ms',
+    'plain_ms', 'work'}} at conv2_1 (subm2, 32 -> 32) B2."""
     from pcdet_tpu_torch.ops import gather_dw as gd
     from pcdet_tpu_torch.ops import gather_gemm as gg
     from pcdet_tpu_torch.ops import gather_xwin as gx
@@ -1334,9 +1385,10 @@ def xwin_vs_plain(dev, eval_books, train_books):
                                       + 4 * b * v_out * cout)}
                     print('[xwin X1] %s %s conv2_1: kernel %.4f ms, plain '
                           '%.4f ms' % (variant, tag, ms, plain_ms))
-    for name, case, cin, cout in (('conv2_1', train_books['subm2'], 32, 32),
-                                  ('conv3_0', train_books['spconv3'], 32,
-                                   64)):
+    for name, case, cin, cout in (
+            ('conv2_1', train_books['subm2'], 32, 32),
+            ('conv3_0', train_books['spconv3'], 32, 64),
+            ('conv2_1 B8', train_books8['subm2'], 32, 32)):
         rules, n_in, _, out_mask = case
         b, v_out, k = rules.shape
         base, sel, clamped = sparse.xwin_selectors(rules, n_in)
@@ -1353,12 +1405,15 @@ def xwin_vs_plain(dev, eval_books, train_books):
                      (lambda *a, s=s: gd.gather_dw_seg_plain(*a, s=s)))
             errs, scale, want_tiles = [], 0.0, [0, 0]
             gx.reset_seg_tiles()
-            for n_live in (live, mid, torch.zeros_like(live)):
-                got = fn(feats, base, sel, g, n_live)
-                again = fn(feats, base, sel, g, n_live)
-                want = plain(feats, base, sel, g, n_live)
+            edge = dw_edge_selectors(base, sel, dw_first_chunk(
+                base, 9, variant, cin, cout, s))
+            for sl, n_live in itertools.product(
+                    (sel, edge), (live, mid, torch.zeros_like(live))):
+                got = fn(feats, base, sl, g, n_live)
+                again = fn(feats, base, sl, g, n_live)
+                want = plain(feats, base, sl, g, n_live)
                 if variant == 'seg':
-                    for i, n in enumerate(expected_tiles(base, sel, n_live,
+                    for i, n in enumerate(expected_tiles(base, sl, n_live,
                                                          s)):
                         want_tiles[i] += 2 * n
                 sync()
@@ -1381,12 +1436,13 @@ def xwin_vs_plain(dev, eval_books, train_books):
                     tuple(got_tiles))
             print('[xwin X1] dW %s %s%s (B=%d, V_out=%d, %d x %d): max |kernel'
                   ' - plain| %.3g (%.3g of max |plain| %.4g; live %s, mid %s, '
-                  '0); bitwise repeatable%s' % (
+                  '0; on the selectors and their edge cases); bitwise '
+                  'repeatable%s' % (
                       variant, name, ' S=%d' % s if s else '', b, v_out, cin,
                       cout, err, err / scale, scale, live.tolist(),
                       mid.tolist(), msg))
             if name == 'conv2_1' and s != SEG_SMALL:
-                ms = cuda_ms(lambda: fn(feats, base, sel, g, live), 20)
+                ms = device_ms(lambda: fn(feats, base, sel, g, live), 20)
                 plain_ms = cuda_ms(lambda: plain(feats, base, sel, g, live),
                                    3, 1)
                 stats['gather_dw_' + variant] = {
@@ -1395,8 +1451,8 @@ def xwin_vs_plain(dev, eval_books, train_books):
                                         8 * base.shape[2],
                                         4 * cout * int(live.sum())
                                         + 4 * k * cin * cout)}
-                print('[xwin X1] dW %s conv2_1: kernel %.4f ms, plain %.4f ms'
-                      % (variant, ms, plain_ms))
+                print('[xwin X1] dW %s conv2_1: kernel %.4f ms (device), '
+                      'plain %.4f ms' % (variant, ms, plain_ms))
     require(min(tiles_seen) > 0, 'a segment branch never ran: %s'
             % tiles_seen)
     return stats
@@ -1811,14 +1867,16 @@ def run_xwin(dev, cfg):
     eval_books = level_books(books, det.model.host_book_spec(det.max_voxels),
                              det.max_voxels, vox['voxel_mask'])
     trainer = build_trainer(cfg, dev, seed=0, loads=sparse.ROWS)
+    train_spec = trainer.model.host_book_spec(trainer.max_voxels, train=True)
     batch = trainer.make_batch(pts2, mask2, gt_np[:2])
-    train_books = level_books(
-        batch['books'], trainer.model.host_book_spec(trainer.max_voxels,
-                                                     train=True),
-        trainer.max_voxels, batch['voxel_mask'])
-    del det, trainer
+    train_books = level_books(batch['books'], train_spec, trainer.max_voxels,
+                              batch['voxel_mask'])
+    batch8 = trainer.make_batch(pts, mask, gt_np)
+    train_books8 = level_books(batch8['books'], train_spec,
+                               trainer.max_voxels, batch8['voxel_mask'])
+    del det, trainer, batch8
 
-    stats = xwin_vs_plain(dev, eval_books, train_books)          # X1
+    stats = xwin_vs_plain(dev, eval_books, train_books, train_books8)  # X1
     launches = xwin_detect(dev, cfg, pts2, mask2)                # X2
     launches.update(xwin_train(dev, cfg, pts, mask, gt_np))      # X3
     xwin_times(dev, cfg, eval_books, train_books, pts, mask, gt_np)  # X4
@@ -2308,6 +2366,9 @@ def main():
                 '%s<%s> %d regs, %d B spilled' % tuple(r)
                 for r in ptxas_entries(log))
             or 'ptxas report empty (library reused)'))
+    rows = ptxas_entries(cuda_build.BUILD_LOG['gather_dw_xwin'])
+    require(not any(r[3] for r in rows), "a D'' / D' instance spills: %s"
+            % rows)
 
     # 2. kernel vs plain, on the card -------------------------------------
     rng = np.random.RandomState(0)

@@ -1,10 +1,7 @@
-// Device code shared by the gather kernels of this directory.
-//
-// sum_partials: the fixed-order second pass of the weight-gradient kernels
-// (gather_dw.cu: D; gather_dw_xwin.cu: D'' and D').
-//
-// The x-window / segment staging of a tap group, shared by the selector
-// kernels (gather_gemm_xwin.cu: E and E'; gather_dw_xwin.cu: D'' and D').
+// Device code of the selector kernels E and E' (gather_gemm_xwin.cu): the
+// x-window / segment staging of a tap group.  (The weight-gradient kernels
+// D'' and D' read the same selectors through gather_dw_common.cuh, which
+// takes kTileRows, kNoTap and staged_rows from here.)
 // A tap group's found rows of one output row lie in the table's rows
 // base .. base + 2; bits 2dx..2dx+1 of sel give the window row of x-tap dx
 // (3: a miss; kNoTap: no tap of the group found).  A block handles a tile of
@@ -20,9 +17,8 @@
 namespace gather_common {
 
 constexpr int kTileRows = 64;
-constexpr int kWindowRows = 3 * kTileRows;   // E's / D'''s staged rows
+constexpr int kWindowRows = 3 * kTileRows;   // staged window rows
 constexpr int kNoTap = 0x3f;
-constexpr int kReduceThreads = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -109,24 +105,6 @@ __device__ __forceinline__ int staged_row(int sl, int bs, int r, int dx,
                                           bool covered, int anchor, int zero) {
   const int off = (sl >> (2 * dx)) & 3;
   return off == 3 ? zero : (covered ? bs - anchor : 3 * r) + off;
-}
-
-// out[e] = sum_p partial[p, e] for p = 0 .. n_parts-1 in order.
-__global__ void __launch_bounds__(kReduceThreads)
-sum_partials(const float* __restrict__ partial, float* __restrict__ out,
-             int n_parts, int n_elems) {
-  const int e = blockIdx.x * kReduceThreads + threadIdx.x;
-  if (e >= n_elems) return;
-  float s = partial[e];
-  for (int p = 1; p < n_parts; ++p) s += partial[static_cast<long long>(p) * n_elems + e];
-  out[e] = s;
-}
-
-inline int launch_sum_partials(const float* partial, float* out, int n_parts,
-                               int n_elems, cudaStream_t stream) {
-  sum_partials<<<(n_elems + kReduceThreads - 1) / kReduceThreads,
-                 kReduceThreads, 0, stream>>>(partial, out, n_parts, n_elems);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace gather_common

@@ -9,7 +9,8 @@
 //       (row, tap group).
 // The segment and window loads answered Mosaic's cost of one scalar-indexed
 // row load; a Hopper block loads its own gathered rows, so one kernel covers
-// all three.
+// all three (gather_dw_xwin.cu keeps D'' and D' for kw=3 books given as
+// selectors).
 //
 // Contract, summed over the batch of B samples:
 //   dW[k, i, o] = sum_b sum_{v < n_live[b]} feats[b, rules[b, v, k], i] * g[b, v, o]
@@ -19,160 +20,51 @@
 // or past it contribute nothing, whatever g holds there.  dW (K, Cin, Cout)
 // f32.
 //
-// Layout: pass 1 runs one block per (row chunk, tap, sample), grid
-// (n_chunks, K, B).  A chunk is `chunk_rows` output rows (a multiple of
-// kRows), walked in sub-tiles of kRows rows: the block stages the sub-tile's
-// rules for its tap, the gathered feature rows (kRows x Cin) and the g rows
-// (kRows x Cout) in shared memory, and each thread accumulates a TI x TO
-// block of the Cin x Cout sum over the rows of its row group in registers,
-// one __fmaf_rn per product.  Row groups (kThreads / micro-tiles of them)
-// are summed through shared memory in a fixed order, and the block writes
-// one partial (Cin x Cout) for its (sample, chunk, tap).  Pass 2 sums the
-// partials per output element in a fixed order (sample, then chunk;
-// gather_common.cuh's sum_partials, shared with D'' and D').  No atomics:
-// two launches on the same inputs give the same bits.
+// Layout: gather_dw_common.cuh's core, one block per (row chunk, block of
+// three taps, sample), grid (n_chunks, ceil(K / 3), B).  Per 64-row
+// sub-tile the block copies the rules of its three taps, each found
+// (row, tap)'s table row and the g rows once for the three taps, lists per
+// tap the rows that find it, and multiplies those only.  The partials (B,
+// n_chunks, K, Cin, Cout) are summed per element in a fixed order by a
+// second launch; no atomics: two launches on the same inputs give the same
+// bits.
 //
-// What bounds it: per row a thread does TI * TO FMAs for TI + TO shared
-// loads, as in kernel B; g is re-read from L2 once per tap (27x for a
-// 3x3x3 book), and the partials make one extra round trip through memory
-// (n_chunks * K * Cin * Cout floats per sample).  Staging g once per block
-// for every tap, wgmma on the (Cin x rows) x (rows x Cout) products and a
-// persistent grid are later work.
-#include "gather_common.cuh"
+// What bounds it: on SECOND's books 2 Cin Cout operations per found tap of
+// a live row (f32, outside the tensor cores) against the copies of the
+// found rows and of g; under the default loads it runs once per train step,
+// at conv_out (K = 3, 64 -> 128).  Measured: PERF.md section 6.
+#include "gather_dw_common.cuh"
 
 namespace {
 
-constexpr int kRows = 64;          // rows per staged sub-tile
-constexpr int kThreads = 256;
+using dw_common::kRules;
 
 template <int CIN, int COUT>
-struct Cfg {
-  static constexpr int TI = (CIN * COUT > 4096) ? 8 : 4;   // Cin per thread
-  static constexpr int TO = 4;                              // Cout per thread
-  static constexpr int NO = COUT / TO;                      // column blocks
-  static constexpr int M = (CIN / TI) * NO;                 // micro-tiles
-  static constexpr int RG = kThreads / M;                   // row groups
-  static_assert(CIN % TI == 0 && COUT % TO == 0, "tile");
-  static_assert(M <= kThreads && kThreads % M == 0, "threads");
-  static constexpr int FS = CIN + 1;                        // padded strides
-  static constexpr int GS = COUT + 1;
-  static constexpr size_t kStage =
-      sizeof(float) * kRows * (FS + GS) + sizeof(int) * kRows;
-  static constexpr size_t kReduce =
-      RG > 1 ? sizeof(float) * RG * CIN * COUT : 0;
-  static constexpr size_t kSmem = kStage > kReduce ? kStage : kReduce;
-};
-
-template <int CIN, int COUT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(dw_common::Cfg<CIN, COUT, kRules>::kThreads, 1)
 gather_dw_partial(const float* __restrict__ feats, const int* __restrict__ rules,
                   const float* __restrict__ g, const int* __restrict__ n_live,
-                  float* __restrict__ partial, int v_in1, int v_out,
-                  int k_taps, int chunk_rows) {
-  using C = Cfg<CIN, COUT>;
-  extern __shared__ float smem[];
-  float* s_f = smem;                                   // [kRows][FS]
-  float* s_g = s_f + kRows * C::FS;                    // [kRows][GS]
-  int* s_r = reinterpret_cast<int*>(s_g + kRows * C::GS);  // [kRows]
-
-  const int chunk = blockIdx.x;
-  const int k = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int m = tid % C::M;
-  const int rg = tid / C::M;
-  const int i0 = (m / C::NO) * C::TI;
-  const int o0 = (m % C::NO) * C::TO;
-  const int live = min(max(n_live[b], 0), v_out);
-  const int row_begin = chunk * chunk_rows;
-  const int row_end = min(row_begin + chunk_rows, live);
-  const int zero_row = v_in1 - 1;
-  const float* feats_b = feats + static_cast<long long>(b) * v_in1 * CIN;
-  const float* g_b = g + static_cast<long long>(b) * v_out * COUT;
-  const int* rules_b = rules + static_cast<long long>(b) * v_out * k_taps;
-
-  float acc[C::TI][C::TO];
-#pragma unroll
-  for (int i = 0; i < C::TI; ++i)
-#pragma unroll
-    for (int j = 0; j < C::TO; ++j) acc[i][j] = 0.0f;
-
-  for (int row0 = row_begin; row0 < row_end; row0 += kRows) {
-    const int n = min(kRows, row_end - row0);
-    __syncthreads();                    // the previous sub-tile is consumed
-    if (tid < n) {
-      const int x = rules_b[static_cast<long long>(row0 + tid) * k_taps + k];
-      s_r[tid] = static_cast<unsigned>(x) < static_cast<unsigned>(zero_row)
-                     ? x : -1;
-    }
-    __syncthreads();
-    for (int e = tid; e < n * CIN; e += kThreads) {
-      const int r = e / CIN;
-      const int c = e % CIN;
-      const int src = s_r[r];
-      s_f[r * C::FS + c] =
-          src >= 0 ? feats_b[static_cast<long long>(src) * CIN + c] : 0.0f;
-    }
-    for (int e = tid; e < n * COUT; e += kThreads) {
-      const int r = e / COUT;
-      s_g[r * C::GS + e % COUT] =
-          g_b[static_cast<long long>(row0 + r) * COUT + e % COUT];
-    }
-    __syncthreads();
-    for (int r = rg; r < n; r += C::RG) {
-      float a[C::TI];
-      float w[C::TO];
-#pragma unroll
-      for (int i = 0; i < C::TI; ++i) a[i] = s_f[r * C::FS + i0 + i];
-#pragma unroll
-      for (int j = 0; j < C::TO; ++j) w[j] = s_g[r * C::GS + o0 + j];
-#pragma unroll
-      for (int i = 0; i < C::TI; ++i)
-#pragma unroll
-        for (int j = 0; j < C::TO; ++j) acc[i][j] = __fmaf_rn(a[i], w[j], acc[i][j]);
-    }
-  }
-
-  float* out = partial +
-      ((static_cast<long long>(b) * gridDim.x + chunk) * k_taps + k) * CIN * COUT;
-  if (C::RG == 1) {
-#pragma unroll
-    for (int i = 0; i < C::TI; ++i)
-#pragma unroll
-      for (int j = 0; j < C::TO; ++j) out[(i0 + i) * COUT + o0 + j] = acc[i][j];
-    return;
-  }
-  __syncthreads();                      // staging buffers are free again
-  float* s_red = smem;                  // [RG][CIN * COUT]
-#pragma unroll
-  for (int i = 0; i < C::TI; ++i)
-#pragma unroll
-    for (int j = 0; j < C::TO; ++j)
-      s_red[rg * CIN * COUT + (i0 + i) * COUT + o0 + j] = acc[i][j];
-  __syncthreads();
-  for (int e = tid; e < CIN * COUT; e += kThreads) {
-    float s = s_red[e];
-    for (int q = 1; q < C::RG; ++q) s += s_red[q * CIN * COUT + e];
-    out[e] = s;
-  }
+                  float* __restrict__ partial, int v_in1, int v_out, int k_taps,
+                  int chunk_rows) {
+  dw_common::partial_body<CIN, COUT, kRules>(feats, rules, nullptr, g, n_live, partial,
+                                             nullptr, v_in1, v_out, k_taps, chunk_rows, 0);
 }
 
-template <int CIN, int COUT>
-int launch(const float* feats, const int* rules, const float* g,
-           const int* n_live, float* partial, float* out, int b, int v_in1,
-           int v_out, int k_taps, int chunk_rows, cudaStream_t stream) {
-  auto kernel = gather_dw_partial<CIN, COUT>;
-  const size_t smem = Cfg<CIN, COUT>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_chunks = (v_out + chunk_rows - 1) / chunk_rows;
-  kernel<<<dim3(n_chunks, k_taps, b), kThreads, smem, stream>>>(
-      feats, rules, g, n_live, partial, v_in1, v_out, k_taps, chunk_rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return gather_common::launch_sum_partials(partial, out, b * n_chunks,
-                                            k_taps * CIN * COUT, stream);
+// Calls f(integral_constant<Cin>, integral_constant<Cout>) for an instance;
+// `otherwise` for any other pair.
+template <typename F>
+int with_instance(int cin, int cout, int otherwise, F&& f) {
+#define PCDET_DW_CASE(CI, CO)                                                      \
+  if (cin == CI && cout == CO)                                                     \
+    return f(std::integral_constant<int, CI>{}, std::integral_constant<int, CO>{});
+  PCDET_DW_CASE(4, 16)
+  PCDET_DW_CASE(16, 16)
+  PCDET_DW_CASE(16, 32)
+  PCDET_DW_CASE(32, 32)
+  PCDET_DW_CASE(32, 64)
+  PCDET_DW_CASE(64, 64)
+  PCDET_DW_CASE(64, 128)
+#undef PCDET_DW_CASE
+  return otherwise;
 }
 
 }  // namespace
@@ -182,30 +74,38 @@ int launch(const float* feats, const int* rules, const float* g,
 // floats.  Returns the cudaError_t of the launches (0 on success); a
 // (Cin, Cout) pair without an instance, K outside 1..64, or chunk_rows not
 // a positive multiple of 64 returns cudaErrorInvalidValue.  The caller
-// checks shapes, dtypes and contiguity; B, K <= 65535; V_out >= 1.
+// checks shapes, dtypes, contiguity and 16-byte alignment; B <= 65535;
+// V_out >= 1.
 extern "C" int pcdet_gather_dw(const float* feats, const int* rules,
                                const float* g, const int* n_live,
                                float* partial, float* out, int b, int v_in1,
                                int v_out, int k_taps, int cin, int cout,
                                int chunk_rows, void* stream) {
   if (k_taps < 1 || k_taps > 64 || v_in1 < 1 || b < 1 || v_out < 1 ||
-      chunk_rows < kRows || chunk_rows % kRows != 0) {
+      chunk_rows < dw_common::kRows || chunk_rows % dw_common::kRows != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PCDET_DW_CASE(CI, CO)                                              \
-  if (cin == CI && cout == CO)                                             \
-    return launch<CI, CO>(feats, rules, g, n_live, partial, out, b, v_in1, \
-                          v_out, k_taps, chunk_rows, s);
-  PCDET_DW_CASE(4, 16)
-  PCDET_DW_CASE(16, 16)
-  PCDET_DW_CASE(16, 32)
-  PCDET_DW_CASE(32, 32)
-  PCDET_DW_CASE(32, 64)
-  PCDET_DW_CASE(64, 64)
-  PCDET_DW_CASE(64, 128)
-#undef PCDET_DW_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int n_chunks = (v_out + chunk_rows - 1) / chunk_rows;
+  const int blocks = (k_taps + dw_common::kTaps - 1) / dw_common::kTaps;
+  return with_instance(cin, cout, static_cast<int>(cudaErrorInvalidValue), [&](auto ci, auto co) {
+    constexpr int CI = decltype(ci)::value;
+    constexpr int CO = decltype(co)::value;
+    return dw_common::launch_two_pass<CI, CO, kRules>(
+        gather_dw_partial<CI, CO>, 0, n_chunks, blocks, b, k_taps, partial, out,
+        static_cast<cudaStream_t>(stream), feats, rules, g, n_live, partial, v_in1, v_out,
+        k_taps, chunk_rows);
+  });
+}
+
+// Pass-1 blocks of the (Cin, Cout) instance resident on the current device
+// at once; minus a cudaError_t on failure (cudaErrorInvalidValue: no
+// instance).
+extern "C" int pcdet_gather_dw_resident(int cin, int cout) {
+  return with_instance(cin, cout, -static_cast<int>(cudaErrorInvalidValue), [&](auto ci, auto co) {
+    constexpr int CI = decltype(ci)::value;
+    constexpr int CO = decltype(co)::value;
+    return dw_common::resident_blocks<CI, CO, kRules>(gather_dw_partial<CI, CO>, 0);
+  });
 }
 
 extern "C" const char* pcdet_cuda_error_string(int code) {

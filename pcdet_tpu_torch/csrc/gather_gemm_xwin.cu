@@ -39,7 +39,7 @@
 //       is counted per (tile, group) in tally[0] (segment) / tally[1]
 //       (window).  The descriptors are computed over every row of the tile
 //       below V_out, as pcdet_tpu's segment_desc does.
-// The staging is gather_common.cuh's, shared with D'' and D'.
+// The staging is gather_common.cuh's.
 //
 // xwin_selectors_kernel builds a book's selectors from its rules on the
 // card, in one pass (one thread per (row, group)).

@@ -16,9 +16,11 @@ computes its plain version: `gather_dw_plain`, and for D″ / D′ the same
 over the rules rebuilt from the selectors (and the segment descriptors).
 There is no fallback from the one to the other.
 
-Each kernel writes one partial per (sample, row chunk, tap or tap group)
-and sums them in a fixed order in a second launch: two calls on the same
-inputs give the same bits.
+Each kernel writes one partial per (sample, row chunk, tap) and sums them
+in a fixed order in a second launch: two calls on the same inputs give the
+same bits.  A chunk is sized so that the grid of (chunk, block of three
+taps, sample) blocks fills a few waves of the blocks the card holds at
+once (`chunk_rows`, `resident_blocks`).
 
 `LAUNCHES` counts kernel launches per variant, so a run can show that its
 path went through the kernels.
@@ -34,9 +36,11 @@ LAUNCHES = {'gather_dw': 0, 'gather_dw_xwin': 0, 'gather_dw_seg': 0}
 # (Cin, Cout) of the kernel's instances: the forward pairs of BackBone8x
 PAIRS = ((4, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64), (64, 128))
 MAX_TAPS = 64
-_ROWS = 64                   # the kernel's sub-tile; chunks are multiples
-_MAX_CHUNK_TILES = 32
-_TARGET_BLOCKS = 4 * 132     # a few blocks per SM of an H100
+_ROWS = 64                   # the kernels' sub-tile; chunks are multiples
+_TAPS = 3                    # taps per block (D: 3 of K; D″, D′: a group)
+_WAVES = 4                   # waves of resident blocks per launch
+_MIN_TILES = 4               # sub-tiles per chunk at least (a fill and a
+                             # partial per chunk)
 _SOURCES = ('gather_dw.cu',)
 _XWIN_SOURCES = ('gather_dw_xwin.cu',)
 # (Cin, Cout) of the window and segment instances: the kw=3 convs' pairs
@@ -50,6 +54,8 @@ def build():
     fn = lib.pcdet_gather_dw
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.pcdet_gather_dw_resident.argtypes = [ctypes.c_int] * 2
+    lib.pcdet_gather_dw_resident.restype = ctypes.c_int
     lib.pcdet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pcdet_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -80,22 +86,59 @@ def _check(feats, rules, g, n_live):
         raise ValueError('shapes disagree: feats %s, rules %s, g %s, n_live %s'
                          % (tuple(feats.shape), tuple(rules.shape),
                             tuple(g.shape), tuple(n_live.shape)))
-    if feats.dtype != g.dtype or feats.dtype not in (torch.float32,
-                                                     torch.float64):
-        raise TypeError('feats and g must be float32 (float64 on the CPU), '
-                        'got %s and %s' % (feats.dtype, g.dtype))
+    _check_float(feats, g)
     cuda_build.check_operands((('rules', rules), ('n_live', n_live)),
                               (('feats', feats), ('g', g)))
 
 
-def chunk_rows(b, v_out, k):
-    """Rows per block of a kernel's first pass: enough chunks that the
-    (chunk, tap or tap group, sample) grid fills the card, at most 32
-    sub-tiles each."""
+def _check_float(feats, g):
+    if feats.dtype != g.dtype or feats.dtype not in (torch.float32,
+                                                     torch.float64):
+        raise TypeError('feats and g must be float32 (float64 on the CPU), '
+                        'got %s and %s' % (feats.dtype, g.dtype))
+
+
+def _check_card(feats, g):
+    """The kernels' own terms: f32, rows copied in 16-byte pieces."""
+    if feats.dtype != torch.float32:
+        raise TypeError('no float64 kernel: float64 runs on the CPU only')
+    if feats.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError('feats and g must be 16-byte aligned')
+
+
+def chunk_rows(b, v_out, blocks, resident):
+    """Rows per block of a kernel's first pass: the fewest 64-row sub-tiles
+    per chunk with which the (chunk, tap block, sample) grid, `blocks` tap
+    blocks per sample, fits in `_WAVES` waves of `resident` blocks, and at
+    least `_MIN_TILES` (one chunk per sample where even that does not fit).
+    Several waves let the card's block scheduler even out chunks that find
+    more taps than others."""
     tiles = -(-v_out // _ROWS)
-    n_chunks = -(-_TARGET_BLOCKS // (k * b))
-    per_chunk = max(1, min(_MAX_CHUNK_TILES, -(-tiles // n_chunks)))
-    return per_chunk * _ROWS
+    n_chunks = max(1, min(_WAVES * resident // (blocks * b),
+                          tiles // _MIN_TILES))
+    return -(-tiles // n_chunks) * _ROWS
+
+
+@functools.cache
+def resident_blocks(device_index, kind, cin, cout, s=0):
+    """Pass-1 blocks of an instance resident on card `device_index` at
+    once (its SMs times the blocks an SM holds): `kind` 'rows' (D), 'xwin'
+    (D″) or 'seg' (D′, `s` segment rows)."""
+    with torch.cuda.device(device_index):
+        if kind == 'rows':
+            lib = build()
+            n = lib.pcdet_gather_dw_resident(cin, cout)
+        else:
+            lib = build_xwin()
+            n = lib.pcdet_gather_dw_xwin_resident(int(kind == 'seg'), cin,
+                                                  cout, s)
+    if n <= 0:
+        raise RuntimeError('no block of the %s %d -> %d dW kernel fits on '
+                           'the card (S=%d): %s' % (
+                               kind, cin, cout, s,
+                               lib.pcdet_cuda_error_string(-n).decode()
+                               if n else 'none resident'))
+    return n
 
 
 def gather_dw(feats, rules, g, n_live):
@@ -112,8 +155,7 @@ def gather_dw(feats, rules, g, n_live):
         return gather_dw_plain(feats, rules, g, n_live)
     if feats.device.type != 'cuda':
         raise ValueError('unsupported device %s' % feats.device)
-    if feats.dtype != torch.float32:
-        raise TypeError('no float64 kernel: float64 runs on the CPU only')
+    _check_card(feats, g)
     b, v_out, k = rules.shape
     v_in1, cin = feats.shape[1], feats.shape[2]
     cout = g.shape[2]
@@ -127,7 +169,8 @@ def gather_dw(feats, rules, g, n_live):
     out = torch.empty((k, cin, cout), dtype=torch.float32, device=feats.device)
     if b == 0 or v_out == 0:
         return out.zero_()
-    rows = chunk_rows(b, v_out, k)
+    rows = chunk_rows(b, v_out, -(-k // _TAPS), resident_blocks(
+        feats.device.index, 'rows', cin, cout))
     n_chunks = -(-v_out // rows)
     partial = torch.empty((b, n_chunks, k, cin, cout), dtype=torch.float32,
                           device=feats.device)
@@ -151,6 +194,8 @@ def build_xwin():
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 \
         + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.pcdet_gather_dw_xwin_resident.argtypes = [ctypes.c_int] * 4
+    lib.pcdet_gather_dw_xwin_resident.restype = ctypes.c_int
     lib.pcdet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pcdet_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -174,10 +219,7 @@ def gather_dw_seg_plain(feats, base, sel, g, n_live, s=gather_xwin.SEG_S):
 
 def _dw_window(seg, feats, base, sel, g, n_live, s):
     gather_xwin.check_selectors(feats, base, sel, None, n_live, g, 'g')
-    if feats.dtype != g.dtype or feats.dtype not in (torch.float32,
-                                                     torch.float64):
-        raise TypeError('feats and g must be float32 (float64 on the CPU), '
-                        'got %s and %s' % (feats.dtype, g.dtype))
+    _check_float(feats, g)
     if seg and not 1 <= s <= gather_xwin.SEG_MISS - 1:
         raise ValueError('segment rows must be in 1..%d, got %d'
                          % (gather_xwin.SEG_MISS - 1, s))
@@ -187,8 +229,7 @@ def _dw_window(seg, feats, base, sel, g, n_live, s):
         return gather_dw_xwin_plain(feats, base, sel, g, n_live)
     if feats.device.type != 'cuda':
         raise ValueError('unsupported device %s' % feats.device)
-    if feats.dtype != torch.float32:
-        raise TypeError('no float64 kernel: float64 runs on the CPU only')
+    _check_card(feats, g)
     b, v_out, groups = base.shape
     cin, cout = feats.shape[2], g.shape[2]
     if (cin, cout) not in XWIN_PAIRS:
@@ -198,7 +239,9 @@ def _dw_window(seg, feats, base, sel, g, n_live, s):
     out = torch.empty((k, cin, cout), dtype=torch.float32, device=feats.device)
     if b == 0 or v_out == 0:
         return out.zero_()
-    rows = chunk_rows(b, v_out, groups)
+    rows = chunk_rows(b, v_out, groups, resident_blocks(
+        feats.device.index, 'seg' if seg else 'xwin', cin, cout,
+        s if seg else 0))
     n_chunks = -(-v_out // rows)
     partial = torch.empty((b, n_chunks, k, cin, cout), dtype=torch.float32,
                           device=feats.device)

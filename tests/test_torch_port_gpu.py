@@ -15,14 +15,16 @@ cores in their order; both are bitwise repeatable (two launches equal), on
 n_live at, one row short of and one row past the instance's row tile, with
 taps that miss in every row of a tile (skipped), K 1 to 64.  dW (kernel
 D): 1e-5 of max |plain| at these short sums (chip_smoke.py holds the
-full-size sums to 1e-4), and two launches bitwise equal.  The sparse convs' autograd backward on the
+full-size sums to 1e-4), and two launches bitwise equal, on books that find
+60%, 8% or none of their taps, each with a sub-tile where no tap is found
+and a tap no row finds, K 1 to 64, every (Cin, Cout) instance.  The sparse convs' autograd backward on the
 card (kernels B over the mirrored / transposed books, D) against the same
 backward on the CPU (plain versions): 1e-5 of max |grad|.  The x-window
 and segment kernels (E, E′ in f32 and bf16, D″, D′) against their plain
 versions on selectors of window-structured books, windows running up to
 the table's last row, all-miss rows, n_live none / mid-tile / all: E, E′
-1e-5 and D″, D′ 1e-5 of max |plain| (short sums), D″, D′ bitwise
-repeatable, E′ and D′ counting each (tile, group) on the branch the
+1e-5 and D″, D′ 1e-5 of max |plain| (short sums; also on selectors
+finding 60%, 8% or none of their x-taps), D″, D′ bitwise repeatable, E′ and D′ counting each (tile, group) on the branch the
 segment descriptors give; the selector kernel equal to its plain version
 as integers, dropped taps counted; the convs' backward under each `Loads`
 on the card against the CPU.  Kernel A″ (the sorted-candidate overlap)
@@ -263,24 +265,34 @@ def test_gather_gemm_rejects_bad_inputs(cuda):
         gather_gemm.gather_gemm(shifted.view_as(feats), rules, w, n_live)
 
 
-def _dw_inputs(rng, b, v_in, v_out, k, cin, cout, device):
+# share of (row, tap) rules that miss: SECOND's books find about a third of
+# their taps; a sparse book finds at most a tenth, an empty one none
+_MISSES = {'dense': 0.4, 'sparse': 0.92, 'empty': 1.0}
+
+
+def _dw_inputs(rng, b, v_in, v_out, k, cin, cout, device, misses=0.4):
     table = rng.randn(b, v_in + 1, cin).astype(np.float32)
     table[:, v_in] = 0
     rules = rng.randint(0, v_in + 1, (b, v_out, k)).astype(np.int32)
-    rules[rng.rand(b, v_out, k) < 0.4] = v_in                # misses
+    rules[rng.rand(b, v_out, k) < misses] = v_in              # misses
+    rules[:, 64:128] = v_in            # a sub-tile where no tap is found
+    if k > 1:
+        rules[:, :, k // 2] = v_in     # a tap no row finds
     g = rng.randn(b, v_out, cout).astype(np.float32)
     return (torch.as_tensor(table, device=device),
             torch.as_tensor(rules, device=device),
             torch.as_tensor(g, device=device))
 
 
-@pytest.mark.parametrize('k,cin,cout', [(k, *p) for k in (27, 3)
+@pytest.mark.parametrize('books', list(_MISSES))
+@pytest.mark.parametrize('k,cin,cout', [(k, *p) for k in (27, 3, 1, 64)
                                         for p in gather_dw.PAIRS])
-def test_gather_dw_matches_plain(cuda, no_tf32, k, cin, cout):
+def test_gather_dw_matches_plain(cuda, no_tf32, books, k, cin, cout):
     rng = np.random.RandomState(k * 1000 + cin * 10 + cout)
     v_in, v_out = 300, 200                         # 200 = 3 tiles + 8 rows
     for b in (1, 3):
-        feats, rules, g = _dw_inputs(rng, b, v_in, v_out, k, cin, cout, cuda)
+        feats, rules, g = _dw_inputs(rng, b, v_in, v_out, k, cin, cout, cuda,
+                                     _MISSES[books])
         for live in (0, 100, v_out):               # none, mid-tile, all
             n_live = torch.full((b,), live, dtype=torch.int32, device=cuda)
             if b > 1:
@@ -384,16 +396,22 @@ def test_conv_backward_on_card_matches_cpu(cuda, no_tf32, conv, cin, cout):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
 
 
-def _xwin_inputs(rng, b, v_in, v_out, g, cin, cout, device):
+def _xwin_inputs(rng, b, v_in, v_out, g, cin, cout, device, misses=None):
     """A table, window selectors (bases ascending along the rows, as a
     sorted book's are; some windows end at or past the last row; rows 5
-    and 6 all-miss), weights and an output gradient."""
+    and 6 all-miss; with `misses`, that share of the x-taps missing, the
+    second 64-row sub-tile finding none and x-tap 1 of group 0 none in any
+    row), weights and an output gradient."""
     table = rng.randn(b, v_in + 1, cin).astype(np.float32)
     table[:, v_in] = 0
     base = np.sort(rng.randint(0, v_in - 2, (b, v_out, g)), axis=1)
     off = rng.randint(0, 4, (b, v_out, g, 3))
     base[:, -3:] = v_in - 1                  # window rows v_in - 1 .. v_in + 1
     off[:, -3:] = [0, 3, 3]
+    if misses is not None:
+        off[rng.rand(b, v_out, g, 3) < misses] = 3
+        off[:, 64:128] = 3
+        off[:, :, 0, 1] = 3
     sel = off[..., 0] | (off[..., 1] << 2) | (off[..., 2] << 4)
     sel[:, 5:7], base[:, 5:7] = 0x3f, 0
     w = rng.randn(3 * g, cin, cout).astype(np.float32) * 0.2
@@ -452,14 +470,17 @@ def test_gather_gemm_window_matches_plain(cuda, no_tf32, variant, s, dtype,
                 assert tiles == {'segment': 0, 'window': 0}
 
 
+@pytest.mark.parametrize('books', [None] + list(_MISSES))
 @pytest.mark.parametrize('variant,s', _VARIANTS)
 @pytest.mark.parametrize('cin,cout', gather_dw.XWIN_PAIRS)
-def test_gather_dw_window_matches_plain(cuda, no_tf32, variant, s, cin, cout):
+def test_gather_dw_window_matches_plain(cuda, no_tf32, books, variant, s, cin,
+                                        cout):
     rng = np.random.RandomState(cin * 10 + cout + s + 1)
     v_in, v_out = 300, 200
     for b in (1, 3):
-        table, base, sel, _, grad = _xwin_inputs(rng, b, v_in, v_out, 9, cin,
-                                                 cout, cuda)
+        table, base, sel, _, grad = _xwin_inputs(
+            rng, b, v_in, v_out, 9, cin, cout, cuda,
+            books and _MISSES[books])
         if variant == 'xwin':
             fn, plain = gather_dw.gather_dw_xwin, gather_dw.gather_dw_xwin_plain
         else:

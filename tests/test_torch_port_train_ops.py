@@ -197,6 +197,24 @@ def test_plain_d_refuses_bad_inputs():
         gather_dw.gather_dw(table, rules[:, ::2], g[:, ::2], n)
 
 
+@pytest.mark.parametrize('b,v_out,blocks,resident,want', [
+    (2, 32000, 9, 264, 576),      # D′ at conv2_1, B2, two blocks per SM
+    (8, 32000, 9, 264, 2304),     # the same at B8
+    (2, 11264, 1, 132, 256),      # D at conv_out: four sub-tiles a chunk
+    (2, 200, 9, 8, 256),          # more tap blocks than the waves hold
+    (3, 40, 21, 1056, 64)])       # fewer rows than one sub-tile
+def test_d_chunk_rows_fill_the_waves(b, v_out, blocks, resident, want):
+    """A dW kernel's chunks: whole 64-row sub-tiles, as few per chunk as
+    keep the (chunk, tap block, sample) grid within `_WAVES` waves of
+    resident blocks, but `_MIN_TILES` at least."""
+    rows = gather_dw.chunk_rows(b, v_out, blocks, resident)
+    assert rows == want
+    tiles = -(-v_out // 64)
+    assert rows // 64 >= min(gather_dw._MIN_TILES, tiles)
+    grid = -(-v_out // rows) * blocks * b
+    assert grid <= max(gather_dw._WAVES * resident, blocks * b)
+
+
 @pytest.mark.parametrize('key', ['spconv2', 'spconv4', 'convout'])
 def test_transpose_rules_matches_jax(books, key):
     _, _, _, _, rules = books['port'][key]
