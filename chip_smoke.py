@@ -14,11 +14,18 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
 
   1. build every kernel from csrc/ with nvcc (sm_90a), and the host
      rulebook builder (csrc/host_books_native.cpp) with g++, all at once;
-     registers and spills per kernel instance of the window kernels;
-  2. kernel vs its plain PyTorch version on the card, at the NMS shape
-     (G=2, M=64, N=4096) and on crafted boxes (bound 1e-5 abs);
+     registers and spills per kernel instance of the window kernels and of
+     kernel A (which may not spill);
+  2. kernel A vs its plain PyTorch version on the card, bitwise, at the NMS
+     shape (G=2, M=64, N=4096), on crafted boxes and on the NMS shape with
+     degenerate quads (one-point rows, zero-length sides), its count of
+     pairs kept (not culled) equal to the plain cull predicate's; its device time
+     (queued behind a spin kernel), the time of a call with its launch, the
+     plain version's and the bound;
   3. full-width detect at B2 through the kernel (launch count > 0, num > 0);
-  4. NMS indices with the kernel == with the plain version, same candidates;
+  4. NMS indices with the kernel == with the plain version, same candidates,
+     and the share of pairs kernel A kept in each NMS round (its count,
+     equal to the plain predicate's);
   5. the whole detect at B1 in f32: GPU vs CPU (counts equal, boxes 1e-3);
   6. timings: detect frames/s at B2 and B8, the voxelize / model / predict
      split (predict as top-k + decode and NMS), the NMS round count, a
@@ -32,8 +39,8 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       and at conv2_1 cuBLAS on the pre-gathered rows (`gemm_only_ms`, the
       math without the gather: a yardstick, not the same function);
   S3. shipped second.yaml detect at B2 under the default loads (launches
-      of C, E or E' as the loads choose, num > 0), with the voxel count,
-      voxelizer overflow and per-level drops;
+      of C, E or E' as the loads choose, of A one per NMS round, num > 0),
+      with the voxel count, voxelizer overflow and per-level drops;
   S4. the same config in f32 at B1 through kernel B: GPU vs CPU (counts
       equal, boxes 1e-3);
   S5. timings at B2 and B8: frames/s, the voxelize / books / backbone /
@@ -102,13 +109,16 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       sec_per_example), one launch of A per batch for recall, A'' beside it
       as A's cross-check, C in SECOND's convs; recall/gt > 0, all finite;
   V3. on V2's batches: (a) A'' vs A within 5e-4 m^2 over the live pairs of
-      every recall grid, the recall counts through either equal; (b) the
-      card's counts equal to the CPU's on the same predictions; (c) the GT
-      as detections give recall 1.0 and AP >= 99.99 for every class;
+      every recall grid, the recall counts through either equal, A bitwise
+      equal to its plain version on every pair (zero-padded GT rows
+      included); (b) the card's counts equal to the CPU's on the same
+      predictions; (c) the GT as detections give recall 1.0 and AP >= 99.99
+      for every class;
   V4. SECOND eval frames/s at B2 and B8 with the detect / recall /
       annotate / evaluate split (host clock, median of 3); A, A' (G = 1)
       and A'' on the B8 recall grid and at the NMS shape, kernel and plain
-      ms beside the bound (A's operation count for all three).
+      ms beside the bound (A's least work for all three: the cull's
+      operations on every pair, the clipping's on the pairs it keeps).
 
 Prints the card's name and power limit, a JSON line with the kernels (A,
 B, C, D, E, E', D'', D', A', A''), each with its launches on its main path, its error
@@ -138,9 +148,16 @@ import torch
 # cores and bf16 (f32 sums) on them
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
-# kernel A's operations per (A box, B box) pair: about 460 flops and 32
-# divisions (csrc/rotated_overlap.cu)
+# kernel A's operations per (A box, B box) pair it clips: about 460 flops
+# and 32 divisions (csrc/rotated_overlap.cu)
 A_OPS_PER_PAIR = 492
+# and per pair it tests, clipped or not (`maybe_nonzero`: 4 adds, 4
+# compares, 3 ors)
+CULL_OPS_PER_PAIR = 11
+# the closed form of a kept pair whose B is one finite point
+# (`point_b_area`: 2 subtractions, 2 multiplications, 2 additions an edge,
+# then + 0 and a max); one whose A is one finite point is +0.0, no operation
+POINT_B_OPS_PER_PAIR = 26
 # kernel A''s, counted from csrc/rotated_overlap_sorted.cu the same way
 # (each arithmetic op, compare and select one): the successor scan 576 x 10,
 # the dedup 276 x 7, the 16 edge crossings 16 x 26 + 8, the 8 inside tests
@@ -283,7 +300,7 @@ def ptxas_entries(log):
                                      'gather_dw_partial', 'sum_partials',
                                      'gather_gemm_kernel',
                                      'rotated_overlap_sorted_kernel',
-                                     'edgeclip')
+                                     'rotated_overlap_kernel', 'edgeclip')
                          if k in name), name[:40])
             cur = [base, ('bf16,' if 'bfloat16' in name else '')
                    + ('seg,' if 'Lb1E' in name else '') + ','.join(
@@ -345,6 +362,79 @@ def crafted_boxes5():
                   [-5, -5, 5, 5, 0.0],           # identical
                   [0, 0, 2, 4, 0.7]], np.float32)  # identical, rotated
     return a, b
+
+
+def degenerate_quads(ca, cb):
+    """Copies of an NMS-shape grid (G, 64, 4, 2) x (G, N >= 3600, 4, 2) with
+    degenerate quads: zero-padded rows (one-point quads at the origin) in
+    both, one-point quads at (5, 5), and a zero-length side in each."""
+    ca, cb = ca.clone(), cb.clone()
+    ca[:, 50:] = 0.0
+    cb[:, 3000:3500] = 0.0
+    cb[:, 3500:3600] = 5.0
+    ca[:, 40:45, 1] = ca[:, 40:45, 0]
+    cb[:, 100:200, 2] = cb[:, 100:200, 3]
+    return ca, cb
+
+
+def recall_grid_boxes7(rng, g=8, m=500, n=128):
+    """(g, m, 7) predictions and (g, n, 7) GT boxes of a recall grid (the
+    eval's B8 shape by default): random boxes over KITTI's range, sides
+    0.5-4.5 m, a live prefix in each sample (0 to m - 1 predictions, 10-39
+    GT) and zero-padded rows after it, which are one-point quads in BEV."""
+    def boxes7(k, live):
+        out = np.zeros((g, k, 7), np.float32)
+        for i, count in enumerate(live):
+            out[i, :count] = np.concatenate([
+                rng.uniform([0, -40, -2], [70.4, 40, 0], (count, 3)),
+                rng.uniform(0.5, 4.5, (count, 3)),
+                rng.uniform(-np.pi, np.pi, (count, 1))], -1)
+        return out
+
+    return boxes7(m, rng.randint(0, m, g)), boxes7(n, rng.randint(10, 40, g))
+
+
+def place_beside(qa, qb, gap, axis, side, across):
+    """Move each quad of `qb` (P, 4, 2) beside its `qa` quad so that their
+    axis-aligned boxes lie `gap` apart on `axis` (0 x, 1 y; B above A's
+    high side when `side` is 1, below its low side when 0) and overlap
+    along the other axis, at the fraction `across` of the overlapping
+    range.  -> (qa, moved qb), both f32 numpy."""
+    qa = np.asarray(qa, np.float32)
+    qb = np.asarray(qb, np.float32).astype(np.float64)
+    lo_a, hi_a = qa.min(1), qa.max(1)
+    lo_b, hi_b = qb.min(1), qb.max(1)
+    rows = np.arange(len(qa))
+    other = 1 - axis
+    shift = np.zeros((len(qa), 2))
+    shift[rows, axis] = np.where(
+        side == 1, hi_a[rows, axis] + gap - lo_b[rows, axis],
+        lo_a[rows, axis] - gap - hi_b[rows, axis])
+    lo = lo_a[rows, other] - hi_b[rows, other]
+    shift[rows, other] = lo + across * (hi_a[rows, other] - lo_b[rows, other]
+                                        - lo)
+    return qa, (qb + shift[:, None]).astype(np.float32)
+
+
+def near_miss_pairs(rng, m=64, n=4096, spread=70.0):
+    """(1, m, 4, 2) x (1, n, 4, 2) f32 corners, numpy: column j placed
+    beside row j % m, their axis-aligned boxes 1-3 of kernel A's cull gaps
+    apart (3 in 4, most just past one gap) or inside one gap, on x or y,
+    either side; the columns' sides 1 mm to 7 m (slivers)."""
+    from pcdet_tpu_torch.ops import rotated_iou
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    a = rotated_iou.boxes5_to_corners(torch.as_tensor(
+        rand_boxes5(rng, m, spread))).numpy()
+    w = np.exp(rng.uniform(np.log(1e-3), np.log(7.0), (2, n)))
+    b = rotated_iou.boxes5_to_corners(torch.as_tensor(np.stack(
+        [-w[0] / 2, -w[1] / 2, w[0] / 2, w[1] / 2,
+         rng.uniform(-np.pi, np.pi, n)], -1).astype(np.float32))).numpy()
+    gap = ro.CULL_GAP * np.where(rng.rand(n) < 0.75,
+                                 1 + np.exp(rng.uniform(-9, 0.7, n)),
+                                 rng.rand(n))
+    _, b = place_beside(a[np.arange(n) % m], b, gap, rng.randint(0, 2, n),
+                        rng.randint(0, 2, n), rng.rand(n))
+    return a[None], b[None]
 
 
 def candidates(model, ret, tc):
@@ -593,6 +683,7 @@ def run_second(dev, cfg, batches=(2, 8)):
     from pcdet_tpu_torch import detect as detect_mod
     from pcdet_tpu_torch.ops import cuda_build, host_books, sparse
     from pcdet_tpu_torch.ops import gather_gemm as gg
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
     tc = cfg.MODEL.TEST
     post = int(tc.NMS_POST_MAXSIZE_LAST)
 
@@ -623,9 +714,11 @@ def run_second(dev, cfg, batches=(2, 8)):
     det.detect(pts2, mask2)                          # warm-up
     sync()
     reset_launches()
+    ro.LAUNCHES = 0
     preds = det.detect(pts2, mask2)
     sync()
     counts = nonzero(all_launches())
+    launches_a = ro.LAUNCHES
     launches_c = counts.get('gather_gemm_bf16', 0)
     num = second_detect_checks(preds, post, 2)
     with torch.inference_mode():
@@ -633,9 +726,10 @@ def run_second(dev, cfg, batches=(2, 8)):
     drops = {k: v.tolist() for k, v in ret['overflow'].items()}
     expect = forward_launches(det.loads, det.model.module.compute_dtype)
     print('[second S3] detect B2 (second.yaml, bf16 sparse stack, loads %s): '
-          'num %s; launches %s (12 convs per batch); input voxels %s of cap '
-          '%d, voxelizer overflow %s; per-level drops %s'
-          % (tuple(det.loads), num, counts,
+          'num %s; launches %s (12 convs per batch), kernel A %d (one per '
+          'NMS round); input voxels %s of cap %d, voxelizer overflow %s; '
+          'per-level drops %s'
+          % (tuple(det.loads), num, counts, launches_a,
              vox['voxel_mask'].sum(1).tolist(), det.max_voxels,
              voxel_overflow(det, pts2, mask2), drops))
     require(launches_c > 0, 'the SECOND path launched no kernel C')
@@ -1898,10 +1992,28 @@ def run_xwin(dev, cfg):
 # --------------------------------------------------------------- eval ---
 
 def overlap_work(ca, cb):
-    """(kernel A's operations, bytes) of one overlap grid: A's count is the
-    least work for the function, so A, A' and A'' share it as their bound."""
+    """(operations, bytes) of one overlap grid: the cull's operations on
+    every pair; on the pairs the plain cull predicate keeps (the pairs
+    whose area is not provably 0 on these inputs), nothing more where A is
+    one finite point and B finite (the area is +0.0), the closed form's
+    where B is one finite point and A finite, the clipping's on the rest;
+    the corners read once and the areas written once.  The least work for
+    the function, so A, A' and A'' share it as their bound."""
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+
+    def kinds(c):        # (finite, one point) per quad
+        return (torch.isfinite(c).flatten(-2).all(-1),
+                (c == c[..., :1, :]).flatten(-2).all(-1))
+
     pairs = ca.shape[0] * ca.shape[1] * cb.shape[1]
-    return (A_OPS_PER_PAIR * pairs,
+    keep = ro.overlap_maybe_nonzero_plain(ca, cb)
+    (fin_a, pt_a), (fin_b, pt_b) = kinds(ca), kinds(cb)
+    finite = fin_a[:, :, None] & fin_b[:, None]
+    a_point = finite & pt_a[:, :, None]
+    b_point = finite & pt_b[:, None] & ~a_point
+    clipped = int((keep & ~a_point & ~b_point).sum())
+    return (CULL_OPS_PER_PAIR * pairs + A_OPS_PER_PAIR * clipped
+            + POINT_B_OPS_PER_PAIR * int((keep & b_point).sum()),
             4 * (ca.numel() + cb.numel() + pairs))
 
 
@@ -2047,6 +2159,7 @@ def cross_checks(name, checker, far_tol=5e-4):
     area); the recall masks those pairs, and so does (a)."""
     from pcdet_tpu_torch.models import detector3d
     from pcdet_tpu_torch.ops import rotated_iou
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
     worst, worst_r, knife, n_live, n_pos = 0.0, 0.0, [], 0, 0
     for i, g in enumerate(checker.grids):
         gt_valid = g['gt'][..., :7].abs().sum(-1) > 0
@@ -2066,6 +2179,9 @@ def cross_checks(name, checker, far_tol=5e-4):
         a2_counts = {k: int(v) for k, v in g['counts_a2'].items()}
         require(a_counts == a2_counts, '%s grid %d: recall through A %s, '
                 'through A\'\' %s' % (name, i, a_counts, a2_counts))
+        require(torch.equal(g['a'], ro.pair_overlap_batched_plain(
+            g['ca'], g['cb'])), '%s grid %d: kernel A not bitwise equal to '
+            'plain' % (name, i))
         cpu = detector3d.batch_recall(g['boxes'].cpu(), g['valid'].cpu(),
                                       g['gt'].cpu(), g['thresh'])
         cpu = {k: int(v) for k, v in cpu.items()}
@@ -2088,7 +2204,8 @@ def cross_checks(name, checker, far_tol=5e-4):
               name, n_live, n_pos, len(checker.grids), worst, worst_r,
               far_tol, '; '.join(knife) or 'none'))
     print('[eval V3] %s (b) recall on the card == the same predictions '
-          'counted on the CPU (plain version), every batch' % name)
+          'counted on the CPU (plain version), every batch; kernel A bitwise '
+          'equal to its plain version on every recall grid' % name)
 
 
 def oracle_check(dev, dataset, batches, cfg):
@@ -2281,12 +2398,14 @@ def run_eval(dev, g1_launches, cfgs):
     print_overlap_times('B8 recall grid', 'G=8 M=%d N=%d' % (
         grid[0].shape[1], grid[1].shape[1]), recall_times)
 
-    a1, a2 = recall_times["A'"], recall_times["A''"]
+    # A' is launched on the main path at the G = 1 NMS shape (phase 5), so
+    # its entry holds that shape's times; the recall group's are printed
+    a1, a2 = nms_times["A'"], recall_times["A''"]
     return [
         kernel_entry('rotated_overlap_g1',
                      'pcdet_tpu_torch/csrc/rotated_overlap.cu',
                      'pcdet_tpu/ops/pallas/rotated_overlap.py:252',
-                     g1_launches, max(a1['err'], nms_times["A'"]['err']),
+                     g1_launches, max(a1['err'], recall_times["A'"]['err']),
                      a1['ms'], a1['plain_ms'], a1['work']),
         kernel_entry('rotated_overlap_sorted',
                      'pcdet_tpu_torch/csrc/rotated_overlap_sorted.cu',
@@ -2359,6 +2478,8 @@ def main():
     print('[build] rotated_overlap.cu: %.2f s (cached=%s)'
           % (log['seconds'], log['cached']))
     print_ptxas('rotated_overlap.cu', log)
+    rows = ptxas_entries(log)
+    require(not any(r[3] for r in rows), 'kernel A spills: %s' % rows)
     for lib in ('rotated_overlap_sorted', 'gather_gemm_xwin', 'gather_dw_xwin'):
         log = cuda_build.BUILD_LOG[lib]
         print('[build] %s.cu: %.2f s (cached=%s); %s' % (
@@ -2370,43 +2491,57 @@ def main():
     require(not any(r[3] for r in rows), "a D'' / D' instance spills: %s"
             % rows)
 
-    # 2. kernel vs plain, on the card -------------------------------------
+    # 2. kernel A vs plain, on the card: bitwise, and its cull's count -----
     rng = np.random.RandomState(0)
     corners_b = rotated_iou.boxes5_to_corners(
         torch.as_tensor(rand_boxes5(rng, (2, 4096)), device=dev)).contiguous()
     corners_a = corners_b[:, :64].contiguous()      # includes identical pairs
-    got = ro.pair_overlap_batched(corners_a, corners_b)
-    want = ro.pair_overlap_batched_plain(corners_a, corners_b)
-    sync()
-    err_nms = (got - want).abs().max().item()
-    bitwise = bool(torch.equal(got, want))
     ca, cb = crafted_boxes5()
     ca = rotated_iou.boxes5_to_corners(torch.as_tensor(ca, device=dev))
     cb = rotated_iou.boxes5_to_corners(torch.as_tensor(cb, device=dev))
-    got_c = ro.pair_overlap(ca.contiguous(), cb.contiguous())
-    want_c = ro.pair_overlap_batched_plain(ca[None], cb[None])[0]
-    sync()
-    err_crafted = (got_c - want_c).abs().max().item()
-    expect = {(0, 0): 4.0, (1, 1): 0.0, (2, 2): 0.0, (3, 3): 100.0,
-              (4, 4): 100.0, (5, 5): 8.0}
-    for (i, j), v in expect.items():
-        require(abs(got_c[i, j].item() - v) < 1e-3 * max(v, 1.0),
-                'crafted pair (%d, %d): %r, want %r' % (i, j,
-                                                        got_c[i, j].item(), v))
-    max_abs_err = max(err_nms, err_crafted)
-    print('[kernel] max |kernel - plain|: NMS shape %.3g, crafted %.3g; '
-          'bitwise equal at NMS shape: %s' % (err_nms, err_crafted, bitwise))
-    require(max_abs_err <= 1e-5, 'kernel disagrees with plain: %g'
-            % max_abs_err)
-    kernel_ms = cuda_ms(lambda: ro.pair_overlap_batched(corners_a, corners_b),
-                        200)
+    grids = {'NMS shape': (corners_a, corners_b),
+             'crafted': (ca[None].contiguous(), cb[None].contiguous()),
+             'NMS shape with degenerate quads': degenerate_quads(corners_a,
+                                                                 corners_b)}
+    max_abs_err = 0.0
+    for tag, (a, b) in grids.items():
+        got, count = ro.pair_overlap_batched_counted(a, b)
+        again = ro.pair_overlap_batched(a, b)
+        want = ro.pair_overlap_batched_plain(a, b)
+        kept = int(ro.overlap_maybe_nonzero_plain(a, b).sum())
+        sync()
+        err = (got - want).abs().max().item()
+        max_abs_err = max(max_abs_err, err)
+        print('[kernel] A %s %s: max |kernel - plain| %.3g, bitwise equal %s, '
+              'two launches equal %s; pairs kept %d of %d (%.2f%%), plain '
+              'predicate %d; %d pairs > 0' % (
+                  tag, tuple(got.shape), err, torch.equal(got, want),
+                  torch.equal(got, again), int(count), got.numel(),
+                  100 * int(count) / got.numel(), kept, int((want > 0).sum())))
+        require(torch.equal(got, want), 'kernel A %s: not bitwise equal to '
+                'plain (max |diff| %g)' % (tag, err))
+        require(torch.equal(got, again), 'kernel A %s: launches differ' % tag)
+        require(int(count) == kept, 'kernel A %s: %d pairs kept, the plain '
+                'predicate keeps %d' % (tag, int(count), kept))
+        if tag == 'crafted':
+            expect = {(0, 0): 4.0, (1, 1): 0.0, (2, 2): 0.0, (3, 3): 100.0,
+                      (4, 4): 100.0, (5, 5): 8.0}
+            for (i, j), v in expect.items():
+                require(abs(got[0, i, j].item() - v) < 1e-3 * max(v, 1.0),
+                        'crafted pair (%d, %d): %r, want %r' % (
+                            i, j, got[0, i, j].item(), v))
+    fn = (lambda: ro.pair_overlap_batched(corners_a, corners_b))
+    kernel_ms, host_ms = queued_ms(fn, 100)
+    launch_ms = cuda_ms(fn, 200)
     plain_ms = cuda_ms(
         lambda: ro.pair_overlap_batched_plain(corners_a, corners_b), 20)
-    print('[kernel] G=2 M=64 N=4096: kernel %.4f ms, plain %.4f ms'
-          % (kernel_ms, plain_ms))
-    a_work = (A_OPS_PER_PAIR * corners_a.shape[0] * corners_a.shape[1]
-              * corners_b.shape[1],
-              4 * (corners_a.numel() + corners_b.numel() + got.numel()))
+    a_work = overlap_work(corners_a, corners_b)
+    print('[kernel] A G=2 M=64 N=4096: device time %.4f ms (queued behind a '
+          'spin kernel; 100 calls enqueued in %.2f ms), plain %.4f ms, bound '
+          '%.4f ms (%s)' % (kernel_ms, host_ms, plain_ms, bound_ms(*a_work)[0],
+                            bound_ms(*a_work)[1]))
+    print('[kernel] A G=2 M=64 N=4096: a call with its launch (CUDA events '
+          'around 200 calls, not queued) %.4f ms' % launch_ms)
     sync()
 
     # 3. full-width detect at B2 through the kernel -----------------------
@@ -2451,12 +2586,30 @@ def main():
             det.voxelize(pts2, mask2)), tc)
         sel_k, num_k = run_nms(cand, tc)
         sel_p, num_p = run_nms(cand, tc, ro.pair_overlap_batched_plain)
+        nms_rounds = []
+
+        def counted(a, b):
+            out, count = ro.pair_overlap_batched_counted(a, b)
+            nms_rounds.append((int(count), int(
+                ro.overlap_maybe_nonzero_plain(a, b).sum()), out.numel()))
+            return out
+
+        sel_c, num_c = run_nms(cand, tc, counted)
     sync()
     require(torch.equal(sel_k, sel_p) and torch.equal(num_k, num_p),
             'NMS indices differ between kernel and plain')
+    require(torch.equal(sel_c, sel_k) and torch.equal(num_c, num_k),
+            'NMS indices differ with the counting launch')
     print('[nms] kernel and plain select the same indices: num %s, '
           'valid candidates %s' % (num_k.tolist(),
                                    cand['valid'].sum(1).tolist()))
+    print('[nms] kernel A, pairs kept (not culled) per NMS round of the B2 detect '
+          '(count, share of the round\'s pairs): %s' % ', '.join(
+              '%d of %d (%.2f%%)' % (c, n, 100 * c / n)
+              for c, _, n in nms_rounds))
+    require(all(c == k for c, k, _ in nms_rounds), 'kernel A\'s count of '
+            'pairs kept differs from the plain predicate\'s in an NMS '
+            'round: %s' % nms_rounds)
 
     # 5. whole detect at B1, f32: GPU vs CPU ------------------------------
     cfg32 = copy.deepcopy(cfg)

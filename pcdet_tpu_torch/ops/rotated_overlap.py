@@ -5,7 +5,11 @@ Two kernels compute this function by different methods:
 - A, `pair_overlap_batched`, replaces the TPU kernel
   `pcdet_tpu.ops.pallas.rotated_overlap.pair_overlap_batched` (Green's
   theorem over clipped edges; `csrc/rotated_overlap.cu`).  NMS and the
-  evaluation's recall run it; `pair_overlap` is its G = 1 case (A′).
+  evaluation's recall run it; `pair_overlap` is its G = 1 case (A′).  It
+  computes only the pairs `overlap_maybe_nonzero_plain` keeps (by clipping,
+  or in closed form where a finite quad meets a one-point quad) and writes
+  +0.0 for the rest, which is the plain version's area there bit for bit;
+  `pair_overlap_batched_counted` also returns how many pairs it kept.
 - A″, `pair_overlap_sorted_batched`, replaces
   `pcdet_tpu.ops.pallas.rotated_overlap.pair_overlap_sorted` (24 candidate
   vertices, dedup, an angular successor scan; `csrc/rotated_overlap_sorted.cu`).
@@ -30,7 +34,14 @@ from . import cuda_build, rotated_iou
 LAUNCHES = 0
 LAUNCHES_SORTED = 0
 _MAX_GRID_YZ = 65535
-_ROWS_PER_BLOCK = 4     # kRowsM in both kernels
+_ROWS_PER_BLOCK = 8         # the least kTileM of A
+_ROWS_PER_BLOCK_SORTED = 4  # kRowsM of A″
+
+# kernel A's cull (csrc/rotated_overlap.cu, whose header holds the argument
+# that a pair it discards has area +0.0)
+CULL_GAP = 2.0 ** -6          # delta: m between the two axis-aligned boxes
+CULL_COORD_MAX = 256.0        # W: |x| and |y| of every corner at most this
+CULL_MIN_EDGE2 = 2.0 ** -20   # tau: each squared edge length above this
 
 # the Pallas kernel's constants (pcdet_tpu/ops/pallas/rotated_overlap.py)
 EPS = 1e-8
@@ -40,11 +51,11 @@ BIG = 1e9
 N_CAND = 24
 
 
-def _load(name, source, entry):
+def _load(name, source, entry, pointers):
     lib = cuda_build.load_library(name, (source,))
     fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * pointers + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.pcdet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pcdet_cuda_error_string.restype = ctypes.c_char_p
@@ -55,20 +66,59 @@ def _load(name, source, entry):
 def build():
     """Build (or reuse) and load kernel A's library; returns it."""
     return _load('rotated_overlap', 'rotated_overlap.cu',
-                 'pcdet_rotated_overlap_batched')
+                 'pcdet_rotated_overlap_batched', 4)
 
 
 @functools.cache
 def build_sorted():
     """Build (or reuse) and load kernel A″'s library; returns it."""
     return _load('rotated_overlap_sorted', 'rotated_overlap_sorted.cu',
-                 'pcdet_rotated_overlap_sorted_batched')
+                 'pcdet_rotated_overlap_sorted_batched', 3)
 
 
 def pair_overlap_batched_plain(corners_a, corners_b):
     """(G, M, 4, 2) x (G, N, 4, 2) -> (G, M, N) areas, in plain PyTorch."""
     return rotated_iou.quad_intersection_area(corners_a[:, :, None],
                                               corners_b[:, None])
+
+
+def cull_boxes_plain(corners):
+    """(..., 4, 2) corners -> (..., 4) cull boxes [min x, max x, min y,
+    max y]: a quad's axis-aligned bounding box when it is cullable (every
+    |x|, |y| <= CULL_COORD_MAX, every squared edge length > CULL_MIN_EDGE2,
+    every corner a left turn with sin(angle) >= 1/2), else [-inf, inf,
+    -inf, inf], which no comparison separates.  Kernel A's `cull_box`, op
+    for op."""
+    x, y = corners[..., 0], corners[..., 1]
+    ex = torch.roll(x, -1, -1) - x          # edge k: corner k -> k + 1
+    ey = torch.roll(y, -1, -1) - y
+    l2 = ex * ex + ey * ey
+    pex, pey, pl2 = (torch.roll(v, 1, -1) for v in (ex, ey, l2))  # edge k-1
+    cross = pex * ey - pey * ex
+    ok = ((x.abs() <= CULL_COORD_MAX) & (y.abs() <= CULL_COORD_MAX)
+          & (l2 > CULL_MIN_EDGE2) & (cross > 0)
+          & (cross * cross > 0.25 * pl2 * l2)).all(-1)
+    box = torch.stack([x.amin(-1), x.amax(-1), y.amin(-1), y.amax(-1)], -1)
+    inf = torch.tensor([-torch.inf, torch.inf, -torch.inf, torch.inf],
+                       dtype=box.dtype, device=box.device)
+    return torch.where(ok[..., None], box, inf)
+
+
+def overlap_maybe_nonzero_plain(corners_a, corners_b):
+    """(G, M, 4, 2) x (G, N, 4, 2) -> (G, M, N) bool: False only where
+    kernel A culls the pair, which is only where both quads are cullable
+    and their boxes lie more than CULL_GAP apart on x or on y, so where the
+    plain version's area is +0.0.  A degenerate quad (one point, a
+    zero-length side), a clockwise one or a NaN keeps every pair it is in.
+    Evaluated as the kernel does, so its sum is the kernel's count of pairs
+    kept."""
+    ba = cull_boxes_plain(corners_a)[:, :, None]
+    bb = cull_boxes_plain(corners_b)[:, None]
+    apart = ((ba[..., 1] + CULL_GAP < bb[..., 0])
+             | (bb[..., 1] + CULL_GAP < ba[..., 0])
+             | (ba[..., 3] + CULL_GAP < bb[..., 2])
+             | (bb[..., 3] + CULL_GAP < ba[..., 2]))
+    return ~apart
 
 
 def _cross(ox, oy, px, py, qx, qy):
@@ -196,12 +246,14 @@ def _check(corners_a, corners_b):
                          % (corners_a.device, corners_b.device))
 
 
-def _launch(build_lib, entry, corners_a, corners_b):
-    """One launch of a kernel on checked CUDA operands -> (G, M, N)."""
+def _launch(build_lib, entry, rows_per_block, corners_a, corners_b,
+            extra=()):
+    """One launch of a kernel on checked CUDA operands -> (G, M, N);
+    `extra` are pointers passed after the output's."""
     if corners_a.device.type != 'cuda':
         raise ValueError('unsupported device %s' % corners_a.device)
     g, m, n = corners_a.shape[0], corners_a.shape[1], corners_b.shape[1]
-    if g > _MAX_GRID_YZ or -(-m // _ROWS_PER_BLOCK) > _MAX_GRID_YZ:
+    if g > _MAX_GRID_YZ or -(-m // rows_per_block) > _MAX_GRID_YZ:
         raise ValueError('grid too large: G=%d M=%d' % (g, m))
     if n >= 2 ** 31:
         raise ValueError('N=%d does not fit the kernel\'s int' % n)
@@ -212,22 +264,39 @@ def _launch(build_lib, entry, corners_a, corners_b):
     with torch.cuda.device(corners_a.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, entry)(corners_a.data_ptr(), corners_b.data_ptr(),
-                                 out.data_ptr(), g, m, n, stream)
+                                 out.data_ptr(), *extra, g, m, n, stream)
     cuda_build.check(lib, rc)
+    return out
+
+
+def _overlap_a(corners_a, corners_b, survivors):
+    global LAUNCHES
+    out = _launch(build, 'pcdet_rotated_overlap_batched', _ROWS_PER_BLOCK,
+                  corners_a, corners_b, (survivors,))
+    LAUNCHES += int(out.numel() > 0)
     return out
 
 
 def pair_overlap_batched(corners_a, corners_b):
     """(G, M, 4, 2) x (G, N, 4, 2) f32 CCW corners -> (G, M, N) f32
     intersection areas; independent pair problems per group (kernel A)."""
-    global LAUNCHES
     _check(corners_a, corners_b)
     if corners_a.device.type == 'cpu':
         return pair_overlap_batched_plain(corners_a, corners_b)
-    out = _launch(build, 'pcdet_rotated_overlap_batched', corners_a,
-                  corners_b)
-    LAUNCHES += int(out.numel() > 0)
-    return out
+    return _overlap_a(corners_a, corners_b, None)
+
+
+def pair_overlap_batched_counted(corners_a, corners_b):
+    """`pair_overlap_batched` -> (areas, count): `count` is a 0-d int32
+    tensor on the operands' device, the pairs kernel A did not cull (on the
+    CPU, the pairs `overlap_maybe_nonzero_plain` keeps)."""
+    _check(corners_a, corners_b)
+    if corners_a.device.type == 'cpu':
+        return (pair_overlap_batched_plain(corners_a, corners_b),
+                overlap_maybe_nonzero_plain(corners_a, corners_b).sum(
+                    dtype=torch.int32))
+    count = torch.zeros((), dtype=torch.int32, device=corners_a.device)
+    return _overlap_a(corners_a, corners_b, count.data_ptr()), count
 
 
 def pair_overlap(corners_a, corners_b):
@@ -243,7 +312,7 @@ def pair_overlap_sorted_batched(corners_a, corners_b):
     if corners_a.device.type == 'cpu':
         return pair_overlap_sorted_plain(corners_a, corners_b)
     out = _launch(build_sorted, 'pcdet_rotated_overlap_sorted_batched',
-                  corners_a, corners_b)
+                  _ROWS_PER_BLOCK_SORTED, corners_a, corners_b)
     LAUNCHES_SORTED += int(out.numel() > 0)
     return out
 

@@ -6,8 +6,13 @@ CPU mode).  On a machine with a card, run without the JAX suite's conftest
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 
-Rotated overlap: tolerance 1e-5 absolute on the areas; the kernel is built
-with --fmad=false and is expected to be bitwise equal to the plain version.
+Rotated overlap (kernel A): bitwise equal to the plain version on every
+pair (`torch.equal`; --fmad=false, and the pairs it culls are +0.0 in the
+plain version too), two launches equal, its count of pairs kept (not
+culled) equal to the plain predicate `overlap_maybe_nonzero_plain`'s, on
+random boxes, shapes at the tiles' ragged edges (32 columns, 8-32 rows), a
+recall grid with zero-padded rows (one-point quads), crafted pairs and
+near misses at the cull gap.
 Gather-GEMM (kernels B and C): 1e-5 of max |plain|; the kernel and the
 plain version (cuBLAS) may sum in different orders at these small shapes.
 B keeps its tap-major, channel-inner `fmaf` order; C sums on the tensor
@@ -66,18 +71,65 @@ def _boxes5(rng, shape, spread=20.0):
                     axis=-1).astype(np.float32)
 
 
-@pytest.mark.parametrize('g,m,n', [(2, 64, 4096), (3, 37, 1000), (1, 5, 7)])
+def _check_kernel_a(ca, cb):
+    """Kernel A bitwise equal to plain on every pair, two launches equal,
+    its count of pairs kept equal to the plain predicate's, one launch
+    counted per call."""
+    before = rotated_overlap.LAUNCHES
+    got = rotated_overlap.pair_overlap_batched(ca, cb)
+    assert rotated_overlap.LAUNCHES == before + 1
+    again, count = rotated_overlap.pair_overlap_batched_counted(ca, cb)
+    want = rotated_overlap.pair_overlap_batched_plain(ca, cb)
+    kept = rotated_overlap.overlap_maybe_nonzero_plain(ca.cpu(), cb.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got - want).abs().max().item()
+    assert torch.equal(got, again)
+    assert int(count) == int(kept.sum())
+    return got, kept
+
+
+@pytest.mark.parametrize('g,m,n', [(2, 64, 4096), (3, 37, 1000), (1, 5, 7),
+                                   (2, 33, 31), (1, 32, 33), (2, 65, 97)])
 def test_kernel_matches_plain(cuda, g, m, n):
     rng = np.random.RandomState(0)
     cb = rotated_iou.boxes5_to_corners(
         torch.as_tensor(_boxes5(rng, (g, n)), device=cuda)).contiguous()
-    ca = cb[:, :m].contiguous()
-    before = rotated_overlap.LAUNCHES
-    got = rotated_overlap.pair_overlap_batched(ca, cb)
-    assert rotated_overlap.LAUNCHES == before + 1
-    want = rotated_overlap.pair_overlap_batched_plain(ca, cb)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    ca = (cb[:, :m] if m <= n else rotated_iou.boxes5_to_corners(
+        torch.as_tensor(_boxes5(rng, (g, m)), device=cuda))).contiguous()
+    _check_kernel_a(ca, cb)
+
+
+def test_kernel_on_recall_grid_with_zero_rows(cuda):
+    """The B8 recall grid: 500 predictions x 128 GT a sample, zero-padded
+    rows in both (one-point quads, on which the plain version returns the
+    other box's whole area): every pair with one is kept."""
+    import chip_smoke
+    preds, gt = (torch.as_tensor(x, device=cuda) for x in
+                 chip_smoke.recall_grid_boxes7(np.random.RandomState(7)))
+    got, kept = _check_kernel_a(rotated_iou.boxes7_to_corners(preds),
+                                rotated_iou.boxes7_to_corners(gt))
+    zero_a = (preds == 0).all(-1).cpu()
+    zero_b = (gt == 0).all(-1).cpu()
+    assert bool(kept[zero_a].all()) and bool(kept.transpose(1, 2)[zero_b].all())
+    assert bool((got.cpu()[zero_b[:, None].expand(-1, 500, -1)
+                           & ~zero_a[..., None]] > 0).all())
+
+
+def test_kernel_on_crafted_pairs_and_near_misses(cuda):
+    """chip_smoke's crafted pairs (identical, contained, edge-sharing,
+    disjoint) and near misses placed just past and inside the cull gap at
+    every angle, with slivers."""
+    import chip_smoke
+    a, b = (rotated_iou.boxes5_to_corners(torch.as_tensor(x, device=cuda))
+            for x in chip_smoke.crafted_boxes5())
+    got, _ = _check_kernel_a(a[None].contiguous(), b[None].contiguous())
+    torch.testing.assert_close(
+        torch.diagonal(got[0]).cpu(), torch.tensor([4.0, 0, 0, 100, 100, 8]),
+        rtol=1e-5, atol=2e-5)
+    a, b = (torch.as_tensor(x, device=cuda) for x in
+            chip_smoke.near_miss_pairs(np.random.RandomState(8), 32, 2048))
+    _, kept = _check_kernel_a(a, b)
+    assert int((~kept).sum()) > 0
 
 
 @pytest.mark.parametrize('g,m,n', [(2, 64, 4096), (3, 37, 1000), (1, 5, 7)])
@@ -159,6 +211,29 @@ def test_kernel_rejects_non_contiguous(cuda):
     c = torch.zeros(2, 8, 4, 2, device=cuda)
     with pytest.raises(ValueError):
         rotated_overlap.pair_overlap_batched(c[:, ::2], c)
+
+
+@pytest.mark.parametrize('bad', ['dtype', 'shape', 'groups', 'strides',
+                                 'device'])
+def test_kernel_rejects_bad_input(cuda, bad):
+    c = torch.zeros(2, 8, 4, 2, device=cuda)
+    a, b = c[:, :4].contiguous(), c
+    if bad == 'device':                   # one operand on the CPU
+        a = a.cpu()
+    elif bad == 'dtype':
+        a = a.double()
+    elif bad == 'shape':
+        a = a.reshape(2, 4, 8)
+    elif bad == 'groups':
+        a = a[:1]
+    else:
+        a = torch.zeros(2, 4, 2, 4, device=cuda).transpose(2, 3)
+    before = rotated_overlap.LAUNCHES
+    for fn in (rotated_overlap.pair_overlap_batched,
+               rotated_overlap.pair_overlap_batched_counted):
+        with pytest.raises((TypeError, ValueError)):
+            fn(a, b)
+    assert rotated_overlap.LAUNCHES == before
 
 
 @pytest.mark.parametrize('rotated', [True, False])
