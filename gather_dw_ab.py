@@ -3,18 +3,23 @@ on one GPU, and the two compute cores of the checkout's build.
 
     python3 gather_dw_ab.py OLD_DIR
 
-OLD_DIR holds another version of `pcdet_tpu_torch/csrc/gather_dw.cu`,
-`gather_dw_xwin.cu` and `gather_gemm_xwin.cu` with the same C entry points
-and the headers they include, for example from git:
+OLD_DIR holds another version of `pcdet_tpu_torch/csrc/gather_dw.cu` and
+`gather_dw_xwin.cu` with the same C entry points and the headers they
+include, for example from git:
 
     mkdir -p build/ab/old && for f in gather_dw.cu gather_dw_xwin.cu \
-        gather_gemm_xwin.cu gather_common.cuh; do
+        gather_dw_common.cuh gather_common.cuh; do
       git show REV:pcdet_tpu_torch/csrc/$f > build/ab/old/$f; done
 
 They are built with the port's nvcc flags beside the library the port
 builds from the checkout, and the dW kernels are called with the chunking
-the wrappers gave them (`old_chunk_rows`).  The checkout's dW sources are
-also built with each compute core (`-DPCDET_DW_CORE=0`: FFMA, `1`: 3xTF32).
+the wrappers gave them: the checkout's (`ops/gather_dw.chunk_rows` on the
+build's own residency) where the build exports its residency, as every
+build since the pipelined core does, else the first version's
+(`old_chunk_rows`).  With the same chunking, old and new sum in the same
+order, and whether their outputs are bitwise equal is printed.  The
+checkout's dW sources are also built with each compute core
+(`-DPCDET_DW_CORE=0`: FFMA, `1`: 3xTF32).
 
 At every dW launch shape of SECOND's train step at B2 and B8 (the 11 kw=3
 convs under D′ and D″, conv_out under D, and the 12 convs under D for the
@@ -27,10 +32,10 @@ per train step.  At B2 it also times the two cores in turns (FFMA, 3xTF32,
 3xTF32, FFMA), and cuBLAS's product on the pre-gathered rows of every tap
 (`torch.matmul`, the math without the gather: a yardstick, not the same
 function).  At every kw=3 forward shape it checks that the checkout's
-selector kernels E and E′ (f32 and bf16) give the old build's bits.  Exits
-nonzero when a new dW kernel is off its plain version by more than 1e-4 of
-max |plain| or two of its launches differ, or E / E′ differ from the old
-build.
+selector kernels E and E′ give kernel B's bits (f32) and kernel C's (bf16)
+on the same book.  Exits nonzero when a new dW kernel is off its plain
+version by more than 1e-4 of max |plain| or two of its launches differ, or
+E / E′ differ from B / C.
 """
 import concurrent.futures
 import ctypes
@@ -60,9 +65,6 @@ def nvcc_build(name, sources, defines=()):
     if hasattr(lib, 'pcdet_gather_dw_xwin'):
         lib.pcdet_gather_dw_xwin.argtypes = [ctypes.c_int] \
             + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    elif hasattr(lib, 'pcdet_gather_gemm_xwin'):
-        lib.pcdet_gather_gemm_xwin.argtypes = [ctypes.c_int] * 2 \
-            + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     else:
         lib.pcdet_gather_dw.argtypes = [ctypes.c_void_p] * 6 \
             + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -83,13 +85,14 @@ class Build:
 
     def __init__(self, dw, xwin, core=None):
         self.dw_lib, self.xwin_lib, self.core = dw, xwin, core
-        if core is not None:
+        self.resident = hasattr(dw, 'pcdet_gather_dw_resident')
+        if self.resident:
             dw.pcdet_gather_dw_resident.argtypes = [ctypes.c_int] * 2
             xwin.pcdet_gather_dw_xwin_resident.argtypes = [ctypes.c_int] * 4
 
     def rows(self, kind, b, v_out, k, cin, cout, s):
         from pcdet_tpu_torch.ops import gather_dw as gd
-        if self.core is None:
+        if not self.resident:
             return old_chunk_rows(b, v_out, k)
         if kind == 'rows':
             n = self.dw_lib.pcdet_gather_dw_resident(cin, cout)
@@ -198,6 +201,7 @@ def compare(builds, kind, case, cin, cout, gen, cores):
          'repeat': bool(torch.equal(new, again)),
          'err_new': (new - want).abs().max().item() / scale,
          'err_old': (ref - want).abs().max().item() / scale,
+         'same': bool(torch.equal(new, ref)),
          'skip': cs.skipped_share(rules, n_in, live, 64),
          'mult': int(found.sum()) / max(1, int(live.sum()) * k),
          'shape': (b, v_out, k, live.tolist())}
@@ -216,35 +220,28 @@ def compare(builds, kind, case, cin, cout, gen, cores):
     return r
 
 
-def same_e_bits(old_lib, case, cin, cout, gen):
-    """Whether E and E′ (f32, bf16) give the old build's bits on a kw=3
+def same_e_bits(case, cin, cout, gen):
+    """Whether E and E′ give kernel B's (f32) and C's (bf16) bits on a kw=3
     book: [(variant, dtype, equal)]."""
+    from pcdet_tpu_torch.ops import gather_gemm as gg
     from pcdet_tpu_torch.ops import gather_xwin as gx
     from pcdet_tpu_torch.ops import sparse
     rules, n_in, _, out_mask = case
     live = out_mask.sum(1, dtype=torch.int32)
     base, sel, _ = sparse.xwin_selectors(rules, n_in)
-    b, v_out, groups = base.shape
+    groups = base.shape[2]
     table = cs.rand_table(gen, case, cin, rules.device)
     w = (torch.rand((3 * groups, cin, cout), generator=gen) * 2 - 1).to(
         rules.device) / (3 * groups * cin) ** 0.5
     out = []
     for dtype in (torch.float32, torch.bfloat16):
         t, wt = table.to(dtype), w.to(dtype)
+        rows = gg.gather_gemm(t, rules, wt, live)
         for seg in (False, True):
             new = (gx.gather_gemm_seg(t, base, sel, wt, live) if seg
                    else gx.gather_gemm_xwin(t, base, sel, wt, live))
-            old = torch.empty_like(new)
-            rc = old_lib.pcdet_gather_gemm_xwin(
-                int(seg), int(dtype == torch.bfloat16), t.data_ptr(),
-                base.data_ptr(), sel.data_ptr(), wt.data_ptr(),
-                live.data_ptr(), old.data_ptr(),
-                gx.tally(rules.device).data_ptr(), b, t.shape[1], v_out,
-                groups, cin, cout, gx.SEG_S,
-                torch.cuda.current_stream().cuda_stream)
-            cs.require(rc == 0, 'old E launch failed: %d' % rc)
             out.append(("E'" if seg else 'E', str(dtype)[6:],
-                        bool(torch.equal(new, old))))
+                        bool(torch.equal(new, rows))))
     return out
 
 
@@ -271,12 +268,9 @@ def main(argv):
             (d / ('gather_%s.cu' % part),), defs)
             for name, (d, defs) in jobs.items()
             for part in ('dw', 'dw_xwin')}
-        old_e = pool.submit(nvcc_build, 'dw_ab_old_gemm_xwin',
-                            (old_dir / 'gather_gemm_xwin.cu',))
         for fn in (gd.build, gd.build_xwin, gx.build):
             pool.submit(fn).result()
         libs = {k: f.result() for k, f in futs.items()}
-        old_e = old_e.result()[0]
     builds = {name: Build(libs[(name, 'dw')][0], libs[(name, 'dw_xwin')][0],
                           None if name == 'old' else name)
               for name in jobs}
@@ -293,10 +287,10 @@ def main(argv):
         e_bits = {}
         for _, key, cin, cout in cs.KW3_CONVS:
             if (key, cin, cout) not in e_bits:
-                e_bits[(key, cin, cout)] = same_e_bits(old_e, books[key],
-                                                       cin, cout, gen)
-        print("[dw-ab] B%d E / E' (f32, bf16) bitwise equal to the old "
-              "build at the %d kw=3 forward shapes: %s" % (
+                e_bits[(key, cin, cout)] = same_e_bits(books[key], cin,
+                                                       cout, gen)
+        print("[dw-ab] B%d E / E' bitwise equal to kernel B (f32) and C "
+              "(bf16) at the %d kw=3 forward shapes: %s" % (
                   batch, len(e_bits), all(
                       eq for r in e_bits.values() for *_, eq in r)))
         bad += [(batch, 'E', k, r) for k, rs in e_bits.items() for r in rs
@@ -314,13 +308,14 @@ def main(argv):
                 name = {'rows': 'D', 'xwin': "D''", 'seg': "D'"}[kind]
                 print('[dw-ab] B%d %-4s %-10s %-8s %3d -> %-3d (B, V_out, K, '
                       'live) %s: old %.4f new %.4f ms (%.2fx; old, new, new, '
-                      'old %s); two new launches equal %s; max error / max '
-                      '|plain| new %.2e old %.2e; (sub-tile, tap) pairs '
-                      'skipped %.1f%%, (row, tap) products multiplied %.1f%%'
+                      'old %s); two new launches equal %s, new == old %s; '
+                      'max error / max |plain| new %.2e old %.2e; (sub-tile, '
+                      'tap) pairs skipped %.1f%%, (row, tap) products '
+                      'multiplied %.1f%%'
                       % (batch, name, conv, key, cin, cout, r['shape'],
                          r['old_ms'], r['new_ms'], r['old_ms'] / r['new_ms'],
                          ', '.join('%.4f' % x for x in r['turns']),
-                         r['repeat'], r['err_new'], r['err_old'],
+                         r['repeat'], r['same'], r['err_new'], r['err_old'],
                          100 * r['skip'], 100 * r['mult']))
                 if 'cores' in r:
                     print('[dw-ab] B%d %-4s %-10s cores: %s (ffma, tf32x3, '
@@ -335,6 +330,8 @@ def main(argv):
                 step = kind if key != 'convout' else 'convout'
                 for v in ('old', 'new'):
                     sums[(step, v)] = sums.get((step, v), 0.0) + r[v + '_ms']
+        print('[dw-ab] B%d shapes where new == old: %d of %d' % (
+            batch, sum(r['same'] for r in cache.values()), len(cache)))
         for v in ('old', 'new'):
             print("[dw-ab] B%d %s per train step: D' over the 11 kw=3 convs "
                   "%.4f ms, D at conv_out %.4f ms (default loads: %.4f ms); "
@@ -344,8 +341,8 @@ def main(argv):
                       sums[('seg', v)] + sums[('convout', v)],
                       sums[('xwin', v)],
                       sums[('rows', v)] + sums[('convout', v)]))
-    print('[dw-ab] shapes off plain, not repeatable or E / E\' bits '
-          'changed: %s' % bad)
+    print('[dw-ab] shapes off plain, not repeatable or E / E\' not B\'s / '
+          'C\'s bits: %s' % bad)
     return 1 if bad else 0
 
 

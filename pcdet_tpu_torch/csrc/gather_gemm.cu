@@ -59,12 +59,13 @@
 // one rounding, so the tensor cores' internal sums span one tap only.  Cin =
 // 4 is padded to 16 with zeros in shared memory (8-byte copies).  The sum
 // order is the tensor cores', so C is not bitwise equal to its plain version
-// nor to E / E' bf16; it is bitwise repeatable (no atomics, no split over
-// taps).  mma.sync and not wgmma: a tap is only 16-128 deep and the kernel is
-// bound by its gathers, so wgmma's 64-row warpgroup tiles and shared-memory
-// descriptors would buy no time.  What holds it above its bound is the
-// per-tap work of a block (a barrier, a cp.async per 16 bytes of every row,
-// zero-filled or not), not the tensor cores.
+// (E / E' bf16 sum each tap as C does and give its bits); it is bitwise
+// repeatable (no atomics, no split over taps).  mma.sync and not wgmma: a
+// tap is only 16-128 deep and the kernel is bound by its gathers, so
+// wgmma's 64-row warpgroup tiles and shared-memory descriptors would buy no
+// time.  What holds it above its bound is the per-tap work of a block (a
+// barrier, a cp.async per 16 bytes of every row, zero-filled or not), not
+// the tensor cores.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py S2, device
 // time, SECOND's conv2_1 at B2, 66k live rows, K = 27, 32 -> 32): B 0.117 ms
@@ -76,7 +77,17 @@
 
 #include <type_traits>
 
+#include "gather_ptx.cuh"
+
 namespace {
+
+using gather_ptx::cp_async;
+using gather_ptx::cp_async_commit;
+using gather_ptx::cp_async_wait;
+using gather_ptx::ldsm_x4;
+using gather_ptx::ldsm_x4_trans;
+using gather_ptx::mma_bf16;
+using gather_ptx::smem_u32;
 
 constexpr int kMaxTaps = 64;
 constexpr int kSmemLimit = 232448;       // a block's shared memory on sm_90
@@ -151,34 +162,6 @@ template <> struct PickB<32, 32> { using type = TileB<32, 32, 256, 2, 8, 4>; };
 template <> struct PickB<32, 64> { using type = TileB<32, 64, 64, 3, 4, 8>; };
 template <> struct PickB<64, 32> { using type = TileB<64, 32, 128, 2, 4, 8>; };
 template <> struct PickB<64, 64> { using type = TileB<64, 64, 128, 3, 8, 8>; };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Copies `bytes` (16 or 8) from global to shared memory, asynchronously;
-// src_bytes 0 writes zeros and reads nothing.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
-  if (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-                 "l"(src), "r"(src_bytes)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
-                 "l"(src), "r"(src_bytes)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Writes zeros to rows [row0, min(row0 + TR, v_out)) of out_b.
 template <int TR, int COUT, int NT>
@@ -357,30 +340,6 @@ gather_gemm_kernel_f32(const float* __restrict__ feats, const int* __restrict__ 
 }
 
 // --------------------------------------------------------------- C, bf16 --
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d += a (16 x 16, rows) * b (16 x 8, columns), bf16 operands, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // (minimum one block an SM: ptxas otherwise holds the Cout = 128 and Cin = 4
 // instances to 128 / 64 registers and spills)
 template <typename C>

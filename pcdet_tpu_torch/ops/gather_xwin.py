@@ -22,6 +22,12 @@ raises; on a CPU tensor it computes its plain version, which rebuilds the
 rules from the selectors (and, for E′, from the segment descriptors) and
 calls `gather_gemm_plain`, so it checks the descriptors as well as the sums.
 
+On the card E and E′ share one pipelined core: f32 gives kernel B's bits
+and bf16 kernel C's on the same book, so the load strategy changes no
+output.  E′ stages a tile's segment in shared memory, so an instance takes
+at most `max_seg_rows(dtype, Cin, Cout)` segment rows there (at least
+`SEG_S`); the plain version takes 1..1022.
+
 `LAUNCHES` counts launches per variant and dtype (`_dgrad` for a feature
 gradient) and of the selector builder; `seg_tiles()` reads the (tile, group)s the segment kernels (E′
 and D′) took by the segment branch and by the window branch, counted on the
@@ -49,6 +55,8 @@ MAX_GROUPS = 21
 NO_TAP = 0x3f
 SEG_MISS = 1023        # 10-bit offset of a miss
 _SOURCES = ('gather_gemm_xwin.cu',)
+SMEM_LIMIT = 232448    # a block's shared memory on sm_90
+_W_STAGES = 3          # the kernel's W ring, in x-taps
 _TALLY = {}            # device -> (2,) int64: segment, window (tile, group)s
 
 
@@ -178,6 +186,37 @@ def gather_gemm_seg_plain(feats, base, sel, weights, n_live, s=SEG_S):
     return gather_gemm_plain(feats, rules, weights, n_live)
 
 
+def _layout(bf16, cin, cout):
+    """(staged row bytes, W bytes per x-tap) of an E / E′ instance:
+    `csrc/gather_gemm_xwin.cu:Layout`.  f32 rows are padded by 16 bytes
+    where a quarter-warp reads two rows (Cout 16), bf16 rows always (for
+    ldmatrix); bf16 Cin 4 is staged as 16 channels."""
+    size = 2 if bf16 else 4
+    cin_s = 16 if bf16 and cin < 16 else cin
+    raw = cin_s * size
+    pad = (bf16 or cout < 32) and raw > 16
+    return raw + 16 * pad, cin_s * (cout * size + 16 * bf16)
+
+
+def smem_bytes(dtype, cin, cout, s, groups):
+    """`Layout::smem_bytes`: the dynamic shared memory of one E′ block
+    (64 rows) at `s` segment rows (E: s = 0) and `groups` tap groups: a
+    16-byte header, the W ring of three x-taps, the zero row, two stages
+    of max(s, 192) staged rows, the selectors of 64 rows and each group's
+    anchor and span."""
+    row, w = _layout(dtype == torch.bfloat16, cin, cout)
+    return (16 + _W_STAGES * w + row + 4 * groups * (2 * TILE + 2)
+            + 2 * max(s, 3 * TILE) * row)
+
+
+def max_seg_rows(dtype, cin, cout):
+    """The most segment rows the card's E′ instance stages: the largest s
+    (at most 1022) whose `smem_bytes` at 21 groups fits a block."""
+    row, _ = _layout(dtype == torch.bfloat16, cin, cout)
+    fixed = smem_bytes(dtype, cin, cout, 0, MAX_GROUPS) - 2 * 3 * TILE * row
+    return min(SEG_MISS - 1, (SMEM_LIMIT - fixed) // (2 * row))
+
+
 @functools.cache
 def build():
     """Build (or reuse) and load the kernel library; returns it."""
@@ -190,6 +229,8 @@ def build():
     sel.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] \
         + [ctypes.c_void_p] * 4
     sel.restype = ctypes.c_int
+    lib.pcdet_gather_gemm_xwin_max_seg_rows.argtypes = [ctypes.c_int] * 3
+    lib.pcdet_gather_gemm_xwin_max_seg_rows.restype = ctypes.c_int
     lib.pcdet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pcdet_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -279,6 +320,11 @@ def _gather(seg, feats, base, sel, weights, n_live, s, dgrad):
         raise ValueError('no kernel instance for Cin=%d, Cout=%d (pairs %s)'
                          % (cin, cout, PAIRS))
     bf16 = feats.dtype == torch.bfloat16
+    if seg and s > max_seg_rows(feats.dtype, cin, cout):
+        raise ValueError('the card stages at most %d segment rows at (%s, %d,'
+                         ' %d), got %d' % (max_seg_rows(feats.dtype, cin,
+                                                        cout),
+                                           feats.dtype, cin, cout, s))
     lib = build()
     out = torch.empty((b, v_out, cout), dtype=torch.float32,
                       device=feats.device)
@@ -316,5 +362,5 @@ def gather_gemm_xwin(feats, base, sel, weights, n_live, dgrad=False):
 
 def gather_gemm_seg(feats, base, sel, weights, n_live, s=SEG_S, dgrad=False):
     """Kernel E′: `gather_gemm_xwin`'s contract, `s` segment rows
-    (1..1022)."""
+    (1..1022 on the CPU, 1..`max_seg_rows` on the card)."""
     return _gather(True, feats, base, sel, weights, n_live, s, dgrad)

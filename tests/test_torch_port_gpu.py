@@ -29,8 +29,11 @@ and segment kernels (E, E′ in f32 and bf16, D″, D′) against their plain
 versions on selectors of window-structured books, windows running up to
 the table's last row, all-miss rows, n_live none / mid-tile / all: E, E′
 1e-5 and D″, D′ 1e-5 of max |plain| (short sums; also on selectors
-finding 60%, 8% or none of their x-taps), D″, D′ bitwise repeatable, E′ and D′ counting each (tile, group) on the branch the
-segment descriptors give; the selector kernel equal to its plain version
+finding 60%, 8% or none of their x-taps), E, E′ bitwise equal to kernel B
+(f32) or C (bf16) on the same book, E, E′, D″, D′ bitwise repeatable, E′
+and D′ counting each (tile, group) on the branch the segment descriptors
+give, E′ at the most segment rows the card stages (`max_seg_rows`) and
+refusing one more; the selector kernel equal to its plain version
 as integers, dropped taps counted; the convs' backward under each `Loads`
 on the card against the CPU.  Kernel A″ (the sorted-candidate overlap)
 bitwise equal to its plain version on random and crafted boxes, one launch
@@ -498,17 +501,25 @@ def _xwin_inputs(rng, b, v_in, v_out, g, cin, cout, device, misses=None):
 _VARIANTS = [('xwin', 0), ('seg', gather_xwin.SEG_S), ('seg', 16)]
 
 
+@pytest.mark.parametrize('books', [None] + list(_MISSES))
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('variant,s', _VARIANTS)
 @pytest.mark.parametrize('cin,cout', gather_xwin.PAIRS)
 def test_gather_gemm_window_matches_plain(cuda, no_tf32, variant, s, dtype,
-                                         cin, cout):
+                                         cin, cout, books):
+    """E / E′ within 1e-5 of the plain version, bitwise equal to kernel B
+    (f32) or C (bf16) on the same book as rules and to a second launch, the
+    card's (tile, group) tally equal to the 64-row descriptors'; V_out 200
+    is ragged against every block, and with `books` a 64-row tile finds no
+    group and x-tap 1 of group 0 no row."""
     rng = np.random.RandomState(cin * 10 + cout + s)
     v_in, v_out = 300, 200
     for b in (1, 3):
-        table, base, sel, w, _ = _xwin_inputs(rng, b, v_in, v_out, 9, cin,
-                                              cout, cuda)
+        table, base, sel, w, _ = _xwin_inputs(
+            rng, b, v_in, v_out, 9, cin, cout, cuda,
+            books and _MISSES[books])
         table, w = table.to(dtype), w.to(dtype)
+        rules = gather_xwin.rules_from_xwin(base, sel, v_in)
         if variant == 'xwin':
             fn, plain = gather_xwin.gather_gemm_xwin, \
                 gather_xwin.gather_gemm_xwin_plain
@@ -528,13 +539,21 @@ def test_gather_gemm_window_matches_plain(cuda, no_tf32, variant, s, dtype,
             before = gather_xwin.LAUNCHES[key]
             got = fn(table, base, sel, w, n_live)
             assert gather_xwin.LAUNCHES[key] == before + 1
+            tiles = gather_xwin.seg_tiles()
+            again = fn(table, base, sel, w, n_live)
+            rows = gather_gemm.gather_gemm(table, rules, w, n_live)
             want = plain(table, base, sel, w, n_live)
             torch.cuda.synchronize()
             assert got.dtype == torch.float32 and got.shape == want.shape
-            scale = max(want.abs().max().item(), 1e-30)
-            torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+            assert torch.equal(got, again)
+            assert torch.equal(got, rows)
+            if not want.any():
+                assert not got.any()
+            else:
+                scale = want.abs().max().item()
+                torch.testing.assert_close(got, want, rtol=0,
+                                           atol=1e-5 * scale)
             assert not got[0, live:].any() and not got[:, 5:7].any()
-            tiles = gather_xwin.seg_tiles()
             if variant == 'seg':
                 _, ok, _ = gather_xwin.segment_desc(base, sel, 64, s)
                 reach = ((torch.arange(ok.shape[1], device=cuda) * 64)[None]
@@ -543,6 +562,33 @@ def test_gather_gemm_window_matches_plain(cuda, no_tf32, variant, s, dtype,
                                  'window': int(((ok == 0) & reach).sum())}
             else:
                 assert tiles == {'segment': 0, 'window': 0}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('cin,cout', gather_xwin.PAIRS)
+def test_gather_gemm_seg_rows_the_card_stages(cuda, no_tf32, dtype, cin,
+                                              cout):
+    """`max_seg_rows` equals the kernel's own limit; E′ runs at it (bitwise
+    equal to kernel B / C) and the wrapper refuses one row more."""
+    limit = gather_xwin.max_seg_rows(dtype, cin, cout)
+    assert limit >= gather_xwin.SEG_S
+    assert limit == gather_xwin.build().pcdet_gather_gemm_xwin_max_seg_rows(
+        int(dtype == torch.bfloat16), cin, cout)
+    rng = np.random.RandomState(cin + cout)
+    v_in, v_out = 300, 200
+    table, base, sel, w, _ = _xwin_inputs(rng, 2, v_in, v_out, 9, cin, cout,
+                                          cuda)
+    table, w = table.to(dtype), w.to(dtype)
+    n_live = torch.full((2,), v_out, dtype=torch.int32, device=cuda)
+    got = gather_xwin.gather_gemm_seg(table, base, sel, w, n_live, s=limit)
+    rows = gather_gemm.gather_gemm(
+        table, gather_xwin.rules_from_xwin(base, sel, v_in), w, n_live)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rows)
+    if limit < gather_xwin.SEG_MISS - 1:
+        with pytest.raises(ValueError, match='at most %d' % limit):
+            gather_xwin.gather_gemm_seg(table, base, sel, w, n_live,
+                                        s=limit + 1)
 
 
 @pytest.mark.parametrize('books', [None] + list(_MISSES))

@@ -325,6 +325,48 @@ def test_wrappers_refuse_bad_inputs(tiny):
         sparse.xwin_selectors(rules[..., :26].contiguous(), n_in)
 
 
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('cin,cout', gather_xwin.PAIRS)
+def test_max_seg_rows_fits_a_block(dtype, cin, cout):
+    """The most segment rows the card's E′ instance stages: its shared
+    memory at 21 groups fits the 232,448 bytes of an sm_90 block and one
+    row more would not (or the 10-bit limit 1022 binds), at least SEG_S,
+    and the layout formula adds each staged row twice (two stages), at
+    the row's bytes or 16 more."""
+    limit = gather_xwin.max_seg_rows(dtype, cin, cout)
+    groups = gather_xwin.MAX_GROUPS
+    assert gather_xwin.SEG_S <= limit <= gather_xwin.SEG_MISS - 1
+    assert gather_xwin.smem_bytes(dtype, cin, cout, limit, groups) \
+        <= gather_xwin.SMEM_LIMIT == 232448
+    if limit < gather_xwin.SEG_MISS - 1:
+        assert gather_xwin.smem_bytes(dtype, cin, cout, limit + 1,
+                                      groups) > gather_xwin.SMEM_LIMIT
+    size = 2 if dtype == torch.bfloat16 else 4
+    row = (gather_xwin.smem_bytes(dtype, cin, cout, 301, groups)
+           - gather_xwin.smem_bytes(dtype, cin, cout, 300, groups)) // 2
+    assert row in (max(cin, 16 if size == 2 else 4) * size,
+                   max(cin, 16 if size == 2 else 4) * size + 16)
+    assert row % 16 == 0
+    # windows take 192 rows: E and E′ at S <= 192 stage as many
+    assert gather_xwin.smem_bytes(dtype, cin, cout, 0, 9) \
+        == gather_xwin.smem_bytes(dtype, cin, cout, 192, 9) \
+        < gather_xwin.smem_bytes(dtype, cin, cout, 193, 9)
+
+
+def test_cpu_seg_takes_every_segment_size(tiny):
+    """The plain version keeps taking S up to 1022, past what the card
+    stages, as `pcdet_tpu`'s segment_desc does."""
+    feats, rules, w, n_live, n_in = _gemm_inputs(tiny, 'subm2', 'fwd', 64,
+                                                 64, torch.float32, 6)
+    base, sel, _ = sparse.xwin_selectors(rules, n_in)
+    assert gather_xwin.max_seg_rows(torch.float32, 64, 64) < 1022
+    want = gather_xwin.gather_gemm_xwin(feats, base, sel, w, n_live)
+    for s in (1, 1022):
+        got = gather_xwin.gather_gemm_seg(feats, base, sel, w, n_live, s=s)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 # ---------------------------------------------------- interpret mode ---
 
 _ONE_TILE = 64
