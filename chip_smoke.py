@@ -15,7 +15,7 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
   1. build every kernel from csrc/ with nvcc (sm_90a), and the host
      rulebook builder (csrc/host_books_native.cpp) with g++, all at once;
      registers and spills per kernel instance of the window kernels and of
-     kernel A (which may not spill);
+     kernels A and A'' (which may not spill), A'''s blocks per SM;
   2. kernel A vs its plain PyTorch version on the card, bitwise, at the NMS
      shape (G=2, M=64, N=4096), on crafted boxes and on the NMS shape with
      degenerate quads (one-point rows, zero-length sides), its count of
@@ -101,10 +101,16 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       choice.
   V1. kernel A'' (csrc/rotated_overlap_sorted.cu, built in phase 1, its
       registers and spills reported there) vs its plain version at the NMS
-      shape, within 6 m of the origin, on the CPU test's 12 x 140 boxes and
-      on crafted boxes: bound 1e-5 * max |plain| (bitwise expected), two
-      launches bitwise equal; A'' vs kernel A, the other method, within a
-      bound that grows with the boxes' range (2e-5 within 6 m);
+      shape, within 6 m of the origin, on the CPU test's 12 x 140 boxes, on
+      crafted boxes, on a B8 recall grid with zero-padded rows on both
+      sides, on the NMS shape with degenerate quads, on the crafted quads
+      of tests/test_torch_port_overlap_sorted.py (`sorted_crafted_quads`)
+      with a NaN and an Inf corner (finite areas) and on finite corners
+      whose products overflow (`overflow_quads`: areas of +inf and NaN):
+      bitwise equal (`torch.equal`; NaN equal to NaN), two launches bitwise
+      equal; on the first four A'' vs
+      kernel A, the other method, within a bound that grows with the
+      boxes' range (2e-5 within 6 m);
   V2. the evaluation (train.eval_loop.eval_one_epoch) of second.yaml, then
       pointpillar.yaml, at B2 on 16 SyntheticDataset scenes at bench density
       (DATA_CONFIG.SYNTHETIC): the result dict (recall, AP, overflow,
@@ -120,7 +126,9 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       annotate / evaluate split (host clock, median of 3); A, A' (G = 1)
       and A'' on the B8 recall grid and at the NMS shape, kernel and plain
       ms beside the bound (A's least work for all three: the cull's
-      operations on every pair, the clipping's on the pairs it keeps).
+      operations on every pair, the clipping's on the pairs it keeps);
+      A'''s accepted-list lengths on the B8 recall grid (mean, max) and
+      its operations a pair from them (`a2_ops_per_pair`).
 
 Prints the card's name and power limit, a JSON line with the kernels (A,
 B, C, D, E, E', D'', D', A', A''), each with its launches on its main path, its error
@@ -161,13 +169,28 @@ CULL_OPS_PER_PAIR = 11
 # then + 0 and a max); one whose A is one finite point is +0.0, no operation
 POINT_B_OPS_PER_PAIR = 26
 # kernel A''s, counted from csrc/rotated_overlap_sorted.cu the same way
-# (each arithmetic op, compare and select one): the successor scan 576 x 10,
-# the dedup 276 x 7, the 16 edge crossings 16 x 26 + 8, the 8 inside tests
-# 8 x 32, the centroid and angles 24 x 17 + 3, the shoelace 24 x 6 + 2
-A2_OPS_PER_PAIR = 8929
+# (each arithmetic op, compare and select one), as `a2_ops_per_pair` adds
+# them up from the work its data reaches: on every pair the 8 inside tests
+# (8 x 32, counted whole), the 8 edge vectors (16) and the 16 crossings'
+# denominators and their tests (16 x 5)
+A2_FIXED_OPS = 352
 # the evaluation's scenes: DATA_CONFIG.SYNTHETIC at bench density
 EVAL_SYNTHETIC = {'NUM_SAMPLES': 16, 'NUM_OBJECTS': 24, 'GROUND_MODE': 'rings',
                   'PTS_PER_OBJ': 400, 'RING_KEEP': 0.35}
+
+
+def a2_ops_per_pair(work):
+    """Kernel A''s operations on each pair, from its
+    `rotated_overlap.sorted_work_plain` counts: A2_FIXED_OPS, then 8 for
+    each crossing past its denominator (its t and t's tests), 6 for each
+    past t too (u and its tests), 4 for each valid one (its point) and 6
+    for each dedup test (counted whole); with a list of L >= 3 entries,
+    the centroid 2 L + 4, the angles 13 L, the shoelace 5 L and the
+    successor scan 8 per (i, j != i)."""
+    n = work['length']
+    return (A2_FIXED_OPS + 8 * work['denom_ok'] + 6 * work['t_ok']
+            + 4 * work['crossings'] + 6 * work['dedup_tests']
+            + (n >= 3) * (4 + 20 * n + 8 * n * (n - 1)))
 
 
 def require(cond, msg):
@@ -315,6 +338,19 @@ def ptxas_entries(log):
     return out
 
 
+def sorted_ptxas_report():
+    """ptxas's report on csrc/rotated_overlap_sorted.cu built afresh with
+    the port's device flags, to a cubin beside the port's libraries."""
+    from pcdet_tpu_torch.ops import cuda_build
+    flags = [f for f in cuda_build.NVCC_FLAGS
+             if f not in ('-shared', '-Xcompiler', '-fPIC')]
+    out = cuda_build.BUILD_DIR / 'rotated_overlap_sorted_report.cubin'
+    return subprocess.run(
+        [cuda_build._nvcc(), *flags, '-cubin', '-Xptxas', '-v', '-o',
+         str(out), str(cuda_build.CSRC_DIR / 'rotated_overlap_sorted.cu')],
+        check=True, capture_output=True, text=True).stderr
+
+
 def print_ptxas(name, log):
     """One line per library: registers and spills over its kernel
     instances."""
@@ -364,6 +400,83 @@ def crafted_boxes5():
                   [-5, -5, 5, 5, 0.0],           # identical
                   [0, 0, 2, 4, 0.7]], np.float32)  # identical, rotated
     return a, b
+
+
+def sorted_crafted_quads():
+    """{case: (K, 4, 2) f32 numpy corners}: sets of quads whose every
+    ordered pair stresses kernel A''s candidates (tests/
+    test_torch_port_overlap_sorted.py holds its compacted order to the
+    plain version on them): identical and turned boxes, shared edges and
+    corners, collinear overlapping edges, containment, boxes at 60-68 m,
+    one-point quads inside and outside a box, zero-length sides, collinear
+    candidates at one pseudo-angle (a tie in the successor scan) and a box
+    against itself turned by micro-radians (16 accepted candidates)."""
+    from pcdet_tpu_torch.ops import rotated_iou
+
+    def corners5(boxes):
+        return rotated_iou.boxes5_to_corners(torch.as_tensor(
+            np.asarray(boxes, np.float32))).numpy()
+
+    def point(x, y):
+        return np.full((4, 2), (x, y), np.float32)
+
+    def zero_side(boxes):
+        q = corners5(boxes)
+        q[:, 2] = q[:, 3]                # corner 2 onto corner 3
+        return q
+
+    far = near_boxes5(np.random.RandomState(5), 6, 2.0) + np.float32(
+        [64, 64, 64, 64, 0])
+    return {
+        'identical and turned 90 degrees': corners5(
+            [[-2, -1, 2, 1, 0.3], [-2, -1, 2, 1, 0.3],
+             [-2, -1, 2, 1, 0.3 + np.pi / 2], [-2, -2, 2, 2, 0.0],
+             [-2, -2, 2, 2, np.pi / 2]]),
+        'shared edge and shared corner': corners5(
+            [[0, 0, 2, 2, 0.0], [2, 0, 4, 2, 0.0], [2, 2, 4, 4, 0.0],
+             [0, 2, 2, 5, 0.0], [-1, -1, 0, 0, 0.0]]),
+        'collinear overlapping edges': corners5(
+            [[0, 0, 4, 2, 0.0], [1, 0, 3, 1, 0.0], [2, 0, 6, 2, 0.0],
+             [0, 1, 4, 3, 0.0], [3, -1, 4, 2, 0.0], [0, 0, 4, 2, 0.0]]),
+        'contained': corners5(
+            [[-5, -5, 5, 5, 0.0], [-1, -1, 1, 1, 0.9],
+             [-4, -0.5, 4, 0.5, 0.2], [-0.1, -0.1, 0.1, 0.1, 0.0]]),
+        'boxes at 60-68 m': corners5(np.concatenate([
+            [[60, 60, 64, 62, 0.4], [61, 60.5, 68, 61.5, -0.2],
+             [62, 58, 66, 67, 1.1]], far])),
+        'one-point quads inside and outside a box': np.concatenate([
+            corners5([[0, 0, 4, 2, 0.1], [-3, -3, -1, 3, 0.0]]),
+            np.stack([point(1.0, 0.5), point(3.0, 3.0), point(0, 0),
+                      point(0, 0)])]),
+        'quads with a zero-length side': np.concatenate([
+            zero_side([[0, 0, 4, 2, 0.3], [1, -1, 3, 3, -0.4]]),
+            corners5([[0, 0, 4, 2, 0.3], [1, 0, 2, 1, 0.0]])]),
+        # three collinear candidates, two at one pseudo-angle from the
+        # centroid: the successor scan's tie goes to the first (strict `<`)
+        'collinear corners, tied angles': np.concatenate([
+            np.float32([[[0, 0], [2, 0], [2, 1], [2, 3]]]),
+            corners5([[2, -1, 4, 4, 0.0], [1, -1, 3, 4, 0.0]])]),
+        # a 0.5 m box and itself turned by micro-radians: corners and
+        # crossings inside the tolerances but over 1e-6 apart
+        'turned by micro-radians, long lists': corners5(
+            [[-0.25, -0.25, 0.25, 0.25, t] for t in
+             (0.0, 5e-6, np.pi / 4, np.pi / 4 + 3e-6)]),
+    }
+
+
+def overflow_quads():
+    """(5, 4, 2) f32 numpy corners, each finite, whose products overflow:
+    squares of half-side 1e38 at the origin and at (2e38, 0), of 1e20 at
+    the origin and of 3e19 at (1e20, 1e20), and a diamond of radius 1e20.
+    Among their ordered pairs kernel A''s plain version gives areas of +inf
+    and NaN."""
+    def square(cx, cy, h):
+        return [[cx - h, cy - h], [cx + h, cy - h], [cx + h, cy + h],
+                [cx - h, cy + h]]
+
+    return np.float32([square(0, 0, 1e38), square(2e38, 0, 1e38),
+                       square(0, 0, 1e20), square(1e20, 1e20, 3e19),
+                       [[0, -1e20], [1e20, 0], [0, 1e20], [-1e20, 0]]])
 
 
 def degenerate_quads(ca, cb):
@@ -2341,6 +2454,11 @@ def run_eval(dev, g1_launches, cfgs):
         return tuple(rotated_iou.boxes5_to_corners(torch.as_tensor(
             x, device=dev)).contiguous() for x in boxes)
 
+    def equal_nan(x, y):            # torch.equal, NaN equal to NaN
+        nx, ny = x.isnan(), y.isnan()
+        return torch.equal(nx, ny) and torch.equal(x.masked_fill(nx, 0),
+                                                   y.masked_fill(ny, 0))
+
     rng = np.random.RandomState(2)
     cb, = corners(rand_boxes5(rng, (2, 4096)))
     sets = {'NMS shape': (cb[:, :64].contiguous(), cb)}
@@ -2354,33 +2472,57 @@ def run_eval(dev, g1_launches, cfgs):
     # the range, most at slivers (nearly parallel edges).  2e-5 within 6 m
     # on the CPU test's boxes; over 524,288 pairs within 6 m 1.34e-4 on an
     # H100; at the NMS shape (centres to 42 m) a 0.005 m^2 sliver at 30 m
-    # differs by 1.12e-3 (A 7.7e-4 off the f64 area, A'' 3.5e-4)
+    # differs by 1.12e-3 (A 7.7e-4 off the f64 area, A'' 3.5e-4).  The sets
+    # after these hold zero-padded rows and degenerate quads, on which A
+    # and A'' return different areas of no meaning: kernel vs plain only
     vs_a_tol = {'NMS shape': 2e-3, 'within 6 m': 2e-4,
                 '12 x 140 within 6 m': 2e-5, 'crafted': 2e-5}
+    sets['B8 recall grid'] = tuple(
+        rotated_iou.boxes7_to_corners(torch.as_tensor(x, device=dev))
+        for x in recall_grid_boxes7(np.random.RandomState(4)))
+    sets['NMS shape, degenerate quads'] = degenerate_quads(*sets['NMS shape'])
+    quads = torch.as_tensor(np.concatenate(list(
+        sorted_crafted_quads().values())), device=dev)[None].contiguous()
+    sets['crafted quads'] = (quads, quads)
+    a, b = (x.clone() for x in sets['12 x 140 within 6 m'])
+    a[0, 3, 1, 0] = float('nan')
+    b[0, 7, 2, 1] = float('inf')
+    sets['a NaN and an Inf corner'] = (a, b)
+    quads = torch.as_tensor(overflow_quads(), device=dev)[None].contiguous()
+    sets['overflowing corners'] = (quads, quads)
     v1_err = 0.0
     for tag, (a, b) in sets.items():
         got = ro.pair_overlap_sorted_batched(a, b)
         again = ro.pair_overlap_sorted_batched(a, b)
         want = ro.pair_overlap_sorted_plain(a, b)
-        edge = ro.pair_overlap_batched(a, b)
         sync()
-        err = (got - want).abs().max().item()
-        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs().nan_to_num(nan=0.0).max().item()
+        line = ("[eval V1] A'' %s %s: max |kernel - plain| %.3g, bitwise "
+                "equal %s, two launches bitwise equal %s; %d pairs > 0, %d "
+                "not finite" % (tag, tuple(got.shape), err,
+                                equal_nan(got, want), equal_nan(got, again),
+                                int((want > 0).sum()),
+                                int((~want.isfinite()).sum())))
+        require(equal_nan(got, want), "A'' %s: kernel vs plain %g"
+                % (tag, err))
+        require(equal_nan(got, again), "A'' %s: launches differ" % tag)
+        require(tag != 'overflowing corners' or bool(
+            want.isnan().any() and want.isposinf().any()),
+            "A'' overflowing corners: no area of +inf and NaN")
+        v1_err = max(v1_err, err)
+        if tag not in vs_a_tol:
+            print(line)
+            continue
+        edge = ro.pair_overlap_batched(a, b)
         diff = (got - edge).abs()
         g, i, j = np.unravel_index(int(diff.argmax()), diff.shape)
         f64 = rotated_iou.quad_intersection_area(a[g, i].double(),
                                                  b[g, j].double()).item()
-        print('[eval V1] A\'\' %s %s: max |kernel - plain| %.3g (bitwise %s, '
-              'bound %.3g), two launches bitwise equal %s; max |A\'\' - A| '
-              '%.3g (bound %g; %d pairs over 2e-5) at a pair of area %.6f '
-              '(A\'\') / %.6f (A) / %.6f (f64); %d pairs > 0' % (
-                  tag, tuple(got.shape), err, torch.equal(got, want),
-                  1e-5 * scale, torch.equal(got, again), diff.max().item(),
-                  vs_a_tol[tag], int((diff > 2e-5).sum()), got[g, i, j].item(),
-                  edge[g, i, j].item(), f64, int((want > 0).sum())))
-        require(err <= 1e-5 * scale, 'A\'\' %s: kernel vs plain %g' % (tag,
-                                                                       err))
-        require(torch.equal(got, again), 'A\'\' %s: launches differ' % tag)
+        print("%s; max |A'' - A| %.3g (bound %g; %d pairs over 2e-5) at a "
+              "pair of area %.6f (A'') / %.6f (A) / %.6f (f64)" % (
+                  line, diff.max().item(), vs_a_tol[tag],
+                  int((diff > 2e-5).sum()), got[g, i, j].item(),
+                  edge[g, i, j].item(), f64))
         require(diff.max().item() <= vs_a_tol[tag], 'A\'\' vs A %s: %g > %g'
                 % (tag, diff.max().item(), vs_a_tol[tag]))
         if tag == 'crafted':
@@ -2388,13 +2530,11 @@ def run_eval(dev, g1_launches, cfgs):
             require(all(abs(x - v) <= 1e-3 * max(v, 1.0) for x, v in
                         zip(diag, (4.0, 0.0, 0.0, 100.0, 100.0, 8.0))),
                     'A\'\' crafted pairs: %s' % diag)
-        v1_err = max(v1_err, err)
     nms_times = overlap_times(*sets['NMS shape'])
     print_overlap_times('NMS shape', 'G=2 M=64 N=4096', nms_times)
     log = cuda_build.BUILD_LOG['rotated_overlap_sorted']
-    print('[eval V1] A\'\' operations per pair %d (counted from the source) vs '
-          'A\'s %d; build %.2f s (cached=%s)' % (
-              A2_OPS_PER_PAIR, A_OPS_PER_PAIR, log['seconds'], log['cached']))
+    print("[eval V1] A'' build %.2f s (cached=%s)" % (log['seconds'],
+                                                       log['cached']))
 
     # V2. full-width evaluation, SECOND then PointPillar, at B2 --------------
     runs = {}
@@ -2440,6 +2580,15 @@ def run_eval(dev, g1_launches, cfgs):
     recall_times = overlap_times(*grid)
     print_overlap_times('B8 recall grid', 'G=8 M=%d N=%d' % (
         grid[0].shape[1], grid[1].shape[1]), recall_times)
+    work = ro.sorted_work_plain(*grid)
+    lengths = work['length']
+    ops = a2_ops_per_pair(work).double()
+    print("[eval V4] A'' accepted lists on the B8 recall grid: mean length "
+          "%.4f, max %d, pairs by length %s; operations a pair (counted from "
+          "the source) mean %.1f, max %d, A's %d per pair it clips" % (
+              lengths.double().mean().item(), int(lengths.max()),
+              torch.bincount(lengths.flatten()).tolist(), ops.mean().item(),
+              int(ops.max()), A_OPS_PER_PAIR))
 
     # A' is launched on the main path at the G = 1 NMS shape (phase 5), so
     # its entry holds that shape's times; the recall group's are printed
@@ -2533,6 +2682,15 @@ def main():
     rows = ptxas_entries(cuda_build.BUILD_LOG['gather_dw_xwin'])
     require(not any(r[3] for r in rows), "a D'' / D' instance spills: %s"
             % rows)
+    # the report is empty when the library was reused: build the source
+    # again for it
+    log = cuda_build.BUILD_LOG['rotated_overlap_sorted']
+    rows = ptxas_entries(log) or ptxas_entries(
+        {'ptxas': sorted_ptxas_report()})
+    require(rows and not any(r[3] for r in rows), "kernel A'' spills or "
+            "has no ptxas report: %s" % rows)
+    print("[build] kernel A'': %d blocks of 128 threads an SM"
+          % ro.sorted_blocks_per_sm())
 
     # 2. kernel A vs plain, on the card: bitwise, and its cull's count -----
     rng = np.random.RandomState(0)

@@ -14,7 +14,8 @@ Two kernels compute this function by different methods:
   `pcdet_tpu.ops.pallas.rotated_overlap.pair_overlap_sorted` (24 candidate
   vertices, dedup, an angular successor scan; `csrc/rotated_overlap_sorted.cu`).
   It is A's independent cross-check, as in the JAX package;
-  `pair_overlap_sorted` is its G = 1 case.
+  `pair_overlap_sorted` is its G = 1 case.  It works only on each pair's
+  accepted candidates; `sorted_work_plain` counts that work.
 
 On a CUDA tensor each wrapper launches its hand-written kernel (built with
 nvcc at first use) or raises; on a CPU tensor it computes its plain version
@@ -35,7 +36,7 @@ LAUNCHES = 0
 LAUNCHES_SORTED = 0
 _MAX_GRID_YZ = 65535
 _ROWS_PER_BLOCK = 8         # the least kTileM of A
-_ROWS_PER_BLOCK_SORTED = 4  # kRowsM of A″
+_ROWS_PER_BLOCK_SORTED = 4  # kRowsM of A″ (a block 32 columns x 4 rows)
 
 # kernel A's cull (csrc/rotated_overlap.cu, whose header holds the argument
 # that a pair it discards has area +0.0)
@@ -74,6 +75,17 @@ def build_sorted():
     """Build (or reuse) and load kernel A″'s library; returns it."""
     return _load('rotated_overlap_sorted', 'rotated_overlap_sorted.cu',
                  'pcdet_rotated_overlap_sorted_batched', 3)
+
+
+def sorted_blocks_per_sm():
+    """Blocks of kernel A″ one SM of the current CUDA device holds at
+    once."""
+    lib = build_sorted()
+    n = lib.pcdet_rotated_overlap_sorted_blocks_per_sm()
+    if n <= 0:
+        raise RuntimeError('no block of kernel A″ fits an SM: %s' % (
+            lib.pcdet_cuda_error_string(-n).decode() if n else 'none'))
+    return n
 
 
 def pair_overlap_batched_plain(corners_a, corners_b):
@@ -150,12 +162,9 @@ def _diamond_angle(dx, dy):
                                    torch.where(~pos_x & ~pos_y, q3, q4)))
 
 
-def pair_overlap_sorted_plain(corners_a, corners_b):
-    """(G, M, 4, 2) x (G, N, 4, 2) -> (G, M, N) areas by kernel A″'s method,
-    in plain PyTorch over a candidate axis of 24, step by step as the
-    Pallas `_overlap_kernel` runs: the candidates in slot order, the
-    sequential dedup, the centroid and the shoelace summed over slots in
-    order, the successor scan with j ascending and a strict `<`."""
+def _sorted_plain(corners_a, corners_b, work=False):
+    """(G, M, N) f32 areas by kernel A″'s method over 24 slots; with
+    `work`, (areas, the counts of `sorted_work_plain`)."""
     shape = torch.broadcast_shapes(corners_a[:, :, None].shape,
                                    corners_b[:, None].shape)[:-2]
     ca = corners_a[:, :, None].expand(*shape, 4, 2)
@@ -167,6 +176,7 @@ def pair_overlap_sorted_plain(corners_a, corners_b):
 
     # 1. candidates: A's corners inside B, B's inside A, 16 edge crossings
     px, py, va = list(ax) + list(bx), list(ay) + list(by), []
+    denom_ok = t_ok = 0
     va += [_inside(bx, by, ax[k], ay[k]) for k in range(4)]
     va += [_inside(ax, ay, bx[k], by[k]) for k in range(4)]
     for i in range(4):
@@ -183,16 +193,29 @@ def pair_overlap_sorted_plain(corners_a, corners_b):
             u = (qpx * ry - qpy * rx) / safe
             px.append(ax[i] + t * rx)
             py.append(ay[i] + t * ry)
-            va.append(nonpar & (t >= 0) & (t <= 1) & (u >= 0) & (u <= 1))
+            t_in = nonpar & (t >= 0) & (t <= 1)
+            va.append(t_in & (u >= 0) & (u <= 1))
+            if work:
+                denom_ok = denom_ok + nonpar.long()
+                t_ok = t_ok + t_in.long()
     px = torch.stack(px, -1)                             # (..., 24)
     py = torch.stack(py, -1)
     va = torch.stack(va, -1)
+    crossings = va[..., 8:].sum(-1) if work else None
+    dedup_tests = 0
 
     # 2. sequential dedup: j against the candidates still valid below it
     for j in range(1, N_CAND):
         same = (va[..., :j]
                 & (torch.abs(px[..., :j] - px[..., j:j + 1]) < DUP_TOL)
                 & (torch.abs(py[..., :j] - py[..., j:j + 1]) < DUP_TOL))
+        if work:        # the kernel tests j against its list up to a match
+            listed = va[..., :j].long().cumsum(-1)
+            first = same.long().argmax(-1, keepdim=True)
+            tests = torch.where(same.any(-1),
+                                listed.gather(-1, first)[..., 0],
+                                listed[..., -1])
+            dedup_tests = dedup_tests + torch.where(va[..., j], tests, 0)
         va[..., j] &= ~same.any(-1)
 
     # 3. centroid (sums over slots in order) and pseudo-angles
@@ -226,7 +249,32 @@ def pair_overlap_sorted_plain(corners_a, corners_b):
     area2 = torch.zeros_like(count)
     for k in range(N_CAND):
         area2 = area2 + terms[..., k]
-    return torch.where(count >= 3.0, 0.5 * torch.abs(area2), 0.0)
+    area = torch.where(count >= 3.0, 0.5 * torch.abs(area2), 0.0)
+    if not work:
+        return area
+    return area, {'length': count.long(), 'denom_ok': denom_ok,
+                  't_ok': t_ok, 'crossings': crossings,
+                  'dedup_tests': dedup_tests}
+
+
+def pair_overlap_sorted_plain(corners_a, corners_b):
+    """(G, M, 4, 2) x (G, N, 4, 2) -> (G, M, N) areas by kernel A″'s method,
+    in plain PyTorch over a candidate axis of 24, step by step as the
+    Pallas `_overlap_kernel` runs: the candidates in slot order, the
+    sequential dedup, the centroid and the shoelace summed over slots in
+    order, the successor scan with j ascending and a strict `<`."""
+    return _sorted_plain(corners_a, corners_b)
+
+
+def sorted_work_plain(corners_a, corners_b):
+    """(G, M, 4, 2) x (G, N, 4, 2) -> {name: (G, M, N) int64}, what sets
+    each pair's work in kernel A″: `length`, its accepted list's length (the
+    candidates left valid after the dedup, 0 to 24); of its 16 edge
+    crossings, `denom_ok` those whose denominator passes (t is computed),
+    `t_ok` those whose t passes too (u is computed) and `crossings` the
+    valid ones (the point is computed); `dedup_tests`, the tests of a valid
+    candidate against the list accepted before it, up to a match."""
+    return _sorted_plain(corners_a, corners_b, work=True)[1]
 
 
 def _check(corners_a, corners_b):

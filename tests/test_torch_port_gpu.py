@@ -36,8 +36,12 @@ give, E′ at the most segment rows the card stages (`max_seg_rows`) and
 refusing one more; the selector kernel equal to its plain version
 as integers, dropped taps counted; the convs' backward under each `Loads`
 on the card against the CPU.  Kernel A″ (the sorted-candidate overlap)
-bitwise equal to its plain version on random and crafted boxes, one launch
-counted per call, bad operands refused; `boxes_iou3d_batched` through one
+bitwise equal to its plain version on random and crafted boxes, the B8
+recall grid with zero-padded rows, degenerate quads and the crafted quads
+of the CPU test of its compacted order, and with NaN and Inf corners and
+finite corners whose products overflow (areas of +inf and NaN; NaN equal
+to NaN), two launches bitwise equal, one launch counted per call,
+bad operands refused; `boxes_iou3d_batched` through one
 launch of kernel A equal to its plain version on the card and within 1e-5
 of the CPU (sin / cos round differently on the two devices).
 """
@@ -135,20 +139,62 @@ def test_kernel_on_crafted_pairs_and_near_misses(cuda):
     assert int((~kept).sum()) > 0
 
 
-@pytest.mark.parametrize('g,m,n', [(2, 64, 4096), (3, 37, 1000), (1, 5, 7)])
-def test_sorted_kernel_matches_plain(cuda, g, m, n):
-    rng = np.random.RandomState(5)
-    cb = rotated_iou.boxes5_to_corners(
-        torch.as_tensor(_boxes5(rng, (g, n)), device=cuda)).contiguous()
-    ca = cb[:, :m].contiguous()
+def _sorted_grid(case, dev):
+    """(corners_a, corners_b) of a case of `test_sorted_kernel_matches_plain`
+    on `dev`."""
+    import chip_smoke
+    if case.startswith('random'):
+        g, m, n = (int(x) for x in case.split()[1].split('x'))
+        rng = np.random.RandomState(5)
+        cb = rotated_iou.boxes5_to_corners(
+            torch.as_tensor(_boxes5(rng, (g, n)), device=dev)).contiguous()
+        return cb[:, :m].contiguous(), cb
+    if case == 'B8 recall grid':
+        return tuple(rotated_iou.boxes7_to_corners(torch.as_tensor(
+            x, device=dev)) for x in chip_smoke.recall_grid_boxes7(
+                np.random.RandomState(7)))
+    if case == 'degenerate quads':
+        rng = np.random.RandomState(5)
+        cb = rotated_iou.boxes5_to_corners(
+            torch.as_tensor(_boxes5(rng, (2, 4096)), device=dev)).contiguous()
+        return chip_smoke.degenerate_quads(cb[:, :64].contiguous(), cb)
+    quads = np.concatenate(list(chip_smoke.sorted_crafted_quads().values()))
+    quads = torch.as_tensor(quads, device=dev)[None].contiguous()
+    if case == 'crafted quads':
+        return quads, quads
+    a, b = quads.clone(), quads.clone()             # 'non-finite corners'
+    a[0, 3, 1, 0] = float('nan')
+    b[0, 7, 2, 1] = float('inf')
+    b[0, 9, 0, 0] = float('-inf')
+    # and finite corners whose products overflow: areas of +inf and NaN
+    over = torch.as_tensor(chip_smoke.overflow_quads(), device=dev)[None]
+    return torch.cat([a, over], 1), torch.cat([b, over], 1)
+
+
+@pytest.mark.parametrize('case', ['random 2x64x4096', 'random 3x37x1000',
+                                  'random 1x5x7', 'B8 recall grid',
+                                  'degenerate quads', 'crafted quads',
+                                  'non-finite corners'])
+def test_sorted_kernel_matches_plain(cuda, case):
+    """Kernel A″ bitwise equal to its plain version on random boxes, the B8
+    recall grid with zero-padded rows on both sides (one-point quads),
+    the NMS shape with degenerate quads, the CPU test's crafted quads
+    (`chip_smoke.sorted_crafted_quads`, every ordered pair) and with NaN
+    and Inf corners and corners whose products overflow (areas of +inf
+    and NaN; NaN equal to NaN); two launches equal."""
+    ca, cb = _sorted_grid(case, cuda)
     before = rotated_overlap.LAUNCHES_SORTED
     got = rotated_overlap.pair_overlap_sorted_batched(ca, cb)
     assert rotated_overlap.LAUNCHES_SORTED == before + 1
     again = rotated_overlap.pair_overlap_sorted_batched(ca, cb)
     want = rotated_overlap.pair_overlap_sorted_plain(ca, cb)
     torch.cuda.synchronize()
-    assert torch.equal(got, again)
-    assert torch.equal(got, want), (got - want).abs().max().item()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    if case == 'non-finite corners':
+        assert want.isnan().any() and want.isposinf().any()
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    else:
+        assert torch.equal(got, want), (got - want).abs().max().item()
     assert (want > 0).sum() > 0
 
 
