@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: PointPillar and
-SECOND detect, SECOND training, the sparse convs' load strategies, and the
-evaluation (recall and KITTI AP) of both models.
+SECOND detect, SECOND training, the sparse convs' load strategies, the
+evaluation (recall and KITTI AP) of both models, and PointPillar training
+through the epoch loop to a checkpoint and its evaluation.
 
     python3 chip_smoke.py
 
@@ -129,9 +130,32 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       operations on every pair, the clipping's on the pairs it keeps);
       A'''s accepted-list lengths on the B8 recall grid (mean, max) and
       its operations a pair from them (`a2_ops_per_pair`).
+  P1. full-width pointpillar.yaml training at B2 (train cap 16000 voxels x
+      32 points, PFN 64 on masked batch statistics, RPNV2 in f32, 321,408
+      anchors, adam_onecycle): 5 steps on one batch, every loss term
+      finite, the 5th loss below the 1st, overflow/voxelizer per step;
+  P2. one B1 step from the same weights and batch, GPU vs CPU: the loss in
+      f32 (TF32 off) to 1e-4 relative, in f64 the loss and every gradient
+      to 1e-9 (of max |grad|); the largest gradient error per module
+      printed for GPU f32 vs CPU f32, each vs CPU f64, and f64 vs f64;
+  P3. ms per step and samples/s at B2 and B8, the batch built and
+      prebuilt; the voxelize / targets / upload / forward + loss /
+      backward / optimizer split, the targets' bytes; a torch.profiler list
+      of the top kernels with the device's idle share;
+  P4. `train.train_loop.train_model` for 2 epochs of 2 B2 batches
+      (`TrainScans`, 4 scenes) into a temporary directory, one checkpoint
+      an epoch; `restore_train_state` of the latest into a trainer of other
+      weights equal to the live state bitwise (every parameter, buffer,
+      optimizer moment, count and the step); `eval_one_epoch` at B2 on 16
+      `SyntheticDataset` scenes of a detector built from the checkpoint
+      (`detect.build_detector(cfg, dev, checkpoint=path)`): kernel A's
+      launches (counted from 0 just before) > 0, every result finite; the
+      restored detector's detections equal to the trained module's own
+      eval detect (counts and valid equal, boxes within 1e-5).
 
 Prints the card's name and power limit, a JSON line with the kernels (A,
-B, C, D, E, E', D'', D', A', A''), each with its launches on its main path, its error
+B, C, D, E, E', D'', D', A', A''), each with its launches on its main path
+(A's also by path: the B2 detect and P4's evaluation), its error
 against its plain version, its time and the plain version's, and its bound
 (`bound_ms`, the larger of its bytes over 3.35 TB/s and its operations over
 the peak rate of their type, 67 TFLOP/s for f32 outside the tensor cores
@@ -2606,6 +2630,282 @@ def run_eval(dev, g1_launches, cfgs):
                      a2['ms'], a2['plain_ms'], a2['work'])]
 
 
+# ----------------------------------------------------------------------------
+# P1-P4: PointPillar training, checkpoints and the evaluation of one
+# ----------------------------------------------------------------------------
+
+def pp_host_stages(trainer, points, mask, gt, iters=5):
+    """Median ms of PointPillar's make_batch stages, each on its own:
+    voxelize (CUDA events), targets (host assign), upload of the targets
+    (host clock, synchronised)."""
+    from pcdet_tpu_torch.ops import host_books
+    t = {'voxelize': [], 'targets': [], 'h2d': []}
+    for _ in range(iters):
+        sync()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        trainer.voxelize(points, mask)
+        e1.record()
+        sync()
+        t['voxelize'].append(e0.elapsed_time(e1))
+        t0 = time.perf_counter()
+        labels, reg = trainer.targets(gt)
+        t1 = time.perf_counter()
+        host_books.upload([('box_cls_labels', labels),
+                           ('box_reg_targets', reg)], trainer.device)
+        sync()
+        t2 = time.perf_counter()
+        t['targets'].append(1e3 * (t1 - t0))
+        t['h2d'].append(1e3 * (t2 - t1))
+    return ({k: sorted(v)[len(v) // 2] for k, v in t.items()},
+            labels.nbytes + reg.nbytes)
+
+
+def grad_groups(names):
+    """Parameter name -> its module group for the per-module errors:
+    'vfe', 'rpn_head.blocks.<i>', 'rpn_head.deblocks.<i>', 'rpn_head.conv_*'."""
+    out = {}
+    for n in names:
+        parts = n.split('.')
+        out[n] = '.'.join(parts[:3] if parts[1] in ('blocks', 'deblocks')
+                          else parts[:2] if parts[0] == 'rpn_head'
+                          else parts[:1])
+    return out
+
+
+def state_tensors(trainer):
+    """Every tensor of a trainer's state by name, and (step, count)."""
+    sd = trainer.state.state_dict()
+    out = {'model.' + k: v for k, v in sd['model_state'].items()}
+    for slot, d in sd['optimizer_state']['state'].items():
+        out.update({'opt.%s.%s' % (slot, k): v for k, v in d.items()})
+    return out, (sd['it'], sd['optimizer_state']['count'])
+
+
+def run_pointpillar_train(dev, cfg, steps=5):
+    """Phases P1-P4 on PointPillar training; returns kernel A's launches in
+    P4's evaluation of the trained checkpoint."""
+    import tempfile
+
+    from pcdet_tpu_torch import detect as detect_mod
+    from pcdet_tpu_torch.datasets.synthetic import (SyntheticDataset,
+                                                    eval_batches)
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    from pcdet_tpu_torch.train import checkpoint, train_state
+    from pcdet_tpu_torch.train.eval_loop import eval_one_epoch
+    from pcdet_tpu_torch.train.train_loop import train_model
+    from pcdet_tpu_torch.train.trainer import (TrainScans, build_trainer,
+                                               make_train_scans)
+
+    # P1. full-width training at B2, 5 steps on one batch --------------------
+    total = 50
+    trainer = build_trainer(cfg, dev, seed=0, total_steps=total)
+    pts_np, mask_np, gt_np = make_train_scans(cfg, 8)
+    pts_all = torch.as_tensor(pts_np, device=dev)
+    mask_all = torch.as_tensor(mask_np, device=dev)
+    pts2, mask2 = pts_all[:2].contiguous(), mask_all[:2].contiguous()
+    batch2 = trainer.make_batch(pts2, mask2, gt_np[:2])
+    tbs = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tbs.append({k: v.item() for k, v in trainer.step(batch2).items()})
+    sync()
+    wall = time.perf_counter() - t0
+    losses = [tb['loss'] for tb in tbs]
+    print('[pp train P1] pointpillar.yaml B2, %d steps on one batch in %.2f '
+          's: loss %s; last tb %s; voxels %s of cap %d; anchors %d, positive '
+          '%s' % (steps, wall, ', '.join('%.5f' % x for x in losses),
+                  {k: round(v, 5) for k, v in tbs[-1].items()
+                   if not k.startswith('overflow')},
+                  batch2['voxel_mask'].sum(1).tolist(), trainer.max_voxels,
+                  trainer.model.anchors.shape[0],
+                  (batch2['box_cls_labels'] > 0).sum(1).tolist()))
+    print('[pp train P1] overflow/voxelizer per step: %s (per sample %s)' % (
+        [tb['overflow/voxelizer'] for tb in tbs],
+        batch2['voxel_overflow'].tolist()))
+    require(all(np.isfinite(v) for tb in tbs for v in tb.values()),
+            'PointPillar training: a non-finite loss term')
+    require(losses[-1] < losses[0], 'PointPillar loss did not fall in %d '
+            'steps: %s' % (steps, losses))
+
+    # P2. one B1 step: GPU vs CPU in f32 (TF32 off) and f64 ------------------
+    out = {}
+    for name, d, dtype in (('G32', dev, torch.float32),
+                           ('C32', torch.device('cpu'), torch.float32),
+                           ('G64', dev, torch.float64),
+                           ('C64', torch.device('cpu'), torch.float64)):
+        tr = build_trainer(cfg, d, seed=0, total_steps=total)
+        tr.model.module.to(dtype)
+        t0 = time.perf_counter()
+        b1 = tr.make_batch(pts_all[:1].to(d), mask_all[:1].to(d), gt_np[:1])
+        for key in ('voxels', 'box_reg_targets'):
+            b1[key] = b1[key].to(dtype)
+        loss, _, grads = train_state.loss_and_grads(tr.model, tr.state.params,
+                                                    b1)
+        names = [n for n, _ in tr.model.module.named_parameters()]
+        out[name] = (float(loss), {n: g.cpu().double()
+                                   for n, g in zip(names, grads)},
+                     b1['coordinates'].cpu())
+        print('[pp train P2] %s train step B1 (forward + loss + backward, '
+              'batch built): %.2f s' % (name, time.perf_counter() - t0))
+        del tr, b1, grads
+    require(torch.equal(out['G32'][2], out['C32'][2]),
+            'GPU and CPU pillar coords differ')
+    rel32 = abs(out['G32'][0] - out['C32'][0]) / abs(out['C32'][0])
+    rel64 = abs(out['G64'][0] - out['C64'][0]) / abs(out['C64'][0])
+    print('[pp train P2] loss G32 %.7f, C32 %.7f (rel %.3g); G64 %.12f, C64 '
+          '%.12f (rel %.3g)' % (out['G32'][0], out['C32'][0], rel32,
+                                out['G64'][0], out['C64'][0], rel64))
+    groups = grad_groups(out['C64'][1])
+    worst64 = 0.0
+    for a, b in (('G32', 'C32'), ('G32', 'C64'), ('C32', 'C64'),
+                 ('G64', 'C64')):
+        per = {}
+        for n, ref in out['C64'][1].items():
+            e = ((out[a][1][n] - out[b][1][n]).abs().max().item()
+                 / ref.abs().max().item())
+            per[groups[n]] = max(per.get(groups[n], 0.0), e)
+        if a == 'G64':
+            worst64 = max(per.values())
+        print('[pp train P2] gradient %s vs %s, largest error / max |grad| '
+              'per module: %s' % (a, b, ', '.join(
+                  '%s %.2e' % x for x in per.items())))
+    require(rel32 <= 1e-4, 'PointPillar GPU vs CPU f32 loss %g relative'
+            % rel32)
+    require(rel64 <= 1e-9 and worst64 <= 1e-9, 'PointPillar GPU vs CPU f64: '
+            'loss %g relative, gradients %g of max' % (rel64, worst64))
+
+    # P3. timings at B2 and B8 ------------------------------------------------
+    for b in (2, 8):
+        pts, mask = pts_all[:b].contiguous(), mask_all[:b].contiguous()
+        gt = gt_np[:b]
+        batch = trainer.make_batch(pts, mask, gt)
+        trainer.step(batch)                                  # warm-up
+        sync()
+        full, pre = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                trainer.step(trainer.make_batch(pts, mask, gt))
+            sync()
+            full.append(1e3 * (time.perf_counter() - t0) / steps)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                trainer.step(batch)
+            sync()
+            pre.append(1e3 * (time.perf_counter() - t0) / steps)
+        ms_full, ms_pre = sorted(full)[1], sorted(pre)[1]
+        host, nbytes = pp_host_stages(trainer, pts, mask, gt)
+        dev_split = train_step_split(trainer, batch)
+        print('[pp train P3 B%d] step with the batch built: %.2f ms (%.2f '
+              'samples/s; ms per step %s); prebuilt batch: %.2f ms (%.2f '
+              'samples/s, %.2f ms per sample; %s); median of 3 runs of %d '
+              'steps' % (b, ms_full, 1e3 * b / ms_full,
+                         ', '.join('%.2f' % x for x in full), ms_pre,
+                         1e3 * b / ms_pre, ms_pre / b,
+                         ', '.join('%.2f' % x for x in pre), steps))
+        print('[pp train P3 B%d] voxelize %.2f ms; targets (host assign) '
+              '%.2f ms (%.2f per sample, %d anchors); upload of the targets '
+              '%.2f ms (%.2f MB, %.2f MB per sample); forward + loss %.2f ms, '
+              'backward %.2f ms, optimizer %.2f ms' % (
+                  b, host['voxelize'], host['targets'], host['targets'] / b,
+                  trainer.model.anchors.shape[0], host['h2d'], nbytes / 1e6,
+                  nbytes / 1e6 / b, dev_split['forward'],
+                  dev_split['backward'], dev_split['optimizer']))
+        busy, rows = profile_train(trainer, batch)
+        if not rows:
+            print('[pp train P3 B%d] no device time recorded: not measured'
+                  % b)
+            continue
+        idle = ('idle %.1f%% of the prebuilt step, %.1f%% of the step with '
+                'the batch built' % (100 * (1 - busy / ms_pre),
+                                     100 * (1 - busy / ms_full))
+                if busy <= ms_pre else 'idle not measured (busy under the '
+                'profiler exceeds the unprofiled prebuilt step)')
+        print('[pp train P3 B%d] device busy %.2f ms per step: %s; %d kernel '
+              'names' % (b, busy, idle, len(rows)))
+        for tt, name in rows[:12]:
+            print('[pp train P3 B%d]   kernel %7.3f ms %5.1f%%  %s' % (
+                b, tt, 100 * tt / busy, name[:90]))
+    del trainer, batch, batch2
+    sync()
+
+    # P4. two epochs through train_model, a checkpoint, its evaluation -------
+    scans = TrainScans(cfg, 4, 2)
+    trainer = build_trainer(cfg, dev, seed=0, iters_each_epoch=len(scans),
+                            epochs=2)
+    with torch.no_grad():       # the focal prior keeps every score under
+        trainer.model.module.rpn_head.conv_cls.bias.zero_()   # SCORE_THRESH
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train_model(trainer, scans, 2, ckpt_save_dir=tmp)
+        sync()
+        wall = time.perf_counter() - t0
+        ckpts = [p.rsplit('/', 1)[-1] for p in checkpoint.list_checkpoints(tmp)]
+        path = checkpoint.latest_checkpoint(tmp)
+        require(ckpts == ['checkpoint_epoch_1.pth', 'checkpoint_epoch_2.pth']
+                and path.endswith('checkpoint_epoch_2.pth'),
+                'checkpoints %s, latest %s' % (ckpts, path))
+        restored = build_trainer(cfg, dev, seed=1,
+                                 iters_each_epoch=len(scans), epochs=2)
+        _, epoch = checkpoint.restore_train_state(path, restored.state)
+        live, counts = state_tensors(trainer)
+        back, back_counts = state_tensors(restored)
+        differ = [k for k in live if not torch.equal(live[k], back[k])]
+        print('[pp train P4] train_model 2 epochs of %d batches (B2) in %.2f '
+              's, step %d; checkpoints %s; restored epoch %d, (step, count) '
+              '%s; %d tensors, %d differ from the live state' % (
+                  len(scans), wall, trainer.state.step, ckpts, epoch,
+                  back_counts, len(live), len(differ)))
+        require(epoch == 2 and counts == back_counts == (4, 4)
+                and sorted(live) == sorted(back) and not differ,
+                'restored state differs from the live one: %s' % differ[:5])
+        det = detect_mod.build_detector(cfg, dev, seed=1, checkpoint=path)
+    eval_cfg = copy.deepcopy(cfg)
+    eval_cfg.DATA_CONFIG.SYNTHETIC = dict(EVAL_SYNTHETIC)
+    dataset = SyntheticDataset(eval_cfg)
+    batches = list(eval_batches(dataset, 2))
+    ro.LAUNCHES = 0
+    result = eval_one_epoch(det, iter(batches), dataset, eval_cfg)
+    sync()
+    a_launches = ro.LAUNCHES
+    print('[pp train P4] eval of the checkpoint, %d frames at B2: '
+          'recall/gt %s, recall/rcnn_0.5 %s, Car_3d_moderate %s, '
+          'overflow/voxelizer %s, sec_per_example %.4f; kernel A launches %d'
+          % (len(dataset), result['recall/gt'], result['recall/rcnn_0.5'],
+             result.get('Car_3d_moderate'), result.get('overflow/voxelizer'),
+             result['sec_per_example'], a_launches))
+    require(a_launches > 0, 'the checkpoint\'s evaluation launched no '
+            'kernel A')
+    require(all(np.isfinite(float(v)) for v in result.values()),
+            'the checkpoint\'s evaluation: a result is not finite')
+    # the restored detector against the trained module's own eval detect
+    trainer.model.eval_mode()
+    worst, nums = 0.0, []
+    for batch in batches[:2]:
+        pts = torch.as_tensor(batch['points'], device=dev)
+        mask = torch.as_tensor(batch['point_mask'], device=dev)
+        got = det.detect(pts, mask)
+        with torch.inference_mode():
+            want = trainer.model.predict(
+                trainer.model.forward(det.voxelize(pts, mask)))
+        require(torch.equal(got['num'], want['num'])
+                and torch.equal(got['valid'], want['valid']),
+                'restored detections %s, trained module %s'
+                % (got['num'].tolist(), want['num'].tolist()))
+        worst = max(worst, (got['boxes'] - want['boxes']).abs().max().item())
+        nums += got['num'].tolist()
+    print('[pp train P4] restored detector vs the trained module\'s eval '
+          'detect on 4 frames: num %s equal, max |box diff| %.3g' % (
+              nums, worst))
+    require(worst <= 1e-5 and sum(nums) > 0, 'restored detector: boxes '
+            'differ by %g, num %s' % (worst, nums))
+    del trainer, restored, det
+    sync()
+    return a_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; the port is checked on the GPU',
@@ -2905,12 +3205,17 @@ def main():
     evals = run_eval(dev, g1_launches, {
         'second.yaml': eval_config(detect_mod.SECOND_CFG),
         'pointpillar.yaml': eval_config(detect_mod.DEFAULT_CFG)})
+    pp_eval_launches = run_pointpillar_train(dev, detect_mod.load_config())
 
-    print(json.dumps({'kernels': [kernel_entry(
+    a_entry = kernel_entry(
         'rotated_overlap', 'pcdet_tpu_torch/csrc/rotated_overlap.cu',
         'pcdet_tpu/ops/pallas/rotated_overlap.py:280', launches_b2,
-        max_abs_err, kernel_ms, plain_ms, a_work)] + second + [dw_entry]
-        + xwin + evals}))
+        max_abs_err, kernel_ms, plain_ms, a_work)
+    a_entry['launches_by_path'] = {
+        'pointpillar detect B2': launches_b2,
+        'pointpillar trained checkpoint eval B2 (P4)': pp_eval_launches}
+    print(json.dumps({'kernels': [a_entry] + second + [dw_entry]
+                      + xwin + evals}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

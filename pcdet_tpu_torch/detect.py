@@ -16,6 +16,9 @@ the coords to the host, the host rulebook build, one upload of the books,
 SECONDNetModule (MeanVFE, BackBone8x sparse convs, RPNV2) and predict;
 `build_detector(cfg, device, loads=ops.sparse.Loads(fwd, dw))` chooses the
 sparse convs' load strategy (`ops.sparse.DEFAULT_LOADS` unless given).
+`build_detector(cfg, device, checkpoint=path)` (a `train.checkpoint`
+`.pth`, or a reference one) or `state_dict=sd` puts trained weights in
+place of the random ones.
 """
 from pathlib import Path
 
@@ -24,9 +27,9 @@ import torch
 
 from .config import cfg_from_yaml_file
 from .datasets.synthetic import make_scene
-from .models.pointpillar import PointPillar
-from .models.second import SECONDNet
+from .models.build import build_network
 from .ops.voxelizer import grid_size, voxelize_torch
+from .weights import load_checkpoint, model_state
 
 CFG_DIR = Path(__file__).resolve().parent.parent / 'tools' / 'cfgs'
 DEFAULT_CFG = CFG_DIR / 'pointpillar.yaml'
@@ -60,11 +63,12 @@ def make_scans(cfg, batch, ring_keep=1.0):
 
 
 class Detector:
-    """PointPillar with random weights from `seed` (a CPU torch.Generator,
-    so every device gets the same weights)."""
-    model_class = PointPillar
+    """PointPillar or SECOND (`models.build.build_network` by
+    `cfg.MODEL.NAME`) with random weights from `seed` (a CPU
+    torch.Generator, so every device gets the same weights), or the
+    weights of `state_dict` (the module's reference-keyed state_dict)."""
 
-    def __init__(self, cfg, device, seed=0, **model_args):
+    def __init__(self, cfg, device, seed=0, loads=None, state_dict=None):
         data_cfg = cfg.DATA_CONFIG
         self.voxel_size = tuple(data_cfg.VOXEL_GENERATOR.VOXEL_SIZE)
         self.pc_range = tuple(data_cfg.POINT_CLOUD_RANGE)
@@ -72,9 +76,11 @@ class Detector:
             data_cfg.VOXEL_GENERATOR.MAX_POINTS_PER_VOXEL)
         self.max_voxels = int(data_cfg.TEST.MAX_NUMBER_OF_VOXELS)
         gen = torch.Generator().manual_seed(seed)
-        self.model = self.model_class(
+        self.model = build_network(
             cfg, grid_size(self.voxel_size, self.pc_range), device=device,
-            generator=gen, **model_args)
+            generator=gen, loads=loads)
+        if state_dict is not None:
+            self.model.module.load_state_dict(state_dict)
         self.device = self.model.device
 
     def voxelize(self, points, point_mask):
@@ -96,13 +102,9 @@ class Detector:
 
 
 class SecondDetector(Detector):
-    """SECOND with random weights from `seed`; the sparse backbone runs over
-    rulebooks built on the host from the voxelizer's coords, its kw=3 convs
-    by `loads` (`ops.sparse.Loads`)."""
-    model_class = SECONDNet
-
-    def __init__(self, cfg, device, seed=0, loads=None):
-        super().__init__(cfg, device, seed, loads=loads)
+    """SECOND; the sparse backbone runs over rulebooks built on the host
+    from the voxelizer's coords, its kw=3 convs by `loads`
+    (`ops.sparse.Loads`)."""
 
     @property
     def loads(self):
@@ -130,19 +132,21 @@ class SecondDetector(Detector):
         return self.model.predict(self.model.forward(batch))
 
 
-def build_detector(cfg, device, seed=0, loads=None):
+def build_detector(cfg, device, seed=0, loads=None, checkpoint=None,
+                   state_dict=None):
     """PointPillar or SECOND by `cfg.MODEL.NAME`.
 
     :param loads: SECOND's `ops.sparse.Loads` (None: the backbone's
         default, `ops.sparse.DEFAULT_LOADS`);
         PointPillar has no sparse convs and takes none
+    :param checkpoint: a `.pth` whose `model_state` (or which, as a bare
+        state_dict) gives the weights, loaded onto `device`
+    :param state_dict: the weights as a state_dict
     """
-    name = cfg.MODEL.NAME          # the names pcdet_tpu.models.build takes
-    if name in ('SECOND', 'second_net'):
-        return SecondDetector(cfg, device, seed, loads)
-    if loads is not None:
-        raise ValueError('loads apply to SECOND\'s sparse convs, not %r'
-                         % name)
-    if name == 'PointPillar':
-        return Detector(cfg, device, seed)
-    raise ValueError('no port of model %r' % cfg.MODEL.NAME)
+    if checkpoint is not None:
+        if state_dict is not None:
+            raise ValueError('give a checkpoint or a state_dict, not both')
+        state_dict = model_state(load_checkpoint(checkpoint, device))
+    cls = (SecondDetector if cfg.MODEL.NAME in ('SECOND', 'second_net')
+           else Detector)
+    return cls(cfg, device, seed, loads, state_dict)

@@ -11,6 +11,7 @@ import torch
 from ..ops import nms as nms_ops
 from ..ops import rotated_iou
 from ..utils import torch_common
+from .rpn_head import anchor_head_loss
 
 
 def _take(x, idx):
@@ -120,6 +121,37 @@ def merge_overflow_tb(tb, ret_dict, batch):
         tb['overflow/voxelizer'] = torch.as_tensor(
             batch['voxel_overflow']).sum()
     return tb
+
+
+def detector_loss(model, ret_dict, batch):
+    """A one-stage detector's training loss (`pcdet_tpu`'s PointPillar and
+    SECONDNet `loss`): `anchor_head_loss` at the config's loss weights and
+    head arguments, then the `overflow/*` counters.
+
+    :param model: a `PointPillar` or `SECONDNet` wrapper (cfg, head_args,
+        anchors, num_class, box_coder)
+    :param batch: carries `box_cls_labels` (B, A) int32 and
+        `box_reg_targets` (B, A, 7)
+    :return: loss, tb dict of scalar tensors
+    """
+    lw = model.cfg.MODEL.LOSSES.LOSS_WEIGHTS
+    a = model.head_args
+    loss, tb = anchor_head_loss(
+        ret_dict, model.anchors, batch['box_cls_labels'],
+        batch['box_reg_targets'], num_class=model.num_class,
+        loss_weights={
+            'rpn_cls_weight': float(lw['rpn_cls_weight']),
+            'rpn_loc_weight': float(lw['rpn_loc_weight']),
+            'rpn_dir_weight': float(lw.get('rpn_dir_weight', 0.2)),
+            'code_weights': list(lw['code_weights']),
+        },
+        box_code_size=model.box_coder.code_size,
+        encode_background_as_zeros=a.get('encode_background_as_zeros', True),
+        use_direction_classifier=a.get('use_direction_classifier', True),
+        dir_offset=a.get('dir_offset', 0.78539),
+        num_direction_bins=a.get('num_direction_bins', 2))
+    merge_overflow_tb(tb, ret_dict, batch)
+    return loss, tb
 
 
 def batch_recall(boxes, valid, gt_boxes, thresh_list=(0.5, 0.7),

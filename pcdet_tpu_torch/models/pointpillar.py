@@ -1,15 +1,21 @@
-"""PointPillar detector (eval): PillarVFE -> BEV scatter -> RPNV2 -> predict.
+"""PointPillar detector: PillarVFE -> BEV scatter -> RPNV2 -> predict or
+the anchor-head loss.
 
 Twin of `pcdet_tpu.models.pointpillar` (`PointPillarNet` and the
-`PointPillar` wrapper).  Anchors come from `models/anchors.py`
-(`AnchorHeadTargets`, numpy).
+`PointPillar` wrapper, its stock loss; the BEV-segmentation loss of the
+fork's MODE is not ported).  Anchors and the training targets come from
+`models/anchors.py` (`AnchorHeadTargets`, numpy, on the host).
+`train_mode()` / `eval_mode()` switch BN between batch and running
+statistics and the bf16 eval stack (`compute_dtype_test`) off and on, as
+`train=` does in JAX.
 """
+import numpy as np
 import torch
 import torch.nn as nn
 
 from ..utils.box_coder import ResidualCoder
 from .anchors import AnchorHeadTargets
-from .detector3d import post_process_from_head
+from .detector3d import detector_loss, post_process_from_head
 from .layers import init_weights
 from .pillar_scatter import pillar_scatter
 from .rpn_head import RPNV2
@@ -17,7 +23,7 @@ from .vfe import PillarFeatureNet
 
 
 class PointPillarNet(nn.Module):
-    """voxels -> NHWC head outputs (eval forward)."""
+    """voxels -> NHWC head outputs."""
 
     def __init__(self, num_class, num_anchors_per_location, grid_ny, grid_nx,
                  num_point_features, vfe_num_filters, vfe_with_distance,
@@ -55,7 +61,7 @@ class PointPillarNet(nn.Module):
 
     def forward(self, voxels, num_points, coords, voxel_mask):
         features = self.vfe(voxels, num_points, coords, voxel_mask)
-        if self.canvas_dtype is not None:
+        if self.canvas_dtype is not None and not self.training:
             features = features.to(self.canvas_dtype)
         canvas = pillar_scatter(features, coords, voxel_mask,
                                 self.grid_ny, self.grid_nx)
@@ -72,8 +78,10 @@ class PointPillar:
         head_cfg = cfg.MODEL.RPN.RPN_HEAD
         self.head_args = dict(head_cfg.ARGS)
         self.box_coder = ResidualCoder()
-        targets = AnchorHeadTargets(head_cfg.TARGET_CONFIG, grid_size,
-                                    self.class_names)
+        # targets are assigned on the host with the numpy coder
+        targets = AnchorHeadTargets(head_cfg.TARGET_CONFIG,
+                                    np.asarray(grid_size), self.class_names)
+        self.anchor_targets = targets
         self.device = torch.device(device)
         self.anchors = torch.as_tensor(targets.anchors, device=self.device)
         vfe_args = cfg.MODEL.VFE.ARGS
@@ -95,9 +103,29 @@ class PointPillar:
         # the canvas is NHWC, so the convolutions run channels-last
         self.module.eval().to(self.device, memory_format=torch.channels_last)
 
+    @property
+    def training(self):
+        return self.module.training
+
+    def train_mode(self):
+        """BN on batch statistics, the f32 canvas and RPN."""
+        self.module.train()
+        return self
+
+    def eval_mode(self):
+        """BN on running statistics, `compute_dtype_test`."""
+        self.module.eval()
+        return self
+
     def forward(self, batch):
         return self.module(batch['voxels'], batch['num_points_per_voxel'],
                            batch['coordinates'], batch['voxel_mask'])
+
+    def loss(self, ret_dict, batch):
+        """Anchor-head loss and tb scalars, `overflow/voxelizer` included
+        (`pcdet_tpu.models.pointpillar.PointPillar.loss`): batch carries
+        `box_cls_labels` (B, A) int32 and `box_reg_targets` (B, A, 7)."""
+        return detector_loss(self, ret_dict, batch)
 
     def predict(self, ret_dict):
         """Decoded, NMS'd fixed-shape predictions (B, post_max, ...)."""

@@ -18,9 +18,9 @@ from ..ops import host_books, sparse
 from ..utils.box_coder import ResidualCoder
 from .anchors import AnchorHeadTargets
 from .backbones3d import BackBone8x, effective_dtype, resolve_caps
-from .detector3d import merge_overflow_tb, post_process_from_head
+from .detector3d import detector_loss, post_process_from_head
 from .layers import init_weights
-from .rpn_head import RPNV2, anchor_head_loss
+from .rpn_head import RPNV2
 from .vfe import MeanVFE
 
 
@@ -171,25 +171,7 @@ class SECONDNet:
         """Anchor-head loss and tb scalars, `overflow/*` included
         (`pcdet_tpu.models.second.SECONDNet.loss`): batch carries
         `box_cls_labels` (B, A) int32 and `box_reg_targets` (B, A, 7)."""
-        lw = self.cfg.MODEL.LOSSES.LOSS_WEIGHTS
-        a = self.head_args
-        loss, tb = anchor_head_loss(
-            ret_dict, self.anchors, batch['box_cls_labels'],
-            batch['box_reg_targets'], num_class=self.num_class,
-            loss_weights={
-                'rpn_cls_weight': float(lw['rpn_cls_weight']),
-                'rpn_loc_weight': float(lw['rpn_loc_weight']),
-                'rpn_dir_weight': float(lw.get('rpn_dir_weight', 0.2)),
-                'code_weights': list(lw['code_weights']),
-            },
-            box_code_size=self.box_coder.code_size,
-            encode_background_as_zeros=a.get('encode_background_as_zeros',
-                                             True),
-            use_direction_classifier=a.get('use_direction_classifier', True),
-            dir_offset=a.get('dir_offset', 0.78539),
-            num_direction_bins=a.get('num_direction_bins', 2))
-        merge_overflow_tb(tb, ret_dict, batch)
-        return loss, tb
+        return detector_loss(self, ret_dict, batch)
 
     def predict(self, ret_dict):
         """Decoded, NMS'd fixed-shape predictions (B, post_max, ...)."""

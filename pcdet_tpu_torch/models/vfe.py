@@ -1,4 +1,4 @@
-"""Voxel feature extractors (eval) on tensors.
+"""Voxel feature extractors on tensors.
 
 Twins of `pcdet_tpu.models.vfe.MeanVFE`, `PFNLayer` and `PillarFeatureNet`,
 with the reference's parameter names (`pfn_layers.{i}.linear`, `.norm`).
@@ -24,7 +24,11 @@ class MeanVFE(nn.Module):
 
 
 class PFNLayer(nn.Module):
-    """Linear -> BN -> ReLU -> max over points."""
+    """Linear -> BN -> ReLU -> max over points.
+
+    In training BN normalises by the batch statistics over every point row
+    (padded slots included) of the live voxels, as `pcdet_tpu` masks voxels,
+    not point slots; in eval the last layer takes the max / min commute."""
 
     def __init__(self, in_channels, out_channels, use_norm=True,
                  last_layer=True):
@@ -36,23 +40,31 @@ class PFNLayer(nn.Module):
         if use_norm:
             self.norm = BatchNorm(units)
 
-    def forward(self, x):
+    def forward(self, x, voxel_mask=None):
+        """:param x: (B, V, P, C); :param voxel_mask: (B, V) bool, needed in
+        training with BN"""
         x = self.linear(x)                                    # (B, V, P, U)
-        if self.last_layer:
+        if self.last_layer and not self.training:
             # Eval BN is a per-channel monotone affine and ReLU is monotone,
             # so the max over points commutes onto the point-reduced tensor:
             #   max_p relu(bn(h_p)) == relu(max(bn(max_p h), bn(min_p h)))
             # (the winning branch is bn of the selected extremum: the same
-            # float ops as the stock path, on 1/P of the bytes).
+            # float ops as the stock path, on 1/P of the bytes).  Batch
+            # statistics are no monotone map of a row: training takes the
+            # stock path below.
             hmax = torch.amax(x, dim=2)
             if not self.use_norm:
                 return torch.relu(hmax)
             hmin = torch.amin(x, dim=2)
             return torch.relu(torch.maximum(self.norm(hmax), self.norm(hmin)))
         if self.use_norm:
-            x = self.norm(x)
+            rows = (None if voxel_mask is None
+                    else voxel_mask[..., None].expand(x.shape[:3]))
+            x = self.norm(x, mask=rows)
         x = torch.relu(x)
         x_max = torch.amax(x, dim=2, keepdim=True)
+        if self.last_layer:
+            return x_max[..., 0, :]                           # (B, V, U)
         return torch.cat([x, x_max.expand_as(x)], dim=-1)
 
 
@@ -106,5 +118,5 @@ class PillarFeatureNet(nn.Module):
         features = features * pt_mask[..., None].to(dtype)
 
         for layer in self.pfn_layers:
-            features = layer(features)
+            features = layer(features, voxel_mask)
         return features * voxel_mask[..., None].to(dtype)      # (B, V, C_out)

@@ -1,23 +1,31 @@
-"""adam_onecycle: the OneCycle schedules and the optimizer update.
+"""Optimizers and learning-rate schedules, twins of the optax chains of
+`pcdet_tpu.train.optimization.build_optimizer_and_schedule`.
 
-Twin of `pcdet_tpu.train.optimization` for `OPTIMIZER: adam_onecycle`, the
-optimizer of every shipped config.  The schedules are plain float functions
-of the step.  `AdamOneCycle.step` applies the optax chain of
-`build_optimizer_and_schedule` as optax computes it, in order:
+Every optimizer applies, in optax's order (written by hand: torch.optim
+orders its operations otherwise):
 
-  1. clip_by_global_norm(GRAD_NORM_CLIP): g * (max / norm) only where the
-     global norm exceeds max, as (g / norm) * max (torch's
+  1. clip_by_global_norm(GRAD_NORM_CLIP) over the trained parameters:
+     (g / norm) * max only where the global norm reaches max (torch's
      clip_grad_norm_ adds 1e-6 to the norm; optax does not);
-  2. Adam with b1 = the scheduled momentum, b2 0.99, eps 1e-8 outside the
-     square root, bias correction 1 - b ** (count + 1) with the current b1;
-  3. decoupled weight decay, u + WEIGHT_DECAY * p, AFTER Adam, on every
-     parameter (BN's included);
-  4. u * -lr, added to the parameter.
+  2. the update of its kind:
+     - adam_onecycle: Adam with b1 = the scheduled momentum, b2 0.99, eps
+       1e-8 outside the square root, bias correction 1 - b ** (count + 1)
+       with the current b1; then decoupled weight decay, u + WEIGHT_DECAY
+       * p, AFTER Adam, on every trained parameter (BN's included);
+     - adam: L2, g + WEIGHT_DECAY * p, BEFORE Adam with b1 0.9, b2 0.999,
+       eps 1e-8;
+     - sgd: L2 as adam's, then the momentum trace t = g + MOMENTUM * t (no
+       dampening, no Nesterov), the update t;
+  3. u * -lr, added to the parameter.
 
-Both schedules are read at the update count before its increment (optax's
-inject_hyperparams).  Tensor math runs on the parameters' device without a
-host sync (the clip is a `where`).  `adam` / `sgd` and parameter freezing
-wait for the trainer that needs them.
+The schedules are plain float functions of the step, read at the update
+count before its increment (optax's inject_hyperparams).  An optimizer is
+built without parameters and bound to them by `init(named_params)`, as an
+optax transformation is; parameters under a frozen prefix (whole name
+components: 'vfe' freezes 'vfe.pfn_layers.0.linear.weight', not
+'vfe_extra.w') are left out: no update, no weight decay, no share of the
+clip's norm (optax's multi_transform to set_to_zero).  Tensor math runs on
+the parameters' device without a host sync (the clip is a `where`).
 """
 import math
 
@@ -57,52 +65,201 @@ def onecycle_mom_schedule(total_steps, moms, pct_start):
     return schedule
 
 
-class AdamOneCycle:
-    """The adam_onecycle update over a list of parameter tensors.
+def step_decay_lr_schedule(base_lr, decay_step_list, total_iters_each_epoch,
+                           lr_decay, lr_clip):
+    """step -> lr: base_lr times lr_decay for each epoch of
+    `decay_step_list` reached, never below lr_clip."""
+    decay_steps = [x * total_iters_each_epoch for x in decay_step_list]
 
-    :param params: tensors updated in place by `step`
-    :param total_steps: the schedules' length (iterations per epoch x epochs)
+    def schedule(step):
+        decay = 1.0
+        for ds in decay_steps:
+            if step >= ds:
+                decay *= lr_decay
+        return base_lr * max(decay, lr_clip / base_lr)
+    return schedule
+
+
+def warmup_cosine_lr_schedule(base_lr, eta_min, t_max):
+    """step -> lr: cosine from eta_min up to base_lr over t_max steps."""
+    def schedule(step):
+        return eta_min + (base_lr - eta_min) * (
+            1 - math.cos(math.pi * step / t_max)) / 2
+    return schedule
+
+
+def is_frozen(name, frozen_prefixes):
+    """Whether parameter `name` lies under one of `frozen_prefixes`, by
+    whole '.'-separated components."""
+    return any(name == p or name.startswith(p + '.') for p in frozen_prefixes)
+
+
+class Optimizer:
+    """Clip, the subclass's update, -lr; see the module docstring.
+
+    :param lr: step -> learning rate
+    :param grad_norm_clip: the global norm's bound
+    :param frozen_prefixes: parameter name prefixes left out by `init`
     """
+    kind = None
+    slots = ()
 
-    def __init__(self, params, total_steps, lr, div_factor, pct_start, moms,
-                 weight_decay, grad_norm_clip, b2=0.99, eps=1e-8):
-        self.params = list(params)
-        self.lr = onecycle_lr_schedule(total_steps, lr, div_factor, pct_start)
-        self.mom = onecycle_mom_schedule(total_steps, moms, pct_start)
-        self.weight_decay = float(weight_decay)
+    def __init__(self, lr, grad_norm_clip, frozen_prefixes=()):
+        self.lr = lr
         self.max_norm = float(grad_norm_clip)
-        self.b2, self.eps = b2, eps
+        self.frozen_prefixes = tuple(frozen_prefixes)
         self.count = 0
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.params, self.names, self.frozen = [], [], []
+        self.state = {}
 
-    @classmethod
-    def from_config(cls, params, optim_cfg, total_steps):
-        """From a config's `MODEL.TRAIN.OPTIMIZATION` (adam_onecycle only)."""
-        if optim_cfg.OPTIMIZER != 'adam_onecycle':
-            raise NotImplementedError('optimizer %r is not ported'
-                                      % optim_cfg.OPTIMIZER)
-        return cls(params, total_steps, float(optim_cfg.LR),
-                   float(optim_cfg.DIV_FACTOR), float(optim_cfg.PCT_START),
-                   list(optim_cfg.MOMS), float(optim_cfg.WEIGHT_DECAY),
-                   float(optim_cfg.GRAD_NORM_CLIP))
+    def init(self, named_params):
+        """Bind to `named_params`, (name, tensor) pairs; zero the state and
+        the count."""
+        named = list(named_params)
+        keep = [(n, p) for n, p in named
+                if not is_frozen(n, self.frozen_prefixes)]
+        self.names = [n for n, _ in keep]
+        self.params = [p for _, p in keep]
+        self.frozen = [n for n, _ in named
+                       if is_frozen(n, self.frozen_prefixes)]
+        self.count = 0
+        self.state = {s: [torch.zeros_like(p) for p in self.params]
+                      for s in self.slots}
+        return self
+
+    def clip(self, grads):
+        norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+        keep = norm < self.max_norm
+        return [torch.where(keep, g, g / norm * self.max_norm) for g in grads]
+
+    def update(self, i, p, g):
+        """The update of parameter i before -lr; advances its state."""
+        raise NotImplementedError
 
     @torch.no_grad()
     def step(self, grads):
-        """One update from `grads` (one per parameter, same order)."""
-        grads = list(grads)
-        norm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
-        keep = norm < self.max_norm
-        grads = [torch.where(keep, g, g / norm * self.max_norm)
-                 for g in grads]
-        b1 = self.mom(self.count)
+        """One update from `grads` (one per trained parameter, in order)."""
+        grads = self.clip(list(grads))
+        self.begin_step()
         lr = self.lr(self.count)
-        t = self.count + 1
-        bc1, bc2 = 1 - b1 ** t, 1 - self.b2 ** t
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            mu.copy_((1 - b1) * g + b1 * mu)
-            nu.copy_((1 - self.b2) * torch.square(g) + self.b2 * nu)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            u = u + self.weight_decay * p
-            p.add_(u * -lr)
+        for i, (p, g) in enumerate(zip(self.params, grads)):
+            p.add_(self.update(i, p, g) * -lr)
         self.count += 1
+
+    def begin_step(self):
+        """Per-step hyperparameters, read at `count`."""
+
+    def state_dict(self):
+        """{'optimizer', 'count', 'names', 'state': {slot: {name: tensor}}}
+        (the tensors themselves, not copies)."""
+        return {'optimizer': self.kind, 'count': self.count,
+                'names': list(self.names),
+                'state': {s: dict(zip(self.names, v))
+                          for s, v in self.state.items()}}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd):
+        """Copy a `state_dict` of an optimizer of the same kind over the
+        same trained parameters into this one's tensors."""
+        if sd['optimizer'] != self.kind or list(sd['names']) != self.names:
+            raise ValueError('optimizer state of %r over %d parameters does '
+                             'not fit %r over %d' % (
+                                 sd['optimizer'], len(sd['names']), self.kind,
+                                 len(self.names)))
+        for s, tensors in self.state.items():
+            for n, t in zip(self.names, tensors):
+                t.copy_(sd['state'][s][n])
+        self.count = int(sd['count'])
+
+
+class Adam(Optimizer):
+    """L2 into the gradient, then Adam (b1 0.9, b2 0.999)."""
+    kind = 'adam'
+    slots = ('mu', 'nu')
+
+    def __init__(self, lr, weight_decay, grad_norm_clip, frozen_prefixes=(),
+                 b1=0.9, b2=0.999, eps=1e-8):
+        super().__init__(lr, grad_norm_clip, frozen_prefixes)
+        self.weight_decay = float(weight_decay)
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def begin_step(self):
+        t = self.count + 1
+        self.bc1, self.bc2 = 1 - self.b1 ** t, 1 - self.b2 ** t
+
+    def adam(self, i, g):
+        mu, nu = self.state['mu'][i], self.state['nu'][i]
+        mu.copy_((1 - self.b1) * g + self.b1 * mu)
+        nu.copy_((1 - self.b2) * torch.square(g) + self.b2 * nu)
+        return (mu / self.bc1) / (torch.sqrt(nu / self.bc2) + self.eps)
+
+    def update(self, i, p, g):
+        return self.adam(i, g + self.weight_decay * p)
+
+
+class AdamOneCycle(Adam):
+    """Adam with the OneCycle momentum as b1 (b2 0.99), then decoupled
+    weight decay, at the OneCycle lr."""
+    kind = 'adam_onecycle'
+
+    def __init__(self, total_steps, lr, div_factor, pct_start, moms,
+                 weight_decay, grad_norm_clip, b2=0.99, eps=1e-8,
+                 frozen_prefixes=()):
+        super().__init__(
+            onecycle_lr_schedule(total_steps, lr, div_factor, pct_start),
+            weight_decay, grad_norm_clip, frozen_prefixes, b2=b2, eps=eps)
+        self.mom = onecycle_mom_schedule(total_steps, moms, pct_start)
+
+    def begin_step(self):
+        self.b1 = self.mom(self.count)
+        super().begin_step()
+
+    def update(self, i, p, g):
+        return self.adam(i, g) + self.weight_decay * p
+
+
+class SGD(Optimizer):
+    """L2 into the gradient, then the momentum trace."""
+    kind = 'sgd'
+    slots = ('trace',)
+
+    def __init__(self, lr, weight_decay, momentum, grad_norm_clip,
+                 frozen_prefixes=()):
+        super().__init__(lr, grad_norm_clip, frozen_prefixes)
+        self.weight_decay = float(weight_decay)
+        self.momentum = float(momentum)
+
+    def update(self, i, p, g):
+        t = self.state['trace'][i]
+        t.copy_(g + self.weight_decay * p + self.momentum * t)
+        return t
+
+
+def build_optimizer_and_schedule(optim_cfg, iters_each_epoch, epochs,
+                                 frozen_prefixes=()):
+    """(optimizer, lr schedule) of `MODEL.TRAIN.OPTIMIZATION`; bind the
+    optimizer with `init(module.named_parameters())`.  OneCycle spans
+    iters_each_epoch * epochs steps; adam / sgd decay their lr at the
+    epochs of DECAY_STEP_LIST (LR_WARMUP is not applied, as in
+    `pcdet_tpu`)."""
+    name = optim_cfg.OPTIMIZER
+    if name == 'adam_onecycle':
+        opt = AdamOneCycle(
+            iters_each_epoch * epochs, float(optim_cfg.LR),
+            float(optim_cfg.DIV_FACTOR), float(optim_cfg.PCT_START),
+            list(optim_cfg.MOMS), float(optim_cfg.WEIGHT_DECAY),
+            float(optim_cfg.GRAD_NORM_CLIP), frozen_prefixes=frozen_prefixes)
+        return opt, opt.lr
+    if name not in ('adam', 'sgd'):
+        raise NotImplementedError('optimizer %r' % name)
+    lr = step_decay_lr_schedule(
+        float(optim_cfg.LR), list(optim_cfg.DECAY_STEP_LIST),
+        iters_each_epoch, float(optim_cfg.LR_DECAY), float(optim_cfg.LR_CLIP))
+    if name == 'adam':
+        opt = Adam(lr, float(optim_cfg.WEIGHT_DECAY),
+                   float(optim_cfg.GRAD_NORM_CLIP), frozen_prefixes)
+    else:
+        opt = SGD(lr, float(optim_cfg.WEIGHT_DECAY),
+                  float(optim_cfg.MOMENTUM), float(optim_cfg.GRAD_NORM_CLIP),
+                  frozen_prefixes)
+    return opt, lr

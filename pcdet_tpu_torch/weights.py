@@ -14,9 +14,22 @@ so the same dict also loads into the reference model.  Layout transforms:
 A gradient tree has the params' structure and transforms like them:
 `state_dict_from_flax({'params': grads}, ...)` (no batch_stats) maps it onto
 the port's parameter names, with no buffers.
+
+`load_checkpoint` / `model_state` read such a state_dict back from a `.pth`
+(`train.checkpoint`'s, or a reference one).
 """
 import numpy as np
 import torch
+
+
+def load_checkpoint(path, device='cpu'):
+    """The payload dict of a `.pth`, its tensors on `device`."""
+    return torch.load(path, map_location=device, weights_only=True)
+
+
+def model_state(payload):
+    """A payload's `model_state`; a bare state_dict is taken as one."""
+    return payload.get('model_state', payload)
 
 
 def _t(x):

@@ -755,3 +755,101 @@ def test_window_conv_backward_on_card_matches_cpu(cuda, no_tf32, loads, conv,
         scale = want.abs().max().item()
         assert scale > 0
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+
+
+# PointPillar training on the card (chip_smoke.py P2 and P4 at a smaller
+# grid: pointpillar.yaml's widths with 0.32 m pillars, 216 x 248, and a
+# 4000-pillar train cap)
+
+@pytest.fixture
+def no_tf32_conv(no_tf32):
+    """f32 convolutions in full f32 on the card, as chip_smoke.py sets."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = old
+
+
+def _small_pointpillar_cfg():
+    from pcdet_tpu_torch import detect
+    cfg = detect.load_config()
+    cfg.DATA_CONFIG.VOXEL_GENERATOR.VOXEL_SIZE = [0.32, 0.32, 4]
+    cfg.DATA_CONFIG.TRAIN.MAX_NUMBER_OF_VOXELS = 4000
+    cfg.DATA_CONFIG.TEST.MAX_NUMBER_OF_VOXELS = 4000
+    return cfg
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_pointpillar_train_step_on_card_matches_cpu(cuda, no_tf32_conv,
+                                                    dtype):
+    """One B1 step from the same weights and scan: the loss (f32 1e-4
+    relative, f64 1e-9) and in f64 every gradient (1e-9 of max)."""
+    from pcdet_tpu_torch.train import train_state
+    from pcdet_tpu_torch.train.trainer import build_trainer, make_train_scans
+    cfg = _small_pointpillar_cfg()
+    pts, mask, gt = make_train_scans(cfg, 1)
+    out = {}
+    for dev in ('cpu', cuda):
+        tr = build_trainer(cfg, dev, seed=0, total_steps=10)
+        tr.model.module.to(dtype)
+        batch = tr.make_batch(torch.as_tensor(pts, device=dev),
+                              torch.as_tensor(mask, device=dev), gt)
+        for key in ('voxels', 'box_reg_targets'):
+            batch[key] = batch[key].to(dtype)
+        loss, _, grads = train_state.loss_and_grads(tr.model, tr.state.params,
+                                                    batch)
+        out[str(dev)] = (float(loss), [g.cpu() for g in grads])
+    (lc, gc), (lg, gg) = out['cpu'], out[str(cuda)]
+    tol = 1e-4 if dtype == torch.float32 else 1e-9
+    assert abs(lg - lc) <= tol * abs(lc), (lg, lc)
+    if dtype == torch.float64:
+        for a, b in zip(gg, gc):
+            scale = b.abs().max().item()
+            assert (a - b).abs().max().item() <= 1e-9 * scale
+
+
+def test_train_model_checkpoint_eval_on_card(cuda, tmp_path):
+    """2 epochs of train_model on the card, the latest checkpoint restored
+    bitwise into a trainer of other weights, a detector built from it
+    detecting as the trained module does (its recall through kernel A)."""
+    from pcdet_tpu_torch import detect
+    from pcdet_tpu_torch.models import detector3d
+    from pcdet_tpu_torch.train import checkpoint
+    from pcdet_tpu_torch.train.train_loop import train_model
+    from pcdet_tpu_torch.train.trainer import TrainScans, build_trainer
+    cfg = _small_pointpillar_cfg()
+    scans = TrainScans(cfg, 4, 2)
+    trainer = build_trainer(cfg, cuda, seed=0, iters_each_epoch=len(scans),
+                            epochs=2)
+    with torch.no_grad():
+        trainer.model.module.rpn_head.conv_cls.bias.zero_()
+    train_model(trainer, scans, 2, ckpt_save_dir=tmp_path)
+    path = checkpoint.latest_checkpoint(tmp_path)
+    assert path.endswith('checkpoint_epoch_2.pth')
+    restored = build_trainer(cfg, cuda, seed=1, iters_each_epoch=len(scans),
+                             epochs=2)
+    assert checkpoint.restore_train_state(path, restored.state)[1] == 2
+    live, back = trainer.state.state_dict(), restored.state.state_dict()
+    assert back['it'] == live['it'] == 4
+    for k, v in live['model_state'].items():
+        assert torch.equal(back['model_state'][k], v), k
+    for slot, d in live['optimizer_state']['state'].items():
+        for k, v in d.items():
+            assert torch.equal(back['optimizer_state']['state'][slot][k], v)
+    det = detect.build_detector(cfg, cuda, checkpoint=path)
+    points, pmask, gt = next(iter(scans))
+    pts = torch.as_tensor(points, device=cuda)
+    msk = torch.as_tensor(pmask, device=cuda)
+    got = det.detect(pts, msk)
+    trainer.model.eval_mode()
+    with torch.inference_mode():
+        want = trainer.model.predict(trainer.model.forward(
+            det.voxelize(pts, msk)))
+    assert int(got['num'].sum()) > 0
+    assert torch.equal(got['num'], want['num'])
+    assert (got['boxes'] - want['boxes']).abs().max().item() <= 1e-5
+    before = rotated_overlap.LAUNCHES
+    rc = detector3d.batch_recall(got['boxes'], got['valid'],
+                                 torch.as_tensor(gt, device=cuda), (0.5, 0.7))
+    assert rotated_overlap.LAUNCHES == before + 1
+    assert int(rc['gt']) > 0

@@ -2,11 +2,13 @@
 own copies of pcdet_tpu's framework-free helpers give the same results.
 
 - a subprocess imports `pcdet_tpu_torch.detect`, `pcdet_tpu_torch.train.
-  trainer`, the evaluation's modules (`train.eval_loop`, the KITTI
-  evaluator and its native bindings) and `chip_smoke` and finds no
-  `pcdet_tpu` module loaded;
+  trainer`, the training loop's modules (`models.build`, `train.
+  optimization`, `train.checkpoint`, `train.train_loop`), the evaluation's
+  modules (`train.eval_loop`, the KITTI evaluator and its native bindings)
+  and `chip_smoke` and finds no `pcdet_tpu` module loaded;
 - no source of the package, nor `chip_smoke.py`, has an import of
-  `pcdet_tpu` (other than of `pcdet_tpu_torch`);
+  `pcdet_tpu` (other than of `pcdet_tpu_torch`), nor of flax, orbax,
+  tensorboardX or wandb, which the machine with the card lacks;
 - the copies against pcdet_tpu, exactly: the host books (native and numpy
   builders) at the tiny config and at `tools/cfgs/second.yaml`'s eval and
   train caps at B2, the anchors and `AnchorHeadTargets.assign`, `make_scene`
@@ -50,11 +52,15 @@ CFGS = REPO / 'tools' / 'cfgs'
 def test_port_loads_no_pcdet_tpu_module():
     code = ('import sys, chip_smoke, pcdet_tpu_torch.detect, '
             'pcdet_tpu_torch.train.trainer, pcdet_tpu_torch.train.eval_loop, '
+            'pcdet_tpu_torch.models.build, '
+            'pcdet_tpu_torch.train.optimization, '
+            'pcdet_tpu_torch.train.checkpoint, '
+            'pcdet_tpu_torch.train.train_loop, '
             'pcdet_tpu_torch.datasets.kitti.kitti_eval.eval, '
             'pcdet_tpu_torch.datasets.kitti.kitti_eval.native; '
-            "bad = sorted(m for m in sys.modules if m == 'pcdet_tpu' "
-            "or m.startswith('pcdet_tpu.')); print(bad); "
-            'sys.exit(1 if bad else 0)')
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('pcdet_tpu', 'flax', 'orbax', 'tensorboardX', 'wandb')); "
+            'print(bad); sys.exit(1 if bad else 0)')
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -69,6 +75,21 @@ def test_port_sources_have_no_pcdet_tpu_import():
     assert len(sources) > 20
     bad = {str(p.relative_to(REPO)): m.group(0).strip()
            for p in sources for m in [_IMPORT.search(p.read_text())] if m}
+    assert bad == {}
+
+
+_OTHER_IMPORT = re.compile(
+    r'^\s*(from|import)\s+(flax|orbax|tensorboardX|wandb)(\.|\s|$)', re.M)
+
+
+def test_port_sources_import_no_flax_orbax_tensorboard_wandb():
+    sources = sorted((REPO / 'pcdet_tpu_torch').rglob('*.py')) + [
+        REPO / 'chip_smoke.py']
+    names = {p.name for p in sources}
+    assert {'checkpoint.py', 'train_loop.py', 'build.py'} <= names
+    bad = {str(p.relative_to(REPO)): m.group(0).strip()
+           for p in sources for m in [_OTHER_IMPORT.search(p.read_text())]
+           if m}
     assert bad == {}
 
 

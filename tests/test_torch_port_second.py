@@ -201,5 +201,5 @@ def test_build_detector_dispatch():
                       detect.SecondDetector)
     bad = copy.deepcopy(cfg)
     bad.MODEL.NAME = 'PartA2_net'
-    with pytest.raises(ValueError):
+    with pytest.raises(NotImplementedError, match='queue 1 item 5'):
         detect.build_detector(bad, 'cpu')

@@ -430,7 +430,8 @@ def test_adam_onecycle_matches_optax():
     state = tx.init(params)
     mine = [torch.as_tensor(params['a']).clone(),
             torch.as_tensor(params['b']).clone()]
-    opt = optimization.AdamOneCycle.from_config(mine, cfg, total)
+    opt = optimization.build_optimizer_and_schedule(cfg, total, 1)[0].init(
+        [('a', mine[0]), ('b', mine[1])])
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     for step, size in enumerate((3.0, 40.0, 0.01, 12.0, 1.0)):
         grads = {'a': rng.randn(3, 4).astype(np.float32) * size,
