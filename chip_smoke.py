@@ -152,10 +152,32 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       launches (counted from 0 just before) > 0, every result finite; the
       restored detector's detections equal to the trained module's own
       eval detect (counts and valid equal, boxes within 1e-5).
+  L1. a KITTI-format tree of 16 train + 8 val bench-density ring scans
+      (labels in the camera frame, calib, road planes, a 1242 x 375 PNG
+      written with zlib / struct), then `python -m pcdet_tpu_torch.tools.
+      create_data kitti`: the infos' counts, the GT database per class;
+  L2. the train CLI (`tools.train.main`, in-process) on pointpillar.yaml at
+      full width, B2, 2 epochs, 4 thread workers, a checkpoint an epoch:
+      every logged loss finite, the last 4 below the first 4 on average,
+      `overflow/voxelizer` in every logged step; the loader's epoch 0
+      bitwise equal under 4 process workers (forked with CUDA up) and 0
+      workers; one step from its first batch GPU vs CPU in f32 (TF32 off,
+      1e-4 relative); ms per step and samples/s at B2 and B8 with the
+      loader's prefetch (4 workers) and without (0), the ms the loop waits
+      on the loader, the device's idle share (torch.profiler), the upload;
+  L3. the test CLI on L2's last checkpoint, 8 val frames at B2: kernel A's
+      launches (from 0) > 0, recall, the official AP and the COCO strings
+      finite, the logged AP string equal to the evaluator run again on the
+      CLI's result.pkl; `--eval_all --max_waiting_mins 0` evaluates both
+      checkpoints and lists them in eval_list_val.txt;
+  L4. second.yaml through the same pair: 1 epoch of 2 B2 batches (books
+      from the loader's `batch_transform`; B, D, D' launch; no tap outside
+      its x-window), its checkpoint evaluated on 4 val frames (C, A).
 
 Prints the card's name and power limit, a JSON line with the kernels (A,
 B, C, D, E, E', D'', D', A', A''), each with its launches on its main path
-(A's also by path: the B2 detect and P4's evaluation), its error
+(by path for A, B, C, D and D': the B2 detect, P4's evaluation, the CLI
+pair's training and evaluation), its error
 against its plain version, its time and the plain version's, and its bound
 (`bound_ms`, the larger of its bytes over 3.35 TB/s and its operations over
 the peak rate of their type, 67 TFLOP/s for f32 outside the tensor cores
@@ -2906,6 +2928,525 @@ def run_pointpillar_train(dev, cfg, steps=5):
     return a_launches
 
 
+# ----------------------------------------------------------------------------
+# L1-L4: the data pipeline and the CLI pair on a KITTI-format tree
+# ----------------------------------------------------------------------------
+
+# tests/test_kitti_dataset.py's calibration: the camera at the lidar origin,
+# x_cam = -y_l, y_cam = -z_l, z_cam = x_l
+KITTI_V2C = np.array([[0., -1., 0., 0.], [0., 0., -1., 0.],
+                      [1., 0., 0., 0.]], np.float32)
+KITTI_P2 = np.array([[700., 0., 600., 0.], [0., 700., 180., 0.],
+                     [0., 0., 1., 0.]], np.float32)
+IMAGE_W, IMAGE_H = 1242, 375
+KITTI_CLASSES = ['Car', 'Pedestrian', 'Cyclist']
+
+
+def png_bytes(width, height):
+    """A black RGB PNG, written with zlib and struct only."""
+    import struct
+    import zlib
+
+    def chunk(tag, data):
+        return (struct.pack('>I', len(data)) + tag + data
+                + struct.pack('>I', zlib.crc32(tag + data) & 0xffffffff))
+    raw = (b'\x00' + bytes(3 * width)) * height
+    return (b'\x89PNG\r\n\x1a\n'
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', width, height, 8, 2, 0,
+                                         0, 0))
+            + chunk(b'IDAT', zlib.compress(raw)) + chunk(b'IEND', b''))
+
+
+def write_kitti_frame(root, sid, seed, png):
+    """One frame of a KITTI tree: a bench-density ring scan (24 objects to
+    68 m, ~65k points) as velodyne, the labels of the objects whose 2D box
+    centre lies in the image (camera frame), calib, road plane, image.
+    Returns the number of labelled objects."""
+    import os
+
+    from pcdet_tpu_torch.datasets.synthetic import make_scene
+    from pcdet_tpu_torch.utils import box_np_ops
+    from pcdet_tpu_torch.utils.calibration import Calibration
+    pts, boxes, names = make_scene(
+        np.random.RandomState(seed), KITTI_CLASSES, num_objects=24,
+        ground_mode='rings', pts_per_obj=400, x_range=(3, 68),
+        y_range=(-38, 38))
+    split = os.path.join(root, 'training')
+    pts.astype(np.float32).tofile(os.path.join(split, 'velodyne',
+                                               sid + '.bin'))
+    with open(os.path.join(split, 'image_2', sid + '.png'), 'wb') as f:
+        f.write(png)
+    mat = lambda name, m: '%s: %s' % (name, ' '.join('%.6f' % v
+                                                     for v in m.ravel()))
+    with open(os.path.join(split, 'calib', sid + '.txt'), 'w') as f:
+        f.write('\n'.join([
+            mat('P0', np.zeros(12)), mat('P1', np.zeros(12)),
+            mat('P2', KITTI_P2), mat('P3', KITTI_P2),
+            mat('R0_rect', np.eye(3)), mat('Tr_velo_to_cam', KITTI_V2C),
+            mat('Tr_imu_to_velo', np.zeros(12))]) + '\n')
+    with open(os.path.join(split, 'planes', sid + '.txt'), 'w') as f:
+        f.write('# Plane\nWidth 4\nHeight 1\n0 -1 0 1.73\n')
+    calib = Calibration({'P2': KITTI_P2, 'R0': np.eye(3, dtype=np.float32),
+                         'Tr_velo2cam': KITTI_V2C})
+    cam = box_np_ops.boxes3d_lidar_to_camera(boxes, calib)
+    img = box_np_ops.boxes3d_camera_to_imageboxes(cam, calib)
+    cu, cv = (img[:, 0] + img[:, 2]) / 2, (img[:, 1] + img[:, 3]) / 2
+    keep = (cam[:, 2] > 1) & (cu >= 0) & (cu < IMAGE_W) & (cv >= 0) & (
+        cv < IMAGE_H)
+    lines = []
+    for b, c, name in zip(img[keep], cam[keep], names[keep]):
+        b = np.clip(b, 0, [IMAGE_W - 1, IMAGE_H - 1] * 2)
+        alpha = -np.arctan2(-c[0], c[2]) + c[6]
+        lines.append('%s 0.00 0 %.2f %.2f %.2f %.2f %.2f %.2f %.2f %.2f '
+                     '%.2f %.2f %.2f %.2f' % (name, alpha, *b, c[4], c[5],
+                                              c[3], *c[:3], c[6]))
+    with open(os.path.join(split, 'label_2', sid + '.txt'), 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+    return len(lines)
+
+
+def write_kitti_tree(root, n_train, n_val):
+    """A KITTI-format tree of n_train + n_val frames (ImageSets train / val)."""
+    import os
+    for sub in ('velodyne', 'image_2', 'calib', 'label_2', 'planes'):
+        os.makedirs(os.path.join(root, 'training', sub), exist_ok=True)
+    os.makedirs(os.path.join(root, 'ImageSets'), exist_ok=True)
+    ids = ['%06d' % i for i in range(n_train + n_val)]
+    for name, part in (('train', ids[:n_train]), ('val', ids[n_train:])):
+        with open(os.path.join(root, 'ImageSets', name + '.txt'), 'w') as f:
+            f.write('\n'.join(part) + '\n')
+    png = png_bytes(IMAGE_W, IMAGE_H)
+    return [write_kitti_frame(root, sid, 100 + i, png)
+            for i, sid in enumerate(ids)]
+
+
+def cli_sets(root, out_root, train_info='kitti_infos_train.pkl',
+             val_info='kitti_infos_val.pkl'):
+    """The CLIs' `--set` pairs that point a shipped config at the tree."""
+    import os
+    return ['ROOT_DIR', out_root, 'DATA_CONFIG.DATA_DIR', root,
+            'DATA_CONFIG.TRAIN.INFO_PATH', os.path.join(root, train_info),
+            'DATA_CONFIG.TEST.INFO_PATH', os.path.join(root, val_info),
+            'DATA_CONFIG.AUGMENTATION.DB_SAMPLER.DB_INFO_PATH',
+            os.path.join(root, 'kitti_dbinfos_train.pkl')]
+
+
+def log_records(log_file, pattern):
+    """The values of `pattern`'s first group in a CLI log, in order."""
+    with open(log_file) as f:
+        return re.findall(pattern, f.read())
+
+
+def logged_result(log_file):
+    """The AP string of the last evaluation a test CLI log holds."""
+    with open(log_file) as f:
+        lines = f.read().splitlines()
+    stamp = re.compile(r'^\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d+ ')
+    starts = [i for i, line in enumerate(lines)
+              if stamp.match(line) and 'INFO  Car AP@' in line]
+    require(starts, 'no AP string in %s' % log_file)
+    out = [lines[starts[-1]].split('INFO  ', 1)[1]]
+    for line in lines[starts[-1] + 1:]:
+        if stamp.match(line):
+            break
+        out.append(line)
+    return '\n'.join(out).strip()
+
+
+def finite_numbers(text):
+    nums = re.findall(r'-?\d+\.\d+|nan|inf', text)
+    return bool(nums) and all(np.isfinite(float(x)) for x in nums)
+
+
+def loader_epochs(trainer, cfg, b, workers, epochs, profile=False):
+    """Train steps fed by the loader (`build_dataloader`, thread workers, 0:
+    none, the batches made in the loop) for `epochs` epochs after one of
+    warm-up.  Returns ms per step in all and, host clock, the ms per step
+    the loop waits on the loader, spends in `upload` (a pageable copy,
+    which also waits for the card's previous step) and in `step` (its
+    launches); the steps; the loader's ms per batch with no step taken;
+    and the device's busy ms per step under torch.profiler (or None)."""
+    from pcdet_tpu_torch.datasets import build_dataloader
+    ds, loader = build_dataloader(cfg, b, training=True, num_workers=workers)
+    ds.set_anchor_targets(trainer.model.anchor_targets)
+
+    def run(epoch, train=True):
+        loader.set_epoch(epoch)
+        sync()
+        t0, parts, n = time.perf_counter(), [0.0, 0.0, 0.0], 0
+        it = iter(loader)
+        while True:
+            t1 = time.perf_counter()
+            item = next(it, None)
+            t2 = time.perf_counter()
+            if item is None:
+                parts[0] += t2 - t1
+                break
+            if train:
+                batch = trainer.upload(item)
+                t3 = time.perf_counter()
+                trainer.step(batch)
+                parts[2] += time.perf_counter() - t3
+                parts[1] += t3 - t2
+            parts[0] += t2 - t1
+            n += 1
+        sync()
+        return [time.perf_counter() - t0] + parts + [n]
+    run(0)
+    wall, wait, upload, step, n = (sum(x) for x in zip(
+        *[run(e) for e in range(1, 1 + epochs)]))
+    alone = run(1 + epochs, train=False)
+    busy = None
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            pn = run(2 + epochs)[-1]
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.self_device_time_total > 0
+                   and e.device_type == DeviceType.CUDA) / 1e3 / pn
+    per = lambda x: 1e3 * x / n
+    return {'ms': per(wall), 'wait': per(wait), 'upload': per(upload),
+            'step': per(step), 'steps': n,
+            'alone': 1e3 * alone[0] / alone[-1], 'busy': busy}
+
+
+def first_epoch(cfg, anchor_targets, workers, mode):
+    """Every batch of epoch 0 of the training loader."""
+    from pcdet_tpu_torch.datasets import build_dataloader
+    ds, loader = build_dataloader(cfg, 2, training=True, num_workers=workers,
+                                  worker_mode=mode)
+    ds.set_anchor_targets(anchor_targets)
+    loader.set_epoch(0)
+    return list(loader)
+
+
+def batches_equal(a, b):
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if sorted(x) != sorted(y):
+            return False
+        for k in x:
+            u, v = x[k], y[k]
+            if isinstance(u, np.ndarray):
+                if u.dtype != v.dtype or not np.array_equal(u, v):
+                    return False
+            elif list(np.ravel(u)) != list(np.ravel(v)):
+                return False
+    return True
+
+
+def run_cli(dev):
+    """Phases L1-L4; returns the launches of the CLI paths by kernel entry
+    name: {name: {'cli_train' / 'cli_eval': n}}."""
+    import os
+    import pickle
+    import tempfile
+
+    from pcdet_tpu_torch import detect as detect_mod
+    from pcdet_tpu_torch.datasets import build_dataloader
+    from pcdet_tpu_torch.datasets.kitti import kitti_eval_cli
+    from pcdet_tpu_torch.datasets.kitti.kitti_eval import eval as kitti_eval
+    from pcdet_tpu_torch.ops import host_books, sparse
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    from pcdet_tpu_torch.tools import test as test_cli
+    from pcdet_tpu_torch.tools import train as train_cli
+    from pcdet_tpu_torch.train import train_state
+    from pcdet_tpu_torch.train.trainer import build_trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    pp_cfg = str(detect_mod.DEFAULT_CFG)
+    second_cfg = str(detect_mod.SECOND_CFG)
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out_root = os.path.join(tmp, 'kitti'), os.path.join(tmp, 'out')
+
+        # L1. a KITTI-format tree, then create_data ---------------------------
+        t0 = time.perf_counter()
+        labelled = write_kitti_tree(root, 16, 8)
+        t_tree = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'pcdet_tpu_torch.tools.create_data',
+             'kitti', '--cfg_file', pp_cfg, '--data_path', root,
+             '--workers', '4'], cwd=here, capture_output=True, text=True,
+            timeout=600)
+        t_create = time.perf_counter() - t0
+        require(proc.returncode == 0, 'create_data failed:\n%s'
+                % proc.stderr[-3000:])
+        infos = {}
+        for split in ('train', 'val', 'trainval'):
+            with open(os.path.join(root, 'kitti_infos_%s.pkl' % split),
+                      'rb') as f:
+                infos[split] = pickle.load(f)
+        with open(os.path.join(root, 'kitti_dbinfos_train.pkl'), 'rb') as f:
+            db = pickle.load(f)
+        n_pts = [os.path.getsize(os.path.join(
+            root, 'training', 'velodyne', '%06d.bin' % i)) // 16
+            for i in range(24)]
+        print('[cli L1] KITTI tree of 16 train + 8 val frames written in '
+              '%.2f s (%d-%d points, %d-%d labelled objects a frame); '
+              'create_data in %.2f s: infos train %d, val %d, trainval %d; '
+              'GT database %s' % (
+                  t_tree, min(n_pts), max(n_pts), min(labelled),
+                  max(labelled), t_create, len(infos['train']),
+                  len(infos['val']), len(infos['trainval']),
+                  {str(k): len(v) for k, v in db.items()}))
+        require(len(infos['train']) == 16 and len(infos['val']) == 8
+                and len(infos['trainval']) == 24 and db.get('Car'),
+                'create_data: infos %s, database %s' % (
+                    {k: len(v) for k, v in infos.items()}, list(db)))
+
+        # L2. the train CLI, pointpillar.yaml full width, B2, 2 epochs --------
+        sets = cli_sets(root, out_root)
+        argv = ['--cfg_file', pp_cfg, '--batch_size', '2', '--epochs', '2',
+                '--workers', '4', '--worker_mode', 'thread',
+                '--ckpt_save_interval', '1', '--log_interval', '1',
+                '--extra_tag', 'chip_smoke', '--device', dev.type, '--set'] + sets
+        t0 = time.perf_counter()
+        out = train_cli.main(argv)
+        sync()
+        t_train = time.perf_counter() - t0
+        cfg = train_cli.parse_config(argv)[1]
+        losses = [float(x) for x in log_records(
+            out['log_file'], r'iter \d+ loss (\S+) ')]
+        overflow = [int(x) for x in log_records(
+            out['log_file'], r'overflow/voxelizer (\d+)')]
+        ckpt_dir = str(out['ckpt_dir'])
+        ckpts = sorted(os.listdir(ckpt_dir))
+        print('[cli L2] train CLI pointpillar.yaml B2, 2 epochs of %d steps '
+              '(4 thread workers) in %.2f s: loss %s; overflow/voxelizer per '
+              'logged step %s; checkpoints %s' % (
+                  len(losses) // 2, t_train, ', '.join(
+                      '%.4f' % x for x in losses), overflow, ckpts))
+        require(len(losses) == 16 and all(np.isfinite(losses)),
+                'train CLI losses: %s' % losses)
+        require(np.mean(losses[-4:]) < np.mean(losses[:4]),
+                'train CLI: the loss did not fall (first 4 %s, last 4 %s)'
+                % (losses[:4], losses[-4:]))
+        require(len(overflow) == len(losses), 'overflow/voxelizer is not '
+                'in every logged step')
+        require(ckpts == ['checkpoint_epoch_1.pth', 'checkpoint_epoch_2.pth'],
+                'checkpoints %s' % ckpts)
+        targets = out['trainer'].model.anchor_targets
+        del out
+        # the loader's batches: thread 4 == process 4 == thread 0 workers;
+        # the process pool forks with CUDA up in this process
+        t0 = time.perf_counter()
+        ref = first_epoch(cfg, targets, 4, 'thread')
+        t_thread = time.perf_counter() - t0
+        for workers, mode in ((4, 'process'), (0, 'thread')):
+            t0 = time.perf_counter()
+            same = batches_equal(first_epoch(cfg, targets, workers, mode),
+                                 ref)
+            print('[cli L2] loader epoch 0 (%d B2 batches) with %d %s '
+                  'workers in %.2f s: bitwise equal to 4 thread workers '
+                  '(%.2f s): %s' % (len(ref), workers, mode,
+                                    time.perf_counter() - t0, t_thread,
+                                    same))
+            require(same, 'loader batches differ under %d %s workers'
+                    % (workers, mode))
+        # one step from the first batch, GPU vs CPU in f32 (TF32 off)
+        batch0, res = ref[0], {}
+        for name, d in (('gpu', dev), ('cpu', torch.device('cpu'))):
+            tr = build_trainer(cfg, d, seed=0, total_steps=16)
+            t0 = time.perf_counter()
+            loss, _, _ = train_state.loss_and_grads(
+                tr.model, tr.state.params, tr.upload(batch0))
+            res[name] = float(loss)
+            print('[cli L2] %s step B2 from the loader batch (upload, '
+                  'forward, loss, backward): %.2f s' % (
+                      name, time.perf_counter() - t0))
+            del tr
+        rel = abs(res['gpu'] - res['cpu']) / abs(res['cpu'])
+        print('[cli L2] loss GPU %.7f, CPU %.7f (rel %.3g)' % (
+            res['gpu'], res['cpu'], rel))
+        require(rel <= 1e-4, 'loader batch step: GPU vs CPU f32 loss %g '
+                'relative' % rel)
+        del ref, batch0
+        # ms per step with the loader's prefetch (4 thread workers) and
+        # without (0 workers), B2 and B8; the upload on its own
+        trainer = build_trainer(cfg, dev, seed=0, total_steps=1000)
+        for b, epochs in ((2, 1), (8, 3)):
+            for w in (4, 0):
+                t = loader_epochs(trainer, cfg, b, w, epochs, profile=True)
+                idle = ('busy %.2f ms, idle %.1f%%' % (t['busy'], 100 * (
+                    1 - t['busy'] / t['ms'])) if t['busy']
+                    else 'idle not measured')
+                print('[cli L2 B%d] loader with %d workers: %.2f ms per step '
+                      '(%.2f samples/s; %d steps over %d epochs after one of '
+                      'warm-up); per step, host clock: waiting on the loader '
+                      '%.2f ms, in upload %.2f ms, in step %.2f ms; the '
+                      'loader alone %.2f ms a batch; device %s' % (
+                          b, w, t['ms'], 1e3 * b / t['ms'], t['steps'],
+                          epochs, t['wait'], t['upload'], t['step'],
+                          t['alone'], idle))
+            ds, loader = build_dataloader(cfg, b, training=True,
+                                          num_workers=4)
+            ds.set_anchor_targets(trainer.model.anchor_targets)
+            loader.set_epoch(0)
+            batch = next(iter(loader))
+            nbytes = sum(v.nbytes for k, v in batch.items()
+                         if k in host_books.LOADER_KEYS
+                         and isinstance(v, np.ndarray))
+            up = []
+            for _ in range(5):
+                sync()
+                t0 = time.perf_counter()
+                trainer.upload(batch)
+                sync()
+                up.append(1e3 * (time.perf_counter() - t0))
+            print('[cli L2 B%d] upload of a loader batch (one pageable '
+                  'copy): %.2f ms (median of 5), %.2f MB' % (
+                      b, sorted(up)[2], nbytes / 1e6))
+            del batch, loader, ds
+        del trainer
+        sync()
+
+        # L3. the test CLI on the last checkpoint, 8 val frames at B2 --------
+        eval_sets = sets + ['MODEL.TEST.SCORE_THRESH', '0.0']
+        targv = ['--cfg_file', pp_cfg, '--batch_size', '2', '--workers', '4',
+                 '--extra_tag', 'chip_smoke', '--device', dev.type, '--ckpt',
+                 os.path.join(ckpt_dir, 'checkpoint_epoch_2.pth'),
+                 '--set'] + eval_sets
+        ro.LAUNCHES = 0
+        t0 = time.perf_counter()
+        tout = test_cli.main(targv)
+        sync()
+        a_launches = ro.LAUNCHES
+        eval_dir, result = tout['results'][2]
+        with open(os.path.join(str(eval_dir), 'result.pkl'), 'rb') as f:
+            det_annos = pickle.load(f)
+        again, _ = kitti_eval_cli.evaluation(det_annos, infos['val'],
+                                             KITTI_CLASSES)
+        logged = logged_result(tout['log_file'])
+        coco = kitti_eval.get_coco_eval_result(
+            [copy.deepcopy(i['annos']) for i in infos['val']],
+            copy.deepcopy(det_annos), KITTI_CLASSES)
+        print('[cli L3] test CLI on checkpoint_epoch_2, %d val frames at B2 '
+              'in %.2f s: kernel A launches %d; recall/gt %s, rcnn_0.5 %s, '
+              'rcnn_0.7 %s; %d detections; Car_3d_moderate %s; '
+              'sec_per_example %.4f; logged AP string == the evaluator on '
+              'result.pkl: %s' % (
+                  len(det_annos), time.perf_counter() - t0, a_launches,
+                  result['recall/gt'], result['recall/rcnn_0.5'],
+                  result['recall/rcnn_0.7'],
+                  sum(a['num_example'] for a in det_annos),
+                  result.get('Car_3d_moderate'), result['sec_per_example'],
+                  logged == again.strip()))
+        print('[cli L3] COCO string: %s' % ' | '.join(coco.splitlines()[:4]))
+        require(a_launches > 0, 'the test CLI launched no kernel A')
+        require(len(det_annos) == 8 and result['recall/gt'] > 0,
+                'test CLI: %d annos, recall/gt %s' % (len(det_annos),
+                                                      result['recall/gt']))
+        require(all(np.isfinite(float(result[k])) for k in result
+                    if k.startswith('recall/')), 'recall not finite')
+        require(finite_numbers(logged) and finite_numbers(coco),
+                'the AP or COCO string holds a non-finite number')
+        require(logged == again.strip(), 'the logged AP string differs from '
+                'the evaluator run again on result.pkl')
+        paths['rotated_overlap'] = {'cli_eval': a_launches}
+        # --eval_all over L2's directory
+        t0 = time.perf_counter()
+        aout = test_cli.main(['--cfg_file', pp_cfg, '--batch_size', '2',
+                              '--workers', '4', '--extra_tag', 'chip_smoke', '--device', dev.type,
+                              '--eval_all', '--max_waiting_mins', '0',
+                              '--set'] + eval_sets)
+        record = os.path.join(str(aout['eval_root']), 'eval_list_val.txt')
+        with open(record) as f:
+            listed = f.read().split()
+        print('[cli L3] --eval_all --max_waiting_mins 0 in %.2f s: evaluated '
+              'epochs %s, eval_list_val.txt %s' % (
+                  time.perf_counter() - t0, sorted(aout['results']), listed))
+        require(sorted(aout['results']) == [1, 2] and listed == ['1', '2'],
+                '--eval_all evaluated %s, listed %s' % (
+                    sorted(aout['results']), listed))
+        del tout, aout
+        sync()
+
+        # L4. SECOND through the same pair: 2 B2 steps, 4 val frames ---------
+        for split, n in (('train', 4), ('val', 4)):
+            with open(os.path.join(root, 'kitti_infos_%s4.pkl' % split),
+                      'wb') as f:
+                pickle.dump(infos[split][:n], f)
+        s_sets = cli_sets(root, out_root, 'kitti_infos_train4.pkl',
+                          'kitti_infos_val4.pkl')
+        clamped = []
+        real_selectors = sparse.xwin_selectors
+
+        def selectors(*args, **kw):
+            out = real_selectors(*args, **kw)
+            clamped.append(out[2])
+            return out
+        sparse.xwin_selectors = selectors
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            sout = train_cli.main(
+                ['--cfg_file', second_cfg, '--batch_size', '2', '--epochs',
+                 '1', '--workers', '4', '--ckpt_save_interval', '1',
+                 '--log_interval', '1', '--extra_tag', 'chip_smoke', '--device', dev.type,
+                 '--set'] + s_sets)
+            sync()
+            train_counts = nonzero(all_launches())
+        finally:
+            sparse.xwin_selectors = real_selectors
+        misses = sum(int(c) for c in clamped)
+        s_losses = [float(x) for x in log_records(
+            sout['log_file'], r'iter \d+ loss (\S+) ')]
+        s_overflow = log_records(sout['log_file'],
+                                 r'loss \S+ lr \S+ (overflow/.*)')
+        print('[cli L4] train CLI second.yaml B2, 1 epoch of %d steps in '
+              '%.2f s: loss %s; %s; launches %s; selector builds %d, taps '
+              'outside their window %d' % (
+                  len(s_losses), time.perf_counter() - t0, s_losses,
+                  s_overflow, train_counts, len(clamped), misses))
+        require(len(s_losses) == 2 and all(np.isfinite(s_losses)),
+                'SECOND train CLI losses %s' % s_losses)
+        for key in ('gather_gemm_f32', 'gather_gemm_f32_dgrad', 'gather_dw',
+                    'gather_dw_seg'):
+            require(train_counts.get(key, 0) > 0, 'SECOND train CLI: no '
+                    'launch of %s' % key)
+        require(clamped and misses == 0, 'SECOND train CLI: %d selector '
+                'builds, %d taps outside their window' % (len(clamped),
+                                                          misses))
+        del sout
+        reset_launches()
+        ro.LAUNCHES = 0
+        t0 = time.perf_counter()
+        seout = test_cli.main(
+            ['--cfg_file', second_cfg, '--batch_size', '2', '--workers', '4',
+             '--extra_tag', 'chip_smoke', '--device', dev.type, '--ckpt', os.path.join(
+                 out_root, 'output', 'second', 'chip_smoke', 'ckpt',
+                 'checkpoint_epoch_1.pth'), '--set'] + s_sets
+            + ['MODEL.TEST.SCORE_THRESH', '0.0'])
+        sync()
+        eval_counts, s_a = nonzero(all_launches()), ro.LAUNCHES
+        s_result = seout['results'][1][1]
+        print('[cli L4] test CLI second.yaml on its checkpoint, 4 val frames '
+              'at B2 in %.2f s: launches %s, kernel A %d; recall/gt %s, '
+              'rcnn_0.5 %s; Car_3d_moderate %s' % (
+                  time.perf_counter() - t0, eval_counts, s_a,
+                  s_result['recall/gt'], s_result['recall/rcnn_0.5'],
+                  s_result.get('Car_3d_moderate')))
+        require(eval_counts.get('gather_gemm_bf16', 0) > 0 and s_a > 0,
+                'SECOND test CLI: launches %s, kernel A %d' % (eval_counts,
+                                                                s_a))
+        require(all(np.isfinite(float(v)) for v in s_result.values()),
+                'SECOND test CLI: a result is not finite')
+        del seout
+        sync()
+    paths['rotated_overlap']['cli_eval second'] = s_a
+    paths['gather_gemm_f32'] = {'cli_train': train_counts['gather_gemm_f32']
+                                + train_counts['gather_gemm_f32_dgrad']}
+    paths['gather_dw'] = {'cli_train': train_counts['gather_dw']}
+    paths['gather_dw_seg'] = {'cli_train': train_counts['gather_dw_seg']}
+    paths['gather_gemm_bf16'] = {'cli_eval': eval_counts['gather_gemm_bf16']}
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; the port is checked on the GPU',
@@ -3206,6 +3747,7 @@ def main():
         'second.yaml': eval_config(detect_mod.SECOND_CFG),
         'pointpillar.yaml': eval_config(detect_mod.DEFAULT_CFG)})
     pp_eval_launches = run_pointpillar_train(dev, detect_mod.load_config())
+    cli_paths = run_cli(dev)
 
     a_entry = kernel_entry(
         'rotated_overlap', 'pcdet_tpu_torch/csrc/rotated_overlap.cu',
@@ -3214,8 +3756,12 @@ def main():
     a_entry['launches_by_path'] = {
         'pointpillar detect B2': launches_b2,
         'pointpillar trained checkpoint eval B2 (P4)': pp_eval_launches}
-    print(json.dumps({'kernels': [a_entry] + second + [dw_entry]
-                      + xwin + evals}))
+    kernels = [a_entry] + second + [dw_entry] + xwin + evals
+    for entry in kernels:
+        if entry['name'] in cli_paths:
+            entry.setdefault('launches_by_path', {}).update(
+                cli_paths[entry['name']])
+    print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
 """Config loading: the yaml configs under `tools/cfgs/` as attribute dicts.
 
-The port's copy of `pcdet_tpu.config.cfg_from_yaml_file` and the `EDict`
+The port's copy of `pcdet_tpu.config`'s `cfg_from_yaml_file` and the `EDict`
 it builds (`pcdet_tpu/utils/edict.py`): the same defaults, the same derived
-flags, so a config loads to the same dict in both packages.
+flags, so a config loads to the same dict in both packages; and of the
+CLIs' `cfg_from_list` (`--set` overrides) and `log_config_to_file`.
 """
+from ast import literal_eval
 from pathlib import Path
 
 import yaml
@@ -98,3 +100,48 @@ def cfg_from_yaml_file(cfg_file, config=None):
     config.TAG = Path(cfg_file).stem
     cfg_preprocess(config)
     return config
+
+
+def cfg_from_list(cfg_list, config):
+    """Apply dotted-path CLI overrides ['K.E.Y', 'value', ...].
+
+    Semantics mirror the reference cfg_from_list (type coercion via
+    literal_eval, 'k:v,...' grammar for dict leaves, 'a,b,c' for list leaves).
+    """
+    assert len(cfg_list) % 2 == 0, cfg_list
+    for k, v in zip(cfg_list[0::2], cfg_list[1::2]):
+        key_list = k.split('.')
+        d = config
+        for subkey in key_list[:-1]:
+            assert subkey in d, 'NotFoundKey: %s' % subkey
+            d = d[subkey]
+        subkey = key_list[-1]
+        assert subkey in d, 'NotFoundKey: %s' % subkey
+        try:
+            value = literal_eval(v)
+        except Exception:
+            value = v
+
+        if type(value) != type(d[subkey]) and isinstance(d[subkey], dict):
+            for src in value.split(','):
+                cur_key, cur_val = src.split(':')
+                val_type = type(d[subkey][cur_key])
+                d[subkey][cur_key] = val_type(cur_val)
+        elif type(value) != type(d[subkey]) and isinstance(d[subkey], list):
+            val_list = value.split(',')
+            d[subkey] = [type(d[subkey][0])(x) for x in val_list]
+        else:
+            assert type(value) == type(d[subkey]), \
+                'type {} does not match original type {}'.format(
+                    type(value), type(d[subkey]))
+            d[subkey] = value
+    return config
+
+
+def log_config_to_file(cfg, pre='cfg', logger=None):
+    for key, val in cfg.items():
+        if isinstance(val, dict):
+            logger.info('\n%s.%s = edict()' % (pre, key))
+            log_config_to_file(val, pre=pre + '.' + key, logger=logger)
+            continue
+        logger.info('%s.%s: %s' % (pre, key, val))

@@ -1,1 +1,2 @@
-"""KITTI: the official AP evaluator."""
+"""KITTI: the dataset, its info files and GT database, and the official AP
+evaluator."""

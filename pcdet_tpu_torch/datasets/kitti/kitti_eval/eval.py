@@ -4,8 +4,8 @@ The port's copy of `pcdet_tpu.datasets.kitti.kitti_eval.eval`'s
 `get_official_eval_result` and everything it calls (the PCDet reference's
 kitti_object_eval_python/eval.py: the matching rules, threshold selection,
 ignore semantics and PR sampling, replicated exactly).  The hot loops are
-the native f64 functions of `native.py` on the host.  The COCO-style
-result is not ported.
+the native f64 functions of `native.py` on the host.  Also the COCO-style
+result, `get_coco_eval_result`.
 """
 import io as sysio
 
@@ -327,6 +327,25 @@ def do_eval(gt_annos, dt_annos, current_classes, min_overlaps,
             mAP_3d_R40, mAP_aos_R40)
 
 
+def do_coco_style_eval(gt_annos, dt_annos, current_classes, overlap_ranges,
+                       compute_aos):
+    min_overlaps = np.zeros([10, *overlap_ranges.shape[1:]])
+    for i in range(overlap_ranges.shape[1]):
+        for j in range(overlap_ranges.shape[2]):
+            # (start, stop, count): numpy 2 takes the count only as an int
+            lo, hi, num = overlap_ranges[:, i, j]
+            min_overlaps[:, i, j] = np.linspace(lo, hi, int(num))
+    out = do_eval(gt_annos, dt_annos, current_classes, min_overlaps,
+                  compute_aos)
+    mAP_bbox, mAP_bev, mAP_3d, mAP_aos = out[0], out[1], out[2], out[3]
+    mAP_bbox = mAP_bbox.mean(-1)
+    mAP_bev = mAP_bev.mean(-1)
+    mAP_3d = mAP_3d.mean(-1)
+    if mAP_aos is not None:
+        mAP_aos = mAP_aos.mean(-1)
+    return mAP_bbox, mAP_bev, mAP_3d, mAP_aos
+
+
 def get_official_eval_result(gt_annos, dt_annos, current_classes,
                              PR_detail_dict=None):
     """AP (R11 + R40) for bbox/bev/3d/aos at easy/mod/hard (eval.py:637-759)."""
@@ -402,3 +421,42 @@ def get_official_eval_result(gt_annos, dt_annos, current_classes,
                     ret_dict['%s_image_%s_R40' % (cls_name, dn)] = \
                         mAPbbox_R40[j, d, 0]
     return result, ret_dict
+
+
+def get_coco_eval_result(gt_annos, dt_annos, current_classes):
+    """COCO-style averaged-overlap AP (eval.py:762-821)."""
+    class_to_range = {0: [0.5, 0.95, 10], 1: [0.25, 0.7, 10],
+                      2: [0.25, 0.7, 10], 3: [0.5, 0.95, 10],
+                      4: [0.25, 0.7, 10]}
+    name_to_class = {v: n for n, v in CLASS_TO_NAME.items()}
+    if not isinstance(current_classes, (list, tuple)):
+        current_classes = [current_classes]
+    current_classes = [name_to_class[c] if isinstance(c, str) else c
+                       for c in current_classes]
+    overlap_ranges = np.zeros([3, 3, len(current_classes)])
+    for i, curcls in enumerate(current_classes):
+        overlap_ranges[:, :, i] = np.array(class_to_range[curcls])[:, None]
+    compute_aos = False
+    for anno in dt_annos:
+        if anno['alpha'].shape[0] != 0:
+            if anno['alpha'][0] != -10:
+                compute_aos = True
+            break
+    mAPbbox, mAPbev, mAP3d, mAPaos = do_coco_style_eval(
+        gt_annos, dt_annos, current_classes, overlap_ranges, compute_aos)
+    result = ''
+    for j, curcls in enumerate(current_classes):
+        o_range = np.array(class_to_range[curcls])[[0, 2, 1]]
+        o_range[1] = (o_range[2] - o_range[0]) / (o_range[1] - 1)
+        result += print_str('{} coco AP@{:.2f}:{:.2f}:{:.2f}:'.format(
+            CLASS_TO_NAME[curcls], *o_range))
+        result += print_str('bbox AP:{:.2f}, {:.2f}, {:.2f}'.format(
+            *mAPbbox[j]))
+        result += print_str('bev  AP:{:.2f}, {:.2f}, {:.2f}'.format(
+            *mAPbev[j]))
+        result += print_str('3d   AP:{:.2f}, {:.2f}, {:.2f}'.format(
+            *mAP3d[j]))
+        if compute_aos:
+            result += print_str('aos  AP:{:.2f}, {:.2f}, {:.2f}'.format(
+                *mAPaos[j]))
+    return result

@@ -2,16 +2,19 @@
 
 The port's copy of `pcdet_tpu.datasets.synthetic`: `make_scene` and what it
 calls (cars, pedestrians and cyclists as point-sprinkled cuboid shells on
-uniform or beam-structured ground), and `SyntheticDataset`, a set of such
-scenes with their annotations and the official KITTI evaluator.  The same
-RandomState gives the same scene in both packages.  `SyntheticDataset`'s
-examples are the evaluation's: built as `pcdet_tpu.datasets.dataset.
-DatasetTemplate.prepare_data` builds an eval example for the device
-voxelizer; `eval_batches` collates them in index order.
+uniform or beam-structured ground), and `SyntheticDataset`, a
+`dataset.DatasetTemplate` over such scenes with their annotations and the
+official KITTI evaluator.  The same RandomState gives the same scene in
+both packages.  In training its examples are `prepare_data`'s (host
+voxelizer, augmentation, anchor targets), as `pcdet_tpu`'s; in evaluation
+they are raw points for the device voxelizer, built as `pcdet_tpu`'s
+`prepare_data` builds an eval example with its raw point cloud;
+`eval_batches` collates them in index order.
 """
 import numpy as np
 
 from ..utils import common
+from .dataset import DatasetTemplate
 
 # class -> (w, l, h) mean sizes
 SIZES = {
@@ -115,19 +118,18 @@ def make_scene(rng, class_names, num_objects=8, num_ground=4000,
     return points, boxes, names
 
 
-class SyntheticDataset:
+class SyntheticDataset(DatasetTemplate):
     """`num_samples` scenes, scene i from RandomState(seed + i) with the
     `DATA_CONFIG.SYNTHETIC` knobs (NUM_SAMPLES, NUM_OBJECTS, NUM_GROUND,
-    PTS_PER_OBJ, GROUND_MODE, RING_KEEP), for evaluation."""
+    PTS_PER_OBJ, GROUND_MODE, RING_KEEP); training examples when
+    `training`, else evaluation ones."""
 
-    def __init__(self, cfg, num_samples=None, seed=0):
-        self.cfg = cfg
-        self.class_names = list(cfg.CLASS_NAMES)
+    def __init__(self, cfg, training=False, num_samples=None, seed=0):
+        super().__init__(cfg, cfg.CLASS_NAMES, training)
         data_cfg = cfg.DATA_CONFIG
-        if data_cfg.TEST.get('SHUFFLE_POINTS', False):
+        if not training and data_cfg.TEST.get('SHUFFLE_POINTS', False):
             raise ValueError('the evaluation does not shuffle points: '
                              'DATA_CONFIG.TEST.SHUFFLE_POINTS must be false')
-        self.max_gt_boxes = int(data_cfg.get('MAX_GT_BOXES', 128))
         self.max_points = int(data_cfg.get('MAX_POINTS', 65536))
         syn = data_cfg.get('SYNTHETIC', {})
         self.num_samples = num_samples or int(syn.get('NUM_SAMPLES', 16))
@@ -150,9 +152,15 @@ class SyntheticDataset:
                                           ground_mode=self.ground_mode,
                                           ring_keep=self.ring_keep)
         return {'sample_idx': index, 'points': points,
-                'gt_boxes_lidar': boxes, 'gt_names': names}
+                'gt_boxes_lidar': boxes, 'gt_names': names, 'calib': None}
 
     def __getitem__(self, index):
+        if self.training:
+            return self.prepare_data(self.get_raw(index), has_label=True,
+                                     rng=self.sample_rng(index))
+        return self.eval_example(index)
+
+    def eval_example(self, index):
         """The eval example: the `use` features masked by the XY range,
         padded or cut to MAX_POINTS with a `point_mask`, and the GT of the
         config's classes with the class column, padded or cut to
@@ -244,7 +252,7 @@ def eval_batches(dataset, batch_size):
     short where the count does not divide: dicts of stacked numpy arrays,
     `sample_idx` and `batch_size`."""
     for start in range(0, len(dataset), batch_size):
-        examples = [dataset[i] for i in
+        examples = [dataset.eval_example(i) for i in
                     range(start, min(start + batch_size, len(dataset)))]
         batch = {k: np.stack([ex[k] for ex in examples])
                  for k in examples[0] if k != 'sample_idx'}

@@ -15,7 +15,9 @@ runs voxelize_torch -> PointPillarNet (VFE, scatter, RPNV2) -> predict
 the coords to the host, the host rulebook build, one upload of the books,
 SECONDNetModule (MeanVFE, BackBone8x sparse convs, RPNV2) and predict;
 `build_detector(cfg, device, loads=ops.sparse.Loads(fwd, dw))` chooses the
-sparse convs' load strategy (`ops.sparse.DEFAULT_LOADS` unless given).
+sparse convs' load strategy (`ops.sparse.DEFAULT_LOADS` unless given).  A
+data loader's voxelized batch (`datasets.build_dataloader`) goes to the
+device through `upload`, with SECOND's books from the loader.
 `build_detector(cfg, device, checkpoint=path)` (a `train.checkpoint`
 `.pth`, or a reference one) or `state_dict=sd` puts trained weights in
 place of the random ones.
@@ -28,6 +30,7 @@ import torch
 from .config import cfg_from_yaml_file
 from .datasets.synthetic import make_scene
 from .models.build import build_network
+from .ops import host_books
 from .ops.voxelizer import grid_size, voxelize_torch
 from .weights import load_checkpoint, model_state
 
@@ -93,6 +96,14 @@ class Detector:
         ret); the predictions are `self.model.predict(ret)`."""
         vox = self.voxelize(points, point_mask)
         return vox, self.model.forward(vox)
+
+    def upload(self, batch):
+        """A collated eval batch of the data loader (numpy: the host
+        voxelizer's voxels, gt_boxes, SECOND's `hb_*` books) -> the model's
+        batch on the device, in one upload (`host_books.
+        upload_loader_batch`)."""
+        return host_books.upload_loader_batch(batch, self.device, self.model,
+                                              train=False)
 
     @torch.inference_mode()
     def detect(self, points, point_mask):

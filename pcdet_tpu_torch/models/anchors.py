@@ -5,7 +5,8 @@ chain: the per-class range anchor generators, `TargetAssigner` (forced
 matches, positives above the matched threshold, negatives below the
 unmatched one, the rest don't-care) on the nearest axis-aligned BEV IoU,
 evaluated only on the window of anchors around the boxes, and the residual
-encoding of the positives (`utils/box_coder.ResidualCoder.encode_np`).
+encoding of the positives (`utils/box_coder.ResidualCoder.encode_np`); the
+BEV helpers are `utils/box_np_ops`'.
 Outputs are fixed-shape over the whole anchor grid and equal `pcdet_tpu`'s.
 The positive-fraction sampling (SAMPLE_POS_FRACTION >= 0) is not ported:
 no config sets it.
@@ -13,39 +14,7 @@ no config sets it.
 import numpy as np
 
 from ..utils.box_coder import ResidualCoder
-
-
-def _limit_period(val, offset=0.5, period=np.pi):
-    return val - np.floor(val / period + offset) * period
-
-
-def rbbox2d_to_near_bbox(rbboxes):
-    """Rotated (N, 5) [x, y, dx, dy, rad] -> nearest axis-aligned (N, 4)
-    [x1, y1, x2, y2]."""
-    rots = rbboxes[..., -1]
-    rots_0_pi_div_2 = np.abs(_limit_period(rots, 0.5, np.pi))
-    cond = (rots_0_pi_div_2 > np.pi / 4)[..., np.newaxis]
-    bboxes_center = np.where(cond, rbboxes[:, [0, 1, 3, 2]], rbboxes[:, :4])
-    centers, dims = bboxes_center[:, :2], bboxes_center[:, 2:]
-    return np.concatenate([centers - dims / 2, centers + dims / 2], axis=-1)
-
-
-def iou_axis_aligned(boxes, query_boxes):
-    """Axis-aligned 2D IoU (N, 4) x (K, 4) -> (N, K) f32."""
-    boxes = np.asarray(boxes, dtype=np.float32)
-    query_boxes = np.asarray(query_boxes, dtype=np.float32)
-    area_q = ((query_boxes[:, 2] - query_boxes[:, 0])
-              * (query_boxes[:, 3] - query_boxes[:, 1]))
-    area_b = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
-    iw = (np.minimum(boxes[:, None, 2], query_boxes[None, :, 2])
-          - np.maximum(boxes[:, None, 0], query_boxes[None, :, 0]))
-    ih = (np.minimum(boxes[:, None, 3], query_boxes[None, :, 3])
-          - np.maximum(boxes[:, None, 1], query_boxes[None, :, 1]))
-    inter = np.maximum(iw, 0.0) * np.maximum(ih, 0.0)
-    union = area_b[:, None] + area_q[None, :] - inter
-    with np.errstate(divide='ignore', invalid='ignore'):
-        iou = np.where(inter > 0, inter / union, 0.0)
-    return iou.astype(boxes.dtype)
+from ..utils.box_np_ops import iou_axis_aligned, rbbox2d_to_near_bbox
 
 
 def create_anchors_3d_range(feature_size, anchor_range, sizes, rotations,

@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -87,7 +88,8 @@ def build_host_library(path, source):
     if path.exists():
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name('%s.tmp%d' % (path.name, os.getpid()))
+    tmp = path.with_name('%s.tmp%d-%d' % (path.name, os.getpid(),
+                                           threading.get_ident()))
     cmd = ['g++', *GXX_FLAGS, '-fopenmp', '-o', str(tmp),
            str(CSRC_DIR / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)

@@ -4,8 +4,8 @@ The books (which input row feeds which output row at which kernel tap) are
 integer metadata of a batch's sorted voxel coords.  `build_books_batch`
 builds them from the coords the voxelizer copies to the host, by the
 native C++ builders of `csrc/host_books_native.cpp` (g++ at first use into
-`build/pcdet_tpu_torch/`, ctypes), or by the numpy builders here where the
-library cannot be built or the masks are not prefixes.  Both give the
+`build/pcdet_tpu_torch/`, ctypes; required), or by the numpy builders here
+where the masks are not prefixes.  Both give the
 books `pcdet_tpu.ops.host_books` gives, bit for bit, in its compact wire
 format of `hb_*` arrays: rows uint16 (B, V, K) per sample, the found taps
 as one uint32 bitmask per output row, and for a strided conv its output
@@ -15,7 +15,9 @@ order, x fastest, so the three x-taps of a (dz, dy) pair are consecutive
 
 `upload_books` moves a batch's books to the device in ONE copy and decodes
 them there into the gather-GEMM's rules: (B, V_out, K) int32, misses
-routed to the input level's zero row V_in.
+routed to the input level's zero row V_in; `upload_loader_batch` does so
+for a loader batch's voxels, targets and books together, and
+`make_batch_transform` builds the books in the loader.
 """
 import ctypes
 
@@ -293,8 +295,9 @@ def build_books_batch_np(coords_b, mask_b, sparse_shape, spec):
 
 def build_books_batch(coords_b, mask_b, sparse_shape, spec):
     """Every book of `spec` for a batch, in the wire format ('hb_*' arrays):
-    by the native builders where the masks are prefixes and the library
-    builds, else by `build_books_batch_np`.
+    by the native builders where the masks are prefixes, else by
+    `build_books_batch_np`.  The native library is required: where it does
+    not build, this raises.
 
     :param coords_b: (B, V, 3) int32 ZYX sorted by linear id, -1 padded
     :param mask_b: (B, V) bool live voxels
@@ -302,7 +305,10 @@ def build_books_batch(coords_b, mask_b, sparse_shape, spec):
     coords_b, mask_b = np.asarray(coords_b), np.asarray(mask_b)
     m = mask_b.astype(bool)
     lib = native_lib()
-    if lib is not None and bool(np.all(m[:, :-1] >= m[:, 1:])):
+    if lib is None:
+        raise RuntimeError('the native host book builder did not build: %s'
+                           % native_error())
+    if bool(np.all(m[:, :-1] >= m[:, 1:])):
         return _build_books_batch_native(lib, coords_b, mask_b, sparse_shape,
                                          spec)
     return build_books_batch_np(coords_b, m, sparse_shape, spec)
@@ -385,3 +391,63 @@ def upload_books(flat, spec, input_cap, device):
     """
     return decode_books(upload(wire_arrays(flat, spec), device), spec,
                         input_cap)
+
+
+def make_batch_transform(model, training):
+    """The loader's `batch_transform` that adds a model's host books to a
+    collated batch (`pcdet_tpu.ops.host_books.make_batch_transform`): the
+    `hb_*` wire arrays at the model's train or eval caps
+    (`model.host_book_spec(cap, training)`), by the native builders.  None
+    for a model without sparse convs (PointPillar).  It runs in the
+    loader's producer thread, beside the device step."""
+    if not hasattr(model, 'host_book_spec'):
+        return None
+    sparse_shape = model.sparse_shape
+    spec_cache = {}
+
+    def transform(batch):
+        cap = batch['coordinates'].shape[1]
+        if cap not in spec_cache:
+            spec_cache[cap] = model.host_book_spec(cap, training)
+        batch.update(build_books_batch(batch['coordinates'],
+                                       batch['voxel_mask'], sparse_shape,
+                                       spec_cache[cap]))
+        return batch
+
+    return transform
+
+
+# a loader batch's arrays that go to the device, in this order
+LOADER_KEYS = ('voxels', 'num_points', 'coordinates', 'voxel_mask',
+               'voxel_overflow', 'gt_boxes', 'box_cls_labels',
+               'box_reg_targets')
+
+
+def upload_loader_batch(batch, device, model, train):
+    """A collated loader batch (numpy, `datasets.collate_batch`) -> the
+    model's batch on `device`, in ONE copy: voxels, num_points (as
+    `num_points_per_voxel`), coordinates, voxel_mask, voxel_overflow and,
+    where the batch has them, gt_boxes and the anchor targets; for a model
+    with sparse convs also its books at the train or eval caps, decoded
+    into `books`: the batch's `hb_*` books (the loader's
+    `make_batch_transform`), or built here where it has none."""
+    spec = None
+    if hasattr(model, 'host_book_spec'):
+        spec = model.host_book_spec(batch['coordinates'].shape[1], train)
+        if not any(k.startswith('hb_') for k in batch):
+            batch = dict(batch, **model.build_books(batch['coordinates'],
+                                                    train=train))
+    arrays = []
+    for key in LOADER_KEYS:
+        if key in batch:
+            a = np.ascontiguousarray(batch[key])
+            arrays.append((key, a.view(np.uint8) if a.dtype == bool else a))
+    if spec is not None:
+        arrays += wire_arrays(batch, spec)
+    t = upload(arrays, device)
+    out = {key: t[key] for key in LOADER_KEYS if key in t}
+    out['num_points_per_voxel'] = out.pop('num_points')
+    out['voxel_mask'] = out['voxel_mask'].view(torch.bool)
+    if spec is not None:
+        out['books'] = decode_books(t, spec, batch['coordinates'].shape[1])
+    return out

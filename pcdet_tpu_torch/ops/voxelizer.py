@@ -1,13 +1,57 @@
-"""On-device fixed-shape voxelizer on tensors.
+"""Point-cloud voxelizers: on the host for the data pipeline, on the
+device for the raw-scan entry points.
 
-Port of `pcdet_tpu.ops.voxelizer.voxelize_jnp` with the batch dimension
-written out: a stable sort by linear voxel id, segment ranks from a cumsum
-and a cummax, and scatters into buffers with one extra drop row that is
-sliced off afterwards (JAX's `mode='drop'`).  Voxels come out ordered by
-linear voxel id.  All six outputs are bit-identical to `voxelize_jnp`.
+* `VoxelGenerator`: the port's copy of `pcdet_tpu.ops.voxelizer.
+  VoxelGenerator`, spconv's semantics on the host (csrc/
+  voxelizer_native.cpp): points consumed in order, voxels in
+  first-appearance order, capped at `max_voxels`, points per voxel at
+  `max_num_points`, coordinates ZYX.  Past the cap it keeps the voxels that
+  appear first, so the data pipeline trains on `pcdet_tpu`'s voxels.
+* `voxelize_torch`: `pcdet_tpu.ops.voxelizer.voxelize_jnp` on tensors with
+  the batch dimension written out: a stable sort by linear voxel id,
+  segment ranks from a cumsum and a cummax, and scatters into buffers with
+  one extra drop row that is sliced off afterwards (JAX's `mode='drop'`).
+  Voxels come out ordered by linear voxel id, and past the cap it keeps the
+  lowest ids.  All six outputs are bit-identical to `voxelize_jnp`.
 """
 import numpy as np
 import torch
+
+from . import host_native
+
+
+class VoxelGenerator:
+    def __init__(self, voxel_size, point_cloud_range, max_num_points,
+                 max_voxels=20000):
+        self.voxel_size = np.asarray(voxel_size, dtype=np.float32)
+        self.point_cloud_range = np.asarray(point_cloud_range,
+                                            dtype=np.float32)
+        grid = (self.point_cloud_range[3:6] - self.point_cloud_range[0:3]) \
+            / self.voxel_size
+        self.grid_size = np.round(grid).astype(np.int64)
+        self.max_num_points = int(max_num_points)
+        self.max_voxels = int(max_voxels)
+
+    def generate(self, points, pad_to_max=False):
+        """Voxelize `points` (P, C); xyz must be the first 3 channels.
+
+        :return: dict voxels (N, max_num_points, C) f32, coordinates (N, 3)
+            int32 ZYX, num_points_per_voxel (N,) int32,
+            voxel_pt_indices_into_original_pt_cloud (N, max_num_points)
+            int64 (-1 pad), num_voxels; N = num_voxels, or max_voxels when
+            pad_to_max
+        """
+        points = np.asarray(points)
+        out = host_native.voxelize(points.astype(np.float32, copy=False),
+                                   self.voxel_size,
+                                   self.point_cloud_range[:3],
+                                   self.grid_size, self.max_num_points,
+                                   self.max_voxels)
+        if not pad_to_max:
+            n = out['num_voxels']
+            out = {k: (v[:n] if isinstance(v, np.ndarray) else v)
+                   for k, v in out.items()}
+        return out
 
 
 def grid_size(voxel_size, point_cloud_range):

@@ -2,8 +2,10 @@
 thread, the official KITTI AP on the host.
 
 Port of `pcdet_tpu.train.eval_loop.eval_one_epoch` (the PCDet reference's
-tools/eval_utils/eval_utils.py:eval_one_epoch): per batch, the upload, the
-detector's forward and predict, the recall counters through kernel A
+tools/eval_utils/eval_utils.py:eval_one_epoch): per batch, the upload (a
+data loader's voxelized batch through `detector.upload`, with SECOND's
+books; raw points through the device voxelizer), the detector's forward
+and predict, the recall counters through kernel A
 (`models.detector3d.batch_recall`) and the cap-overflow counters, both
 summed on the device and fetched once after the loop; the predictions are
 fetched to the host on a one-worker thread pool, which writes the
@@ -14,6 +16,9 @@ where a `result_dir` is given, and `dataset.evaluation`.
     det = detect.build_detector(cfg, 'cuda')
     dataset = SyntheticDataset(cfg)
     result = eval_one_epoch(det, eval_batches(dataset, 2), dataset, cfg)
+
+or, from a KITTI tree, `dataset, loader = datasets.build_dataloader(cfg, 2,
+training=False)` and `eval_one_epoch(det, loader, dataset, cfg)`.
 """
 import pickle
 import time
@@ -29,9 +34,11 @@ def eval_one_epoch(detector, batches, dataset, cfg, result_dir=None,
     """Evaluate `detector` on its device over `batches`.
 
     :param detector: a `detect.build_detector` detector
-    :param batches: eval batches (`datasets.synthetic.eval_batches`): numpy
-        points (B, P, C), point_mask (B, P), gt_boxes (B, G, 8), sample_idx,
-        batch_size
+    :param batches: eval batches, numpy: raw points
+        (`datasets.synthetic.eval_batches`: points (B, P, C), point_mask (B,
+        P)) or voxelized (a `datasets.loader.DataLoader`'s: voxels,
+        num_points, coordinates, voxel_mask, voxel_overflow, SECOND's
+        `hb_*` books), each with gt_boxes (B, G, 8), sample_idx, batch_size
     :param dataset: gives `generate_annotations` and `evaluation`
     :return: the evaluator's AP dict with `recall/gt`, `recall/rcnn_<t>`,
         `overflow/*` and `sec_per_example` (the loop's seconds per example,
@@ -63,9 +70,13 @@ def eval_one_epoch(detector, batches, dataset, cfg, result_dir=None,
     with torch.inference_mode(), ThreadPoolExecutor(max_workers=1) as pool:
         futures = []
         for batch in batches:
-            points = torch.as_tensor(batch['points'], device=dev)
-            mask = torch.as_tensor(batch['point_mask'], device=dev)
-            vox, ret = detector.forward(points, mask)
+            if 'voxels' in batch:
+                vox = detector.upload(batch)
+                ret = detector.model.forward(vox)
+            else:
+                vox, ret = detector.forward(
+                    torch.as_tensor(batch['points'], device=dev),
+                    torch.as_tensor(batch['point_mask'], device=dev))
             preds = detector.model.predict(ret)
             n_examples += batch['batch_size']
             ovf = merge_overflow_tb({}, ret, vox)
@@ -73,10 +84,10 @@ def eval_one_epoch(detector, batches, dataset, cfg, result_dir=None,
                 k: overflow_dev[k] + v for k, v in ovf.items()}
 
             if 'gt_boxes' in batch:
-                rc = batch_recall(
-                    preds['boxes'], preds['valid'],
-                    torch.as_tensor(batch['gt_boxes'], device=dev),
-                    thresh_list)
+                gt = (vox['gt_boxes'] if 'gt_boxes' in vox else
+                      torch.as_tensor(batch['gt_boxes'], device=dev))
+                rc = batch_recall(preds['boxes'], preds['valid'], gt,
+                                  thresh_list)
                 recall_dev = rc if recall_dev is None else {
                     k: recall_dev[k] + v for k, v in rc.items()}
 

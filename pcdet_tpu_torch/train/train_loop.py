@@ -2,15 +2,17 @@
 
 Twin of `pcdet_tpu.train.train_loop.train_model` (the reference's
 tools/train_utils/train_utils.py train_model / train_one_epoch): per epoch
-`set_epoch` and the `before_epoch` hook; per batch the upload of the
-scans, `Trainer.make_batch`, `Trainer.step` and the `after_iter` hook;
+`set_epoch` and the `before_epoch` hook; per batch its upload (a data
+loader's dict through `Trainer.upload`, `TrainScans`' raw scans through
+`Trainer.make_batch`), `Trainer.step` and the `after_iter` hook;
 every `ckpt_save_interval` epochs a checkpoint, pruned to
 `max_ckpt_save_num`.  The step count lives on the host (`TrainState.step`),
 and the tb values are read from the card only every `log_interval` steps,
 so the host prepares the next batch while the card runs the step.  A
-nonzero `overflow/*` in a logged step is logged as a `CAP OVERFLOW`
-warning: a static cap truncated real data.  The wandb mirror and the
-tensorboard writer of `pcdet_tpu` are not ported.
+logged step's line carries its `overflow/*` counts, and a nonzero one is
+also logged as a `CAP OVERFLOW` warning: a static cap truncated real
+data.  The wandb mirror and the tensorboard writer of `pcdet_tpu` are not
+ported.
 """
 import time
 
@@ -26,8 +28,9 @@ def train_model(trainer, train_loader, total_epochs, start_epoch=0,
     """Train `trainer` (`trainer.Trainer`) from `start_epoch` up to
     `total_epochs`; return its `TrainState`.
 
-    :param train_loader: iterable of numpy (points, mask, gt_boxes) batches
-        with `set_epoch(epoch)` (`trainer.TrainScans`)
+    :param train_loader: iterable with `set_epoch(epoch)` of collated dict
+        batches (`datasets.loader.DataLoader`) or of numpy (points, mask,
+        gt_boxes) batches (`trainer.TrainScans`)
     :param hooks: optional object with `before_epoch(epoch)` /
         `after_iter(step, tb_dict)` callbacks (the fork's experiments
         hooks; tb holds tensors on the card)
@@ -40,19 +43,25 @@ def train_model(trainer, train_loader, total_epochs, start_epoch=0,
             hooks.before_epoch(epoch)
         t_epoch = time.time()
         n_iters = 0
-        for points, mask, gt_boxes in train_loader:
-            batch = trainer.make_batch(torch.as_tensor(points, device=dev),
-                                       torch.as_tensor(mask, device=dev),
-                                       gt_boxes)
+        for item in train_loader:
+            if isinstance(item, dict):
+                batch = trainer.upload(item)
+            else:
+                points, mask, gt_boxes = item
+                batch = trainer.make_batch(
+                    torch.as_tensor(points, device=dev),
+                    torch.as_tensor(mask, device=dev), gt_boxes)
             tb = trainer.step(batch)
             n_iters += 1
             if hooks is not None and hasattr(hooks, 'after_iter'):
                 hooks.after_iter(state.step, tb)
             if state.step % log_interval == 0 and logger is not None:
                 tb_host = {k: float(v) for k, v in tb.items()}
-                logger.info('epoch %d iter %d loss %.4f lr %.6f' % (
+                logger.info('epoch %d iter %d loss %.4f lr %.6f%s' % (
                     epoch, state.step, tb_host['loss'],
-                    trainer.lr_schedule(state.step)))
+                    trainer.lr_schedule(state.step), ''.join(
+                        ' %s %d' % (k, int(v)) for k, v in tb_host.items()
+                        if k.startswith('overflow/'))))
                 for k, v in tb_host.items():
                     if k.startswith('overflow/') and v > 0:
                         logger.warning(

@@ -11,7 +11,10 @@ steps.
     tb = trainer.step(batch)        # {'loss', 'rpn_loss_*', 'overflow/*'}
 
 (`train_loop.train_model` runs the epochs, with checkpoints.)  The model
-comes from `models.build.build_network` by `cfg.MODEL.NAME`.  `make_batch`
+comes from `models.build.build_network` by `cfg.MODEL.NAME`.  A batch comes
+from the data loader (`datasets.build_dataloader`: host voxelizer,
+augmentation, anchor targets and SECOND's books on the host) through
+`upload`, or from raw scans on the device through `make_batch`, which
 does what the JAX loader and the train step's input side do, in order:
 voxelize_torch at the TRAIN voxel cap on the device; for SECOND, one copy
 of the coords to the host and the host rulebooks at the train level caps
@@ -65,10 +68,10 @@ def make_train_scans(cfg, batch, ring_keep=1.0, num_objects=24):
 class TrainScans:
     """`make_train_scans`' scenes 0..num_scans-1 as an epoch's batches of
     numpy (points, mask, gt_boxes), in a seeded order per epoch
-    (RandomState(seed + epoch), as `pcdet_tpu.datasets.loader.DataLoader`
-    draws its permutation in training), a short last batch dropped.  A
-    stand-in for the data loader: the scenes are made once, with no
-    augmentation."""
+    (RandomState(seed + epoch), as `datasets.loader.DataLoader` draws its
+    permutation in training), a short last batch dropped.  Raw scans for
+    `Trainer.make_batch`: the scenes are made once, with no augmentation,
+    and voxelized on the device."""
 
     def __init__(self, cfg, num_scans, batch_size, seed=0):
         self.points, self.mask, self.gt = make_train_scans(cfg, num_scans)
@@ -159,6 +162,15 @@ class Trainer:
         batch['box_cls_labels'] = t['box_cls_labels']
         batch['box_reg_targets'] = t['box_reg_targets']
         return batch
+
+    def upload(self, batch):
+        """A collated loader batch (numpy, `datasets.build_dataloader`'s:
+        the host voxelizer's voxels, the anchor targets and, for SECOND,
+        the loader's `hb_*` books) -> a batch for `step`, in one upload
+        (`host_books.upload_loader_batch`).  The loader's voxels are used as
+        they are, never voxelized again."""
+        return host_books.upload_loader_batch(batch, self.device, self.model,
+                                              train=True)
 
     def step(self, batch):
         """One optimizer step on `batch`; returns the tb dict (tensors)."""

@@ -43,7 +43,11 @@ finite corners whose products overflow (areas of +inf and NaN; NaN equal
 to NaN), two launches bitwise equal, one launch counted per call,
 bad operands refused; `boxes_iou3d_batched` through one
 launch of kernel A equal to its plain version on the card and within 1e-5
-of the CPU (sin / cos round differently on the two devices).
+of the CPU (sin / cos round differently on the two devices).  The CLI pair
+on a KITTI-format tree (`chip_smoke.write_kitti_tree`): train on the card,
+then the evaluation of its checkpoint, recall through kernel A; the
+loader's batches from forked workers, with CUDA up in the parent, equal to
+the thread workers' bit for bit.
 """
 import itertools
 
@@ -853,3 +857,65 @@ def test_train_model_checkpoint_eval_on_card(cuda, tmp_path):
                                  torch.as_tensor(gt, device=cuda), (0.5, 0.7))
     assert rotated_overlap.LAUNCHES == before + 1
     assert int(rc['gt']) > 0
+
+
+_CLI_SETS = ['DATA_CONFIG.VOXEL_GENERATOR.VOXEL_SIZE', '[0.32,0.32,4]',
+             'DATA_CONFIG.TRAIN.MAX_NUMBER_OF_VOXELS', '4000',
+             'DATA_CONFIG.TEST.MAX_NUMBER_OF_VOXELS', '4000']
+
+
+@pytest.fixture
+def kitti_tree(tmp_path):
+    """chip_smoke.py's KITTI-format tree (4 train, 2 val ring scans; the PNG
+    written without PIL) after create_data."""
+    import chip_smoke
+    from pcdet_tpu_torch import detect
+    from pcdet_tpu_torch.tools import create_data
+    root = str(tmp_path / 'kitti')
+    chip_smoke.write_kitti_tree(root, 4, 2)
+    create_data.main(['kitti', '--cfg_file', str(detect.DEFAULT_CFG),
+                      '--data_path', root, '--workers', '2'])
+    return root, chip_smoke.cli_sets(root, str(tmp_path / 'out')) + _CLI_SETS
+
+
+def test_cli_round_trip_on_card(cuda, kitti_tree):
+    """The train CLI (pointpillar.yaml at a 216 x 248 grid, B2, 1 epoch) and
+    the test CLI on its checkpoint: recall through kernel A on the card."""
+    from pcdet_tpu_torch import detect
+    from pcdet_tpu_torch.tools import test, train
+    _, sets = kitti_tree
+    cfg = str(detect.DEFAULT_CFG)
+    out = train.main(['--cfg_file', cfg, '--batch_size', '2', '--epochs', '1',
+                      '--workers', '2', '--ckpt_save_interval', '1',
+                      '--log_interval', '1', '--set'] + sets)
+    assert out['trainer'].device.type == 'cuda'
+    ckpt = str(out['ckpt_dir'] / 'checkpoint_epoch_1.pth')
+    before = rotated_overlap.LAUNCHES
+    res = test.main(['--cfg_file', cfg, '--batch_size', '2', '--workers', '2',
+                     '--ckpt', ckpt, '--set'] + sets
+                    + ['MODEL.TEST.SCORE_THRESH', '0.0'])
+    assert rotated_overlap.LAUNCHES > before
+    result = res['results'][1][1]
+    assert result['recall/gt'] > 0
+    assert all(np.isfinite(float(v)) for v in result.values())
+
+
+@pytest.mark.parametrize('workers', [0, 2])
+def test_loader_batches_after_cuda_is_up(cuda, kitti_tree, workers):
+    """With CUDA up in this process, the forked workers give the thread
+    workers' batches bit for bit."""
+    import chip_smoke
+    from pcdet_tpu_torch import detect
+    from pcdet_tpu_torch.models.anchors import AnchorHeadTargets
+    from pcdet_tpu_torch.ops.voxelizer import grid_size
+    from pcdet_tpu_torch.tools import train
+    torch.zeros(1, device=cuda)
+    _, cfg = train.parse_config(['--cfg_file', str(detect.DEFAULT_CFG),
+                                 '--set'] + kitti_tree[1])
+    targets = AnchorHeadTargets(
+        cfg.MODEL.RPN.RPN_HEAD.TARGET_CONFIG, np.asarray(grid_size(
+            cfg.DATA_CONFIG.VOXEL_GENERATOR.VOXEL_SIZE,
+            cfg.DATA_CONFIG.POINT_CLOUD_RANGE)), list(cfg.CLASS_NAMES))
+    want = chip_smoke.first_epoch(cfg, targets, 2, 'thread')
+    got = chip_smoke.first_epoch(cfg, targets, workers, 'process')
+    assert len(got) == 2 and chip_smoke.batches_equal(got, want)

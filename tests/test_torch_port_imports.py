@@ -4,8 +4,11 @@ own copies of pcdet_tpu's framework-free helpers give the same results.
 - a subprocess imports `pcdet_tpu_torch.detect`, `pcdet_tpu_torch.train.
   trainer`, the training loop's modules (`models.build`, `train.
   optimization`, `train.checkpoint`, `train.train_loop`), the evaluation's
-  modules (`train.eval_loop`, the KITTI evaluator and its native bindings)
-  and `chip_smoke` and finds no `pcdet_tpu` module loaded;
+  modules (`train.eval_loop`, the KITTI evaluator and its native bindings),
+  the data pipeline's (the KITTI dataset and its helpers, the
+  augmentations, the DB sampler, `datasets.dataset`, the loader, the host
+  voxelizer and native bindings), the CLIs (`tools.create_data`, `train`,
+  `test`) and `chip_smoke` and finds no `pcdet_tpu` module loaded;
 - no source of the package, nor `chip_smoke.py`, has an import of
   `pcdet_tpu` (other than of `pcdet_tpu_torch`), nor of flax, orbax,
   tensorboardX or wandb, which the machine with the card lacks;
@@ -14,7 +17,9 @@ own copies of pcdet_tpu's framework-free helpers give the same results.
   train caps at B2, the anchors and `AnchorHeadTargets.assign`, `make_scene`
   in both ground modes, and the loaded `second.yaml` / `pointpillar.yaml`;
   the KITTI evaluator's four native functions (`csrc/kitti_eval_native.cpp`)
-  on random inputs; `SyntheticDataset`'s eval examples (points, point mask,
+  on random inputs; the data pipeline's native sources (`csrc/
+  voxelizer_native.cpp`, `csrc/augmentation_native.cpp`) byte for byte,
+  and their functions on random inputs; `SyntheticDataset`'s eval examples (points, point mask,
   padded GT with classes), GT annotations and annotations of predictions at
   the tiny config and at `second.yaml`.
 """
@@ -39,7 +44,7 @@ from pcdet_tpu_torch import config, detect
 from pcdet_tpu_torch.datasets import synthetic
 from pcdet_tpu_torch.datasets.kitti.kitti_eval import native
 from pcdet_tpu_torch.models.anchors import AnchorHeadTargets
-from pcdet_tpu_torch.ops import host_books
+from pcdet_tpu_torch.ops import host_books, host_native
 from pcdet_tpu_torch.ops.voxelizer import grid_size
 from pcdet_tpu_torch.train.trainer import make_train_scans
 
@@ -57,7 +62,24 @@ def test_port_loads_no_pcdet_tpu_module():
             'pcdet_tpu_torch.train.checkpoint, '
             'pcdet_tpu_torch.train.train_loop, '
             'pcdet_tpu_torch.datasets.kitti.kitti_eval.eval, '
-            'pcdet_tpu_torch.datasets.kitti.kitti_eval.native; '
+            'pcdet_tpu_torch.datasets.kitti.kitti_eval.native, '
+            'pcdet_tpu_torch.datasets.kitti.kitti_eval.kitti_common, '
+            'pcdet_tpu_torch.datasets.kitti.kitti_eval.evaluate, '
+            'pcdet_tpu_torch.datasets.kitti.kitti_eval_cli, '
+            'pcdet_tpu_torch.datasets.kitti.kitti_dataset, '
+            'pcdet_tpu_torch.datasets.augmentation.augmentation_utils, '
+            'pcdet_tpu_torch.datasets.augmentation.dbsampler, '
+            'pcdet_tpu_torch.datasets.dataset, '
+            'pcdet_tpu_torch.datasets.loader, '
+            'pcdet_tpu_torch.datasets.synthetic, '
+            'pcdet_tpu_torch.ops.host_native, '
+            'pcdet_tpu_torch.ops.voxelizer, '
+            'pcdet_tpu_torch.utils.box_np_ops, '
+            'pcdet_tpu_torch.utils.calibration, '
+            'pcdet_tpu_torch.utils.object3d, '
+            'pcdet_tpu_torch.tools.create_data, '
+            'pcdet_tpu_torch.tools.train, '
+            'pcdet_tpu_torch.tools.test; '
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('pcdet_tpu', 'flax', 'orbax', 'tensorboardX', 'wandb')); "
             'print(bad); sys.exit(1 if bad else 0)')
@@ -240,6 +262,45 @@ def _eval_boxes(rng, n):
 def _image_boxes(rng, n):
     lo = rng.uniform(0, 100, (n, 2))
     return np.concatenate([lo, lo + rng.uniform(1, 60, (n, 2))], axis=1)
+
+
+@pytest.mark.parametrize('name', ['voxelizer_native.cpp',
+                                  'augmentation_native.cpp'])
+def test_data_native_sources_equal_pcdet_tpu(name):
+    assert ((REPO / 'pcdet_tpu_torch' / 'csrc' / name).read_bytes()
+            == (REPO / 'pcdet_tpu' / 'native' / name).read_bytes())
+
+
+def test_data_native_functions_equal_pcdet_tpu():
+    assert jax_native.get_lib() is not None
+    rng = np.random.RandomState(9)
+    pts = rng.uniform(-5, 35, (5000, 4)).astype(np.float32)
+    boxes = np.concatenate([rng.uniform(0, 30, (20, 3)),
+                            rng.uniform(1, 5, (20, 3)),
+                            rng.uniform(-3, 3, (20, 1))], 1).astype(np.float32)
+    got = host_native.points_in_rbboxes(pts, boxes)
+    np.testing.assert_array_equal(got, jax_native.points_in_rbboxes(pts,
+                                                                    boxes))
+    assert got.dtype == bool and got.sum() > 20
+    b5 = boxes[:, [0, 1, 3, 4, 6]]
+    valid = rng.rand(20) < 0.9
+    loc = rng.normal(0, 1, (20, 50, 3)).astype(np.float32)
+    rot = rng.uniform(-0.8, 0.8, (20, 50)).astype(np.float32)
+    sel = host_native.noise_per_box(b5, valid, loc, rot)
+    np.testing.assert_array_equal(sel, jax_native.noise_per_box(b5, valid,
+                                                                loc, rot))
+    assert sel.dtype == np.int64 and (sel >= 0).sum() > 5
+    for cap in (20000, 300):
+        args = ([0.4, 0.4, 0.5], [0, -20, -3], [100, 100, 8], 8, cap)
+        got = host_native.voxelize(pts, *args)
+        want = jax_native.voxelize(pts, *args)
+        assert got['num_voxels'] == want['num_voxels']
+        n = got['num_voxels']
+        for k in ('voxels', 'coordinates', 'num_points_per_voxel',
+                  'voxel_pt_indices_into_original_pt_cloud'):
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k][:n], want[k][:n],
+                                          err_msg=k)
 
 
 def test_kitti_eval_native_equals_pcdet_tpu():
