@@ -161,10 +161,13 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       every logged loss finite, the last 4 below the first 4 on average,
       `overflow/voxelizer` in every logged step; the loader's epoch 0
       bitwise equal under 4 process workers (forked with CUDA up) and 0
-      workers; one step from its first batch GPU vs CPU in f32 (TF32 off,
-      1e-4 relative); ms per step and samples/s at B2 and B8 with the
-      loader's prefetch (4 workers) and without (0), the ms the loop waits
-      on the loader, the device's idle share (torch.profiler), the upload;
+      workers; one step from its first batch GPU vs CPU as P2's (f32 loss
+      1e-4 relative, f64 loss and every gradient 1e-9); on a second tree of
+      64 train frames, ms per step and samples/s at B2 and B8 with the
+      loader's prefetch (4 workers) and without (0): each epoch's first
+      step (the pool's start and an empty queue) apart from the steady
+      steps after it, the ms the loop waits on the loader, the device's
+      idle share (torch.profiler), the upload;
   L3. the test CLI on L2's last checkpoint, 8 val frames at B2: kernel A's
       launches (from 0) > 0, recall, the official AP and the COCO strings
       finite, the logged AP string equal to the evaluator run again on the
@@ -2705,6 +2708,61 @@ def state_tensors(trainer):
     return out, (sd['it'], sd['optimizer_state']['count'])
 
 
+def step_four_ways(tag, what, cfg, dev, total, make):
+    """One PointPillar train step from the same seeded weights, GPU (G) and
+    CPU (C), each in f32 (TF32 off) and f64; `make(trainer, device, dtype)`
+    gives the batch.  Prints the losses and, per module, the largest
+    gradient error over max |grad|; requires the f32 losses within 1e-4
+    relative, the f64 loss and every f64 gradient within 1e-9.  Returns
+    {'G32' / 'C32' / 'G64' / 'C64': (loss, {name: grad on the CPU in f64},
+    the batch's coordinates on the CPU)}."""
+    from pcdet_tpu_torch.train import train_state
+    from pcdet_tpu_torch.train.trainer import build_trainer
+
+    out = {}
+    for name, d, dtype in (('G32', dev, torch.float32),
+                           ('C32', torch.device('cpu'), torch.float32),
+                           ('G64', dev, torch.float64),
+                           ('C64', torch.device('cpu'), torch.float64)):
+        tr = build_trainer(cfg, d, seed=0, total_steps=total)
+        tr.model.module.to(dtype)
+        t0 = time.perf_counter()
+        b = make(tr, d, dtype)
+        loss, _, grads = train_state.loss_and_grads(tr.model, tr.state.params,
+                                                    b)
+        names = [n for n, _ in tr.model.module.named_parameters()]
+        out[name] = (float(loss), {n: g.cpu().double()
+                                   for n, g in zip(names, grads)},
+                     b['coordinates'].cpu())
+        print('%s %s train step %s: %.2f s' % (
+            tag, name, what, time.perf_counter() - t0))
+        del tr, b, grads
+    rel32 = abs(out['G32'][0] - out['C32'][0]) / abs(out['C32'][0])
+    rel64 = abs(out['G64'][0] - out['C64'][0]) / abs(out['C64'][0])
+    print('%s loss G32 %.7f, C32 %.7f (rel %.3g); G64 %.12f, C64 %.12f (rel '
+          '%.3g)' % (tag, out['G32'][0], out['C32'][0], rel32,
+                     out['G64'][0], out['C64'][0], rel64))
+    groups = grad_groups(out['C64'][1])
+    worst64 = 0.0
+    for a, b in (('G32', 'C32'), ('G32', 'C64'), ('C32', 'C64'),
+                 ('G64', 'C64')):
+        per = {}
+        for n, ref in out['C64'][1].items():
+            e = ((out[a][1][n] - out[b][1][n]).abs().max().item()
+                 / ref.abs().max().item())
+            per[groups[n]] = max(per.get(groups[n], 0.0), e)
+        if a == 'G64':
+            worst64 = max(per.values())
+        print('%s gradient %s vs %s, largest error / max |grad| per module: '
+              '%s' % (tag, a, b, ', '.join('%s %.2e' % x
+                                           for x in per.items())))
+    require(rel32 <= 1e-4, '%s GPU vs CPU f32 loss %g relative'
+            % (tag, rel32))
+    require(rel64 <= 1e-9 and worst64 <= 1e-9, '%s GPU vs CPU f64: loss %g '
+            'relative, gradients %g of max' % (tag, rel64, worst64))
+    return out
+
+
 def run_pointpillar_train(dev, cfg, steps=5):
     """Phases P1-P4 on PointPillar training; returns kernel A's launches in
     P4's evaluation of the trained checkpoint."""
@@ -2714,7 +2772,7 @@ def run_pointpillar_train(dev, cfg, steps=5):
     from pcdet_tpu_torch.datasets.synthetic import (SyntheticDataset,
                                                     eval_batches)
     from pcdet_tpu_torch.ops import rotated_overlap as ro
-    from pcdet_tpu_torch.train import checkpoint, train_state
+    from pcdet_tpu_torch.train import checkpoint
     from pcdet_tpu_torch.train.eval_loop import eval_one_epoch
     from pcdet_tpu_torch.train.train_loop import train_model
     from pcdet_tpu_torch.train.trainer import (TrainScans, build_trainer,
@@ -2752,51 +2810,15 @@ def run_pointpillar_train(dev, cfg, steps=5):
             'steps: %s' % (steps, losses))
 
     # P2. one B1 step: GPU vs CPU in f32 (TF32 off) and f64 ------------------
-    out = {}
-    for name, d, dtype in (('G32', dev, torch.float32),
-                           ('C32', torch.device('cpu'), torch.float32),
-                           ('G64', dev, torch.float64),
-                           ('C64', torch.device('cpu'), torch.float64)):
-        tr = build_trainer(cfg, d, seed=0, total_steps=total)
-        tr.model.module.to(dtype)
-        t0 = time.perf_counter()
+    def make_b1(tr, d, dtype):
         b1 = tr.make_batch(pts_all[:1].to(d), mask_all[:1].to(d), gt_np[:1])
         for key in ('voxels', 'box_reg_targets'):
             b1[key] = b1[key].to(dtype)
-        loss, _, grads = train_state.loss_and_grads(tr.model, tr.state.params,
-                                                    b1)
-        names = [n for n, _ in tr.model.module.named_parameters()]
-        out[name] = (float(loss), {n: g.cpu().double()
-                                   for n, g in zip(names, grads)},
-                     b1['coordinates'].cpu())
-        print('[pp train P2] %s train step B1 (forward + loss + backward, '
-              'batch built): %.2f s' % (name, time.perf_counter() - t0))
-        del tr, b1, grads
+        return b1
+    out = step_four_ways('[pp train P2]', 'B1 (forward + loss + backward, '
+                         'batch built)', cfg, dev, total, make_b1)
     require(torch.equal(out['G32'][2], out['C32'][2]),
             'GPU and CPU pillar coords differ')
-    rel32 = abs(out['G32'][0] - out['C32'][0]) / abs(out['C32'][0])
-    rel64 = abs(out['G64'][0] - out['C64'][0]) / abs(out['C64'][0])
-    print('[pp train P2] loss G32 %.7f, C32 %.7f (rel %.3g); G64 %.12f, C64 '
-          '%.12f (rel %.3g)' % (out['G32'][0], out['C32'][0], rel32,
-                                out['G64'][0], out['C64'][0], rel64))
-    groups = grad_groups(out['C64'][1])
-    worst64 = 0.0
-    for a, b in (('G32', 'C32'), ('G32', 'C64'), ('C32', 'C64'),
-                 ('G64', 'C64')):
-        per = {}
-        for n, ref in out['C64'][1].items():
-            e = ((out[a][1][n] - out[b][1][n]).abs().max().item()
-                 / ref.abs().max().item())
-            per[groups[n]] = max(per.get(groups[n], 0.0), e)
-        if a == 'G64':
-            worst64 = max(per.values())
-        print('[pp train P2] gradient %s vs %s, largest error / max |grad| '
-              'per module: %s' % (a, b, ', '.join(
-                  '%s %.2e' % x for x in per.items())))
-    require(rel32 <= 1e-4, 'PointPillar GPU vs CPU f32 loss %g relative'
-            % rel32)
-    require(rel64 <= 1e-9 and worst64 <= 1e-9, 'PointPillar GPU vs CPU f64: '
-            'loss %g relative, gradients %g of max' % (rel64, worst64))
 
     # P3. timings at B2 and B8 ------------------------------------------------
     for b in (2, 8):
@@ -3058,14 +3080,20 @@ def finite_numbers(text):
     return bool(nums) and all(np.isfinite(float(x)) for x in nums)
 
 
-def loader_epochs(trainer, cfg, b, workers, epochs, profile=False):
+def loader_epochs(trainer, cfg, b, workers, epochs, warm_up=True,
+                  profile=False):
     """Train steps fed by the loader (`build_dataloader`, thread workers, 0:
-    none, the batches made in the loop) for `epochs` epochs after one of
-    warm-up.  Returns ms per step in all and, host clock, the ms per step
-    the loop waits on the loader, spends in `upload` (a pageable copy,
-    which also waits for the card's previous step) and in `step` (its
-    launches); the steps; the loader's ms per batch with no step taken;
-    and the device's busy ms per step under torch.profiler (or None)."""
+    none, the batches made in the loop) for `epochs` epochs, after one of
+    warm-up if `warm_up`.  Each epoch's first step, which waits for a new
+    worker pool and an empty prefetch queue, is timed apart from the steady
+    steps after it.  Returns, in ms, host clock: per steady step in all
+    ('steady') and split into the wait on the loader, `upload` (a pageable
+    copy, which also waits for the card's previous step) and `step` (its
+    launches); per first step ('first') and its wait; per step over
+    everything ('ms'); with workers, the loader's ms per batch with no step
+    taken, steady and first (None without: the loop's wait is that); the
+    steps and steady steps; and the device's busy ms per step under
+    torch.profiler (or None)."""
     from pcdet_tpu_torch.datasets import build_dataloader
     ds, loader = build_dataloader(cfg, b, training=True, num_workers=workers)
     ds.set_anchor_targets(trainer.model.anchor_targets)
@@ -3073,29 +3101,36 @@ def loader_epochs(trainer, cfg, b, workers, epochs, profile=False):
     def run(epoch, train=True):
         loader.set_epoch(epoch)
         sync()
-        t0, parts, n = time.perf_counter(), [0.0, 0.0, 0.0], 0
+        t0 = time.perf_counter()
+        first, parts, n = None, [0.0, 0.0, 0.0], 0
         it = iter(loader)
         while True:
             t1 = time.perf_counter()
             item = next(it, None)
             t2 = time.perf_counter()
             if item is None:
-                parts[0] += t2 - t1
                 break
+            t3 = t4 = t2
             if train:
                 batch = trainer.upload(item)
                 t3 = time.perf_counter()
                 trainer.step(batch)
-                parts[2] += time.perf_counter() - t3
+                t4 = time.perf_counter()
+            if n == 0:
+                first = (t4 - t0, t2 - t0)
+            else:
+                parts[0] += t2 - t1
                 parts[1] += t3 - t2
-            parts[0] += t2 - t1
+                parts[2] += t4 - t3
             n += 1
         sync()
-        return [time.perf_counter() - t0] + parts + [n]
-    run(0)
-    wall, wait, upload, step, n = (sum(x) for x in zip(
-        *[run(e) for e in range(1, 1 + epochs)]))
-    alone = run(1 + epochs, train=False)
+        wall = time.perf_counter() - t0
+        return [wall, wall - first[0], first[0], first[1]] + parts + [n]
+    if warm_up:
+        run(0)
+    wall, rest, first, first_wait, wait, upload, step, n = (
+        sum(x) for x in zip(*[run(e) for e in range(1, 1 + epochs)]))
+    alone = run(1 + epochs, train=False) if workers else None
     busy = None
     if profile:
         from torch.autograd import DeviceType
@@ -3106,10 +3141,15 @@ def loader_epochs(trainer, cfg, b, workers, epochs, profile=False):
         busy = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.self_device_time_total > 0
                    and e.device_type == DeviceType.CUDA) / 1e3 / pn
-    per = lambda x: 1e3 * x / n
-    return {'ms': per(wall), 'wait': per(wait), 'upload': per(upload),
-            'step': per(step), 'steps': n,
-            'alone': 1e3 * alone[0] / alone[-1], 'busy': busy}
+    steady = n - epochs
+    per = lambda x: 1e3 * x / steady
+    return {'ms': 1e3 * wall / n, 'steady': per(rest), 'wait': per(wait),
+            'upload': per(upload), 'step': per(step),
+            'first': 1e3 * first / epochs,
+            'first_wait': 1e3 * first_wait / epochs, 'steps': n,
+            'steady_steps': steady,
+            'alone': alone and 1e3 * alone[1] / (alone[-1] - 1),
+            'alone_first': alone and 1e3 * alone[2], 'busy': busy}
 
 
 def first_epoch(cfg, anchor_targets, workers, mode):
@@ -3153,7 +3193,6 @@ def run_cli(dev):
     from pcdet_tpu_torch.ops import rotated_overlap as ro
     from pcdet_tpu_torch.tools import test as test_cli
     from pcdet_tpu_torch.tools import train as train_cli
-    from pcdet_tpu_torch.train import train_state
     from pcdet_tpu_torch.train.trainer import build_trainer
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3248,42 +3287,59 @@ def run_cli(dev):
                                     same))
             require(same, 'loader batches differ under %d %s workers'
                     % (workers, mode))
-        # one step from the first batch, GPU vs CPU in f32 (TF32 off)
-        batch0, res = ref[0], {}
-        for name, d in (('gpu', dev), ('cpu', torch.device('cpu'))):
-            tr = build_trainer(cfg, d, seed=0, total_steps=16)
-            t0 = time.perf_counter()
-            loss, _, _ = train_state.loss_and_grads(
-                tr.model, tr.state.params, tr.upload(batch0))
-            res[name] = float(loss)
-            print('[cli L2] %s step B2 from the loader batch (upload, '
-                  'forward, loss, backward): %.2f s' % (
-                      name, time.perf_counter() - t0))
-            del tr
-        rel = abs(res['gpu'] - res['cpu']) / abs(res['cpu'])
-        print('[cli L2] loss GPU %.7f, CPU %.7f (rel %.3g)' % (
-            res['gpu'], res['cpu'], rel))
-        require(rel <= 1e-4, 'loader batch step: GPU vs CPU f32 loss %g '
-                'relative' % rel)
+        # one step from the first batch, GPU vs CPU in f32 (TF32 off) and
+        # f64, gradients included, as P2
+        batch0 = ref[0]
+
+        def make_loader_batch(tr, d, dtype):
+            b = tr.upload(batch0)
+            for key in ('voxels', 'box_reg_targets'):
+                b[key] = b[key].to(dtype)
+            return b
+        step_four_ways('[cli L2]', 'B2 from the loader batch (upload, '
+                       'forward, loss, backward)', cfg, dev, 16,
+                       make_loader_batch)
         del ref, batch0
         # ms per step with the loader's prefetch (4 thread workers) and
-        # without (0 workers), B2 and B8; the upload on its own
-        trainer = build_trainer(cfg, dev, seed=0, total_steps=1000)
-        for b, epochs in ((2, 1), (8, 3)):
+        # without (0 workers), B2 and B8, on a tree of 64 train frames, so
+        # that each epoch's cold first batch is one of 32 / 8; the upload on
+        # its own
+        troot = os.path.join(tmp, 'kitti_timing')
+        write_kitti_tree(troot, 64, 2)
+        proc = subprocess.run(
+            [sys.executable, '-m', 'pcdet_tpu_torch.tools.create_data',
+             'kitti', '--cfg_file', pp_cfg, '--data_path', troot,
+             '--workers', '4'], cwd=here, capture_output=True, text=True,
+            timeout=600)
+        require(proc.returncode == 0, 'create_data (timing tree) failed:\n%s'
+                % proc.stderr[-3000:])
+        tcfg = train_cli.parse_config(argv[:-len(sets)] + cli_sets(
+            troot, out_root))[1]
+        trainer = build_trainer(tcfg, dev, seed=0, total_steps=1000)
+        for b, epochs in ((2, 1), (8, 2)):
             for w in (4, 0):
-                t = loader_epochs(trainer, cfg, b, w, epochs, profile=True)
-                idle = ('busy %.2f ms, idle %.1f%%' % (t['busy'], 100 * (
-                    1 - t['busy'] / t['ms'])) if t['busy']
-                    else 'idle not measured')
-                print('[cli L2 B%d] loader with %d workers: %.2f ms per step '
-                      '(%.2f samples/s; %d steps over %d epochs after one of '
-                      'warm-up); per step, host clock: waiting on the loader '
-                      '%.2f ms, in upload %.2f ms, in step %.2f ms; the '
-                      'loader alone %.2f ms a batch; device %s' % (
-                          b, w, t['ms'], 1e3 * b / t['ms'], t['steps'],
-                          epochs, t['wait'], t['upload'], t['step'],
-                          t['alone'], idle))
-            ds, loader = build_dataloader(cfg, b, training=True,
+                t = loader_epochs(trainer, tcfg, b, w, epochs,
+                                  warm_up=(w == 4), profile=True)
+                idle = ('busy %.2f ms a step, idle %.1f%% of a steady step, '
+                        '%.1f%% of all' % (
+                            t['busy'], 100 * (1 - t['busy'] / t['steady']),
+                            100 * (1 - t['busy'] / t['ms']))
+                        if t['busy'] else 'idle not measured')
+                alone = ('the loader alone %.2f ms a steady batch, %.2f its '
+                         'first; ' % (t['alone'], t['alone_first'])
+                         if t['alone'] else '')
+                print('[cli L2 B%d] loader with %d workers, 64 train frames: '
+                      'steady %.2f ms per step (%.2f samples/s; %d steps '
+                      'over %d epochs); per steady step, host clock: waiting '
+                      'on the loader %.2f ms, in upload %.2f ms, in step '
+                      '%.2f ms; each epoch\'s first step %.2f ms (waiting '
+                      '%.2f); all steps %.2f ms (%.2f samples/s); %sdevice '
+                      '%s' % (
+                          b, w, t['steady'], 1e3 * b / t['steady'],
+                          t['steady_steps'], epochs, t['wait'], t['upload'],
+                          t['step'], t['first'], t['first_wait'], t['ms'],
+                          1e3 * b / t['ms'], alone, idle))
+            ds, loader = build_dataloader(tcfg, b, training=True,
                                           num_workers=4)
             ds.set_anchor_targets(trainer.model.anchor_targets)
             loader.set_epoch(0)

@@ -402,16 +402,16 @@ def make_batch_transform(model, training):
     loader's producer thread, beside the device step."""
     if not hasattr(model, 'host_book_spec'):
         return None
-    sparse_shape = model.sparse_shape
-    spec_cache = {}
+    sparse_shape, spec = model.sparse_shape, []
 
     def transform(batch):
-        cap = batch['coordinates'].shape[1]
-        if cap not in spec_cache:
-            spec_cache[cap] = model.host_book_spec(cap, training)
+        # a loader's batches all have its mode's voxel cap
+        if not spec:
+            spec.append(model.host_book_spec(batch['coordinates'].shape[1],
+                                             training))
         batch.update(build_books_batch(batch['coordinates'],
                                        batch['voxel_mask'], sparse_shape,
-                                       spec_cache[cap]))
+                                       spec[0]))
         return batch
 
     return transform
@@ -429,14 +429,16 @@ def upload_loader_batch(batch, device, model, train):
     `num_points_per_voxel`), coordinates, voxel_mask, voxel_overflow and,
     where the batch has them, gt_boxes and the anchor targets; for a model
     with sparse convs also its books at the train or eval caps, decoded
-    into `books`: the batch's `hb_*` books (the loader's
-    `make_batch_transform`), or built here where it has none."""
+    into `books`: the batch's `hb_*` books, which the loader's
+    `make_batch_transform` adds (a batch without them raises)."""
     spec = None
     if hasattr(model, 'host_book_spec'):
-        spec = model.host_book_spec(batch['coordinates'].shape[1], train)
         if not any(k.startswith('hb_') for k in batch):
-            batch = dict(batch, **model.build_books(batch['coordinates'],
-                                                    train=train))
+            raise ValueError(
+                'a batch for a model with sparse convs needs its hb_* '
+                'books: set the loader\'s batch_transform to '
+                'host_books.make_batch_transform(model, training)')
+        spec = model.host_book_spec(batch['coordinates'].shape[1], train)
     arrays = []
     for key in LOADER_KEYS:
         if key in batch:

@@ -16,8 +16,9 @@ grid:
   the uninterrupted run wrote, bit for bit;
 - `--eval_all --max_waiting_mins 0` evaluates both checkpoints once and
   lists them in eval_list_val.txt;
-- SECOND (tiny widths): the loader's books equal the ones `Trainer.upload`
-  builds itself; a step on them; `eval_one_epoch` over the eval loader
+- SECOND (tiny widths): the loader's books equal the model's own
+  `build_books` decoded by `upload_books`, a batch without books raises;
+  a step on them; `eval_one_epoch` over the eval loader
   with its books;
 - `--ckpt` takes a bare reference-keyed state_dict (`weights.
   state_dict_from_flax`'s layout), `--multi_host` raises.
@@ -283,7 +284,8 @@ def _second_cfg(cfg):
 
 def test_second_trains_and_evaluates_on_the_loaders_books(setup):
     """SECOND's loader batch: the books of the loader's `batch_transform`
-    equal the ones `Trainer.upload` builds for a batch without them; a step
+    equal the model's own `build_books`, decoded; `Trainer.upload` refuses
+    a batch without them; a step
     on them, then `eval_one_epoch` over the eval loader with its books."""
     cfg = _second_cfg(setup['cfg'])
     ds, loader = build_dataloader(cfg, 2, training=True, num_workers=0)
@@ -295,14 +297,18 @@ def test_second_trains_and_evaluates_on_the_loaders_books(setup):
     batch = next(iter(loader))
     assert any(k.startswith('hb_') for k in batch)
     got = trainer.upload(batch)
-    built = trainer.upload({k: v for k, v in batch.items()
-                            if not k.startswith('hb_')})
-    assert sorted(got['books']) == sorted(built['books'])
+    built = trainer.model.upload_books(
+        trainer.model.build_books(batch['coordinates'], train=True),
+        batch['coordinates'].shape[1], train=True)
+    assert sorted(got['books']) == sorted(built)
     for key, book in got['books'].items():
-        other = built['books'][key]
+        other = built[key]
         for a, b in zip(*((book, other) if isinstance(book, tuple)
                           else ((book,), (other,)))):
             assert torch.equal(a, b), key
+    with pytest.raises(ValueError, match='hb_'):
+        trainer.upload({k: v for k, v in batch.items()
+                        if not k.startswith('hb_')})
     tb = trainer.step(got)
     assert np.isfinite(float(tb['loss'])) and 'overflow/conv2' in tb
     det = detect.build_detector(cfg, 'cpu', state_dict=
