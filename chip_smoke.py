@@ -1,7 +1,8 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: PointPillar and
 SECOND detect, SECOND training, the sparse convs' load strategies, the
-evaluation (recall and KITTI AP) of both models, and PointPillar training
-through the epoch loop to a checkpoint and its evaluation.
+evaluation (recall and KITTI AP) of both models, PointPillar training
+through the epoch loop to a checkpoint and its evaluation, the CLI pair,
+and Part-A² / Part-A²-fc detect and evaluation.
 
     python3 chip_smoke.py
 
@@ -163,7 +164,7 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       bitwise equal under 4 process workers (forked with CUDA up) and 0
       workers; one step from its first batch GPU vs CPU as P2's (f32 loss
       1e-4 relative, f64 loss and every gradient 1e-9); on a second tree of
-      64 train frames, ms per step and samples/s at B2 and B8 with the
+      32 train frames, ms per step and samples/s at B2 and B8 with the
       loader's prefetch (4 workers) and without (0): each epoch's first
       step (the pool's start and an empty queue) apart from the steady
       steps after it, the ms the loop waits on the loader, the device's
@@ -176,9 +177,36 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
   L4. second.yaml through the same pair: 1 epoch of 2 B2 batches (books
       from the loader's `batch_transform`; B, D, D' launch; no tap outside
       its x-window), its checkpoint evaluated on 4 val frames (C, A).
+  R1. PartA2.yaml at full width (41 x 1600 x 1408, 25088 voxels, UNet caps
+      43520 / 29184 / 12288 / 10240, 211,200 anchors, proposals top-1024
+      -> NMS 0.7 -> 100 RoIs, pool 14^3, SpConvRCNN, bf16 UNet, RPN and
+      RCNN) on ring scans: detect at B2 with 28 launches of C and kernel A
+      in both the proposal and the final NMS, num > 0; the RoI pool twice
+      bitwise equal; the f32 detect on the card (28 launches of B) against
+      the CPU's at B2 (RoIs equal in validity and labels, boxes within
+      1e-3); under loads.fwd xwin and seg, bf16 and f32, 27 launches of E
+      / E' (2 of them at the merge convs' (128, 64)), 1 of B / C and 10
+      selector builds with no tap outside its window, and the rows
+      detections; E and E' (f32, bf16) at (128, 64) against their plain
+      versions on the level-3 subm book (1e-5 of max, bitwise equal to B /
+      C and to a second launch) with device times; frames/s at B2 and B8
+      with the voxelize / books / encoder / decoder / RPN / proposal / pool
+      / RCNN / final NMS split and kernel A's launches a batch, and a
+      torch.profiler breakdown at B8;
+  R2. PartA2_fc.yaml (FCRCNN, 12^3) at B2: R1's checks but the f32 loads
+      and the profile, frames/s with the split;
+  R3. `eval_one_epoch` of PartA2.yaml on 16 SyntheticDataset scenes at B2
+      and B8 (recall through A, A'' beside it, 28 launches of C a batch),
+      V3's cross-checks, the GT oracle, eval frames/s and the detect /
+      recall / annotate / evaluate split;
+  R4. (in the CLI block, on L1's tree) the test CLI on PartA2.yaml over 4
+      val frames with a checkpoint `train.checkpoint.save_checkpoint` wrote
+      from random weights: C on every conv, A, the logged AP string equal
+      to the evaluator on result.pkl.
 
 Prints the card's name and power limit, a JSON line with the kernels (A,
-B, C, D, E, E', D'', D', A', A''), each with its launches on its main path
+B, C, D, E, E', D'', D', A', A'', and E and E''s (128, 64) instances of
+R1 apart), each with its launches on its main path
 (by path for A, B, C, D and D': the B2 detect, P4's evaluation, the CLI
 pair's training and evaluation), its error
 against its plain version, its time and the plain version's, and its bound
@@ -2962,6 +2990,9 @@ KITTI_P2 = np.array([[700., 0., 600., 0.], [0., 700., 180., 0.],
                      [0., 0., 1., 0.]], np.float32)
 IMAGE_W, IMAGE_H = 1242, 375
 KITTI_CLASSES = ['Car', 'Pedestrian', 'Cyclist']
+# L2's timing tree: 32 frames keep the whole script near half of the 1200 s
+# it may take
+TIMING_FRAMES = 32
 
 
 def png_bytes(width, height):
@@ -3301,11 +3332,11 @@ def run_cli(dev):
                        make_loader_batch)
         del ref, batch0
         # ms per step with the loader's prefetch (4 thread workers) and
-        # without (0 workers), B2 and B8, on a tree of 64 train frames, so
-        # that each epoch's cold first batch is one of 32 / 8; the upload on
-        # its own
+        # without (0 workers), B2 and B8, on a tree of TIMING_FRAMES train
+        # frames, so that each epoch's cold first batch is one of 16 / 4;
+        # the upload on its own
         troot = os.path.join(tmp, 'kitti_timing')
-        write_kitti_tree(troot, 64, 2)
+        write_kitti_tree(troot, TIMING_FRAMES, 2)
         proc = subprocess.run(
             [sys.executable, '-m', 'pcdet_tpu_torch.tools.create_data',
              'kitti', '--cfg_file', pp_cfg, '--data_path', troot,
@@ -3328,14 +3359,15 @@ def run_cli(dev):
                 alone = ('the loader alone %.2f ms a steady batch, %.2f its '
                          'first; ' % (t['alone'], t['alone_first'])
                          if t['alone'] else '')
-                print('[cli L2 B%d] loader with %d workers, 64 train frames: '
+                print('[cli L2 B%d] loader with %d workers, %d train frames: '
                       'steady %.2f ms per step (%.2f samples/s; %d steps '
                       'over %d epochs); per steady step, host clock: waiting '
                       'on the loader %.2f ms, in upload %.2f ms, in step '
                       '%.2f ms; each epoch\'s first step %.2f ms (waiting '
                       '%.2f); all steps %.2f ms (%.2f samples/s); %sdevice '
                       '%s' % (
-                          b, w, t['steady'], 1e3 * b / t['steady'],
+                          b, w, TIMING_FRAMES, t['steady'],
+                          1e3 * b / t['steady'],
                           t['steady_steps'], epochs, t['wait'], t['upload'],
                           t['step'], t['first'], t['first_wait'], t['ms'],
                           1e3 * b / t['ms'], alone, idle))
@@ -3494,13 +3526,552 @@ def run_cli(dev):
                 'SECOND test CLI: a result is not finite')
         del seout
         sync()
+
+        # R4. Part-A2 through the test CLI, 4 val frames ----------------------
+        parta2_paths = parta2_cli(dev, root, out_root, s_sets,
+                                  infos['val'][:4])
+        sync()
     paths['rotated_overlap']['cli_eval second'] = s_a
     paths['gather_gemm_f32'] = {'cli_train': train_counts['gather_gemm_f32']
                                 + train_counts['gather_gemm_f32_dgrad']}
     paths['gather_dw'] = {'cli_train': train_counts['gather_dw']}
     paths['gather_dw_seg'] = {'cli_train': train_counts['gather_dw_seg']}
     paths['gather_gemm_bf16'] = {'cli_eval': eval_counts['gather_gemm_bf16']}
+    for name, n in parta2_paths.items():
+        paths[name]['cli_eval parta2 (R4)'] = n
     return paths
+
+
+# ----------------------------------------------------------------------------
+# R1-R4: Part-A² and Part-A²-fc, detect and evaluation
+# ----------------------------------------------------------------------------
+
+PARTA2_CONVS = 28        # 12 in the encoder, 4 per UR block; 27 of them kw=3
+PARTA2_SELECTORS = 10    # window loads: 7 books' selectors, 3 transposed
+
+
+def parta2_f32(cfg):
+    """`cfg` with the UNet, the RPN and the RCNN in f32."""
+    cfg32 = copy.deepcopy(cfg)
+    for args in (cfg32.MODEL.RPN.BACKBONE.ARGS, cfg32.MODEL.RPN.RPN_HEAD.ARGS,
+                 cfg32.MODEL.RCNN):
+        args['compute_dtype_test'] = ''
+    return cfg32
+
+
+def parta2_launches(loads, dtype):
+    """The sparse-conv launches of one Part-A² batch under `loads`: the 27
+    kw=3 convs by loads.fwd, conv_out on B / C; window loads build 10
+    selector sets."""
+    t = 'bf16' if dtype == torch.bfloat16 else 'f32'
+    if loads.fwd == 'rows':
+        return {'gather_gemm_' + t: PARTA2_CONVS}
+    return {'gather_gemm_' + t: 1,
+            'gather_gemm_%s_%s' % (loads.fwd, t): PARTA2_CONVS - 1,
+            'xwin_selectors': PARTA2_SELECTORS}
+
+
+def parta2_run(det, pts, mask):
+    """One B-batch through the model with the books built, on the device:
+    (the voxelized batch with its books, the forward's outputs, the
+    predictions), kernel A's launches by the proposal NMS and the final."""
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    with torch.inference_mode():
+        vox = det.voxelize(pts, mask)
+        vox['books'] = det.books(vox)
+        sync()
+        ro.LAUNCHES = 0
+        ret = det.model.forward(vox)
+        sync()
+        a_prop = ro.LAUNCHES
+        ro.LAUNCHES = 0
+        preds = det.model.predict(ret)
+        sync()
+    return vox, ret, preds, (a_prop, ro.LAUNCHES)
+
+
+def parta2_gpu_vs_cpu(tag, cfg, dev, pts, mask):
+    """The f32 detect on the card (kernel B) against the CPU's, stage by
+    stage: heads, RoIs, RCNN outputs, detections (1e-3 on the boxes)."""
+    from pcdet_tpu_torch.ops import gather_gemm as gg
+    from pcdet_tpu_torch.ops import sparse
+    cfg32 = parta2_f32(cfg)
+    outs = {}
+    for name, d in (('gpu', dev), ('cpu', torch.device('cpu'))):
+        det32 = second_detector(cfg32, d, sparse.ROWS)
+        reset_launches()
+        t0 = time.perf_counter()
+        _, ret, preds, _ = parta2_run(det32, pts.to(d), mask.to(d))
+        if name == 'gpu':
+            sync()
+            launches_b = gg.LAUNCHES['gather_gemm_f32']
+            stray_c = gg.LAUNCHES['gather_gemm_bf16']
+        outs[name] = ({k: ret[k].cpu() for k in ('cls_preds', 'box_preds',
+                                                 'u_seg_preds')},
+                      {k: v.cpu() for k, v in ret['rcnn'].items()},
+                      {k: v.cpu() for k, v in preds.items()})
+        print('[parta2 %s] %s detect B%d f32: %.2f s' % (
+            tag, name, pts.shape[0], time.perf_counter() - t0))
+        if name == 'gpu':
+            gpu_det = det32
+        del det32
+    (hg, rg, pg), (hc, rc, pc) = outs['gpu'], outs['cpu']
+    head_err = {k: (hg[k] - hc[k]).abs().max().item() / max(
+        hc[k].abs().max().item(), 1e-30) for k in hg}
+    same_rois = (torch.equal(rg['roi_valid'], rc['roi_valid'])
+                 and torch.equal(rg['roi_labels'], rc['roi_labels']))
+    roi_err = (rg['rois'] - rc['rois']).abs().max().item()
+    rcnn_err = max((rg[k] - rc[k]).abs().max().item()
+                   for k in ('rcnn_cls', 'rcnn_reg'))
+    num_g, num_c = pg['num'].tolist(), pc['num'].tolist()
+    box_err = (pg['boxes'] - pc['boxes']).abs().max().item()
+    print('[parta2 %s] f32 GPU vs CPU at B%d: heads max |diff| / max %s; RoI '
+          'valid and labels equal %s, max |RoI diff| %.3g; max |RCNN diff| '
+          '%.3g; num %s vs %s, max |box diff| %.3g; kernel B launches %d, '
+          'kernel C %d' % (tag, pts.shape[0], {k: '%.3g' % v for k, v in
+                                               head_err.items()}, same_rois,
+                           roi_err, rcnn_err, num_g, num_c, box_err,
+                           launches_b, stray_c))
+    require(launches_b == PARTA2_CONVS and stray_c == 0, 'the f32 Part-A2 '
+            'path launched B %d times, C %d' % (launches_b, stray_c))
+    require(same_rois and roi_err <= 1e-3, 'GPU and CPU RoIs differ')
+    require(num_g == num_c and min(num_g) > 0,
+            'GPU and CPU detection counts differ: %s vs %s' % (num_g, num_c))
+    require(box_err <= 1e-3, 'GPU and CPU boxes differ by %g' % box_err)
+    return gpu_det, pg
+
+
+def parta2_loads(tag, cfg, dev, pts, mask, ref, dtype):
+    """Detect under loads.fwd xwin and seg against the rows detect `ref`:
+    the launches the loads predict, no tap outside its window, the same
+    detections (E / E' give B's / C's bits).  Returns E's and E''s launches
+    at (128, 64)."""
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    from pcdet_tpu_torch.ops import sparse
+    pairs = {}
+    for fwd in ('xwin', 'seg'):
+        loads = sparse.Loads(fwd, 'seg')
+        det = second_detector(cfg, dev, loads)
+        det.detect(pts, mask)
+        sync()
+        reset_launches()
+        gx.PAIR_LAUNCHES.clear()
+        got = det.detect(pts, mask)
+        sync()
+        counts = nonzero(all_launches())
+        t = 'bf16' if dtype == torch.bfloat16 else 'f32'
+        name = 'gather_gemm_%s_%s' % (fwd, t)
+        pairs[name] = gx.PAIR_LAUNCHES.get((name, 128, 64), 0)
+        clamped = {k: int(v) for k, v in
+                   det.model.module.rpn_net.xwin_clamped.items()}
+        box_err = (got['boxes'] - ref['boxes'].to(dev)).abs().max().item()
+        bitwise = all(torch.equal(got[k], ref[k].to(dev)) for k in got)
+        print('[parta2 %s] loads %s %s at B%d: num %s (rows %s), max |box '
+              'diff| vs rows %.3g, bitwise equal %s; launches %s, of them at '
+              '(128, 64) %d; taps outside their window %s' % (
+                  tag, tuple(loads), t, pts.shape[0], got['num'].tolist(),
+                  ref['num'].tolist(), box_err, bitwise, counts, pairs[name],
+                  sum(clamped.values())))
+        require(counts == parta2_launches(loads, dtype), 'launches %s, want '
+                '%s' % (counts, parta2_launches(loads, dtype)))
+        require(pairs[name] == 2, '%s launched %d times at (128, 64), want 2'
+                % (name, pairs[name]))
+        require(len(clamped) == PARTA2_SELECTORS
+                and not any(clamped.values()), 'taps outside their window: '
+                '%s' % clamped)
+        require(torch.equal(got['num'], ref['num'].to(dev))
+                and box_err <= 1e-3, 'loads %s: detections differ from rows'
+                % (tuple(loads),))
+        del det
+    return pairs
+
+
+def parta2_pool_repeat(tag, det, vox, ret):
+    """The RoI pool twice on the same inputs: the same bits."""
+    with torch.inference_mode():
+        rois = ret['rcnn']['rois']
+        a = det.model.pool(ret, vox, rois)
+        b = det.model.pool(ret, vox, rois)
+        sync()
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    cells = int((a[0].abs().sum(-1) > 0).sum())
+    print('[parta2 %s] RoI pool twice: bitwise equal %s; %d occupied cells '
+          'over %d RoIs; points past the cap %d' % (
+              tag, same, cells, rois.shape[0] * rois.shape[1], int(a[2])))
+    require(same, 'the RoI pool is not deterministic')
+    require(cells > 0, 'the RoI pool found no voxel in any RoI')
+
+
+def parta2_split(det, pts, mask, iters=5):
+    """CUDA-event ms of a detect's stages on one batch: voxelize, books
+    (host clock: coords to the host, the build, the upload), the UNet's
+    encoder, its decoder (the UNet less its encoder), RPN, the proposal
+    layer, the RoI pool, the RCNN and the final NMS (decode and
+    post-processing)."""
+    from pcdet_tpu_torch.ops import sparse
+    model = det.model
+    module = model.module
+    unet = module.rpn_net
+    cd = module.compute_dtype
+    t = {}
+    with torch.inference_mode():
+        vox = det.voxelize(pts, mask)
+        t['voxelize'] = cuda_ms(lambda: det.voxelize(pts, mask), iters)
+        books_ms = []
+        for _ in range(iters):
+            sync()
+            t0 = time.perf_counter()
+            books = det.books(vox)
+            sync()
+            books_ms.append(1e3 * (time.perf_counter() - t0))
+        t['books'] = sorted(books_ms)[iters // 2]
+        vox['books'] = books
+        feats = module.vfe(vox['voxels'], vox['num_points_per_voxel'],
+                           vox['coordinates'], vox['voxel_mask'])
+        level = sparse.from_voxelizer(feats, vox['coordinates'],
+                                      vox['voxel_mask'], module.sparse_shape)
+        cap = level.features.shape[1]
+        t['encoder'] = cuda_ms(lambda: unet.encode(
+            level, books, cd, unet.shared_books(books, cap)), iters)
+        t['decoder'] = cuda_ms(lambda: unet(level, books, cd),
+                               iters) - t['encoder']
+        ret = model.forward(vox)
+        t['rpn'] = cuda_ms(lambda: module.rpn_head(ret['spatial_features']),
+                           iters)
+        t['proposal'] = cuda_ms(lambda: model.proposals(ret), iters)
+        rois = ret['rcnn']['rois']
+        t['pool'] = cuda_ms(lambda: model.pool(ret, vox, rois), iters)
+        part, rpn, _ = model.pool(ret, vox, rois)
+        part, rpn = part.flatten(0, 1), rpn.flatten(0, 1)
+        t['rcnn'] = cuda_ms(lambda: module.rcnn_net(part, rpn), iters)
+        t['final_nms'] = cuda_ms(lambda: model.predict(ret), iters)
+    return t
+
+
+def parta2_times(tag, det, pts8, mask8, batches, profile=False):
+    """frames/s (median of 3 runs of 5 batches) and the stage split at each
+    batch size, with kernel A's launches a batch (proposal NMS, final
+    NMS); a torch.profiler breakdown at the last size when `profile`."""
+    for b in batches:
+        pts, mask = pts8[:b].contiguous(), mask8[:b].contiguous()
+        det.detect(pts, mask)
+        sync()
+        reset_launches()
+        _, _, _, (a_prop, a_final) = parta2_run(det, pts, mask)
+        counts = nonzero(all_launches())
+        batch_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                det.detect(pts, mask)
+            sync()
+            batch_ms.append(1e3 * (time.perf_counter() - t0) / 5)
+        ms = sorted(batch_ms)[1]
+        t = parta2_split(det, pts, mask)
+        print('[parta2 %s B%d] detect %.2f frames/s (median of 3 runs of 5 '
+              'batches; ms per batch %s); split (ms): %s; sum of the split '
+              '%.2f; launches a batch: %s, kernel A %d (proposal NMS %d, '
+              'final NMS %d)' % (
+                  tag, b, 1e3 * b / ms, ', '.join('%.2f' % x
+                                                  for x in batch_ms),
+                  ', '.join('%s %.3f' % kv for kv in t.items()),
+                  sum(t.values()), counts, a_prop + a_final, a_prop,
+                  a_final))
+    if not profile:
+        return
+    busy, rows, ops = profile_detect(det, pts, mask)
+    if not rows:
+        print('[parta2 %s B%d] no device time recorded: not measured'
+              % (tag, b))
+        return
+    print('[parta2 %s B%d] device busy %.2f ms per batch of %.2f ms '
+          'unprofiled: idle share %.1f%%' % (tag, b, busy, ms,
+                                            100 * (1 - busy / ms)))
+    for tt, name in rows[:12]:
+        print('[parta2 %s B%d]   kernel %7.3f ms %5.1f%%  %s' % (
+            tag, b, tt, 100 * tt / busy, name[:90]))
+    for tt, name in ops[:12]:
+        print('[parta2 %s B%d]   op     %7.3f ms %5.1f%%  %s' % (
+            tag, b, tt, 100 * tt / busy, name))
+
+
+def window_pair_vs_plain(dev, books):
+    """E and E' (f32, bf16) at (128, 64), the merge convs' pair, against
+    their plain versions on the level-3 subm book of a real B2 batch
+    (up3_m's), n_live real, mid-tile and 0: 1e-5 of max |plain|, bitwise
+    equal to B / C on the rules and to a second launch; device times.
+    Returns the kernels line's stats by LAUNCHES name."""
+    from pcdet_tpu_torch.ops import gather_gemm as gg
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    from pcdet_tpu_torch.ops import sparse
+    rules = books['subm3']
+    in_mask = books['spconv3'][2]
+    b, v, k = rules.shape
+    n_in = v
+    base, sel, clamped = sparse.xwin_selectors(rules, n_in)
+    require(int(clamped) == 0, 'subm3: taps outside their window')
+    gen = torch.Generator(device='cpu').manual_seed(3)
+    feats = torch.randn((b, n_in + 1, 128), generator=gen).to(dev)
+    feats[:, :n_in] *= in_mask[..., None]
+    feats[:, n_in] = 0
+    w32 = ((torch.rand((k, 128, 64), generator=gen) * 2 - 1)
+           / (128 * k) ** 0.5).to(dev)
+    live = in_mask.sum(1, dtype=torch.int32)
+    mid = torch.minimum(live, torch.full_like(live, 64 * 29 + 17))
+    stats = {}
+    for dtype, tag in ((torch.float32, 'f32'), (torch.bfloat16, 'bf16')):
+        table, w = feats.to(dtype), w32.to(dtype)
+        for variant in ('xwin', 'seg'):
+            fn = gx.gather_gemm_xwin if variant == 'xwin' else \
+                gx.gather_gemm_seg
+            plain = (gx.gather_gemm_xwin_plain if variant == 'xwin'
+                     else gx.gather_gemm_seg_plain)
+            err, scale = 0.0, 0.0
+            for n_live in (live, mid, torch.zeros_like(live)):
+                got = fn(table, base, sel, w, n_live)
+                again = fn(table, base, sel, w, n_live)
+                want = plain(table, base, sel, w, n_live)
+                rows = gg.gather_gemm(table, rules, w, n_live)
+                sync()
+                require(torch.equal(got, again), '%s %s (128, 64): two '
+                        'launches differ' % (variant, tag))
+                require(torch.equal(got, rows), '%s %s (128, 64): not the '
+                        'bits of kernel %s' % (variant, tag,
+                                               'C' if tag == 'bf16' else 'B'))
+                err = max(err, (got - want).abs().max().item())
+                scale = max(scale, want.abs().max().item())
+            require(err <= 1e-5 * scale, '%s %s (128, 64): kernel vs plain '
+                    '%g > 1e-5 * %g' % (variant, tag, err, scale))
+            ms = device_ms(lambda: fn(table, base, sel, w, live), 20)
+            rows_ms = device_ms(lambda: gg.gather_gemm(table, rules, w,
+                                                       live), 20)
+            plain_ms = cuda_ms(lambda: plain(table, base, sel, w, live), 3, 1)
+            name = 'gather_gemm_%s_%s' % (variant, tag)
+            stats[name] = {'err': err, 'ms': ms, 'plain_ms': plain_ms,
+                           'work': gather_work(
+                               table, rules, live, 64, 8 * base.shape[2],
+                               w.numel() * w.element_size()
+                               + 4 * b * v * 64)}
+            print('[parta2 R1] %s %s (128, 64) on the level-3 subm book (B=%d,'
+                  ' V=%d, live %s, mid %s, 0): max |kernel - plain| %.3g (%.3g '
+                  'of max |plain| %.4g); bitwise equal to kernel %s and to a '
+                  'second launch; kernel %.4f ms (device), kernel %s %.4f ms, '
+                  'plain %.4f ms, bound %.4f ms (%s); W stages %d, row stages '
+                  '%d' % (variant, tag, b, v, live.tolist(), mid.tolist(),
+                          err, err / scale, scale,
+                          'C' if tag == 'bf16' else 'B', ms,
+                          'C' if tag == 'bf16' else 'B', rows_ms, plain_ms,
+                          *bound_ms(*stats[name]['work']),
+                          *gx.stages(dtype, 128, 64)))
+    return stats
+
+
+def run_parta2(dev):
+    """Phases R1-R3; returns the kernels line's entries of E and E' at
+    (128, 64) and the launches by path of A and C: {name: {path: n}}."""
+    from pcdet_tpu_torch import detect as detect_mod
+    from pcdet_tpu_torch.datasets.synthetic import (SyntheticDataset,
+                                                    eval_batches)
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    cfg = detect_mod.load_config(detect_mod.PARTA2_CFG)
+    post = int(cfg.MODEL.TEST.NMS_POST_MAXSIZE_LAST)
+    pts_np, mask_np = detect_mod.make_scans(cfg, 8, ring_keep=0.35)
+    pts8 = torch.as_tensor(pts_np, device=dev)
+    mask8 = torch.as_tensor(mask_np, device=dev)
+    pts2, mask2 = pts8[:2].contiguous(), mask8[:2].contiguous()
+    paths = {}
+
+    # R1. PartA2.yaml at full width ---------------------------------------
+    t_r1 = time.perf_counter()
+    det = second_detector(cfg, dev)
+    det.detect(pts2, mask2)                  # warm-up (cuDNN algorithms)
+    sync()
+    reset_launches()
+    ro.LAUNCHES = 0
+    preds = det.detect(pts2, mask2)
+    sync()
+    counts, a_launches = nonzero(all_launches()), ro.LAUNCHES
+    num = second_detect_checks(preds, post, 2)
+    vox, ret, _, (a_prop, a_final) = parta2_run(det, pts2, mask2)
+    rc = ret['rcnn']
+    print('[parta2 R1] PartA2.yaml detect B2 (bf16 UNet, RPN and RCNN, loads '
+          '%s): num %s; launches %s, kernel A %d (proposal NMS %d, final NMS '
+          '%d); input voxels %s of cap %d, voxelizer overflow %s; per-level '
+          'drops %s, RoI pool points past the cap %d; RoIs %s, RoI labels %s'
+          % (tuple(det.loads), num, counts, a_launches, a_prop, a_final,
+             vox['voxel_mask'].sum(1).tolist(), det.max_voxels,
+             voxel_overflow(det, pts2, mask2),
+             {k: v.tolist() for k, v in ret['overflow'].items()
+              if k != 'roi_pts'}, int(ret['overflow']['roi_pts']),
+             rc['roi_valid'].sum(1).tolist(),
+             torch.bincount(rc['roi_labels'][rc['roi_valid']].flatten(),
+                            minlength=4).tolist()[1:]))
+    require(counts == parta2_launches(det.loads, torch.bfloat16),
+            'launches %s, want %s' % (counts, parta2_launches(
+                det.loads, torch.bfloat16)))
+    require(a_prop > 0 and a_final > 0 and a_launches == a_prop + a_final,
+            'kernel A: %d launches, proposal NMS %d, final NMS %d'
+            % (a_launches, a_prop, a_final))
+    require(bool(rc['roi_valid'].all()), 'fewer than NMS_POST_MAXSIZE RoIs')
+    paths['rotated_overlap'] = {'parta2 detect B2': a_launches}
+    paths['gather_gemm_bf16'] = {'parta2 detect B2':
+                                 counts['gather_gemm_bf16']}
+    parta2_pool_repeat('R1', det, vox, ret)
+    gpu32, ref32 = parta2_gpu_vs_cpu('R1', cfg, dev, pts2, mask2)
+    del gpu32
+    pairs = parta2_loads('R1', cfg, dev, pts2, mask2, preds, torch.bfloat16)
+    pairs.update(parta2_loads('R1', parta2_f32(cfg), dev, pts2, mask2, ref32,
+                              torch.float32))
+    stats = window_pair_vs_plain(dev, vox['books'])
+    parta2_times('R1', det, pts8, mask8, (2, 8), profile=True)
+    del det, vox, ret
+    sync()
+    print('[parta2 R1] %.1f s' % (time.perf_counter() - t_r1))
+
+    # R2. PartA2_fc.yaml at B2 --------------------------------------------
+    t0 = time.perf_counter()
+    cfg_fc = detect_mod.load_config(detect_mod.PARTA2_FC_CFG)
+    det = second_detector(cfg_fc, dev)
+    det.detect(pts2, mask2)
+    sync()
+    reset_launches()
+    ro.LAUNCHES = 0
+    preds = det.detect(pts2, mask2)
+    sync()
+    counts, a_launches = nonzero(all_launches()), ro.LAUNCHES
+    num = second_detect_checks(preds, post, 2)
+    vox, ret, _, (a_prop, a_final) = parta2_run(det, pts2, mask2)
+    print('[parta2 R2] PartA2_fc.yaml detect B2 (FCRCNN on 12^3 grids): num '
+          '%s; launches %s, kernel A %d (proposal NMS %d, final NMS %d); RoI '
+          'pool points past the cap %d' % (
+              num, counts, a_launches, a_prop, a_final,
+              int(ret['overflow']['roi_pts'])))
+    require(counts == parta2_launches(det.loads, torch.bfloat16),
+            'launches %s' % counts)
+    require(a_prop > 0 and a_final > 0, 'kernel A did not run both NMS')
+    paths['rotated_overlap']['parta2_fc detect B2'] = a_launches
+    paths['gather_gemm_bf16']['parta2_fc detect B2'] = counts[
+        'gather_gemm_bf16']
+    parta2_pool_repeat('R2', det, vox, ret)
+    parta2_gpu_vs_cpu('R2', cfg_fc, dev, pts2, mask2)
+    parta2_loads('R2', cfg_fc, dev, pts2, mask2, preds, torch.bfloat16)
+    parta2_times('R2', det, pts8, mask8, (2,))
+    del det, vox, ret
+    sync()
+    print('[parta2 R2] %.1f s' % (time.perf_counter() - t0))
+
+    # R3. eval_one_epoch on 16 synthetic scenes at B2 and B8 --------------
+    t0 = time.perf_counter()
+    cfg_e = eval_config(detect_mod.PARTA2_CFG)
+    det = eval_detector(cfg_e, dev)
+    dataset = SyntheticDataset(cfg_e)
+    for b in (2, 8):
+        batches = list(eval_batches(dataset, b))
+        det.detect(torch.as_tensor(batches[0]['points'], device=dev),
+                   torch.as_tensor(batches[0]['point_mask'], device=dev))
+        result, checker, counts = run_eval_checked(det, dataset, batches,
+                                                   cfg_e)
+        eval_checks('PartA2.yaml B%d' % b, result, checker, counts)
+        cross_checks('PartA2.yaml B%d' % b, checker)
+        require(counts.get('gather_gemm_bf16', 0) == PARTA2_CONVS
+                * len(batches), 'the Part-A2 eval launched C %s times'
+                % counts.get('gather_gemm_bf16'))
+        paths['rotated_overlap']['parta2 eval B%d (R3)' % b] = counts[
+            'rotated_overlap']
+        if b == 2:
+            oracle_check(dev, dataset, batches, cfg_e)
+        splits = [eval_split(det, dataset, batches, cfg_e)[0]
+                  for _ in range(3)]
+        med = {k: sorted(x[k] for x in splits)[1] for k in splits[0]}
+        print('[parta2 R3 B%d] eval loop %.2f frames/s without the evaluator '
+              '(eval_one_epoch\'s sec_per_example %.4f), %.2f with it (the '
+              'split\'s sum); split over %d frames (host clock, median of 3): '
+              'detect %.1f ms (%.2f frames/s), recall %.1f ms, annotate %.1f '
+              'ms, evaluate %.1f ms' % (
+                  b, 1.0 / result['sec_per_example'],
+                  result['sec_per_example'], len(dataset) / sum(med.values()),
+                  len(dataset),
+                  1e3 * med['detect'], len(dataset) / med['detect'],
+                  1e3 * med['recall'], 1e3 * med['annotate'],
+                  1e3 * med['evaluate']))
+    del det
+    sync()
+    print('[parta2 R3] %.1f s' % (time.perf_counter() - t0))
+
+    entries = []
+    for name, st in stats.items():
+        entry = kernel_entry(name + '@128x64', GEMM_SRC,
+                             REPLACES[name.rsplit('_', 1)[0]],
+                             pairs.get(name, 0), st['err'], st['ms'],
+                             st['plain_ms'], st['work'])
+        entry['launches_by_path'] = {'parta2 detect B2 under loads.fwd %s'
+                                     % name.split('_')[2]: pairs.get(name, 0)}
+        require(entry['launches'] > 0, '%s at (128, 64): no launch' % name)
+        entries.append(entry)
+    return entries, paths
+
+
+def parta2_cli(dev, root, out_root, sets, val_infos):
+    """R4: the test CLI on PartA2.yaml over the KITTI tree's first 4 val
+    frames, on a checkpoint `save_checkpoint` wrote from random weights
+    (seed 0, conv_cls's bias zeroed): kernel C on every conv, kernel A,
+    the logged AP string equal to the evaluator on result.pkl.  Returns
+    the launches of A and C."""
+    import os
+    import pickle
+
+    from pcdet_tpu_torch import detect as detect_mod
+    from pcdet_tpu_torch.datasets.kitti import kitti_eval_cli
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    from pcdet_tpu_torch.tools import test as test_cli
+    from pcdet_tpu_torch.train.checkpoint import save_checkpoint
+    from pcdet_tpu_torch.train.optimization import (
+        build_optimizer_and_schedule)
+    from pcdet_tpu_torch.train.train_state import TrainState
+
+    cfg = detect_mod.load_config(detect_mod.PARTA2_CFG)
+    det = second_detector(cfg, dev)
+    opt, _ = build_optimizer_and_schedule(cfg.MODEL.TRAIN.OPTIMIZATION, 1, 1)
+    opt.init(det.model.module.named_parameters())
+    ckpt = save_checkpoint(TrainState(det.model, opt),
+                           os.path.join(out_root, 'parta2_ckpt'), 0)
+    del det, opt
+    reset_launches()
+    ro.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = test_cli.main(
+        ['--cfg_file', str(detect_mod.PARTA2_CFG), '--batch_size', '2',
+         '--workers', '4', '--extra_tag', 'chip_smoke', '--device', dev.type,
+         '--ckpt', ckpt, '--set'] + sets)
+    sync()
+    counts, a_launches = nonzero(all_launches()), ro.LAUNCHES
+    eval_dir, result = out['results'][0]
+    with open(os.path.join(str(eval_dir), 'result.pkl'), 'rb') as f:
+        det_annos = pickle.load(f)
+    again, _ = kitti_eval_cli.evaluation(det_annos, val_infos, KITTI_CLASSES)
+    logged = logged_result(out['log_file'])
+    print('[parta2 R4] test CLI PartA2.yaml on a random-weight checkpoint, '
+          '%d val frames at B2 in %.2f s: launches %s, kernel A %d; recall/gt '
+          '%s, rcnn_0.5 %s, rcnn_0.7 %s; %d detections; Car_3d_moderate %s; '
+          'logged AP string == the evaluator on result.pkl: %s' % (
+              len(det_annos), time.perf_counter() - t0, counts, a_launches,
+              result['recall/gt'], result['recall/rcnn_0.5'],
+              result['recall/rcnn_0.7'],
+              sum(a['num_example'] for a in det_annos),
+              result.get('Car_3d_moderate'), logged == again.strip()))
+    require(len(det_annos) == len(val_infos) and result['recall/gt'] > 0,
+            'Part-A2 test CLI: %d annos, recall/gt %s'
+            % (len(det_annos), result['recall/gt']))
+    require(counts.get('gather_gemm_bf16', 0) == PARTA2_CONVS * (
+        -(-len(val_infos) // 2)) and a_launches > 0,
+        'Part-A2 test CLI: launches %s, kernel A %d' % (counts, a_launches))
+    require(all(np.isfinite(float(v)) for v in result.values()),
+            'Part-A2 test CLI: a result is not finite')
+    require(finite_numbers(logged) and logged == again.strip(),
+            'Part-A2 test CLI: the logged AP string differs from the '
+            'evaluator on result.pkl')
+    return {'rotated_overlap': a_launches,
+            'gather_gemm_bf16': counts['gather_gemm_bf16']}
 
 
 def main():
@@ -3531,7 +4102,7 @@ def main():
         torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0)))
 
     # 1. build: every kernel (one nvcc each) and the host book builder at once
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     builds = (ro.build, ro.build_sorted, gg.build, gd.build, gx.build,
               gd.build_xwin, kitti_native.get_lib, host_books.native_lib)
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
@@ -3793,17 +4364,30 @@ def main():
               '(%.1f%% of device time)' % (b, ovl, 100 * ovl / busy))
     sync()
 
-    second = run_second(dev, detect_mod.load_config(detect_mod.SECOND_CFG))
-    dw_entry, b_train = run_train(
-        dev, detect_mod.load_config(detect_mod.SECOND_CFG))
+    def timed(tag, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print('[time] %s: %.1f s' % (tag, time.perf_counter() - t0))
+        return out
+
+    print('[time] build and PointPillar phases 1-6: %.1f s'
+          % (time.perf_counter() - t_start))
+    second = timed('SECOND S1-S5', run_second, dev,
+                   detect_mod.load_config(detect_mod.SECOND_CFG))
+    dw_entry, b_train = timed('training T1-T5', run_train, dev,
+                              detect_mod.load_config(detect_mod.SECOND_CFG))
     second[0].update(b_train)
-    xwin = run_xwin(dev, detect_mod.load_config(detect_mod.SECOND_CFG))
+    xwin = timed('load strategies X1-X4', run_xwin, dev,
+                 detect_mod.load_config(detect_mod.SECOND_CFG))
     require(g1_launches > 0, 'the B1 detect launched no kernel A at G = 1')
-    evals = run_eval(dev, g1_launches, {
+    evals = timed('evaluation V1-V4', run_eval, dev, g1_launches, {
         'second.yaml': eval_config(detect_mod.SECOND_CFG),
         'pointpillar.yaml': eval_config(detect_mod.DEFAULT_CFG)})
-    pp_eval_launches = run_pointpillar_train(dev, detect_mod.load_config())
-    cli_paths = run_cli(dev)
+    pp_eval_launches = timed('PointPillar training P1-P4',
+                             run_pointpillar_train, dev,
+                             detect_mod.load_config())
+    parta2_entries, parta2_paths = timed('Part-A2 R1-R3', run_parta2, dev)
+    cli_paths = timed('CLI pair L1-L4, R4', run_cli, dev)
 
     a_entry = kernel_entry(
         'rotated_overlap', 'pcdet_tpu_torch/csrc/rotated_overlap.cu',
@@ -3812,11 +4396,12 @@ def main():
     a_entry['launches_by_path'] = {
         'pointpillar detect B2': launches_b2,
         'pointpillar trained checkpoint eval B2 (P4)': pp_eval_launches}
-    kernels = [a_entry] + second + [dw_entry] + xwin + evals
+    kernels = [a_entry] + second + [dw_entry] + xwin + parta2_entries + evals
     for entry in kernels:
-        if entry['name'] in cli_paths:
-            entry.setdefault('launches_by_path', {}).update(
-                cli_paths[entry['name']])
+        for paths in (parta2_paths, cli_paths):
+            if entry['name'] in paths:
+                entry.setdefault('launches_by_path', {}).update(
+                    paths[entry['name']])
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

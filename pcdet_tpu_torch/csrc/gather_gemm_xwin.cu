@@ -107,13 +107,17 @@ constexpr long long kSmemLimit = 232448; // a block's shared memory on sm_90
 constexpr int kMaxGroups = 21;
 constexpr int kMaxSegRows = 1022;        // 10-bit offsets, 1023 a miss
 constexpr int kSegS = 256;               // ops/gather_xwin.py SEG_S: every instance takes it
-constexpr int kWStages = 3;              // W ring, in x-taps
 constexpr int kHeader = 16;              // the found-group mask, 16-byte aligned
 
 // Shared layout of an instance, T = float (f32) or __nv_bfloat16 (bf16);
 // ops/gather_xwin.py:smem_bytes mirrors it.
-//   header 16 | W ring [3][CinS][W row] | zero row | rows [2][slots][row]
+//   header 16 | W ring [WS][CinS][W row] | zero row | rows [RS][slots][row]
 //   | base, sel [64][G] ints | anchor, span [G] ints
+// WS = 3 W stages and RS = 2 row stages where they fit a block at S = 256
+// and 21 groups: every instance but f32 (128, 64), whose 512-byte rows
+// and 32 KB of W an x-tap do not; it takes WS = 2 and RS = 1, and stages a
+// group's rows after the barrier of the group's first x-tap instead of
+// two x-taps ahead.
 // One 64-row tile a block: blocks of two or four tiles (more threads, more
 // shared memory, fewer blocks an SM) timed slower on SECOND's shapes.
 template <typename T, int CIN, int COUT>
@@ -129,6 +133,12 @@ struct Layout {
   static constexpr int kRowBytes = kPad && kRowRaw > 16 ? kRowRaw + 16 : kRowRaw;
   static constexpr int kWRowBytes = COUT * static_cast<int>(sizeof(T)) + (kBf16 ? 16 : 0);
   static constexpr int kWBytes = kCinS * kWRowBytes;
+  static constexpr bool kTwoRowStages =
+      kHeader + 3LL * kWBytes + kRowBytes + 4LL * kMaxGroups * (2 * kTileRows + 2) +
+          2LL * kSegS * kRowBytes <=
+      kSmemLimit;
+  static constexpr int kWStages = kTwoRowStages ? 3 : 2;    // W ring, in x-taps
+  static constexpr int kRowStages = kTwoRowStages ? 2 : 1;
   static constexpr int kCopyBytes = CIN * static_cast<int>(sizeof(T)) < 16 ? 8 : 16;
   static constexpr int kRowCopies = CIN * static_cast<int>(sizeof(T)) / kCopyBytes;
   static constexpr int kWRowCopies = COUT * static_cast<int>(sizeof(T)) / 16;
@@ -140,13 +150,14 @@ struct Layout {
     return kHeader + kWStages * kWBytes + kRowBytes + 4LL * groups * (2 * kTileRows + 2);
   }
   __host__ __device__ static constexpr long long smem_bytes(int seg_rows, int groups) {
-    return fixed_bytes(groups) + 2LL * slots(seg_rows) * kRowBytes;
+    return fixed_bytes(groups) + 1LL * kRowStages * slots(seg_rows) * kRowBytes;
   }
   // the most segment rows the instance stages at any G
   __host__ __device__ static constexpr int max_seg_rows() {
-    return (kSmemLimit - fixed_bytes(kMaxGroups)) / (2LL * kRowBytes) > kMaxSegRows
+    return (kSmemLimit - fixed_bytes(kMaxGroups)) / (1LL * kRowStages * kRowBytes) > kMaxSegRows
                ? kMaxSegRows
-               : static_cast<int>((kSmemLimit - fixed_bytes(kMaxGroups)) / (2LL * kRowBytes));
+               : static_cast<int>((kSmemLimit - fixed_bytes(kMaxGroups)) /
+                                  (1LL * kRowStages * kRowBytes));
   }
   static_assert(kThreads <= 256 && kThreads % 32 == 0, "threads");
 };
@@ -354,9 +365,9 @@ gather_gemm_xwin_kernel(const T* __restrict__ feats, const int* __restrict__ bas
   const int slots = L::slots(SEG ? seg_rows : 0);
   unsigned* s_mask = reinterpret_cast<unsigned*>(smem);
   unsigned char* s_w = smem + kHeader;                               // [3][CinS][W row]
-  unsigned char* s_zero = s_w + kWStages * L::kWBytes;               // one row
+  unsigned char* s_zero = s_w + L::kWStages * L::kWBytes;            // one row
   unsigned char* s_rows = s_zero + RB;                               // [2][slots][RB]
-  int* s_base = reinterpret_cast<int*>(s_rows + 2 * slots * RB);     // [64][G]
+  int* s_base = reinterpret_cast<int*>(s_rows + L::kRowStages * slots * RB);  // [64][G]
   int* s_sel = s_base + ROWS * groups;                               // [64][G]
   int* s_anc = s_sel + ROWS * groups;                                // [G]
   int* s_spn = s_anc + groups;                                       // [G]
@@ -379,7 +390,8 @@ gather_gemm_xwin_kernel(const T* __restrict__ feats, const int* __restrict__ bas
   // pad rows, which the copies never write
   if (L::kBf16 && L::kCinS != CIN) {
     uint4* z = reinterpret_cast<uint4*>(s_w);
-    for (int e = tid; e < (kWStages * L::kWBytes + RB + 2 * stage_bytes) / 16; e += NT)
+    for (int e = tid; e < (L::kWStages * L::kWBytes + RB + L::kRowStages * stage_bytes) / 16;
+         e += NT)
       z[e] = make_uint4(0, 0, 0, 0);
   } else {
     for (int e = tid; e < RB / 16; e += NT)
@@ -439,8 +451,38 @@ gather_gemm_xwin_kernel(const T* __restrict__ feats, const int* __restrict__ bas
   const int n_steps = 3 * __popc(found);
 
   const T* feats_b = feats + static_cast<long long>(b) * v_in1 * CIN;
-  // step u: W[3g + dx] into W stage u % 3 and, with the group's first
-  // x-tap, the rows group g reads into row stage (u / 3) % 2
+  // the rows group g reads, into a row stage
+  auto fetch_rows = [&](int g, unsigned char* stage) {
+    constexpr int RC = L::kRowCopies, CB = L::kCopyBytes;
+    constexpr int kElems = CB / static_cast<int>(sizeof(T));
+    const int anc = s_anc[g];
+    if (SEG && anc >= 0) {                               // the span, once
+      const int span = s_spn[g];
+      for (int e = tid; e < span * RC; e += NT) {
+        const int r = e / RC;
+        const int q = e - r * RC;
+        const int src = anc + r;
+        if (src < v_in)
+          cp_async<CB>(stage + r * RB + q * CB,
+                       feats_b + static_cast<long long>(src) * CIN + q * kElems, CB);
+      }
+    } else {                                             // per row, its window
+      for (int e = tid; e < kWindowRows * RC; e += NT) {
+        const int slot = e / RC;
+        const int q = e - slot * RC;
+        const int r = slot / 3;
+        const int j = slot - 3 * r;
+        if (row0 + r >= live) continue;
+        const int sl = s_sel[r * groups + g];
+        const int src = s_base[r * groups + g] + j;
+        if (((sl & 3) == j || ((sl >> 2) & 3) == j || ((sl >> 4) & 3) == j) && src < v_in)
+          cp_async<CB>(stage + slot * RB + q * CB,
+                       feats_b + static_cast<long long>(src) * CIN + q * kElems, CB);
+      }
+    }
+  };
+  // step u: W[3g + dx] into W stage u % WS and, with the group's first
+  // x-tap, the rows group g reads into row stage (u / 3) % 2 (RS = 2)
   unsigned fetch_pend = found;
   int fetch_g = 0;
   auto fetch = [&](int u) {
@@ -448,37 +490,10 @@ gather_gemm_xwin_kernel(const T* __restrict__ feats, const int* __restrict__ bas
     if (dx == 0) {
       fetch_g = __ffs(fetch_pend) - 1;
       fetch_pend &= fetch_pend - 1;
-      unsigned char* stage = s_rows + ((u / 3) & 1) * stage_bytes;
-      constexpr int RC = L::kRowCopies, CB = L::kCopyBytes;
-      constexpr int kElems = CB / static_cast<int>(sizeof(T));
-      const int anc = s_anc[fetch_g];
-      if (SEG && anc >= 0) {                             // the span, once
-        const int span = s_spn[fetch_g];
-        for (int e = tid; e < span * RC; e += NT) {
-          const int r = e / RC;
-          const int q = e - r * RC;
-          const int src = anc + r;
-          if (src < v_in)
-            cp_async<CB>(stage + r * RB + q * CB,
-                         feats_b + static_cast<long long>(src) * CIN + q * kElems, CB);
-        }
-      } else {                                           // per row, its window
-        for (int e = tid; e < kWindowRows * RC; e += NT) {
-          const int slot = e / RC;
-          const int q = e - slot * RC;
-          const int r = slot / 3;
-          const int j = slot - 3 * r;
-          if (row0 + r >= live) continue;
-          const int sl = s_sel[r * groups + fetch_g];
-          const int src = s_base[r * groups + fetch_g] + j;
-          if (((sl & 3) == j || ((sl >> 2) & 3) == j || ((sl >> 4) & 3) == j) && src < v_in)
-            cp_async<CB>(stage + slot * RB + q * CB,
-                         feats_b + static_cast<long long>(src) * CIN + q * kElems, CB);
-        }
-      }
+      if (L::kRowStages == 2) fetch_rows(fetch_g, s_rows + ((u / 3) & 1) * stage_bytes);
     }
     const T* wk = w + static_cast<long long>(3 * fetch_g + dx) * CIN * COUT;
-    unsigned char* dst = s_w + (u % kWStages) * L::kWBytes;
+    unsigned char* dst = s_w + (u % L::kWStages) * L::kWBytes;
     constexpr int WQ = L::kWRowCopies;
     for (int e = tid; e < CIN * WQ; e += NT) {
       const int c = e / WQ;
@@ -488,7 +503,7 @@ gather_gemm_xwin_kernel(const T* __restrict__ feats, const int* __restrict__ bas
     }
   };
 #pragma unroll
-  for (int u = 0; u < kWStages - 1; ++u) {
+  for (int u = 0; u < L::kWStages - 1; ++u) {
     if (u < n_steps) fetch(u);
     cp_async_commit();
   }
@@ -515,19 +530,25 @@ gather_gemm_xwin_kernel(const T* __restrict__ feats, const int* __restrict__ bas
   core.init(tid);
   unsigned comp_pend = found;
   for (int s = 0; s < n_steps; ++s) {
-    cp_async_wait<kWStages - 2>();
+    cp_async_wait<L::kWStages - 2>();
     __syncthreads();              // step s landed; the stages of step s - 1 are free
-    if (s + kWStages - 1 < n_steps) fetch(s + kWStages - 1);
+    if (L::kRowStages == 1 && s % 3 == 0) {  // the one row stage is free: fill it
+      fetch_rows(__ffs(comp_pend) - 1, s_rows);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (s + L::kWStages - 1 < n_steps) fetch(s + L::kWStages - 1);
     cp_async_commit();
     const int dx = s % 3;
     if (dx == 0) {
       const int g = __ffs(comp_pend) - 1;
       comp_pend &= comp_pend - 1;
       core.route_group([&](int r, int (&off)[3], bool (&hit)[3]) {
-        route(r, g, (s / 3) & 1, off, hit);
+        route(r, g, L::kRowStages == 2 ? (s / 3) & 1 : 0, off, hit);
       });
     }
-    core.step(dx, smem, s_w + (s % kWStages) * L::kWBytes);
+    core.step(dx, smem, s_w + (s % L::kWStages) * L::kWBytes);
   }
   core.store(out_b, row0, live, v_out);
 }
@@ -566,6 +587,7 @@ int with_instance(int cin, int cout, int otherwise, F&& f) {
   PCDET_XWIN_CASE(64, 64)
   PCDET_XWIN_CASE(32, 16)
   PCDET_XWIN_CASE(64, 32)
+  PCDET_XWIN_CASE(128, 64)
 #undef PCDET_XWIN_CASE
   return otherwise;
 }

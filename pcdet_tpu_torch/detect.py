@@ -1,4 +1,4 @@
-"""Detection, raw scan to boxes, for PointPillar and SECOND.
+"""Detection, raw scan to boxes, for PointPillar, SECOND and Part-A².
 
     cfg = load_config()                       # tools/cfgs/pointpillar.yaml
     det = build_detector(cfg, 'cuda', seed=0)
@@ -15,9 +15,13 @@ runs voxelize_torch -> PointPillarNet (VFE, scatter, RPNV2) -> predict
 the coords to the host, the host rulebook build, one upload of the books,
 SECONDNetModule (MeanVFE, BackBone8x sparse convs, RPNV2) and predict;
 `build_detector(cfg, device, loads=ops.sparse.Loads(fwd, dw))` chooses the
-sparse convs' load strategy (`ops.sparse.DEFAULT_LOADS` unless given).  A
-data loader's voxelized batch (`datasets.build_dataloader`) goes to the
-device through `upload`, with SECOND's books from the loader.
+sparse convs' load strategy (`ops.sparse.DEFAULT_LOADS` unless given).
+Part-A²'s (`load_config(PARTA2_CFG)`, or `PARTA2_FC_CFG` for Part-A²-fc)
+runs the same books into PartA2Net: MeanVFE, the UNetV2 sparse convs,
+RPNV2, the proposal layer (NMS through kernel A), RoI-aware pooling, the
+RCNN head, and the final NMS of the refined boxes.  A data loader's
+voxelized batch (`datasets.build_dataloader`) goes to the device through
+`upload`, with the sparse models' books from the loader.
 `build_detector(cfg, device, checkpoint=path)` (a `train.checkpoint`
 `.pth`, or a reference one) or `state_dict=sd` puts trained weights in
 place of the random ones.
@@ -29,7 +33,7 @@ import torch
 
 from .config import cfg_from_yaml_file
 from .datasets.synthetic import make_scene
-from .models.build import build_network
+from .models.build import SPARSE_MODELS, build_network
 from .ops import host_books
 from .ops.voxelizer import grid_size, voxelize_torch
 from .weights import load_checkpoint, model_state
@@ -37,6 +41,8 @@ from .weights import load_checkpoint, model_state
 CFG_DIR = Path(__file__).resolve().parent.parent / 'tools' / 'cfgs'
 DEFAULT_CFG = CFG_DIR / 'pointpillar.yaml'
 SECOND_CFG = CFG_DIR / 'second.yaml'
+PARTA2_CFG = CFG_DIR / 'PartA2.yaml'
+PARTA2_FC_CFG = CFG_DIR / 'PartA2_fc.yaml'
 
 
 def load_config(path=DEFAULT_CFG):
@@ -66,7 +72,7 @@ def make_scans(cfg, batch, ring_keep=1.0):
 
 
 class Detector:
-    """PointPillar or SECOND (`models.build.build_network` by
+    """PointPillar, SECOND or Part-A² (`models.build.build_network` by
     `cfg.MODEL.NAME`) with random weights from `seed` (a CPU
     torch.Generator, so every device gets the same weights), or the
     weights of `state_dict` (the module's reference-keyed state_dict)."""
@@ -99,7 +105,8 @@ class Detector:
 
     def upload(self, batch):
         """A collated eval batch of the data loader (numpy: the host
-        voxelizer's voxels, gt_boxes, SECOND's `hb_*` books) -> the model's
+        voxelizer's voxels, gt_boxes, a sparse model's `hb_*` books) -> the
+        model's
         batch on the device, in one upload (`host_books.
         upload_loader_batch`)."""
         return host_books.upload_loader_batch(batch, self.device, self.model,
@@ -112,9 +119,9 @@ class Detector:
         return self.model.predict(self.forward(points, point_mask)[1])
 
 
-class SecondDetector(Detector):
-    """SECOND; the sparse backbone runs over rulebooks built on the host
-    from the voxelizer's coords, its kw=3 convs by `loads`
+class SparseDetector(Detector):
+    """SECOND or Part-A²: the sparse backbone runs over rulebooks built on
+    the host from the voxelizer's coords, its kw=3 convs by `loads`
     (`ops.sparse.Loads`)."""
 
     @property
@@ -145,10 +152,10 @@ class SecondDetector(Detector):
 
 def build_detector(cfg, device, seed=0, loads=None, checkpoint=None,
                    state_dict=None):
-    """PointPillar or SECOND by `cfg.MODEL.NAME`.
+    """PointPillar, SECOND or Part-A² by `cfg.MODEL.NAME`.
 
-    :param loads: SECOND's `ops.sparse.Loads` (None: the backbone's
-        default, `ops.sparse.DEFAULT_LOADS`);
+    :param loads: the sparse convs' `ops.sparse.Loads` (SECOND, Part-A²;
+        None: the backbone's default, `ops.sparse.DEFAULT_LOADS`);
         PointPillar has no sparse convs and takes none
     :param checkpoint: a `.pth` whose `model_state` (or which, as a bare
         state_dict) gives the weights, loaded onto `device`
@@ -158,6 +165,5 @@ def build_detector(cfg, device, seed=0, loads=None, checkpoint=None,
         if state_dict is not None:
             raise ValueError('give a checkpoint or a state_dict, not both')
         state_dict = model_state(load_checkpoint(checkpoint, device))
-    cls = (SecondDetector if cfg.MODEL.NAME in ('SECOND', 'second_net')
-           else Detector)
+    cls = SparseDetector if cfg.MODEL.NAME in SPARSE_MODELS else Detector
     return cls(cfg, device, seed, loads, state_dict)

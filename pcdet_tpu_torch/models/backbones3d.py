@@ -1,8 +1,12 @@
-"""SECOND's sparse 3D backbone on tensors, eval and training.
+"""SECOND's sparse 3D backbone on tensors, eval and training, and Part-A²'s
+sparse UNet (eval).
 
-Twin of `pcdet_tpu.models.backbones3d.SpConvBNReLU` / `BackBone8x` with the
-reference's module names (`conv_input.0`, `conv1.0.0`, `conv{2,3,4}.{0,1,2}.0`,
-`conv_out.0`; BN at `.1`), so a reference state_dict loads as it is.
+Twin of `pcdet_tpu.models.backbones3d.SpConvBNReLU` / `BackBone8x` /
+`SparseBasicBlock` / `UNetV2` with the reference's module names
+(`conv_input.0`, `conv1.0.0`, `conv{2,3,4}.{0,1,2}.0`, `conv_out.0`; BN at
+`.1`; the UNet's `conv_up_t{n}.{conv1,bn1,conv2,bn2}`, `conv_up_m{n}`,
+`inv_conv{n}`, `conv5.0`, `seg_{cls,reg}_layer`), so a reference
+state_dict loads as it is.
 Sparse-conv weights keep spconv's layout (k0, k1, k2, Cin, Cout).
 
 Every conv runs over a host-built rulebook (`ops/host_books.py`, keys of
@@ -60,10 +64,11 @@ class SparseConv3d(nn.Module):
     no bias (BN follows)."""
 
     def __init__(self, in_channels, out_channels, kernel=(3, 3, 3),
-                 stride=(1, 1, 1), padding=(1, 1, 1), subm=True):
+                 stride=(1, 1, 1), padding=(1, 1, 1), subm=True,
+                 inverse=False):
         super().__init__()
         self.kernel, self.stride, self.padding = kernel, stride, padding
-        self.subm = subm
+        self.subm, self.inverse = subm, inverse
         self.fan_in = in_channels * math.prod(kernel)    # init_weights' bound
         self.weight = nn.Parameter(torch.zeros(*kernel, in_channels,
                                                out_channels))
@@ -71,14 +76,22 @@ class SparseConv3d(nn.Module):
     def forward(self, level, book, compute_dtype, loads, **shared):
         """`loads`: `sparse.Loads`, applied when the kernel is 3 wide in x;
         `shared`: what the convs of a level share, the keyword arguments
-        of `sparse.subm_conv3d` / `sparse_conv3d` (mirror / bwd books and
-        selectors)."""
+        of `sparse.subm_conv3d` / `sparse_conv3d` / `inverse_conv3d`
+        (mirror / bwd books and selectors; an inverse conv's `target`
+        level and the transposed book `rules_t`).  An inverse conv's
+        `book` is the forward book of the strided conv it inverts, whose
+        kernel, stride and padding it holds."""
         k = math.prod(self.kernel)
         w = self.weight.reshape(k, *self.weight.shape[3:])
         if self.subm:
             return sparse.subm_conv3d(level, w, book, compute_dtype,
                                       loads=loads, kw3=self.kernel[2] == 3,
                                       **shared)
+        if self.inverse:
+            target = shared.pop('target')
+            return sparse.inverse_conv3d(level, target, w, book, self.kernel,
+                                         self.stride, self.padding,
+                                         compute_dtype, loads=loads, **shared)
         return sparse.sparse_conv3d(level, w, book, self.kernel, self.stride,
                                     self.padding, compute_dtype, loads=loads,
                                     **shared)
@@ -176,17 +189,15 @@ class BackBone8x(nn.Module):
             shared[key] = extra
         return shared
 
-    def forward(self, level, books, compute_dtype=None):
-        """:param level: full-resolution SparseLevel; :param books: decoded
-        books of every `encoder_spec` key
-        :return: BEV (B, H, W, 128 * D) f32, {conv2, conv3, conv4,
-            conv_out: (B,) int32 drops of each strided conv's cap}"""
+    def encode(self, level, books, compute_dtype, shared):
+        """The encoder over `shared_books`' sharing: its levels x1 .. x4
+        (after conv1, conv2, conv3, conv4), conv_out's output and the
+        drops of each strided conv's cap."""
         cd = compute_dtype
-        shared = self.shared_books(books, level.features.shape[1])
         x = self.conv_input(level, books['subm1'], cd, self.loads,
                             **shared['subm1'])
         x = self.conv1[0](x, books['subm1'], cd, self.loads, **shared['subm1'])
-        overflow = {}
+        levels, overflow = [x], {}
         for name, stage, sk, bk in (('conv2', self.conv2, 'subm2', 'spconv2'),
                                     ('conv3', self.conv3, 'subm3', 'spconv3'),
                                     ('conv4', self.conv4, 'subm4', 'spconv4')):
@@ -194,12 +205,142 @@ class BackBone8x(nn.Module):
             overflow[name] = x.overflow
             x = stage[1](x, books[sk], cd, self.loads, **shared[sk])
             x = stage[2](x, books[sk], cd, self.loads, **shared[sk])
+            levels.append(x)
         out = self.conv_out(x, books['convout'], cd, self.loads)
         overflow['conv_out'] = out.overflow
+        return levels, out, overflow
 
+    @staticmethod
+    def to_bev(out):
+        """conv_out's level -> (B, H, W, 128 * D) f32."""
         dense = sparse.to_dense(out)                   # (B, D, H, W, 128)
         b, d, h, w, c = dense.shape
         # z folds into channels as channel c * D + d, the reference's
         # .dense() + view(N, C * D, H, W)
-        bev = dense.permute(0, 2, 3, 4, 1).reshape(b, h, w, c * d)
-        return bev, overflow
+        return dense.permute(0, 2, 3, 4, 1).reshape(b, h, w, c * d)
+
+    def forward(self, level, books, compute_dtype=None):
+        """:param level: full-resolution SparseLevel; :param books: decoded
+        books of every `encoder_spec` key
+        :return: BEV (B, H, W, 128 * D) f32, {conv2, conv3, conv4,
+            conv_out: (B,) int32 drops of each strided conv's cap}"""
+        shared = self.shared_books(books, level.features.shape[1])
+        _, out, overflow = self.encode(level, books, compute_dtype, shared)
+        return self.to_bev(out), overflow
+
+
+class SparseBasicBlock(nn.Module):
+    """Residual block of two subm convs over one book (`pcdet_tpu.models.
+    backbones3d.SparseBasicBlock`, the reference's resnet_utils.py): conv1
+    -> bn1 -> ReLU -> conv2 -> bn2, plus the input, ReLU, `* mask`."""
+
+    def __init__(self, planes):
+        super().__init__()
+        self.conv1 = SparseConv3d(planes, planes)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = SparseConv3d(planes, planes)
+        self.bn2 = BatchNorm(planes)
+
+    def forward(self, level, book, compute_dtype, loads, **shared):
+        mask = level.mask[..., None].to(level.features.dtype)
+        out = self.conv1(level, book, compute_dtype, loads, **shared)
+        f = torch.relu(self.bn1(out.features, out.mask)) * mask
+        out = self.conv2(out._replace(features=f), book, compute_dtype, loads,
+                         **shared)
+        f = torch.relu(self.bn2(out.features, out.mask) + level.features)
+        return out._replace(features=f * mask)
+
+
+class UNetV2(BackBone8x):
+    """Part-A²'s sparse UNet (`pcdet_tpu.models.backbones3d.UNetV2`, the
+    reference's rpn_unet.py UNetV2): BackBone8x's encoder and BEV, then a
+    decoder of four UR blocks back to the input level's sites, and the
+    per-voxel segmentation and part heads.
+
+    A UR block at level n (`ur_block`): `conv_up_t{n}` (a SparseBasicBlock
+    on the encoder's level n), its output beside the level below's
+    (channels [bottom, lateral]), `conv_up_m{n}` (a subm conv over both),
+    plus the concatenation's channels summed in pairs; then `inv_conv{n}`,
+    the inverse of the strided conv that made level n (n = 4, 3, 2), or
+    `conv5` (a subm conv, n = 1).  The decoder's subm convs run over the
+    encoder's subm books of their level and share its selectors; each
+    inverse conv runs over the transpose of its strided conv's book
+    (`inverse_books`).  That makes 28 sparse convs a batch, 27 of them 3
+    wide in x, all by `loads.fwd` but conv_out.
+    """
+
+    UP = ((4, 64, 64, 'spconv4', (0, 1, 1)), (3, 64, 32, 'spconv3', (1, 1, 1)),
+          (2, 32, 16, 'spconv2', (1, 1, 1)), (1, 16, 16, None, None))
+
+    def __init__(self, num_input_features=4, last_pad=(0, 0, 0),
+                 loads=None):
+        super().__init__(num_input_features, last_pad, loads)
+        for lvl, planes, out, _, pad in self.UP:
+            setattr(self, 'conv_up_t%d' % lvl, SparseBasicBlock(planes))
+            setattr(self, 'conv_up_m%d' % lvl,
+                    SpConvBNReLU(2 * planes, planes))
+            if pad is not None:
+                setattr(self, 'inv_conv%d' % lvl, SpConvBNReLU(
+                    planes, out, stride=(2, 2, 2), padding=pad, subm=False,
+                    inverse=True))
+        self.conv5 = nn.Sequential(SpConvBNReLU(16, 16))
+        self.seg_cls_layer = nn.Linear(16, 1)
+        self.seg_reg_layer = nn.Linear(16, 3)
+
+    def inverse_books(self, books, fine_levels):
+        """Per strided book key, what its inverse conv takes: `rules_t`,
+        the transposed book over its fine level's live sites, and under
+        window `loads.fwd` its selectors (their dropped taps in
+        `xwin_clamped[key + '_inv']`)."""
+        out = {}
+        for key, fine in zip(('spconv2', 'spconv3', 'spconv4'), fine_levels):
+            rules_t = sparse.inverse_rules(books[key][4], fine.mask)
+            out[key] = {'rules_t': rules_t}
+            if self.loads.fwd != 'rows':
+                base, sel, self.xwin_clamped[key + '_inv'] = \
+                    sparse.xwin_selectors(rules_t, books[key][4].shape[1])
+                out[key]['xwin'] = (base, sel)
+        return out
+
+    def ur_block(self, lvl, lateral, bottom, book, compute_dtype, shared):
+        """UR block `lvl` up to its merge: conv_up_t, the concatenation,
+        conv_up_m plus the channel reduction (rpn_unet.py:414-436)."""
+        t = getattr(self, 'conv_up_t%d' % lvl)(lateral, book, compute_dtype,
+                                               self.loads, **shared)
+        cat = torch.cat([bottom.features, t.features], dim=-1)
+        m = getattr(self, 'conv_up_m%d' % lvl)(
+            t._replace(features=cat), book, compute_dtype, self.loads,
+            **shared)
+        b, v, c = cat.shape
+        return m._replace(features=m.features
+                          + cat.reshape(b, v, c // 2, 2).sum(-1))
+
+    def forward(self, level, books, compute_dtype=None):
+        """:return: BEV (B, H, W, 128 * D) f32, the strided convs' drops
+            (as `BackBone8x.forward`), and at the input level's sites
+            {'u_seg_preds': (B, V, 1), 'u_reg_preds': (B, V, 3) raw,
+            'seg_features': (B, V, 16)}"""
+        cd = compute_dtype
+        shared = self.shared_books(books, level.features.shape[1])
+        levels, out, overflow = self.encode(level, books, cd, shared)
+        inv = self.inverse_books(books, levels[:3])
+        x = levels[3]
+        for lvl, _, _, key, _ in self.UP:
+            sk = 'subm%d' % lvl
+            x = self.ur_block(lvl, levels[lvl - 1], x, books[sk], cd,
+                              shared[sk])
+            if key is None:
+                x = self.conv5[0](x, books[sk], cd, self.loads, **shared[sk])
+            else:
+                x = getattr(self, 'inv_conv%d' % lvl)(
+                    x, books[key], cd, self.loads, target=levels[lvl - 2],
+                    **inv[key])
+        f = x.features
+        return self.to_bev(out), overflow, {
+            'u_seg_preds': self.seg_cls_layer(f),
+            'u_reg_preds': self.seg_reg_layer(f), 'seg_features': f}
+
+
+# the reference's UNetV0 is UNetV2 layer for layer (`pcdet_tpu.models.
+# backbones3d.UNetV0`)
+UNetV0 = UNetV2

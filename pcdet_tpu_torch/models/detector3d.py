@@ -1,8 +1,11 @@
-"""Selection-before-decode post-processing on tensors.
+"""Post-processing on tensors.
 
-Port of `pcdet_tpu.models.detector3d.post_process_from_head` (including the
+Port of `pcdet_tpu.models.detector3d`: the selection-before-decode
+`post_process_from_head` of the one-stage detectors (including the
 MULTI_CLASSES_NMS branch): a masked top-k over the raw logits, decode of the
-`NMS_PRE_MAXSIZE_LAST` survivors only, then the batched rotated NMS.  The
+`NMS_PRE_MAXSIZE_LAST` survivors only, then the batched rotated NMS; and
+the decode-everything `post_process_batch` (class-agnostic with a labels
+override, or per class) that Part-A²'s refined boxes go through.  The
 top-k is a stable descending sort so that ties (empty BEV regions give
 exactly equal logits) break by lower anchor index, as `jax.lax.top_k` does.
 """
@@ -106,6 +109,127 @@ def post_process_from_head(ret_dict, anchors, box_coder, num_class,
                         if class_labels_override is None
                         else class_labels_override)
     return run_one(rank_scores, class_labels)
+
+
+def decode_single_stage(ret_dict, anchors, box_coder, num_class, head_args):
+    """NHWC head outputs -> every anchor's class logits (B, A, C) and
+    decoded box (B, A, 7) (`pcdet_tpu.models.detector3d.
+    decode_single_stage`: the decode-everything path)."""
+    box_preds = ret_dict['box_preds']
+    batch_size, num_anchors = box_preds.shape[0], anchors.shape[0]
+    cls_preds = ret_dict['cls_preds'].reshape(batch_size, num_anchors, -1)
+    dir_preds = ret_dict.get('dir_cls_preds', None)
+    if dir_preds is not None:
+        dir_preds = dir_preds.reshape(batch_size, num_anchors, -1)
+    boxes = box_coder.decode_with_head_direction(
+        box_preds=box_preds.reshape(batch_size, num_anchors, -1),
+        anchors=anchors[None].expand(batch_size, -1, -1),
+        dir_cls_preds=dir_preds,
+        num_dir_bins=head_args.get('num_direction_bins', 2),
+        dir_offset=head_args.get('dir_offset', 0.78539),
+        dir_limit_offset=head_args.get('dir_limit_offset', 0.0),
+        use_binary_dir_classifier=head_args.get('use_binary_dir_classifier',
+                                                False))
+    return cls_preds, boxes
+
+
+def _select(selected, box_preds, score_src, labels):
+    """The NMS survivors' boxes, scores and labels, zero on padding."""
+    ok = selected >= 0
+    sel = torch.where(ok, selected, 0).long()
+    return {'boxes': _take(box_preds, sel) * ok[..., None].to(box_preds.dtype),
+            'scores': torch.where(ok, _take(score_src, sel), 0.0),
+            'labels': torch.where(ok, _take(labels, sel), 0).to(torch.int32),
+            'valid': ok}
+
+
+def post_process_batched(cls_preds, box_preds, score_thresh, nms_thresh,
+                         nms_pre, nms_post, use_raw_score=True,
+                         class_labels_override=None, rotated=True):
+    """Class-agnostic NMS of decoded boxes, the whole batch in one batched
+    NMS (`pcdet_tpu.models.detector3d.post_process_batched`).
+
+    :param cls_preds: (B, A, C) logits; :param box_preds: (B, A, 7)
+    :param class_labels_override: (B, A) int32 labels of a one-class
+        score (Part-A²'s RoI labels)
+    :return: dict boxes (B, post, 7), scores, labels, valid, num (B,)
+    """
+    if cls_preds.dim() > 2 and cls_preds.shape[-1] > 1:
+        rank_scores = torch.amax(cls_preds, dim=-1)
+        class_labels = (torch.argmax(cls_preds, dim=-1) + 1).to(torch.int32)
+    else:
+        rank_scores = cls_preds.reshape(cls_preds.shape[0], -1)
+        class_labels = (torch.ones_like(rank_scores, dtype=torch.int32)
+                        if class_labels_override is None
+                        else class_labels_override)
+    normalized = torch.sigmoid(rank_scores)
+    selected, num = nms_ops.nms_bev_batched(
+        torch_common.boxes3d_to_bev_corner_format(box_preds), rank_scores,
+        nms_thresh, pre_max=nms_pre, post_max=nms_post,
+        valid_mask=normalized >= score_thresh, rotated=rotated)
+    out = _select(selected, box_preds,
+                  rank_scores if use_raw_score else normalized, class_labels)
+    out['num'] = num
+    return out
+
+
+def post_process_sample(cls_preds, box_preds, score_thresh, nms_thresh,
+                        nms_pre, nms_post, use_raw_score=True,
+                        class_labels_override=None, rotated=True):
+    """`post_process_batched` of one sample: (A, C), (A, 7) -> dict of
+    (post, ...)."""
+    out = post_process_batched(
+        cls_preds[None], box_preds[None], score_thresh, nms_thresh, nms_pre,
+        nms_post, use_raw_score=use_raw_score,
+        class_labels_override=(None if class_labels_override is None
+                               else class_labels_override[None]),
+        rotated=rotated)
+    return {k: v[0] for k, v in out.items()}
+
+
+def multi_classes_nms_batched(cls_preds, box_preds, score_thresh, nms_thresh,
+                              nms_pre, nms_post, use_raw_score=True,
+                              rotated=True):
+    """Per-class NMS of decoded boxes, each class one batched NMS into
+    `nms_post` slots of its own, concatenated (`pcdet_tpu.models.
+    detector3d.multi_classes_nms_batched`)."""
+    boxes5 = torch_common.boxes3d_to_bev_corner_format(box_preds)
+    outs = []
+    for k in range(cls_preds.shape[-1]):
+        rank_scores = cls_preds[..., k]
+        normalized = torch.sigmoid(rank_scores)
+        selected, num = nms_ops.nms_bev_batched(
+            boxes5, rank_scores, nms_thresh, pre_max=nms_pre,
+            post_max=nms_post, valid_mask=normalized >= score_thresh,
+            rotated=rotated)
+        o = _select(selected, box_preds,
+                    rank_scores if use_raw_score else normalized,
+                    torch.full_like(rank_scores, k + 1, dtype=torch.int32))
+        o['num'] = num
+        outs.append(o)
+    return {k: (torch.cat([o[k] for o in outs], dim=1) if k != 'num'
+                else sum(o[k] for o in outs)) for k in outs[0]}
+
+
+def post_process_batch(batch_cls_preds, batch_box_preds, test_cfg,
+                       class_labels_override=None):
+    """Post-processing of decoded boxes by `MODEL.TEST`: per-class NMS under
+    MULTI_CLASSES_NMS, else class-agnostic (with the labels override)
+    (`pcdet_tpu.models.detector3d.post_process_batch`)."""
+    multi = bool(test_cfg.get('MULTI_CLASSES_NMS', False))
+    kwargs = dict(
+        score_thresh=float(test_cfg.SCORE_THRESH),
+        nms_thresh=float(test_cfg.NMS_THRESH),
+        nms_pre=int(test_cfg.NMS_PRE_MAXSIZE_LAST),
+        nms_post=int(test_cfg.NMS_POST_MAXSIZE_LAST),
+        use_raw_score=bool(test_cfg.get('USE_RAW_SCORE', True)),
+        rotated=str(test_cfg.get('NMS_TYPE', 'nms_gpu')) != 'nms_normal_gpu')
+    if multi:
+        return multi_classes_nms_batched(batch_cls_preds, batch_box_preds,
+                                         **kwargs)
+    return post_process_batched(batch_cls_preds, batch_box_preds,
+                                class_labels_override=class_labels_override,
+                                **kwargs)
 
 
 def merge_overflow_tb(tb, ret_dict, batch):

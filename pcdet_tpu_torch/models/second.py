@@ -25,7 +25,11 @@ from .vfe import MeanVFE
 
 
 class SECONDNetModule(nn.Module):
-    """voxels + books -> NHWC head outputs, BEV and per-level drops."""
+    """voxels + books -> NHWC head outputs, BEV and per-level drops.
+    `BACKBONE`: the sparse backbone's class (Part-A²'s module takes its
+    UNet)."""
+
+    BACKBONE = BackBone8x
 
     def __init__(self, num_class, num_anchors_per_location, sparse_shape,
                  last_pad, num_point_features, backbone_args, rpn_args,
@@ -36,7 +40,7 @@ class SECONDNetModule(nn.Module):
         self.eval_dtype = effective_dtype(backbone_args, train=False)
         a = rpn_args
         self.vfe = MeanVFE()
-        self.rpn_net = BackBone8x(num_point_features, last_pad, loads)
+        self.rpn_net = self.BACKBONE(num_point_features, last_pad, loads)
         bev_channels = 128 * BackBone8x.out_depth(sparse_shape, last_pad)
         bf16 = str(a.get('compute_dtype_test', '')) == 'bfloat16'
         self.rpn_head = RPNV2(
@@ -99,19 +103,23 @@ class SECONDNet:
         vz = cfg.DATA_CONFIG.VOXEL_GENERATOR.VOXEL_SIZE[-1]
         self.last_pad = (0, 0, 0) if vz in [0.1, 0.2] else (1, 0, 0)
         self.backbone_args = dict(cfg.MODEL.RPN.BACKBONE.get('ARGS', {}))
-        self.module = SECONDNetModule(
+        self.module = self.make_module(dict(
             num_class=self.num_class,
             num_anchors_per_location=targets.num_anchors_per_location,
             sparse_shape=self.sparse_shape, last_pad=self.last_pad,
             num_point_features=int(cfg.DATA_CONFIG.NUM_POINT_FEATURES['use']),
             backbone_args=self.backbone_args, rpn_args=self.head_args,
-            loads=loads)
+            loads=loads))
         if generator is not None:
             init_weights(self.module, generator)
             self.module.rpn_head.init_focal_bias(0.01)
         self.module.eval().to(self.device)
         # the BEV is NHWC, so the head's convolutions run channels-last
         self.module.rpn_head.to(memory_format=torch.channels_last)
+
+    def make_module(self, args):
+        """The torch module from `SECONDNetModule`'s keyword arguments."""
+        return SECONDNetModule(**args)
 
     @property
     def training(self):

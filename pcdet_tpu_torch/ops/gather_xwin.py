@@ -29,7 +29,8 @@ at most `max_seg_rows(dtype, Cin, Cout)` segment rows there (at least
 `SEG_S`); the plain version takes 1..1022.
 
 `LAUNCHES` counts launches per variant and dtype (`_dgrad` for a feature
-gradient) and of the selector builder; `seg_tiles()` reads the (tile, group)s the segment kernels (E′
+gradient) and of the selector builder, `PAIR_LAUNCHES` per variant, dtype
+and (Cin, Cout); `seg_tiles()` reads the (tile, group)s the segment kernels (E′
 and D′) took by the segment branch and by the window branch, counted on the
 card since `reset_seg_tiles()`.
 """
@@ -45,10 +46,14 @@ LAUNCHES = {'%s_%s%s' % (v, t, d): 0 for v in ('gather_gemm_xwin',
                                              'gather_gemm_seg')
             for t in ('f32', 'bf16') for d in ('', '_dgrad')}
 LAUNCHES['xwin_selectors'] = 0
+# launches of E and E′ by (variant and dtype as LAUNCHES names them, Cin, Cout)
+PAIR_LAUNCHES = {}
 # (Cin, Cout) of the instances: BackBone8x's kw=3 convs and the feature
-# gradients over their transposed books (conv_input's is never taken)
+# gradients over their transposed books (conv_input's is never taken), and
+# UNetV2's decoder: its merge convs over 128 channels (up4_m, up3_m) and its
+# inverse convs (64 -> 64, 64 -> 32, 32 -> 16)
 PAIRS = ((4, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64),
-         (32, 16), (64, 32))
+         (32, 16), (64, 32), (128, 64))
 TILE = 64              # rows per block, the tile of the segment descriptors
 SEG_S = 256            # segment rows
 MAX_GROUPS = 21
@@ -56,7 +61,6 @@ NO_TAP = 0x3f
 SEG_MISS = 1023        # 10-bit offset of a miss
 _SOURCES = ('gather_gemm_xwin.cu',)
 SMEM_LIMIT = 232448    # a block's shared memory on sm_90
-_W_STAGES = 3          # the kernel's W ring, in x-taps
 _TALLY = {}            # device -> (2,) int64: segment, window (tile, group)s
 
 
@@ -198,23 +202,36 @@ def _layout(bf16, cin, cout):
     return raw + 16 * pad, cin_s * (cout * size + 16 * bf16)
 
 
+def stages(dtype, cin, cout):
+    """(W stages, row stages) of an instance, `Layout::kWStages` /
+    `kRowStages`: (3, 2) where they fit a block at S = 256 and 21 groups,
+    else (2, 1) (f32 (128, 64))."""
+    row, w = _layout(dtype == torch.bfloat16, cin, cout)
+    fits = (16 + 3 * w + row + 4 * MAX_GROUPS * (2 * TILE + 2)
+            + 2 * SEG_S * row) <= SMEM_LIMIT
+    return (3, 2) if fits else (2, 1)
+
+
 def smem_bytes(dtype, cin, cout, s, groups):
     """`Layout::smem_bytes`: the dynamic shared memory of one E′ block
     (64 rows) at `s` segment rows (E: s = 0) and `groups` tap groups: a
-    16-byte header, the W ring of three x-taps, the zero row, two stages
-    of max(s, 192) staged rows, the selectors of 64 rows and each group's
-    anchor and span."""
+    16-byte header, the W ring of `stages`' x-taps, the zero row, its row
+    stages of max(s, 192) staged rows each, the selectors of 64 rows and
+    each group's anchor and span."""
     row, w = _layout(dtype == torch.bfloat16, cin, cout)
-    return (16 + _W_STAGES * w + row + 4 * groups * (2 * TILE + 2)
-            + 2 * max(s, 3 * TILE) * row)
+    w_stages, row_stages = stages(dtype, cin, cout)
+    return (16 + w_stages * w + row + 4 * groups * (2 * TILE + 2)
+            + row_stages * max(s, 3 * TILE) * row)
 
 
 def max_seg_rows(dtype, cin, cout):
     """The most segment rows the card's E′ instance stages: the largest s
     (at most 1022) whose `smem_bytes` at 21 groups fits a block."""
     row, _ = _layout(dtype == torch.bfloat16, cin, cout)
-    fixed = smem_bytes(dtype, cin, cout, 0, MAX_GROUPS) - 2 * 3 * TILE * row
-    return min(SEG_MISS - 1, (SMEM_LIMIT - fixed) // (2 * row))
+    row_stages = stages(dtype, cin, cout)[1]
+    fixed = (smem_bytes(dtype, cin, cout, 0, MAX_GROUPS)
+             - row_stages * 3 * TILE * row)
+    return min(SEG_MISS - 1, (SMEM_LIMIT - fixed) // (row_stages * row))
 
 
 @functools.cache
@@ -240,7 +257,10 @@ def tally(device):
     """The segment kernels' (segment, window) branch counter on `device`."""
     key = str(torch.device(device))
     if key not in _TALLY:
-        _TALLY[key] = torch.zeros(2, dtype=torch.int64, device=device)
+        # a normal tensor even when the first launch runs under
+        # inference_mode, so that `reset_seg_tiles` may zero it anywhere
+        with torch.inference_mode(False):
+            _TALLY[key] = torch.zeros(2, dtype=torch.int64, device=device)
     return _TALLY[key]
 
 
@@ -339,9 +359,11 @@ def _gather(seg, feats, base, sel, weights, n_live, s, dgrad):
             out.data_ptr(), counter.data_ptr(), b, feats.shape[1], v_out, g,
             cin, cout, s, stream)
     cuda_build.check(lib, rc)
-    LAUNCHES['gather_gemm_%s_%s%s' % ('seg' if seg else 'xwin',
-                                      'bf16' if bf16 else 'f32',
-                                      '_dgrad' if dgrad else '')] += 1
+    name = 'gather_gemm_%s_%s' % ('seg' if seg else 'xwin',
+                                  'bf16' if bf16 else 'f32')
+    LAUNCHES[name + ('_dgrad' if dgrad else '')] += 1
+    PAIR_LAUNCHES[name, cin, cout] = PAIR_LAUNCHES.get((name, cin, cout),
+                                                       0) + 1
     return out
 
 

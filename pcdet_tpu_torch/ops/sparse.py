@@ -6,7 +6,9 @@ ascending per sample and INT_MAX padded, so live rows are a prefix; coords
 -1 on padding rows; features zero on them (every conv multiplies its output
 by the mask).  The rulebooks come from `ops/host_books.py` (the CLI
 default in `pcdet_tpu`); the device builders of `pcdet_tpu.ops.sparse`
-(`_rules_subm`, `_strided_out_set`) are not ported yet.
+(`_rules_subm`, `_strided_out_set`, `_rules_inverse`) are not ported yet,
+so an inverse conv runs on indice-key reuse only: over the transpose of
+the book of the strided conv it inverts (`inverse_conv3d`).
 
 Each conv is one launch of a gather-GEMM for the whole batch, through
 `RulebookConv`, whose backward is two more launches: the feature gradient
@@ -25,6 +27,7 @@ tests hold the same formulas that the card runs.  Features stay f32
 between layers; with compute_dtype bf16 a conv casts its input table to
 bf16 once (JAX rounds inside the conv too).
 """
+import math
 from typing import Any, NamedTuple, Tuple
 
 import torch
@@ -55,9 +58,11 @@ class Loads(NamedTuple):
 
 ROWS = Loads('rows', 'rows')
 # The model's default (`models/backbones3d.BackBone8x`, the one layer that
-# picks one): per direction the variant with the least kernel time
-# over BackBone8x's 11 kw=3 convs in chip_smoke.py's X4 on an H100 (PERF.md
-# §6): the forward's B / C beat E and E′, D′ beats D and D″.
+# picks one), from chip_smoke.py's X4 on an H100 (PERF.md §6, "Load
+# strategies"): in the forward E′ and B / C are equal kernels (one core,
+# the same bits; E′'s sum over the 11 kw=3 convs is a little below C's), so
+# the selector builds that window loads add to every batch decide it, and
+# the forward stays `rows`; in the weight gradient D′ beats D and D″.
 DEFAULT_LOADS = Loads('rows', 'seg')
 
 
@@ -272,6 +277,61 @@ def sparse_conv3d(level, weights, book, kernel, stride, padding,
     return SparseLevel(feats, out_ids, out_coords, out_mask,
                        conv_out_shape(level.shape, kernel, stride, padding),
                        overflow=dropped)
+
+
+def inverse_rules(rules, fine_mask):
+    """The book of the inverse of a strided conv: its forward `rules` (B,
+    V_coarse, K) transposed (`transpose_rules`) onto the fine level's live
+    sites, (B, V_fine, K) with misses at V_coarse."""
+    n_fine, n_coarse = fine_mask.shape[1], rules.shape[1]
+    return torch.where(fine_mask[..., None],
+                       transpose_rules(rules, n_fine, n_coarse), n_coarse)
+
+
+def inverse_conv3d(level, target, weights, book, kernel, stride, padding,
+                   compute_dtype=None, *, loads, rules_t=None, xwin=None):
+    """Inverse (up) conv of a coarse level onto the sites of `target`, the
+    fine level whose strided conv produced it: spconv's SparseInverseConv3d
+    on indice-key reuse (`pcdet_tpu.ops.sparse.inverse_conv3d`).  Its book
+    is the transpose of that conv's forward book, so tap t meets weight
+    tap t as in the JAX package.
+
+    :param level: the coarse input level (the strided conv's output sites)
+    :param target: the fine level; its ids, coords and mask are the output's
+    :param book: the strided conv's (out_ids, out_coords, out_mask,
+        dropped, rules) from `ops.host_books.upload_books`
+    :param kernel, stride, padding: the strided conv's
+    :param loads: `Loads` (no default here), for a kernel 3 wide in x
+    :param rules_t: `inverse_rules` of the book when the caller built it;
+        None builds it here
+    :param xwin: its selectors when the caller built them
+    :raises ValueError: where the book or the geometry is not the one that
+        produced `level` from `target`
+    """
+    kernel, stride, padding = _triple(kernel), _triple(stride), _triple(padding)
+    out_ids, _, _, _, rules = book
+    b, n_coarse = level.ids.shape
+    n_fine = target.ids.shape[1]
+    if conv_out_shape(target.shape, kernel, stride, padding) != level.shape:
+        raise ValueError('a conv %s / %s / %s of %s gives %s, not the input '
+                         'level\'s %s' % (kernel, stride, padding,
+                                          target.shape, conv_out_shape(
+                                              target.shape, kernel, stride,
+                                              padding), level.shape))
+    if (tuple(rules.shape) != (b, n_coarse, math.prod(kernel))
+            or (out_ids is not level.ids
+                and not torch.equal(out_ids, level.ids))):
+        raise ValueError('the book (rules %s) is not the one whose strided '
+                         'conv produced the input level (%d sites)'
+                         % (tuple(rules.shape), n_coarse))
+    if rules_t is None:
+        rules_t = inverse_rules(rules, target.mask)
+    elif tuple(rules_t.shape) != (b, n_fine, rules.shape[2]):
+        raise ValueError('rules_t %s: want (B, V_fine, K) = %s' % (
+            tuple(rules_t.shape), (b, n_fine, rules.shape[2])))
+    feats = _apply_rules(level, target.mask, rules_t, weights, compute_dtype,
+                         False, loads, kernel[2] == 3, None, xwin)
+    return target._replace(features=feats, overflow=None)
 
 
 def to_dense(level):

@@ -6,12 +6,14 @@ tools/test.py): output/<TAG>/<extra_tag>/eval/{log_eval_*.txt,
 epoch_<N>/<split>/result.pkl, eval_list_<split>.txt} under `cfg.ROOT_DIR`.
 `--ckpt` takes the port's `.pth` or a reference-keyed one (what fits is
 loaded, `train.checkpoint.load_params_partial`).  The data comes from
-`datasets.build_dataloader` (host voxelizer; SECOND's books in the
-loader), the detect, NMS and recall (kernel A) run on `--device` (default
-cuda), the official KITTI AP on the host:
+`datasets.build_dataloader` (host voxelizer; SECOND's or Part-A²'s books
+in the loader), the detect, NMS and recall (kernel A) run on `--device`
+(default cuda), the official KITTI AP on the host:
 
     python -m pcdet_tpu_torch.tools.test \
         --cfg_file tools/cfgs/pointpillar.yaml --batch_size 2 --ckpt PATH
+    python -m pcdet_tpu_torch.tools.test \
+        --cfg_file tools/cfgs/PartA2.yaml --batch_size 2 --ckpt PATH
     python -m pcdet_tpu_torch.tools.test \
         --cfg_file tools/cfgs/pointpillar.yaml --eval_all
 

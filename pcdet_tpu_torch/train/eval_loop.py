@@ -3,11 +3,12 @@ thread, the official KITTI AP on the host.
 
 Port of `pcdet_tpu.train.eval_loop.eval_one_epoch` (the PCDet reference's
 tools/eval_utils/eval_utils.py:eval_one_epoch): per batch, the upload (a
-data loader's voxelized batch through `detector.upload`, with SECOND's
-books; raw points through the device voxelizer), the detector's forward
+data loader's voxelized batch through `detector.upload`, with the sparse
+models' books; raw points through the device voxelizer), the detector's forward
 and predict, the recall counters through kernel A
 (`models.detector3d.batch_recall`) and the cap-overflow counters, both
-summed on the device and fetched once after the loop; the predictions are
+summed on the device and fetched once after the loop (for Part-A² also
+the RoI pool's `overflow/roi_pts`); the predictions are
 fetched to the host on a one-worker thread pool, which writes the
 annotations while the loop dispatches the next batch; then `result.pkl`
 where a `result_dir` is given, and `dataset.evaluation`.
@@ -37,8 +38,9 @@ def eval_one_epoch(detector, batches, dataset, cfg, result_dir=None,
     :param batches: eval batches, numpy: raw points
         (`datasets.synthetic.eval_batches`: points (B, P, C), point_mask (B,
         P)) or voxelized (a `datasets.loader.DataLoader`'s: voxels,
-        num_points, coordinates, voxel_mask, voxel_overflow, SECOND's
-        `hb_*` books), each with gt_boxes (B, G, 8), sample_idx, batch_size
+        num_points, coordinates, voxel_mask, voxel_overflow, SECOND's or
+        Part-A²'s `hb_*` books), each with gt_boxes (B, G, 8), sample_idx,
+        batch_size
     :param dataset: gives `generate_annotations` and `evaluation`
     :return: the evaluator's AP dict with `recall/gt`, `recall/rcnn_<t>`,
         `overflow/*` and `sec_per_example` (the loop's seconds per example,

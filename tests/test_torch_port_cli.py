@@ -21,7 +21,12 @@ grid:
   a step on them; `eval_one_epoch` over the eval loader
   with its books;
 - `--ckpt` takes a bare reference-keyed state_dict (`weights.
-  state_dict_from_flax`'s layout), `--multi_host` raises.
+  state_dict_from_flax`'s layout), `--multi_host` raises;
+- Part-A² (tiny widths, 3 classes): the test CLI on a checkpoint that
+  `save_checkpoint` wrote from random weights evaluates both val frames
+  over the loader's books (its logged AP string equals the evaluator on
+  its result.pkl), and its detections equal `detect_batch` on the same
+  loader batches.
 """
 import copy
 import os
@@ -40,7 +45,7 @@ import torch
 import yaml
 
 from kitti_tree import kitti_cfg, make_tree
-from tiny_config import tiny_second_cfg
+from tiny_config import tiny_parta2_cfg, tiny_second_cfg
 
 from pcdet_tpu.models.pointpillar import PointPillar as JaxPointPillar
 from pcdet_tpu.train import optimization as jax_opt
@@ -51,6 +56,8 @@ from pcdet_tpu_torch.datasets.kitti import kitti_eval_cli
 from pcdet_tpu_torch.ops import host_books
 from pcdet_tpu_torch.tools import create_data, test, train
 from pcdet_tpu_torch.train import train_state
+from pcdet_tpu_torch.train.checkpoint import save_checkpoint
+from pcdet_tpu_torch.train.optimization import build_optimizer_and_schedule
 from pcdet_tpu_torch.train.eval_loop import eval_one_epoch
 from pcdet_tpu_torch.train.trainer import build_trainer
 from pcdet_tpu_torch.weights import load_checkpoint, state_dict_from_flax
@@ -269,10 +276,11 @@ def test_ckpt_takes_a_bare_reference_keyed_state_dict(setup, tmp_path):
     assert list(out['results']) == ['no_number']
 
 
-def _second_cfg(cfg):
-    """The KITTI config at tiny SECOND widths (a 128 x 128 x 16 grid)."""
+def _second_cfg(cfg, tiny_cfg=tiny_second_cfg):
+    """The KITTI config at tiny SECOND (or Part-A²) widths (a 128 x 128 x 16
+    grid)."""
     cfg = copy.deepcopy(cfg)
-    tiny = tiny_second_cfg(num_class=3)
+    tiny = tiny_cfg(num_class=3)
     cfg.MODEL = copy.deepcopy(tiny.MODEL)
     cfg.MODEL.TEST.SCORE_THRESH = 0.0
     cfg.DATA_CONFIG.VOXEL_GENERATOR = copy.deepcopy(
@@ -319,6 +327,44 @@ def test_second_trains_and_evaluates_on_the_loaders_books(setup):
     result = eval_one_epoch(det, eloader, eds, cfg)
     assert result['recall/gt'] == 2
     assert all(np.isfinite(float(v)) for v in result.values())
+
+
+def test_parta2_evaluates_through_the_test_cli(setup, tmp_path):
+    cfg = _second_cfg(setup['cfg'], tiny_parta2_cfg)
+    cfg.TAG = 'tiny_parta2'
+    cfg_file = tmp_path / 'tiny_parta2.yaml'
+    plain = _plain(cfg)
+    plain.pop('TAG')
+    cfg_file.write_text(yaml.safe_dump(plain))
+    det = detect.build_detector(cfg, 'cpu', seed=3)
+    with torch.no_grad():
+        det.model.module.rpn_head.conv_cls.bias.zero_()
+    opt, _ = build_optimizer_and_schedule(cfg.MODEL.TRAIN.OPTIMIZATION, 1, 1)
+    opt.init(det.model.module.named_parameters())
+    ckpt = save_checkpoint(train_state.TrainState(det.model, opt),
+                           str(tmp_path / 'ckpt'), 0)
+    out = test.main(['--cfg_file', str(cfg_file), '--device', 'cpu',
+                     '--batch_size', '2', '--workers', '0', '--extra_tag',
+                     'parta2', '--ckpt', ckpt])
+    eval_dir, result = out['results'][0]
+    assert result['recall/gt'] == 2 and 'overflow/roi_pts' in result
+    assert all(np.isfinite(float(v)) for v in result.values())
+    with open(eval_dir / 'result.pkl', 'rb') as f:
+        det_annos = pickle.load(f)
+    with open(setup['cfg'].DATA_CONFIG.TEST.INFO_PATH[0], 'rb') as f:
+        gt_infos = pickle.load(f)
+    assert sum(a['num_example'] for a in det_annos) > 0
+    again, _ = kitti_eval_cli.evaluation(det_annos, gt_infos, CLASSES)
+    assert _logged_result(out['log_file']) == again.strip()
+    # the loop's detections are detect_batch's on the loader's batches
+    eds, eloader = build_dataloader(cfg, 2, training=False, num_workers=0)
+    eloader.batch_transform = host_books.make_batch_transform(
+        det.model, training=False)
+    batch = next(iter(eloader))
+    got = out['detector'].detect_batch(det.upload(batch))
+    want = det.detect_batch(det.upload(batch))
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
 
 
 def test_multi_host_is_not_ported(setup):

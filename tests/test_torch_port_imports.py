@@ -2,7 +2,8 @@
 own copies of pcdet_tpu's framework-free helpers give the same results.
 
 - a subprocess imports `pcdet_tpu_torch.detect`, `pcdet_tpu_torch.train.
-  trainer`, the training loop's modules (`models.build`, `train.
+  trainer`, Part-A²'s modules (`models.parta2`, `models.roi_heads`,
+  `ops.roiaware_pool`), the training loop's modules (`models.build`, `train.
   optimization`, `train.checkpoint`, `train.train_loop`), the evaluation's
   modules (`train.eval_loop`, the KITTI evaluator and its native bindings),
   the data pipeline's (the KITTI dataset and its helpers, the
@@ -58,6 +59,9 @@ def test_port_loads_no_pcdet_tpu_module():
     code = ('import sys, chip_smoke, pcdet_tpu_torch.detect, '
             'pcdet_tpu_torch.train.trainer, pcdet_tpu_torch.train.eval_loop, '
             'pcdet_tpu_torch.models.build, '
+            'pcdet_tpu_torch.models.parta2, '
+            'pcdet_tpu_torch.models.roi_heads, '
+            'pcdet_tpu_torch.ops.roiaware_pool, '
             'pcdet_tpu_torch.train.optimization, '
             'pcdet_tpu_torch.train.checkpoint, '
             'pcdet_tpu_torch.train.train_loop, '

@@ -198,8 +198,8 @@ def test_state_dict_round_trip(f32):
 def test_build_detector_dispatch():
     cfg = tiny_second_cfg(num_class=1)
     assert isinstance(detect.build_detector(cfg, 'cpu'),
-                      detect.SecondDetector)
+                      detect.SparseDetector)
     bad = copy.deepcopy(cfg)
-    bad.MODEL.NAME = 'PartA2_net'
-    with pytest.raises(NotImplementedError, match='queue 1 item 5'):
+    bad.MODEL.NAME = 'PointRCNN'
+    with pytest.raises(NotImplementedError, match='no port of model'):
         detect.build_detector(bad, 'cpu')

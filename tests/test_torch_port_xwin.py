@@ -190,7 +190,7 @@ def _gemm_inputs(tiny, key, kind, cin, cout, dtype, seed):
 @pytest.mark.parametrize('variant', ['xwin', 'seg'])
 @pytest.mark.parametrize('key,kind,cin,cout', [
     ('subm2', 'fwd', 32, 32), ('spconv3', 'fwd', 32, 64),
-    ('spconv3', 'transpose', 64, 32)])
+    ('spconv3', 'transpose', 64, 32), ('subm3', 'fwd', 128, 64)])
 def test_plain_forward_matches_rows_and_jax(tiny, variant, dtype, key, kind,
                                             cin, cout):
     feats, rules, w, n_live, n_in = _gemm_inputs(tiny, key, kind, cin, cout,
@@ -332,8 +332,9 @@ def test_max_seg_rows_fits_a_block(dtype, cin, cout):
     """The most segment rows the card's E′ instance stages: its shared
     memory at 21 groups fits the 232,448 bytes of an sm_90 block and one
     row more would not (or the 10-bit limit 1022 binds), at least SEG_S,
-    and the layout formula adds each staged row twice (two stages), at
-    the row's bytes or 16 more."""
+    and the layout formula adds each staged row once per row stage (two,
+    but one for f32 (128, 64), whose W ring then has two x-taps), at the
+    row's bytes or 16 more."""
     limit = gather_xwin.max_seg_rows(dtype, cin, cout)
     groups = gather_xwin.MAX_GROUPS
     assert gather_xwin.SEG_S <= limit <= gather_xwin.SEG_MISS - 1
@@ -343,8 +344,12 @@ def test_max_seg_rows_fits_a_block(dtype, cin, cout):
         assert gather_xwin.smem_bytes(dtype, cin, cout, limit + 1,
                                       groups) > gather_xwin.SMEM_LIMIT
     size = 2 if dtype == torch.bfloat16 else 4
+    w_stages, row_stages = gather_xwin.stages(dtype, cin, cout)
+    assert (w_stages, row_stages) == (
+        (2, 1) if (dtype, cin, cout) == (torch.float32, 128, 64) else (3, 2))
     row = (gather_xwin.smem_bytes(dtype, cin, cout, 301, groups)
-           - gather_xwin.smem_bytes(dtype, cin, cout, 300, groups)) // 2
+           - gather_xwin.smem_bytes(dtype, cin, cout, 300, groups)) \
+        // row_stages
     assert row in (max(cin, 16 if size == 2 else 4) * size,
                    max(cin, 16 if size == 2 else 4) * size + 16)
     assert row % 16 == 0
