@@ -200,13 +200,43 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       V3's cross-checks, the GT oracle, eval frames/s and the detect /
       recall / annotate / evaluate split;
   R4. (in the CLI block, on L1's tree) the test CLI on PartA2.yaml over 4
-      val frames with a checkpoint `train.checkpoint.save_checkpoint` wrote
-      from random weights: C on every conv, A, the logged AP string equal
-      to the evaluator on result.pkl.
+      val frames with R8's checkpoint: C on every conv, A, the logged AP
+      string equal to the evaluator on result.pkl;
+  R5. PartA2.yaml training at full width (16000 train voxels, UNet caps by
+      level_caps_frac, 211,200 anchors, proposals top-9000 -> NMS 0.8 ->
+      512, 128 RoIs a sample, pool 14^3, f32) at B2 on ring scans through
+      make_batch, 5 steps on one batch, the last 4 of the 512 RoI slots a
+      sample given to moved and grown GT boxes (`parta2_gt_proposals`:
+      random weights propose nothing near the scans' boxes): every loss
+      term finite, the 5th loss below the 1st, fg RoIs and a regression
+      and corner loss in every step, per step 28 + 27 launches of B, 27 of
+      D' (the decoder's pairs among them), 1 of D, A's proposal rounds and
+      one of the sampler's IoU, overflow/roi_pts;
+  R6. one B1 step four ways (K32 the card, C32 the CPU, P64 the card
+      through the plain versions in f64, C64 the CPU in f64; the last
+      three take K32's RoIs, sampler picks and dropout masks): the f32
+      losses within 1e-4 relative, the f64 loss and every f64 gradient
+      within 1e-9 of max, a gradient into the RCNN's regression layer, fg
+      RoIs in every run; the CPU's proposal layer on K32's head outputs
+      equal to K32's (validity, labels; boxes within 1e-5 of their largest
+      |coordinate|); D, D'', D' at (32, 16), (64, 32), (128, 64) and E, E'
+      f32 at (64, 128) against their plain versions on the step's books
+      (1e-4 / 1e-5 of max) with device times and bounds; the step under
+      (rows, rows), (seg, seg) and (xwin, xwin) within 1e-5 (loss) and
+      1e-3 of max (dW) of the rows step, no tap outside its window;
+  R7. ms per step and samples/s at B2 and B8 (cuDNN's TF32 on, as the
+      trainer runs), the batch built and prebuilt, make_batch's host
+      stages, the step's device split, a torch.profiler list at B8;
+      PartA2_fc.yaml (FCRCNN, 12^3, dropout) 3 steps at B2 with R5's
+      checks;
+  R8. (in the CLI block) the train CLI on PartA2.yaml, 1 epoch of 2 B2
+      batches with the loader's books and targets: finite losses, B, D and
+      D' launch, no tap outside its window.
 
 Prints the card's name and power limit, a JSON line with the kernels (A,
-B, C, D, E, E', D'', D', A', A'', and E and E''s (128, 64) instances of
-R1 apart), each with its launches on its main path
+B, C, D, E, E', D'', D', A', A'', and apart E and E''s (128, 64)
+instances of R1 and R6's D, D'', D' (32, 16), (64, 32), (128, 64) and E,
+E' (64, 128)), each with its launches on its main path
 (by path for A, B, C, D and D': the B2 detect, P4's evaluation, the CLI
 pair's training and evaluation), its error
 against its plain version, its time and the plain version's, and its bound
@@ -1216,7 +1246,7 @@ def host_stages(trainer, points, mask, gt, iters=5):
     return {k: sorted(v)[len(v) // 2] for k, v in t.items()}
 
 
-def profile_train(trainer, batch, iters=3):
+def profile_train(trainer, batch, iters=2):
     """Device time per step by kernel (torch.profiler), steps on a prebuilt
     batch: (busy ms per step, [(ms per step, kernel name)] by time)."""
     from torch.autograd import DeviceType
@@ -1233,7 +1263,7 @@ def profile_train(trainer, batch, iters=3):
     return sum(ms for ms, _ in rows), sorted(rows, reverse=True)
 
 
-def run_train(dev, cfg, batches=(2, 8), steps=5):
+def run_train(dev, cfg, batches=(2, 8), steps=5, timed_steps=2):
     """Phases T1-T5 on SECOND training; returns kernel D's JSON entry and
     kernel B's training launch counts."""
     from pcdet_tpu_torch.ops import cuda_build
@@ -1386,25 +1416,25 @@ def run_train(dev, cfg, batches=(2, 8), steps=5):
         full, pre = [], []
         for _ in range(3):
             t0 = time.perf_counter()
-            for _ in range(steps):
+            for _ in range(timed_steps):
                 trainer.step(trainer.make_batch(pts, mask, gt))
             sync()
-            full.append(1e3 * (time.perf_counter() - t0) / steps)
+            full.append(1e3 * (time.perf_counter() - t0) / timed_steps)
             t0 = time.perf_counter()
-            for _ in range(steps):
+            for _ in range(timed_steps):
                 trainer.step(batch)
             sync()
-            pre.append(1e3 * (time.perf_counter() - t0) / steps)
+            pre.append(1e3 * (time.perf_counter() - t0) / timed_steps)
         ms_full, ms_pre = sorted(full)[1], sorted(pre)[1]
-        host = host_stages(trainer, pts, mask, gt)
-        dev_split = train_step_split(trainer, batch)
+        host = host_stages(trainer, pts, mask, gt, 3)
+        dev_split = train_step_split(trainer, batch, 3)
         print('[train T5 B%d] step with the batch built: %.2f ms (%.2f '
               'samples/s; ms per step %s); prebuilt batch: %.2f ms (%.2f '
               'samples/s; %s); median of 3 runs of %d steps' % (
                   b, ms_full, 1e3 * b / ms_full,
                   ', '.join('%.2f' % x for x in full), ms_pre,
                   1e3 * b / ms_pre, ', '.join('%.2f' % x for x in pre),
-                  steps))
+                  timed_steps))
         print('[train T5 B%d] voxelize %.2f ms; books: to host %.2f, build '
               '%.2f, upload + decode (with targets) %.2f ms; targets (host '
               'assign) %.2f ms (%.2f per sample, %d anchors); forward + loss '
@@ -1449,10 +1479,10 @@ def run_train(dev, cfg, batches=(2, 8), steps=5):
         pre = []
         for _ in range(3):
             t0 = time.perf_counter()
-            for _ in range(steps):
+            for _ in range(timed_steps):
                 trainer.step(batch)
             sync()
-            pre.append(1e3 * (time.perf_counter() - t0) / steps)
+            pre.append(1e3 * (time.perf_counter() - t0) / timed_steps)
         print('[train T5 B%d] prebuilt batch with torch.backends.cudnn.'
               'benchmark on: %.2f ms (%.2f samples/s; %s)' % (
                   b, sorted(pre)[1], 1e3 * b / sorted(pre)[1],
@@ -1487,6 +1517,7 @@ REPLACES = {'gather_gemm_xwin': 'pcdet_tpu/ops/pallas/gather_gemm.py:272',
             'gather_gemm_seg': 'pcdet_tpu/ops/pallas/gather_gemm.py:493',
             'gather_dw_xwin': 'pcdet_tpu/ops/pallas/gather_gemm.py:843',
             'gather_dw_seg': 'pcdet_tpu/ops/pallas/gather_gemm.py:577',
+            'gather_dw': 'pcdet_tpu/ops/pallas/gather_gemm.py:882',
             # not a Pallas kernel: the XLA selector build the TPU ran
             'xwin_selectors': 'pcdet_tpu/ops/sparse.py:474'}
 
@@ -2124,10 +2155,10 @@ def xwin_times(dev, cfg, eval_books, train_books, pts, mask, gt):
                 runs = []
                 for _ in range(3):
                     t0 = time.perf_counter()
-                    for _ in range(5):
+                    for _ in range(2):
                         det.detect(p, m)
                     sync()
-                    runs.append(1e3 * (time.perf_counter() - t0) / 5)
+                    runs.append(1e3 * (time.perf_counter() - t0) / 2)
                 module = det.model.module
                 with torch.inference_mode():
                     vox = det.voxelize(p, m)
@@ -2162,10 +2193,9 @@ def xwin_times(dev, cfg, eval_books, train_books, pts, mask, gt):
             runs = []
             for _ in range(3):
                 t0 = time.perf_counter()
-                for _ in range(3):
-                    trainer.step(batch)
+                trainer.step(batch)
                 sync()
-                runs.append(1e3 * (time.perf_counter() - t0) / 3)
+                runs.append(1e3 * (time.perf_counter() - t0))
             split = train_step_split(trainer, batch, 3)
             ms = sorted(runs)[1]
             print('[xwin X4 B%d] train loads %s: prebuilt step %.2f ms (%.2f '
@@ -2791,7 +2821,7 @@ def step_four_ways(tag, what, cfg, dev, total, make):
     return out
 
 
-def run_pointpillar_train(dev, cfg, steps=5):
+def run_pointpillar_train(dev, cfg, steps=5, timed_steps=2):
     """Phases P1-P4 on PointPillar training; returns kernel A's launches in
     P4's evaluation of the trained checkpoint."""
     import tempfile
@@ -2858,15 +2888,15 @@ def run_pointpillar_train(dev, cfg, steps=5):
         full, pre = [], []
         for _ in range(3):
             t0 = time.perf_counter()
-            for _ in range(steps):
+            for _ in range(timed_steps):
                 trainer.step(trainer.make_batch(pts, mask, gt))
             sync()
-            full.append(1e3 * (time.perf_counter() - t0) / steps)
+            full.append(1e3 * (time.perf_counter() - t0) / timed_steps)
             t0 = time.perf_counter()
-            for _ in range(steps):
+            for _ in range(timed_steps):
                 trainer.step(batch)
             sync()
-            pre.append(1e3 * (time.perf_counter() - t0) / steps)
+            pre.append(1e3 * (time.perf_counter() - t0) / timed_steps)
         ms_full, ms_pre = sorted(full)[1], sorted(pre)[1]
         host, nbytes = pp_host_stages(trainer, pts, mask, gt)
         dev_split = train_step_split(trainer, batch)
@@ -2876,7 +2906,7 @@ def run_pointpillar_train(dev, cfg, steps=5):
               'steps' % (b, ms_full, 1e3 * b / ms_full,
                          ', '.join('%.2f' % x for x in full), ms_pre,
                          1e3 * b / ms_pre, ms_pre / b,
-                         ', '.join('%.2f' % x for x in pre), steps))
+                         ', '.join('%.2f' % x for x in pre), timed_steps))
         print('[pp train P3 B%d] voxelize %.2f ms; targets (host assign) '
               '%.2f ms (%.2f per sample, %d anchors); upload of the targets '
               '%.2f ms (%.2f MB, %.2f MB per sample); forward + loss %.2f ms, '
@@ -3347,7 +3377,7 @@ def run_cli(dev):
         tcfg = train_cli.parse_config(argv[:-len(sets)] + cli_sets(
             troot, out_root))[1]
         trainer = build_trainer(tcfg, dev, seed=0, total_steps=1000)
-        for b, epochs in ((2, 1), (8, 2)):
+        for b, epochs in ((2, 1), (8, 1)):
             for w in (4, 0):
                 t = loader_epochs(trainer, tcfg, b, w, epochs,
                                   warm_up=(w == 4), profile=True)
@@ -3527,7 +3557,7 @@ def run_cli(dev):
         del seout
         sync()
 
-        # R4. Part-A2 through the test CLI, 4 val frames ----------------------
+        # R8 and R4. Part-A2 through the train and test CLIs, 4 + 4 frames --
         parta2_paths = parta2_cli(dev, root, out_root, s_sets,
                                   infos['val'][:4])
         sync()
@@ -3537,8 +3567,8 @@ def run_cli(dev):
     paths['gather_dw'] = {'cli_train': train_counts['gather_dw']}
     paths['gather_dw_seg'] = {'cli_train': train_counts['gather_dw_seg']}
     paths['gather_gemm_bf16'] = {'cli_eval': eval_counts['gather_gemm_bf16']}
-    for name, n in parta2_paths.items():
-        paths[name]['cli_eval parta2 (R4)'] = n
+    for name, by_path in parta2_paths.items():
+        paths.setdefault(name, {}).update(by_path)
     return paths
 
 
@@ -4011,31 +4041,868 @@ def run_parta2(dev):
     return entries, paths
 
 
+# ----------------------------------------------------------------------------
+# R5-R7: Part-A² and Part-A²-fc training
+# ----------------------------------------------------------------------------
+
+# the sparse-conv launches of one Part-A² train step under the default loads
+# (rows, seg): 28 forward convs and 27 feature gradients (not conv_input's)
+# on B, conv_out's dW on D, the 27 kw=3 convs' dW on D'; the selectors of
+# the 7 kw=3 books and of the 3 inverse convs' books, for D'
+PARTA2_TRAIN_LAUNCHES = {'gather_gemm_f32': PARTA2_CONVS,
+                         'gather_gemm_f32_dgrad': PARTA2_CONVS - 1,
+                         'gather_dw': 1, 'gather_dw_seg': PARTA2_CONVS - 1,
+                         'xwin_selectors': 10}
+# the decoder's pairs of the new dW instances, each on a subm book of its
+# level (conv_up_m1 / m2 / m3's), and E / E' (64, 128), up3_m's feature
+# gradient
+DECODER_PAIRS = ((32, 16, 'subm1'), (64, 32, 'subm2'), (128, 64, 'subm3'))
+PARTA2_LOSS_TERMS = ('rpn_loss_u_cls', 'rpn_u_loss_reg', 'rpn_loss_cls',
+                     'rpn_loss_loc', 'rpn_loss_dir', 'rcnn_loss_cls',
+                     'rcnn_loss_reg', 'rcnn_loss_corner')
+
+
+def parta2_gt_proposals(model, gt_boxes, per=4):
+    """Wrap `model.proposals` so that, in each sample, the proposal layer's
+    last `per` RoI slots (its lowest scores) become the sample's first GT
+    boxes (`gt_boxes` (B, M, 8) on the device), each moved by 0.1 m along x
+    and grown by 5%, with its class, valid.  On random weights the
+    proposals lie where the scans' boxes are not (RoI-GT IoU 1e-3 at most)
+    and move with every step; with these RoIs the sampler finds foreground
+    in every step, so the regression and corner losses and their
+    gradients run.  The layer itself runs as ever; `rec['raw']` keeps its
+    output and `rec['roi']` what the model was given.  Returns rec."""
+    rec = {}
+    inner = model.proposals
+    gt = gt_boxes.detach()
+    n_gt = (gt[..., 3] > 0).sum(1, keepdim=True).clamp(min=1)
+    idx = torch.arange(per, device=gt.device)[None] % n_gt
+    take = torch.gather(gt, 1, idx[..., None].expand(-1, -1, gt.shape[-1]))
+    grow = torch.tensor([1, 1, 1, 1.05, 1.05, 1.05, 1], device=gt.device)
+    shift = torch.tensor([0.1, 0, 0, 0, 0, 0, 0], device=gt.device)
+    boxes = take[..., :7] * grow + shift
+
+    def proposals(*args, **kw):
+        rec['raw'] = roi = inner(*args, **kw)
+        out = {k: v.clone() for k, v in roi.items()}
+        out['rois'][:, -per:] = boxes.to(out['rois'].dtype)
+        out['roi_labels'][:, -per:] = take[..., 7].to(out['roi_labels'].dtype)
+        out['roi_valid'][:, -per:] = True
+        rec['roi'] = out
+        return out
+    model.proposals = proposals
+    return rec
+
+
+def parta2_fg_checks(tag, tbs, samplers):
+    """Every step took foreground RoIs in every sample and its regression
+    and corner losses on them."""
+    for i, (tb, s) in enumerate(zip(tbs, samplers)):
+        require(min(s['fg_count']) > 0 and tb['rcnn_loss_reg'] > 0
+                and tb['rcnn_loss_corner'] > 0, '%s step %d: fg RoIs taken '
+                '%s, rcnn_loss_reg %g, rcnn_loss_corner %g' % (
+                    tag, i + 1, s['fg_count'], tb['rcnn_loss_reg'],
+                    tb['rcnn_loss_corner']))
+
+
+def parta2_train_steps(tag, trainer, batch, steps):
+    """`steps` steps on one batch from launch counts set to 0: every loss
+    term finite, the last loss below the first, foreground RoIs and a
+    regression and corner loss on them in every step (`parta2_fg_checks`);
+    the sampler's counts and kernel A's launches per step (proposal NMS
+    rounds, the sampler's IoU).
+    Returns (losses, sparse-conv launches, A launches over the steps)."""
+    from pcdet_tpu_torch.models import parta2 as pa
+    from pcdet_tpu_torch.ops import gather_dw as gd
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    model = trainer.model
+    had, real = 'proposals' in vars(model), model.proposals
+    prop = []
+
+    def proposals(*args, **kw):
+        n = ro.LAUNCHES
+        out = real(*args, **kw)
+        prop.append(ro.LAUNCHES - n)
+        return out
+    model.proposals = proposals
+    sync()
+    reset_launches()
+    gd.PAIR_LAUNCHES.clear()
+    gx.PAIR_LAUNCHES.clear()
+    ro.LAUNCHES = 0
+    tbs, samplers = [], []
+    t0 = time.perf_counter()
+    try:
+        for _ in range(steps):
+            tbs.append({k: float(v) for k, v in trainer.step(batch).items()})
+            samplers.append({k: v.tolist() for k, v in
+                             model.last_sampler.items() if k != 'picks'})
+    finally:
+        if had:
+            model.proposals = real
+        else:
+            del model.proposals
+    sync()
+    wall = time.perf_counter() - t0
+    counts, a_total = nonzero(all_launches()), ro.LAUNCHES
+    losses = [tb['loss'] for tb in tbs]
+    print('%s %d steps on one batch in %.2f s: loss %s' % (
+        tag, steps, wall, ', '.join('%.5f' % x for x in losses)))
+    for i, (tb, s) in enumerate(zip(tbs, samplers)):
+        print('%s step %d: %s; overflow %s; sampler fg / hard bg / easy bg '
+              '%s / %s / %s, fg_count %s, hard_num %s' % (
+                  tag, i + 1, ', '.join('%s %.5f' % (k, tb[k])
+                                        for k in PARTA2_LOSS_TERMS),
+                  {k[9:]: int(v) for k, v in tb.items()
+                   if k.startswith('overflow/')}, s['n_fg'], s['n_hard'],
+                  s['n_easy'], s['fg_count'], s['hard_num']))
+    print('%s launches over %d steps %s; kernel A %d: proposal NMS rounds '
+          'per step %s, the sampler\'s IoU 1 a step; dW launches by (kernel, '
+          'Cin, Cout) %s; E / E\' by pair %s' % (
+              tag, steps, counts, a_total, prop, dict(sorted(
+                  gd.PAIR_LAUNCHES.items())), dict(sorted(
+                      gx.PAIR_LAUNCHES.items()))))
+    require(all(np.isfinite(tb[k]) for tb in tbs for k in PARTA2_LOSS_TERMS
+                + ('loss',)), '%s a non-finite loss term' % tag)
+    require(losses[-1] < losses[0], '%s loss did not fall in %d steps: %s'
+            % (tag, steps, losses))
+    require(all(n > 0 for n in prop) and a_total == sum(prop) + steps,
+            '%s kernel A: %d launches, proposal rounds %s' % (tag, a_total,
+                                                               prop))
+    require('overflow/roi_pts' in tbs[0], '%s no overflow/roi_pts' % tag)
+    parta2_fg_checks(tag, tbs, samplers)
+    return losses, counts, a_total, dict(gd.PAIR_LAUNCHES)
+
+
+def parta2_record(model):
+    """Keep the proposals of `model`'s next forwards (in `rec['roi']`) and
+    the head outputs they came from (`rec['heads']`)."""
+    rec = {}
+    real = model.proposals
+
+    def proposals(ret, *args, **kw):
+        rec['heads'] = {k: ret[k].detach() for k in (
+            'cls_preds', 'box_preds', 'dir_cls_preds')}
+        rec['roi'] = real(ret, *args, **kw)
+        return rec['roi']
+    model.proposals = proposals
+    return rec
+
+
+def parta2_inject(model, src, dev, dtype, proposals=True):
+    """Give `model` another run's sampler picks, dropout masks and (with
+    `proposals`) proposals, on `dev`, floats in `dtype`."""
+    if proposals:
+        roi = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+               for k, v in src['roi'].items()}
+        model.proposals = lambda ret, train=False: roi
+    model.fixed_picks = src['picks'].to(dev)
+    for d, m in zip(model.dropouts(), src['masks']):
+        d.fixed_mask = m.to(dev)
+
+
+def parta2_to(trainer, dtype):
+    """The trainer's model and the wrapper's own tensors in `dtype`."""
+    model = trainer.model
+    model.module.to(dtype)
+    for attr in ('anchors', 'voxel_size', 'pc_origin'):
+        setattr(model, attr, getattr(model, attr).to(dtype))
+
+
+def parta2_four_ways(tag, cfg, dev, pts, mask, gt):
+    """R6: one B1 step from the same seeded weights: K32 the card through
+    the kernels, C32 the CPU, P64 the card through the kernels' plain
+    versions in f64, C64 the CPU in f64.  C32, P64 and C64 take K32's
+    proposals (kernel A is f32 only), sampler picks and dropout masks; the
+    f64 runs take the sampler's IoU in f64 through kernel A's plain version
+    on both devices.  The proposals are compared on their own: the CPU's
+    proposal layer on K32's head outputs against K32's (validity and labels
+    equal, each box within 1e-5 of its largest |coordinate|, at least 1
+    m); C32's own, from its own head outputs, are printed beside them (at
+    pre 9000 the two devices' f32 logits, some 1e-4 apart, order
+    near-equal candidates apart).  K32's last 4 RoI slots a sample are GT
+    boxes, moved and grown (`parta2_gt_proposals`), and so are those the
+    other runs take: every run takes fg RoIs and a regression and corner
+    loss, and a gradient reaches the RCNN's regression layer.
+    Requires the f32 losses within 1e-4 relative, the f64 loss and every
+    f64 gradient within 1e-9; prints the per-module errors.  Returns K32's
+    trainer, batch and record."""
+    from pcdet_tpu_torch.models import roi_heads
+    from pcdet_tpu_torch.ops import gather_dw as gd
+    from pcdet_tpu_torch.ops import gather_gemm as gg
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    from pcdet_tpu_torch.ops import rotated_iou, rotated_overlap as ro
+    from pcdet_tpu_torch.ops import sparse
+    from pcdet_tpu_torch.train import train_state
+    from pcdet_tpu_torch.train.trainer import build_trainer
+    names = ('gather_gemm', 'gather_gemm_xwin', 'gather_gemm_seg',
+             'gather_dw', 'gather_dw_xwin', 'gather_dw_seg')
+    kernels = {n: getattr(sparse, n) for n in names}
+    real_iou = roi_heads.rois_iou3d
+    plains = {'gather_gemm': gg.gather_gemm_plain,
+              'gather_gemm_xwin': gx.gather_gemm_xwin_plain,
+              'gather_gemm_seg': gx.gather_gemm_seg_plain,
+              'gather_dw': gd.gather_dw_plain,
+              'gather_dw_xwin': gd.gather_dw_xwin_plain,
+              'gather_dw_seg': gd.gather_dw_seg_plain}
+    out, src, keep = {}, {}, None
+    for name, d, dtype in (('K32', dev, torch.float32),
+                           ('C32', torch.device('cpu'), torch.float32),
+                           ('P64', dev, torch.float64),
+                           ('C64', torch.device('cpu'), torch.float64)):
+        tr = build_trainer(cfg, d, seed=0, total_steps=10)
+        parta2_to(tr, dtype)
+        model = tr.model
+        t0 = time.perf_counter()
+        b1 = tr.make_batch(pts.to(d), mask.to(d), gt)
+        b1 = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
+              else v for k, v in b1.items()}
+        rec = parta2_record(model)
+        if name == 'K32':
+            given = parta2_gt_proposals(model, b1['gt_boxes'])
+        else:
+            parta2_inject(model, src, d, dtype)
+        if name == 'C32':
+            model.proposals = parta2_also_own(model, rec)
+        if name == 'P64':
+            for n, fn in plains.items():
+                setattr(sparse, n, lambda *a, _fn=fn, dgrad=False: _fn(*a))
+        if dtype == torch.float64:
+            roi_heads.rois_iou3d = lambda r, g: (
+                rotated_iou.boxes_iou3d_batched(
+                    r, g, ro.pair_overlap_batched_plain))
+        try:
+            loss, tb, grads = train_state.loss_and_grads(model,
+                                                         tr.state.params, b1)
+        finally:
+            for n, fn in kernels.items():
+                setattr(sparse, n, fn)
+            roi_heads.rois_iou3d = real_iou
+        tb = {k: float(v) for k, v in tb.items()}
+        sampler = {k: v.tolist() for k, v in model.last_sampler.items()
+                   if k != 'picks'}
+        print('%s %s: fg RoIs taken %s (of fg %s, hard bg %s, easy bg %s), '
+              'rcnn_loss_reg %.7g, rcnn_loss_corner %.7g' % (
+                  tag, name, sampler['fg_count'], sampler['n_fg'],
+                  sampler['n_hard'], sampler['n_easy'], tb['rcnn_loss_reg'],
+                  tb['rcnn_loss_corner']))
+        parta2_fg_checks('%s %s' % (tag, name), [tb], [sampler])
+        if name == 'K32':
+            src = {'roi': {k: v.detach().cpu() for k, v in
+                           given['roi'].items()},
+                   'raw': {k: v.detach().cpu() for k, v in
+                           rec['roi'].items()},
+                   'heads': rec['heads'],
+                   'picks': model.last_sampler['picks'].cpu(),
+                   'masks': [m.last_mask.cpu() for m in model.dropouts()]}
+            keep = (tr, b1, src)
+        if name == 'C32':
+            from pcdet_tpu_torch.models.parta2 import PartA2Net
+            with torch.no_grad():
+                cross = PartA2Net.proposals(model, {
+                    k: v.cpu() for k, v in src['heads'].items()}, True)
+            want = src['raw']
+            diff = (cross['rois'] - want['rois']).abs()
+            # each box's error against its own magnitude (at least 1 m): on
+            # random weights some boxes decode to 1e4 m, where one f32 ulp
+            # is 1e-3
+            scale = want['rois'].abs().amax(-1, keepdim=True).clamp(min=1.0)
+            rel = (diff / scale).max().item()
+            at = int(diff.flatten().argmax())
+            print('%s the CPU\'s proposal layer on K32\'s head outputs vs '
+                  'K32\'s proposals: valid equal %s, labels equal %s, max |box '
+                  'diff| %.3g (at a box of max |coordinate| %.4g), max |box '
+                  'diff| / max(max |box coordinate|, 1 m) %.3g (bound 1e-5), '
+                  'max |raw score diff| %.3g' % (
+                      tag, torch.equal(cross['roi_valid'], want['roi_valid']),
+                      torch.equal(cross['roi_labels'], want['roi_labels']),
+                      diff.max().item(),
+                      scale.expand_as(diff).flatten()[at].item(), rel,
+                      (cross['roi_raw_scores'] - want['roi_raw_scores'])
+                      .abs().max().item()))
+            require(torch.equal(cross['roi_valid'], want['roi_valid'])
+                    and torch.equal(cross['roi_labels'], want['roi_labels'])
+                    and rel <= 1e-5, '%s the proposal layer differs between '
+                    'the card and the CPU' % tag)
+            got = rec['own']
+            slot = (got['rois'] - want['rois']).abs().amax(-1)
+            near = (got['rois'][:, :, None] - want['rois'][:, None]).abs(
+            ).amax(-1).amin(-1)
+            score = (got['roi_raw_scores'] - want['roi_raw_scores']).abs()
+            print('%s C32\'s own proposals vs K32\'s: valid equal %s, labels '
+                  'equal %s; slots whose box differs by > 1e-3: %d of %d '
+                  '(raw score gaps there %s); every RoI within %.3g of one '
+                  'of the other\'s; max |raw score diff| %.3g' % (
+                      tag, torch.equal(got['roi_valid'], want['roi_valid']),
+                      torch.equal(got['roi_labels'], want['roi_labels']),
+                      int((slot > 1e-3).sum()), slot.numel(),
+                      score[slot > 1e-3].tolist()[:8],
+                      near.max().item(), score.max().item()))
+
+        mnames = [n for n, _ in model.module.named_parameters()]
+        out[name] = (float(loss), {n: g.detach().cpu().double()
+                                   for n, g in zip(mnames, grads)})
+        print('%s %s train step B1: %.2f s' % (tag, name,
+                                               time.perf_counter() - t0))
+        if name != 'K32':
+            del tr
+        del b1, grads
+    rel32 = abs(out['K32'][0] - out['C32'][0]) / abs(out['C32'][0])
+    rel64 = abs(out['P64'][0] - out['C64'][0]) / abs(out['C64'][0])
+    print('%s loss K32 %.7f, C32 %.7f (rel %.3g); P64 %.12f, C64 %.12f (rel '
+          '%.3g)' % (tag, out['K32'][0], out['C32'][0], rel32,
+                     out['P64'][0], out['C64'][0], rel64))
+    ref = out['C64'][1]
+    groups = {n: '.'.join(n.split('.')[:2]) for n in ref}
+    worst64 = 0.0
+    for a, b in (('K32', 'C32'), ('K32', 'C64'), ('C32', 'C64'),
+                 ('P64', 'C64')):
+        per = {}
+        for n, r in ref.items():
+            e = ((out[a][1][n] - out[b][1][n]).abs().max().item()
+                 / max(r.abs().max().item(), 1e-30))
+            per[groups[n]] = max(per.get(groups[n], 0.0), e)
+        if a == 'P64':
+            worst64 = max(per.values())
+        print('%s gradient %s vs %s, largest error / max |grad| per module: '
+              '%s' % (tag, a, b, ', '.join('%s %.2e' % x
+                                           for x in sorted(per.items()))))
+    reg = {a: max(g.abs().max().item() for n, g in out[a][1].items()
+                  if n.startswith('rcnn_net.reg_layer.'))
+           for a in out}
+    print('%s max |grad| of rcnn_net.reg_layer: %s' % (
+        tag, ', '.join('%s %.4g' % kv for kv in reg.items())))
+    require(min(reg.values()) > 0, '%s no gradient reaches the RCNN\'s '
+            'regression layer' % tag)
+    require(rel32 <= 1e-4, '%s GPU vs CPU f32 loss %g relative' % (tag, rel32))
+    require(rel64 <= 1e-9 and worst64 <= 1e-9, '%s GPU vs CPU f64: loss %g '
+            'relative, gradients %g of max' % (tag, rel64, worst64))
+    return keep
+
+
+def parta2_also_own(model, rec):
+    """`model`'s proposals as given (`model.proposals`), with its own
+    computed beside them into `rec['own']`."""
+    import types
+    from pcdet_tpu_torch.models.parta2 import PartA2Net
+    given, own = model.proposals, types.MethodType(PartA2Net.proposals,
+                                                   model)
+
+    def proposals(*args, **kw):
+        rec['own'] = {k: v.detach() for k, v in own(*args, **kw).items()}
+        return given(*args, **kw)
+    return proposals
+
+
+def decoder_pairs_vs_plain(dev, batch):
+    """The new instances on a real B1 train batch's books: D, D'' and D' at
+    the decoder's (32, 16), (64, 32), (128, 64) on the subm book of each
+    pair's level (the UR blocks' merge convs), n_live real, mid-tile and 0,
+    within 1e-4 of max |plain|, two launches bitwise equal; E and E' f32 at
+    (64, 128) (up3_m's feature gradient) on the level-3 subm book within
+    1e-5 of max |plain|, bitwise equal to kernel B and to a second launch.
+    Device times, plain times, bounds.  Returns {entry name: stats}."""
+    from pcdet_tpu_torch.ops import gather_dw as gd
+    from pcdet_tpu_torch.ops import gather_gemm as gg
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    from pcdet_tpu_torch.ops import sparse
+    books = batch['books']
+    masks = {'subm1': batch['voxel_mask'], 'subm2': books['spconv2'][2],
+             'subm3': books['spconv3'][2]}
+    gen = torch.Generator(device='cpu').manual_seed(5)
+    stats = {}
+    cases = [(cin, cout, key, 'dw') for cin, cout, key in DECODER_PAIRS]
+    cases.append((64, 128, 'subm3', 'gemm'))
+    for cin, cout, key, what in cases:
+        rules, mask = books[key], masks[key]
+        b, v, k = rules.shape
+        base, sel, clamped = sparse.xwin_selectors(rules, v)
+        require(int(clamped) == 0, '%s: taps outside their window' % key)
+        table = torch.randn((b, v + 1, cin), generator=gen).to(dev)
+        table[:, :v] *= mask[..., None]
+        table[:, v] = 0
+        live = mask.sum(1, dtype=torch.int32)
+        mid = torch.minimum(live, torch.full_like(live, 64 * 7 + 23))
+        if what == 'dw':
+            g = torch.randn((b, v, cout), generator=gen).to(dev)
+            g *= mask[..., None]
+            variants = (('gather_dw', lambda n: gd.gather_dw(
+                            table, rules, g, n),
+                         lambda n: gd.gather_dw_plain(table, rules, g, n),
+                         4 * k, 1e-4),
+                        ('gather_dw_xwin', lambda n: gd.gather_dw_xwin(
+                            table, base, sel, g, n),
+                         lambda n: gd.gather_dw_xwin_plain(table, base, sel,
+                                                           g, n),
+                         8 * base.shape[2], 1e-4),
+                        ('gather_dw_seg', lambda n: gd.gather_dw_seg(
+                            table, base, sel, g, n),
+                         lambda n: gd.gather_dw_seg_plain(table, base, sel,
+                                                          g, n),
+                         8 * base.shape[2], 1e-4))
+            tail = 4 * (b * v * cout + k * cin * cout)
+        else:
+            w = ((torch.rand((k, cin, cout), generator=gen) * 2 - 1)
+                 / (cin * k) ** 0.5).to(dev)
+            variants = (('gather_gemm_xwin_f32', lambda n: gx.gather_gemm_xwin(
+                            table, base, sel, w, n),
+                         lambda n: gx.gather_gemm_xwin_plain(table, base, sel,
+                                                             w, n),
+                         8 * base.shape[2], 1e-5),
+                        ('gather_gemm_seg_f32', lambda n: gx.gather_gemm_seg(
+                            table, base, sel, w, n),
+                         lambda n: gx.gather_gemm_seg_plain(table, base, sel,
+                                                            w, n),
+                         8 * base.shape[2], 1e-5))
+            tail = 4 * (k * cin * cout + b * v * cout)
+        for name, fn, plain, index_bytes, tol in variants:
+            err, scale = 0.0, 0.0
+            for n_live in (live, mid, torch.zeros_like(live)):
+                got, again, want = fn(n_live), fn(n_live), plain(n_live)
+                sync()
+                require(torch.equal(got, again), '%s (%d, %d): two launches '
+                        'differ' % (name, cin, cout))
+                if what == 'gemm':
+                    require(torch.equal(got, gg.gather_gemm(table, rules, w,
+                                                            n_live)),
+                            '%s (%d, %d): not the bits of kernel B'
+                            % (name, cin, cout))
+                err = max(err, (got - want).abs().max().item())
+                scale = max(scale, want.abs().max().item())
+            require(err <= tol * scale, '%s (%d, %d): kernel vs plain %g > '
+                    '%g * %g' % (name, cin, cout, err, tol, scale))
+            ms = device_ms(lambda: fn(live), 20)
+            plain_ms = cuda_ms(lambda: plain(live), 3, 1)
+            work = gather_work(table, rules, live, cout, index_bytes, tail)
+            entry = '%s@%dx%d' % (name, cin, cout)
+            stats[entry] = {'name': name, 'err': err, 'ms': ms,
+                            'plain_ms': plain_ms, 'work': work}
+            print('[parta2 R6] %s (%d, %d) on the %s book of a B1 train batch '
+                  '(V=%d, live %s, mid %s, 0): max |kernel - plain| %.3g '
+                  '(%.3g of max |plain| %.4g), two launches equal%s; kernel '
+                  '%.4f ms (device), plain %.4f ms, bound %.4f ms (%s)%s' % (
+                      name, cin, cout, key, v, live.tolist(), mid.tolist(),
+                      err, err / scale, scale,
+                      ', bitwise equal to kernel B' if what == 'gemm' else '',
+                      ms, plain_ms, *bound_ms(*work),
+                      '; row stages %d' % gd.row_stages(cin, cout)
+                      if what == 'dw' else '; W / row stages %d / %d'
+                      % gx.stages(torch.float32, cin, cout)))
+    return stats
+
+
+def parta2_window_steps(cfg, dev, pts, mask, gt, src):
+    """R6: one B1 step under rows (rows, rows), (seg, seg) and (xwin, xwin)
+    with K32's proposals, picks and masks: each window step's loss within
+    1e-5 relative and its sparse convs' dW within 1e-3 of max |dW| of the
+    rows step's, no tap outside its window.  Returns the launches of each
+    step by (kernel, Cin, Cout)."""
+    from pcdet_tpu_torch.ops import gather_dw as gd
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    from pcdet_tpu_torch.ops import sparse
+    from pcdet_tpu_torch.train import train_state
+    from pcdet_tpu_torch.train.trainer import build_trainer
+    real_selectors = sparse.xwin_selectors
+    clamped = []
+
+    def selectors(*args, **kw):
+        out = real_selectors(*args, **kw)
+        clamped.append(int(out[2]))
+        return out
+    res, pairs = {}, {}
+    for loads in (sparse.ROWS, sparse.Loads('seg', 'seg'),
+                  sparse.Loads('xwin', 'xwin')):
+        tr = build_trainer(cfg, dev, seed=0, total_steps=10, loads=loads)
+        b1 = tr.make_batch(pts, mask, gt)
+        parta2_inject(tr.model, src, dev, torch.float32)
+        sparse.xwin_selectors = selectors
+        clamped.clear()
+        try:
+            sync()
+            reset_launches()
+            gd.PAIR_LAUNCHES.clear()
+            gx.PAIR_LAUNCHES.clear()
+            loss, _, grads = train_state.loss_and_grads(
+                tr.model, tr.state.params, b1)
+            sync()
+        finally:
+            sparse.xwin_selectors = real_selectors
+        counts = nonzero(all_launches())
+        pairs[tuple(loads)] = {**gd.PAIR_LAUNCHES, **gx.PAIR_LAUNCHES}
+        names = [n for n, _ in tr.model.module.named_parameters()]
+        res[tuple(loads)] = (float(loss), {
+            n: g for n, g in zip(names, grads) if n.startswith('rpn_net.')
+            and ('conv' in n) and n.endswith('weight') and g.dim() == 5})
+        print('[parta2 R6] B1 step under loads %s: loss %.7f; launches %s; '
+              'selector builds %d, taps outside their window %d' % (
+                  tuple(loads), float(loss), counts, len(clamped),
+                  sum(clamped)))
+        require(sum(clamped) == 0, 'loads %s: taps outside their window'
+                % (tuple(loads),))
+        del tr, b1, grads
+    rows_loss, rows_dw = res[('rows', 'rows')]
+    for loads in (('seg', 'seg'), ('xwin', 'xwin')):
+        loss, dw = res[loads]
+        worst = max((dw[n] - rows_dw[n]).abs().max().item()
+                    / rows_dw[n].abs().max().item() for n in rows_dw)
+        rel = abs(loss - rows_loss) / abs(rows_loss)
+        print('[parta2 R6] loads %s vs rows: loss rel %.3g, sparse convs\' dW '
+              'largest error / max |dW| %.3g over %d convs' % (
+                  loads, rel, worst, len(dw)))
+        require(rel <= 1e-5 and worst <= 1e-3, 'loads %s: loss %g, dW %g '
+                'from the rows step' % (loads, rel, worst))
+    return pairs
+
+
+def parta2_host_stages(trainer, points, mask, gt, iters=3):
+    """Median ms of the stages of `Trainer.make_batch` itself, each callee
+    timed where make_batch calls it (host clock, the card synchronised at
+    each callee's end): voxelize, the coords' copy to the host (from
+    voxelize's end to the books' start), the host books, the anchor
+    targets, the model's host targets (Part-A²'s GT and part targets), the
+    upload, the books' decode, and the whole call."""
+    from pcdet_tpu_torch.ops import host_books
+    model = trainer.model
+    marks = {}
+
+    def wrap(obj, attr, name):
+        real = getattr(obj, attr)
+
+        def call(*args, **kw):
+            marks[name] = time.perf_counter()
+            out = real(*args, **kw)
+            sync()
+            marks[name + ' end'] = time.perf_counter()
+            return out
+        setattr(obj, attr, call)
+    patched = ((trainer, 'voxelize', 'voxelize'),
+               (model, 'build_books', 'books'),
+               (trainer, 'targets', 'anchor targets'),
+               (model, 'host_targets', 'part targets'),
+               (host_books, 'upload', 'upload'),
+               (host_books, 'decode_books', 'decode'))
+    own = [(obj, attr, attr in vars(obj), getattr(obj, attr))
+           for obj, attr, _ in patched]
+    for obj, attr, name in patched:
+        wrap(obj, attr, name)
+    t = {}
+    try:
+        for _ in range(iters):
+            marks.clear()
+            sync()
+            t0 = time.perf_counter()
+            trainer.make_batch(points, mask, gt)
+            sync()
+            marks['make_batch end'] = time.perf_counter()
+            marks['make_batch'] = t0
+            marks['d2h'] = marks['voxelize end']
+            marks['d2h end'] = marks['books']
+            for key in ('voxelize', 'd2h', 'books', 'anchor targets',
+                        'part targets', 'upload', 'decode', 'make_batch'):
+                t.setdefault(key, []).append(
+                    1e3 * (marks[key + ' end'] - marks[key]))
+    finally:
+        for obj, attr, was_own, real in own:
+            if was_own:
+                setattr(obj, attr, real)
+            else:
+                delattr(obj, attr)
+    return {k: sorted(v)[len(v) // 2] for k, v in t.items()}
+
+
+def parta2_step_split(trainer, batch, iters=3):
+    """Median ms of a prebuilt step's parts by CUDA events recorded on the
+    stream around each stage: stage 1 (VFE, UNet, RPN), the proposal layer
+    (its NMS rounds), the target layer (sampler), the pool, the RCNN, the
+    loss, the backward, the optimizer."""
+    from pcdet_tpu_torch.models import parta2 as pa
+    model, state = trainer.model, trainer.state
+    marks = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append((name, e))
+
+    def wrap(obj, attr, name):
+        real = getattr(obj, attr)
+
+        def call(*args, **kw):
+            mark(name)
+            out = real(*args, **kw)
+            mark(name + ' end')
+            return out
+        setattr(obj, attr, call)
+    rcnn = model.module.rcnn_net
+    patched = ((model, 'proposals', 'proposal'),
+               (pa, 'proposal_target_layer', 'targets'),
+               (model, 'pool', 'pool'), (rcnn, 'forward', 'rcnn'))
+    own = [(obj, attr, attr in vars(obj), getattr(obj, attr))
+           for obj, attr, _ in patched]
+    for obj, attr, name in patched:
+        wrap(obj, attr, name)
+    parts = {}
+    try:
+        for _ in range(iters):
+            marks.clear()
+            mark('start')
+            model.train_mode()
+            ret = model.forward(batch)
+            mark('rcnn out')
+            loss, _ = model.loss(ret, batch)
+            mark('loss')
+            grads = torch.autograd.grad(loss, state.params)
+            mark('backward')
+            state.optimizer.step(grads)
+            mark('optimizer')
+            sync()
+            ev = dict(marks)
+            for key, a, b in (('stage 1', 'start', 'proposal'),
+                              ('proposal', 'proposal', 'proposal end'),
+                              ('targets', 'targets', 'targets end'),
+                              ('pool', 'pool', 'pool end'),
+                              ('rcnn', 'rcnn', 'rcnn end'),
+                              ('loss', 'rcnn out', 'loss'),
+                              ('backward', 'loss', 'backward'),
+                              ('optimizer', 'backward', 'optimizer')):
+                parts.setdefault(key, []).append(ev[a].elapsed_time(ev[b]))
+    finally:
+        for obj, attr, was_own, real in own:
+            if was_own:
+                setattr(obj, attr, real)
+            else:
+                delattr(obj, attr)
+    return {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+
+
+def parta2_train_times(tag, trainer, pts8, mask8, gts, steps=1,
+                       profile=False):
+    """R7: ms per step and samples/s at each batch size of `gts` ({B: gt
+    boxes}), the batch built and prebuilt (median of 3 runs of `steps`),
+    the host stages and the step's split; at the largest batch a
+    torch.profiler list of the top kernels and the idle share."""
+    batches = sorted(gts)
+    for b in batches:
+        pts, mask, gt = pts8[:b].contiguous(), mask8[:b].contiguous(), gts[b]
+        batch = trainer.make_batch(pts, mask, gt)
+        trainer.step(batch)                                  # warm-up
+        sync()
+        full, pre = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                trainer.step(trainer.make_batch(pts, mask, gt))
+            sync()
+            full.append(1e3 * (time.perf_counter() - t0) / steps)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                trainer.step(batch)
+            sync()
+            pre.append(1e3 * (time.perf_counter() - t0) / steps)
+        ms_full, ms_pre = sorted(full)[1], sorted(pre)[1]
+        host = parta2_host_stages(trainer, pts, mask, gt)
+        split = parta2_step_split(trainer, batch)
+        print('%s B%d step with the batch built: %.2f ms (%.2f samples/s; %s);'
+              ' prebuilt: %.2f ms (%.2f samples/s; %s); median of 3 runs of %d'
+              ' steps' % (tag, b, ms_full, 1e3 * b / ms_full,
+                          ', '.join('%.2f' % x for x in full), ms_pre,
+                          1e3 * b / ms_pre, ', '.join('%.2f' % x for x in pre),
+                          steps))
+        print('%s B%d host: %s; device: %s (ms)' % (
+            tag, b, ', '.join('%s %.2f' % kv for kv in host.items()),
+            ', '.join('%s %.2f' % kv for kv in split.items())))
+        if not profile or b != max(batches):
+            continue
+        busy, rows = profile_train(trainer, batch, iters=1)
+        if not rows:
+            print('%s B%d no device time recorded: not measured' % (tag, b))
+            continue
+        idle = ('idle %.1f%% of the prebuilt step, %.1f%% of the step with '
+                'the batch built' % (100 * (1 - busy / ms_pre),
+                                     100 * (1 - busy / ms_full))
+                if busy <= ms_pre else 'idle not measured (busy under the '
+                'profiler exceeds the unprofiled prebuilt step)')
+        sparse_ms = sum(t for t, n in rows if 'gather_' in n
+                        or 'sum_partials' in n or 'xwin_selectors' in n)
+        print('%s B%d device busy %.2f ms per step: %s; sparse-conv kernels '
+              '%.3f ms (%.1f%%); %d kernel names' % (
+                  tag, b, busy, idle, sparse_ms, 100 * sparse_ms / busy,
+                  len(rows)))
+        for t, name in rows[:12]:
+            print('%s B%d   kernel %8.3f ms %5.1f%%  %s' % (
+                tag, b, t, 100 * t / busy, name[:90]))
+
+
+def run_parta2_train(dev):
+    """Phases R5-R7; returns the kernels line's entries of the new
+    instances and the launches by path {name: {path: n}}."""
+    from pcdet_tpu_torch import detect as detect_mod
+    from pcdet_tpu_torch.train.trainer import build_trainer, make_train_scans
+    cfg = detect_mod.load_config(detect_mod.PARTA2_CFG)
+    pts_np, mask_np, gt_np = make_train_scans(cfg, 8, ring_keep=0.35)
+    pts8 = torch.as_tensor(pts_np, device=dev)
+    mask8 = torch.as_tensor(mask_np, device=dev)
+    pts2, mask2 = pts8[:2].contiguous(), mask8[:2].contiguous()
+    pts1, mask1 = pts8[:1].contiguous(), mask8[:1].contiguous()
+    paths = {}
+
+    # R5. PartA2.yaml training at full width, B2 ---------------------------
+    t0 = time.perf_counter()
+    trainer = build_trainer(cfg, dev, seed=0, total_steps=50)
+    batch2 = trainer.make_batch(pts2, mask2, gt_np[:2])
+    print('[parta2 R5] PartA2.yaml train B2 (f32, loads %s): voxels %s of cap'
+          ' %d, seg fg voxels %s, GT %s, anchors %d, ROI_PER_IMAGE %d; the '
+          'last 4 of the 512 RoI slots a sample are GT boxes, moved and '
+          'grown' % (
+              tuple(trainer.model.module.rpn_net.loads),
+              batch2['voxel_mask'].sum(1).tolist(), trainer.max_voxels,
+              (batch2['seg_labels'] > 0).sum(1).tolist(),
+              (batch2['gt_boxes'][..., 3] > 0).sum(1).tolist(),
+              trainer.model.anchors.shape[0],
+              int(cfg.MODEL.RCNN.TARGET_CONFIG.ROI_PER_IMAGE)))
+    steps = 5
+    parta2_gt_proposals(trainer.model, batch2['gt_boxes'])
+    _, counts, a_total, dw_pairs = parta2_train_steps('[parta2 R5]', trainer,
+                                                      batch2, steps)
+    del trainer.model.proposals
+    expect = {k: v * steps for k, v in PARTA2_TRAIN_LAUNCHES.items()}
+    require(counts == expect, 'launches over %d steps %s, want %s'
+            % (steps, counts, expect))
+    for cin, cout, _ in DECODER_PAIRS:
+        require(dw_pairs.get(('gather_dw_seg', cin, cout), 0) > 0,
+                "D' (%d, %d) did not launch" % (cin, cout))
+    paths['rotated_overlap'] = {'parta2 train B2, %d steps (R5)' % steps:
+                                a_total}
+    r5 = 'parta2 train B2, %d steps (R5)' % steps
+    paths['gather_gemm_f32'] = {r5: counts.get('gather_gemm_f32', 0)
+                                + counts.get('gather_gemm_f32_dgrad', 0)}
+    paths['gather_dw'] = {r5: counts.get('gather_dw', 0)}
+    paths['gather_dw_seg'] = {r5: counts.get('gather_dw_seg', 0)}
+    print('[parta2 R5] %.1f s' % (time.perf_counter() - t0))
+
+    # R6. B1 GPU vs CPU, the new instances, the window loads --------------
+    t0 = time.perf_counter()
+    k_trainer, b1, src = parta2_four_ways('[parta2 R6]', cfg, dev, pts1,
+                                          mask1, gt_np[:1])
+    stats = decoder_pairs_vs_plain(dev, b1)
+    del k_trainer, b1
+    window_pairs = parta2_window_steps(cfg, dev, pts1, mask1, gt_np[:1], src)
+    print('[parta2 R6] %.1f s' % (time.perf_counter() - t0))
+
+    # R7. ms per step at B2 and B8; PartA2_fc.yaml --------------------------
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True       # the trainer's default
+    try:
+        parta2_train_times('[parta2 R7] PartA2.yaml (cuDNN TF32 on)', trainer,
+                           pts8, mask8, {2: gt_np[:2], 8: gt_np}, profile=True)
+        del trainer, batch2
+        sync()
+        cfg_fc = detect_mod.load_config(detect_mod.PARTA2_FC_CFG)
+        fc = build_trainer(cfg_fc, dev, seed=0, total_steps=50)
+        batch = fc.make_batch(pts2, mask2, gt_np[:2])
+        parta2_gt_proposals(fc.model, batch['gt_boxes'])
+        _, counts, fc_a, _ = parta2_train_steps(
+            '[parta2 R7] PartA2_fc.yaml train B2 (FCRCNN, 12^3, dropout %.1f)'
+            % float(cfg_fc.MODEL.RCNN.DP_RATIO), fc, batch, 3)
+        require(counts == {k: v * 3 for k, v in
+                           PARTA2_TRAIN_LAUNCHES.items()},
+                'PartA2_fc launches %s' % counts)
+        paths['rotated_overlap']['parta2_fc train B2, 3 steps (R7)'] = fc_a
+        del fc, batch
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    sync()
+    print('[parta2 R7] %.1f s' % (time.perf_counter() - t0))
+
+    entries = []
+    for entry_name, st in stats.items():
+        name = st['name']
+        cin, cout = (int(x) for x in entry_name.split('@')[1].split('x'))
+        if name.startswith('gather_gemm'):
+            src_file, kname = GEMM_SRC, name.rsplit('_', 1)[0]
+        else:
+            src_file = ('pcdet_tpu_torch/csrc/gather_dw.cu'
+                        if name == 'gather_dw' else DW_SRC)
+            kname = name
+        by_path = {}
+        for loads, counted in window_pairs.items():
+            n = counted.get((name, cin, cout), 0)
+            if n:
+                by_path['parta2 B1 train step under loads %s (R6)'
+                        % (loads,)] = n
+        n5 = dw_pairs.get((name, cin, cout), 0)
+        if n5:
+            by_path['parta2 train B2, %d steps (R5)' % steps] = n5
+        entry = kernel_entry(entry_name, src_file, REPLACES[kname],
+                             n5 or max(by_path.values(), default=0),
+                             st['err'], st['ms'], st['plain_ms'], st['work'])
+        entry['launches_by_path'] = by_path
+        require(entry['launches'] > 0, '%s: no launch on a path' % entry_name)
+        entries.append(entry)
+    return entries, paths
+
+
 def parta2_cli(dev, root, out_root, sets, val_infos):
-    """R4: the test CLI on PartA2.yaml over the KITTI tree's first 4 val
-    frames, on a checkpoint `save_checkpoint` wrote from random weights
-    (seed 0, conv_cls's bias zeroed): kernel C on every conv, kernel A,
-    the logged AP string equal to the evaluator on result.pkl.  Returns
-    the launches of A and C."""
+    """R8: the train CLI on PartA2.yaml, 1 epoch of 2 B2 batches (the books
+    from the loader's `batch_transform`, the Part-A² targets from the
+    loader): finite losses, B, D and D' launch, no tap outside its window;
+    then R4: the test CLI on its checkpoint over the KITTI tree's first 4
+    val frames: kernel C on every conv, kernel A, the logged AP string
+    equal to the evaluator on result.pkl.  Returns the launches of A and C
+    (test CLI) and of B, D, D' (train CLI)."""
     import os
     import pickle
 
     from pcdet_tpu_torch import detect as detect_mod
     from pcdet_tpu_torch.datasets.kitti import kitti_eval_cli
     from pcdet_tpu_torch.ops import rotated_overlap as ro
+    from pcdet_tpu_torch.ops import sparse
     from pcdet_tpu_torch.tools import test as test_cli
-    from pcdet_tpu_torch.train.checkpoint import save_checkpoint
-    from pcdet_tpu_torch.train.optimization import (
-        build_optimizer_and_schedule)
-    from pcdet_tpu_torch.train.train_state import TrainState
+    from pcdet_tpu_torch.tools import train as train_cli
 
-    cfg = detect_mod.load_config(detect_mod.PARTA2_CFG)
-    det = second_detector(cfg, dev)
-    opt, _ = build_optimizer_and_schedule(cfg.MODEL.TRAIN.OPTIMIZATION, 1, 1)
-    opt.init(det.model.module.named_parameters())
-    ckpt = save_checkpoint(TrainState(det.model, opt),
-                           os.path.join(out_root, 'parta2_ckpt'), 0)
-    del det, opt
+    clamped = []
+    real_selectors = sparse.xwin_selectors
+
+    def selectors(*args, **kw):
+        out = real_selectors(*args, **kw)
+        clamped.append(int(out[2]))
+        return out
+    sparse.xwin_selectors = selectors
+    try:
+        reset_launches()
+        ro.LAUNCHES = 0
+        t0 = time.perf_counter()
+        tout = train_cli.main(
+            ['--cfg_file', str(detect_mod.PARTA2_CFG), '--batch_size', '2',
+             '--epochs', '1', '--workers', '4', '--ckpt_save_interval', '1',
+             '--log_interval', '1', '--extra_tag', 'chip_smoke', '--device',
+             dev.type, '--set'] + sets)
+        sync()
+        train_counts, train_a = nonzero(all_launches()), ro.LAUNCHES
+    finally:
+        sparse.xwin_selectors = real_selectors
+    losses = [float(x) for x in log_records(tout['log_file'],
+                                            r'iter \d+ loss (\S+) ')]
+    overflow = log_records(tout['log_file'], r'loss \S+ lr \S+ (overflow/.*)')
+    print('[parta2 R8] train CLI PartA2.yaml B2, 1 epoch of %d steps in %.2f '
+          's: loss %s; %s; launches %s, kernel A %d; selector builds %d, taps '
+          'outside their window %d' % (
+              len(losses), time.perf_counter() - t0, losses, overflow,
+              train_counts, train_a, len(clamped), sum(clamped)))
+    require(len(losses) == 2 and all(np.isfinite(losses)),
+            'Part-A2 train CLI losses %s' % losses)
+    for key in ('gather_gemm_f32', 'gather_gemm_f32_dgrad', 'gather_dw',
+                'gather_dw_seg'):
+        require(train_counts.get(key, 0) > 0, 'Part-A2 train CLI: no launch '
+                'of %s' % key)
+    require(train_a > 0 and clamped and sum(clamped) == 0,
+            'Part-A2 train CLI: kernel A %d, %d selector builds, %d taps '
+            'outside their window' % (train_a, len(clamped), sum(clamped)))
+    ckpt = os.path.join(str(tout['ckpt_dir']), 'checkpoint_epoch_1.pth')
+    require(os.path.exists(ckpt), 'Part-A2 train CLI wrote no checkpoint')
+    del tout
+    sync()
     reset_launches()
     ro.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -4045,12 +4912,12 @@ def parta2_cli(dev, root, out_root, sets, val_infos):
          '--ckpt', ckpt, '--set'] + sets)
     sync()
     counts, a_launches = nonzero(all_launches()), ro.LAUNCHES
-    eval_dir, result = out['results'][0]
+    eval_dir, result = out['results'][1]
     with open(os.path.join(str(eval_dir), 'result.pkl'), 'rb') as f:
         det_annos = pickle.load(f)
     again, _ = kitti_eval_cli.evaluation(det_annos, val_infos, KITTI_CLASSES)
     logged = logged_result(out['log_file'])
-    print('[parta2 R4] test CLI PartA2.yaml on a random-weight checkpoint, '
+    print('[parta2 R4] test CLI PartA2.yaml on R8\'s checkpoint, '
           '%d val frames at B2 in %.2f s: launches %s, kernel A %d; recall/gt '
           '%s, rcnn_0.5 %s, rcnn_0.7 %s; %d detections; Car_3d_moderate %s; '
           'logged AP string == the evaluator on result.pkl: %s' % (
@@ -4070,8 +4937,16 @@ def parta2_cli(dev, root, out_root, sets, val_infos):
     require(finite_numbers(logged) and logged == again.strip(),
             'Part-A2 test CLI: the logged AP string differs from the '
             'evaluator on result.pkl')
-    return {'rotated_overlap': a_launches,
-            'gather_gemm_bf16': counts['gather_gemm_bf16']}
+    return {'rotated_overlap': {'cli_eval parta2 (R4)': a_launches,
+                                'cli_train parta2 (R8)': train_a},
+            'gather_gemm_bf16': {'cli_eval parta2 (R4)':
+                                 counts['gather_gemm_bf16']},
+            'gather_gemm_f32': {'cli_train parta2 (R8)':
+                                train_counts['gather_gemm_f32']
+                                + train_counts['gather_gemm_f32_dgrad']},
+            'gather_dw': {'cli_train parta2 (R8)': train_counts['gather_dw']},
+            'gather_dw_seg': {'cli_train parta2 (R8)':
+                              train_counts['gather_dw_seg']}}
 
 
 def main():
@@ -4387,7 +5262,9 @@ def main():
                              run_pointpillar_train, dev,
                              detect_mod.load_config())
     parta2_entries, parta2_paths = timed('Part-A2 R1-R3', run_parta2, dev)
-    cli_paths = timed('CLI pair L1-L4, R4', run_cli, dev)
+    train_entries, train_paths = timed('Part-A2 training R5-R7',
+                                       run_parta2_train, dev)
+    cli_paths = timed('CLI pair L1-L4, R8 and R4', run_cli, dev)
 
     a_entry = kernel_entry(
         'rotated_overlap', 'pcdet_tpu_torch/csrc/rotated_overlap.cu',
@@ -4396,9 +5273,10 @@ def main():
     a_entry['launches_by_path'] = {
         'pointpillar detect B2': launches_b2,
         'pointpillar trained checkpoint eval B2 (P4)': pp_eval_launches}
-    kernels = [a_entry] + second + [dw_entry] + xwin + parta2_entries + evals
+    kernels = ([a_entry] + second + [dw_entry] + xwin + parta2_entries
+               + train_entries + evals)
     for entry in kernels:
-        for paths in (parta2_paths, cli_paths):
+        for paths in (parta2_paths, train_paths, cli_paths):
             if entry['name'] in paths:
                 entry.setdefault('launches_by_path', {}).update(
                     paths[entry['name']])

@@ -63,6 +63,9 @@ int with_instance(int cin, int cout, int otherwise, F&& f) {
   PCDET_DW_CASE(32, 64)
   PCDET_DW_CASE(64, 64)
   PCDET_DW_CASE(64, 128)
+  PCDET_DW_CASE(128, 64)
+  PCDET_DW_CASE(64, 32)
+  PCDET_DW_CASE(32, 16)
 #undef PCDET_DW_CASE
   return otherwise;
 }

@@ -9,7 +9,8 @@
 // walked in 64-row sub-tiles aligned to the book's 64-row tiles, through a
 // two-stage cp.async pipeline with one __syncthreads per sub-tile: while
 // the block multiplies sub-tile t, the copies of t + 1's table rows and g
-// rows and of t + 2's rules or selectors are in flight.
+// rows and of t + 2's rules or selectors are in flight (at Cin 128, whose
+// rows fit one stage only, t + 1's table rows follow t's multiply: Cfg).
 //   Staging of t + 1, from its rules / selectors already in shared memory:
 //   D copies each found (row, tap)'s table row to slot 64 d + r; D'' each
 //   row's selected window rows to slots 3 r .. 3 r + 2; D' the span of the
@@ -317,7 +318,15 @@ struct PickCore {
 // Shared layout of an instance, per stage (two stages): the rules or
 // selectors [3][64] ints, the lists [3][64], the counts [4]; the g rows
 // [65][GS] floats (row 64 zeros); the staged table rows [slots][RS] (the
-// last slot zeros).  Strides keep every row 16-byte aligned.
+// last slot zeros), in kRowStages stages.  Strides keep every row 16-byte
+// aligned.  Two row stages where they fit a block with D''s staging at S
+// = 256 (ops/gather_xwin.py SEG_S): every instance but (128, 64), whose
+// 528-byte rows take one; it stages sub-tile t + 1's rows after the
+// barrier that ends t's multiply instead of during it.
+// ops/gather_dw.py:smem_bytes mirrors it.
+constexpr long long kSmemLimit = 232448;   // a block's shared memory on sm_90
+constexpr int kSegS = 256;
+
 template <int CIN, int COUT, int MODE>
 struct Cfg {
   static constexpr int kCore = PickCore<CIN, COUT, MODE>::value;
@@ -327,12 +336,18 @@ struct Cfg {
   static constexpr int RS = CIN < 32 ? CIN : CIN + 4;
   static constexpr int GS = COUT + 4;
   static constexpr int kInts = 2 * (2 * kTaps * kRows + 4);
+  static constexpr int kRowStages =
+      4LL * kInts + 8LL * ((kRows + 1) * GS + gather_common::staged_rows(kSegS) * RS) <=
+              kSmemLimit
+          ? 2
+          : 1;
   __host__ __device__ static int slots(int seg_rows) {
     return MODE == kRules ? kTaps * kRows + 1
                           : gather_common::staged_rows(MODE == kSegment ? seg_rows : 0);
   }
   static size_t smem_bytes(int seg_rows) {
-    return sizeof(int) * kInts + sizeof(float) * 2 * ((kRows + 1) * GS + slots(seg_rows) * RS);
+    return sizeof(int) * kInts +
+           sizeof(float) * (2 * (kRows + 1) * GS + kRowStages * slots(seg_rows) * RS);
   }
 };
 
@@ -358,7 +373,7 @@ __device__ __forceinline__ void partial_body(
   int* s_list = s_meta + 2 * kStageInts;                 // [2][3][64]
   int* s_cnt = s_list + 2 * kStageInts;                  // [2][4]
   float* s_g = smem + C::kInts;                          // [2][65][GS]
-  float* s_rows = s_g + 2 * (kRows + 1) * GS;            // [2][slots][RS]
+  float* s_rows = s_g + 2 * (kRows + 1) * GS;            // [kRowStages][slots][RS]
 
   const int chunk = blockIdx.x;
   const int blk = blockIdx.y;
@@ -376,8 +391,9 @@ __device__ __forceinline__ void partial_body(
   const long long idx_b = static_cast<long long>(b) * v_out * n_idx;
   const int zero_entry = ((n_slots - 1) << 8) | kRows;
 
-  // the zero rows of both stages (read only by padded list entries)
-  for (int e = tid; e < 2 * RS; e += NT) s_rows[(e / RS) * n_slots * RS + (n_slots - 1) * RS + e % RS] = 0.0f;
+  // the zero rows of every row stage (read only by padded list entries)
+  for (int e = tid; e < C::kRowStages * RS; e += NT)
+    s_rows[(e / RS) * n_slots * RS + (n_slots - 1) * RS + e % RS] = 0.0f;
   for (int e = tid; e < 2 * GS; e += NT) s_g[(e / GS) * (kRows + 1) * GS + kRows * GS + e % GS] = 0.0f;
 
   CoreT core;
@@ -410,12 +426,12 @@ __device__ __forceinline__ void partial_body(
     }
   };
 
-  // sub-tile t's table rows and g rows into stage t % 2 and its lists, from
-  // its rules or selectors in meta slot t % 2
+  // sub-tile t's table rows into row stage t % kRowStages, its g rows into
+  // stage t % 2 and its lists, from its rules or selectors in meta slot t % 2
   auto stage = [&](int t) {
     const int* m = s_meta + (t & 1) * kStageInts;
     int* list = s_list + (t & 1) * kStageInts;
-    float* rows = s_rows + (t & 1) * n_slots * RS;
+    float* rows = s_rows + (C::kRowStages == 2 ? t & 1 : 0) * n_slots * RS;
     float* gs = s_g + (t & 1) * (kRows + 1) * GS;
     const int row0 = row_begin + t * kRows;
     const int n = min(kRows, row_end - row0);
@@ -511,14 +527,20 @@ __device__ __forceinline__ void partial_body(
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait_all();
     __syncthreads();   // t's rows, g rows, lists and t + 1's meta are in; t - 1 is consumed
-    if (t + 1 < n_tiles) stage(t + 1);
+    if (C::kRowStages == 2 && t + 1 < n_tiles) stage(t + 1);
     if (t + 2 < n_tiles) fetch_meta(t + 2);
     cp_async_commit();
     const int s = t & 1;
     if (core.tap < taps)
       core.template run<RS, GS>(s_list + s * kStageInts + core.tap * kRows,
-                                s_cnt[s * 4 + core.tap], s_rows + s * n_slots * RS,
+                                s_cnt[s * 4 + core.tap],
+                                s_rows + (C::kRowStages == 2 ? s : 0) * n_slots * RS,
                                 s_g + s * (kRows + 1) * GS);
+    if (C::kRowStages == 1 && t + 1 < n_tiles) {
+      __syncthreads();   // t's rows are consumed: the one row stage takes t + 1's
+      stage(t + 1);
+      cp_async_commit();
+    }
   }
 
   const int k_total = MODE == kRules ? n_idx : kTaps * n_idx;

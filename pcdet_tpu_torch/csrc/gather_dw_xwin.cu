@@ -67,6 +67,9 @@ int with_instance(int seg, int cin, int cout, int otherwise, F&& f) {
   PCDET_DWX_CASE(32, 32)
   PCDET_DWX_CASE(32, 64)
   PCDET_DWX_CASE(64, 64)
+  PCDET_DWX_CASE(128, 64)
+  PCDET_DWX_CASE(64, 32)
+  PCDET_DWX_CASE(32, 16)
 #undef PCDET_DWX_CASE
   return otherwise;
 }

@@ -114,10 +114,10 @@ constexpr int kHeader = 16;              // the found-group mask, 16-byte aligne
 //   header 16 | W ring [WS][CinS][W row] | zero row | rows [RS][slots][row]
 //   | base, sel [64][G] ints | anchor, span [G] ints
 // WS = 3 W stages and RS = 2 row stages where they fit a block at S = 256
-// and 21 groups: every instance but f32 (128, 64), whose 512-byte rows
-// and 32 KB of W an x-tap do not; it takes WS = 2 and RS = 1, and stages a
-// group's rows after the barrier of the group's first x-tap instead of
-// two x-taps ahead.
+// and 21 groups: every instance but f32 (128, 64) and (64, 128), whose 32
+// KB of W an x-tap (and 512- or 256-byte rows) do not; they take WS = 2
+// and RS = 1, and stage a group's rows after the barrier of the group's
+// first x-tap instead of two x-taps ahead.
 // One 64-row tile a block: blocks of two or four tiles (more threads, more
 // shared memory, fewer blocks an SM) timed slower on SECOND's shapes.
 template <typename T, int CIN, int COUT>
@@ -125,7 +125,9 @@ struct Layout {
   static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   static constexpr int kCin = CIN, kCout = COUT;
   static constexpr int kCinS = kBf16 && CIN < 16 ? 16 : CIN;      // staged channels
-  static constexpr int kRT = 4, kCT = 4;                          // f32: sums a thread
+  // f32: a thread's sums, 4 rows x 4 columns (8 at Cout 128, so that a
+  // block stays at 256 threads)
+  static constexpr int kRT = 4, kCT = COUT >= 128 ? 8 : 4;
   static constexpr int kCG = COUT / kCT, kRG = kTileRows / kRT;
   static constexpr int kThreads = kBf16 ? kTileRows / 16 * 32 : kCG * kRG;
   static constexpr bool kPad = kBf16 || kCG < 8;                  // readers span rows
@@ -588,6 +590,7 @@ int with_instance(int cin, int cout, int otherwise, F&& f) {
   PCDET_XWIN_CASE(32, 16)
   PCDET_XWIN_CASE(64, 32)
   PCDET_XWIN_CASE(128, 64)
+  PCDET_XWIN_CASE(64, 128)
 #undef PCDET_XWIN_CASE
   return otherwise;
 }

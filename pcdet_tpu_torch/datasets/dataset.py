@@ -239,7 +239,7 @@ class DatasetTemplate:
                 voxel_centers = (
                     (coords[:, ::-1].astype(np.float32) + 0.5)
                     * vg.voxel_size + vg.point_cloud_range[0:3])
-                seg_labels, part_labels = self.generate_voxel_part_targets(
+                seg_labels, part_labels = generate_voxel_part_targets(
                     voxel_centers, voxel_mask, gt_boxes, gt_classes,
                     backbone_cfg.TARGET_CONFIG)
                 example['seg_labels'] = seg_labels
@@ -253,36 +253,36 @@ class DatasetTemplate:
 
         return example
 
-    def generate_voxel_part_targets(self, voxel_centers, voxel_mask, gt_boxes,
-                                    gt_classes, target_cfg):
-        """Per-voxel fg class + intra-object part offsets, fixed shape.
+def generate_voxel_part_targets(voxel_centers, voxel_mask, gt_boxes,
+                                gt_classes, target_cfg):
+    """Per-voxel fg class + intra-object part offsets, fixed shape.
 
-        (reference dataset.py:217-264 / rpn_unet.generate_part_targets_cpu:
-        61-107 — enlarged-box ignore region, canonical part coordinates.)
-        """
-        v = voxel_centers.shape[0]
-        seg_labels = np.zeros(v, dtype=np.int32)
-        part_labels = np.zeros((v, 3), dtype=np.float32)
-        if gt_boxes.shape[0] == 0:
-            seg_labels[~voxel_mask] = -1
-            return seg_labels, part_labels
-
-        extend = common.enlarge_box3d(gt_boxes,
-                                      extra_width=target_cfg.GT_EXTEND_WIDTH)
-        in_box = box_np_ops.points_in_boxes_mask(voxel_centers, gt_boxes)
-        in_ext = box_np_ops.points_in_boxes_mask(voxel_centers, extend)
-        for k in range(gt_boxes.shape[0]):
-            fg = in_box[k] & voxel_mask
-            seg_labels[fg] = gt_classes[k]
-            ignore = np.logical_xor(fg, in_ext[k] & voxel_mask)
-            seg_labels[ignore] = -1
-            local = voxel_centers[fg] - gt_boxes[k, 0:3]
-            local = common.rotate_pc_along_z(local.copy(), -gt_boxes[k, 6])
-            part_labels[fg] = (local / gt_boxes[k, 3:6]
-                               + np.array([0.5, 0.5, 0], dtype=np.float32))
-        part_labels = np.maximum(part_labels, 0)
+    (reference dataset.py:217-264 / rpn_unet.generate_part_targets_cpu:
+    61-107 — enlarged-box ignore region, canonical part coordinates.)
+    """
+    v = voxel_centers.shape[0]
+    seg_labels = np.zeros(v, dtype=np.int32)
+    part_labels = np.zeros((v, 3), dtype=np.float32)
+    if gt_boxes.shape[0] == 0:
         seg_labels[~voxel_mask] = -1
         return seg_labels, part_labels
+
+    extend = common.enlarge_box3d(gt_boxes,
+                                  extra_width=target_cfg.GT_EXTEND_WIDTH)
+    in_box = box_np_ops.points_in_boxes_mask(voxel_centers, gt_boxes)
+    in_ext = box_np_ops.points_in_boxes_mask(voxel_centers, extend)
+    for k in range(gt_boxes.shape[0]):
+        fg = in_box[k] & voxel_mask
+        seg_labels[fg] = gt_classes[k]
+        ignore = np.logical_xor(fg, in_ext[k] & voxel_mask)
+        seg_labels[ignore] = -1
+        local = voxel_centers[fg] - gt_boxes[k, 0:3]
+        local = common.rotate_pc_along_z(local.copy(), -gt_boxes[k, 6])
+        part_labels[fg] = (local / gt_boxes[k, 3:6]
+                           + np.array([0.5, 0.5, 0], dtype=np.float32))
+    part_labels = np.maximum(part_labels, 0)
+    seg_labels[~voxel_mask] = -1
+    return seg_labels, part_labels
 
 
 def collate_batch(batch_list):

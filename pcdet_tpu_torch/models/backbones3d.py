@@ -1,5 +1,5 @@
-"""SECOND's sparse 3D backbone on tensors, eval and training, and Part-A²'s
-sparse UNet (eval).
+"""SECOND's sparse 3D backbone and Part-A²'s sparse UNet on tensors, eval
+and training.
 
 Twin of `pcdet_tpu.models.backbones3d.SpConvBNReLU` / `BackBone8x` /
 `SparseBasicBlock` / `UNetV2` with the reference's module names
@@ -265,8 +265,9 @@ class UNetV2(BackBone8x):
     `conv5` (a subm conv, n = 1).  The decoder's subm convs run over the
     encoder's subm books of their level and share its selectors; each
     inverse conv runs over the transpose of its strided conv's book
-    (`inverse_books`).  That makes 28 sparse convs a batch, 27 of them 3
-    wide in x, all by `loads.fwd` but conv_out.
+    (`inverse_books`), and its feature gradient over that conv's own
+    forward book.  That makes 28 sparse convs a batch, 27 of them 3 wide in
+    x, all by `loads.fwd` but conv_out.
     """
 
     UP = ((4, 64, 64, 'spconv4', (0, 1, 1)), (3, 64, 32, 'spconv3', (1, 1, 1)),
@@ -287,12 +288,15 @@ class UNetV2(BackBone8x):
         self.seg_cls_layer = nn.Linear(16, 1)
         self.seg_reg_layer = nn.Linear(16, 3)
 
-    def inverse_books(self, books, fine_levels):
+    def inverse_books(self, books, fine_levels, shared):
         """Per strided book key, what its inverse conv takes: `rules_t`,
         the transposed book over its fine level's live sites, and under
         window `loads.fwd` its selectors (their dropped taps in
-        `xwin_clamped[key + '_inv']`)."""
+        `xwin_clamped[key + '_inv']`) and, where a backward will run, the
+        strided conv's own forward selectors from `shared`, which its
+        feature gradient reads."""
         out = {}
+        backward = self.training and torch.is_grad_enabled()
         for key, fine in zip(('spconv2', 'spconv3', 'spconv4'), fine_levels):
             rules_t = sparse.inverse_rules(books[key][4], fine.mask)
             out[key] = {'rules_t': rules_t}
@@ -300,6 +304,8 @@ class UNetV2(BackBone8x):
                 base, sel, self.xwin_clamped[key + '_inv'] = \
                     sparse.xwin_selectors(rules_t, books[key][4].shape[1])
                 out[key]['xwin'] = (base, sel)
+                if backward:
+                    out[key]['bwd_xwin'] = shared[key]['xwin']
         return out
 
     def ur_block(self, lvl, lateral, bottom, book, compute_dtype, shared):
@@ -323,7 +329,7 @@ class UNetV2(BackBone8x):
         cd = compute_dtype
         shared = self.shared_books(books, level.features.shape[1])
         levels, out, overflow = self.encode(level, books, cd, shared)
-        inv = self.inverse_books(books, levels[:3])
+        inv = self.inverse_books(books, levels[:3], shared)
         x = levels[3]
         for lvl, _, _, key, _ in self.UP:
             sk = 'subm%d' % lvl

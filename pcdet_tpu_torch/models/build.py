@@ -10,8 +10,8 @@ SPARSE_MODELS = ('SECOND', 'second_net', 'PartA2', 'PartA2_net')
 
 
 def build_network(cfg, grid_size, device='cuda', generator=None, loads=None):
-    """PointPillar, SECOND or Part-A² (eval; Part-A²-fc by its RCNN head)
-    by `cfg.MODEL.NAME`.
+    """PointPillar, SECOND or Part-A² (Part-A²-fc by its RCNN head) by
+    `cfg.MODEL.NAME`.
 
     :param grid_size: the voxel grid (nx, ny, nz)
     :param generator: a CPU torch.Generator for random weights (None: the

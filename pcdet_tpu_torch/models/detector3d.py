@@ -8,6 +8,8 @@ the decode-everything `post_process_batch` (class-agnostic with a labels
 override, or per class) that Part-A²'s refined boxes go through.  The
 top-k is a stable descending sort so that ties (empty BEV regions give
 exactly equal logits) break by lower anchor index, as `jax.lax.top_k` does.
+`TrainHooks` holds what a detector wrapper tells the trainer beyond its
+forward and loss.
 """
 import torch
 
@@ -15,6 +17,30 @@ from ..ops import nms as nms_ops
 from ..ops import rotated_iou
 from ..utils import torch_common
 from .rpn_head import anchor_head_loss
+
+
+class TrainHooks:
+    """What a detector wrapper tells `train.trainer.Trainer` beyond forward
+    and loss.  The defaults are a model's that draws nothing at random,
+    freezes nothing and takes no targets past the anchor targets."""
+
+    # True: the model draws at random in training, from the device
+    # generator that the trainer hands to `set_generator`
+    draws = False
+
+    def frozen_prefixes(self):
+        """Parameter name prefixes that the optimizer leaves out."""
+        return ()
+
+    def host_targets(self, coords, gt_boxes):
+        """The targets made on the host beside the anchor targets, as
+        (name, numpy array) pairs for the batch's one upload.
+
+        :param coords: (B, V, 3) ZYX voxel coords on the host, -1 rows for
+            padding (None for a model without host books)
+        :param gt_boxes: (B, M, 8) boxes with class ids, zero rows padding
+        """
+        return []
 
 
 def _take(x, idx):

@@ -15,7 +15,7 @@ import torch.nn as nn
 
 from ..utils.box_coder import ResidualCoder
 from .anchors import AnchorHeadTargets
-from .detector3d import detector_loss, post_process_from_head
+from .detector3d import TrainHooks, detector_loss, post_process_from_head
 from .layers import init_weights
 from .pillar_scatter import pillar_scatter
 from .rpn_head import RPNV2
@@ -68,7 +68,7 @@ class PointPillarNet(nn.Module):
         return self.rpn_head(canvas)
 
 
-class PointPillar:
+class PointPillar(TrainHooks):
     """Detector wrapper: module + anchors + predict."""
 
     def __init__(self, cfg, grid_size, device='cuda', generator=None):

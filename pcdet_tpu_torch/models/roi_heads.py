@@ -1,10 +1,13 @@
-"""Part-A²'s second stage for serving: the proposal layer, the RCNN heads
-over the pooled RoI grids, and the refined boxes' decode.
+"""Part-A²'s second stage: the proposal layer, the RoI sampler and its
+targets, the RCNN heads over the pooled RoI grids, their loss, and the
+refined boxes' decode.
 
 Twin of `pcdet_tpu.models.roi_heads` (`proposal_layer`,
-`proposal_layer_from_head`, `MaskedConv3dBNReLU`, `FCBlock`,
-`SpConvRCNNModule`, `FCRCNNModule`, `decode_rcnn_boxes`).  The proposal
-NMS runs through `ops/nms.py`, whose rotated IoU rows are kernel A.  The
+`proposal_layer_from_head`, `sample_rois_for_rcnn_single` batched as
+`sample_rois`, `proposal_target_layer`, `MaskedConv3dBNReLU`, `FCBlock`,
+`SpConvRCNNModule`, `FCRCNNModule`, `rcnn_loss`, `decode_rcnn_boxes`).
+The proposal NMS runs through `ops/nms.py`, whose rotated IoU rows are
+kernel A, as is the sampler's RoI-GT 3-D IoU (one launch a batch).  The
 RCNN's sparse convs over the 14³ (12³) RoI grids are dense 3-D convs with
 the inactive cells zero and the outputs masked to the active ones, as in
 `pcdet_tpu`; they stay `torch.nn.functional.conv3d`.  Module names follow
@@ -13,8 +16,12 @@ the reference's partA2_rcnn_net.py (`rcnn_net.conv_part.0.0.weight`,
 their Sequential indices), as `pcdet_tpu.train.torch_import.map_rcnn`
 reads them; the dense conv weights keep spconv's (k, k, k, Cin, Cout)
 layout.  The first shared FC reads the grid flattened channel-major, the
-reference's order.  Dropout is off in eval.  The stage-2 training pieces
-(`proposal_target_layer`, `rcnn_loss`) are not ported yet.
+reference's order.  In training the 3-D convs' BNs take batch statistics
+over the occupied cells and the FCs' over the RoIs; `Dropout` draws its
+masks from an explicit generator (off in eval).  The sampler's random
+picks come from a generator on the device too; both can be given instead
+(`picks`, `Dropout.fixed_mask`), which is how two devices, or this port
+and `pcdet_tpu`, are held to one draw.
 """
 import math
 
@@ -23,7 +30,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import nms as nms_ops
+from ..ops import rotated_iou
+from ..utils import loss as loss_ops
 from ..utils import torch_common
+from ..utils.box_coder import ResidualCoder
 from .layers import BatchNorm
 
 BIG_NEG = -100000.0
@@ -82,6 +92,184 @@ def proposal_layer_from_head(cls_preds, box_raw, anchors, dir_raw, box_coder,
                           rotated=rotated)
 
 
+def _nth_true(mask, k):
+    """Index of the k-th (0-based) True entry of each row of `mask` (B, M)
+    for k (B, R) int64; 0 where the row has no True entry."""
+    csum = torch.cumsum(mask.to(torch.int64), dim=1)
+    idx = torch.searchsorted(csum, k + 1)
+    return torch.where(csum[:, -1:] > 0, idx.clamp(max=mask.shape[1] - 1), 0)
+
+
+def masked_choice(mask, num, replace, generator):
+    """`num` indices per row drawn uniformly from the True entries of `mask`
+    (B, M) (`pcdet_tpu.models.roi_heads._masked_choice`): with replacement
+    (one uniform draw a slot), or without (a random order of the True
+    entries first, then the others); 0 where a row has none.
+
+    :return: (B, num) int64
+    """
+    b, m = mask.shape
+    dev = mask.device
+    if replace:
+        n = mask.sum(dim=1, keepdim=True)
+        u = torch.rand((b, num), generator=generator, device=dev)
+        k = torch.minimum((u * n).to(torch.int64), (n - 1).clamp(min=0))
+        return _nth_true(mask, k)
+    u = torch.rand((b, m), generator=generator, device=dev)
+    order = torch.argsort(torch.where(mask, u, u + 2.0), dim=1)
+    if num > m:
+        order = torch.cat([order, order.new_zeros((b, num - m))], dim=1)
+    return order[:, :num]
+
+
+def rois_iou3d(rois, gt_boxes):
+    """The sampler's 3-D IoU, (B, M, 7) x (B, G, 7) -> (B, M, G) f32: kernel
+    A in one launch (its plain version on the CPU), in f32 whatever the
+    boxes' dtype, as kernel A takes them."""
+    return rotated_iou.boxes_iou3d_batched(rois.float(), gt_boxes.float())
+
+
+def sample_rois(rois, roi_raw_scores, roi_labels, roi_valid, gt_boxes,
+                sampler_cfg, num_class, generator=None, picks=None):
+    """The RoI sampler of a batch (`pcdet_tpu.models.roi_heads.
+    sample_rois_for_rcnn_single` per sample; the reference's
+    sample_rois_for_rcnn:45-162), no host round trip: the class-aware 3-D
+    IoU of every proposal with every GT (kernel A, one launch), the fg /
+    easy-bg / hard-bg masks, then ROI_PER_IMAGE slots, the first `fg_count`
+    fg picks (without replacement where bg exists, else with) and the rest
+    bg: `hard_num` hard picks, then easy ones (with replacement).
+
+    :param rois: (B, M, 7); :param gt_boxes: (B, G, 8), zero-padded, the
+        class id last
+    :param generator: the draws' torch.Generator on the rois' device
+    :param picks: (B, R) proposal indices to take instead of drawing them
+        (what another device or `pcdet_tpu` drew)
+    :return: dict of (B, R) tensors: rois, gt_of_rois, roi_iou,
+        roi_raw_scores, roi_labels, valid; picks int64; and the counts per
+        sample n_fg, n_hard, n_easy, fg_count, hard_num (int64)
+    """
+    sc = sampler_cfg
+    r = int(sc.ROI_PER_IMAGE)
+    fg_per_image = int(round(sc.FG_RATIO * r))
+    reg_fg = float(sc.REG_FG_THRESH)
+    cls_bg_lo = float(sc.CLS_BG_THRESH_LO)
+    b = rois.shape[0]
+
+    gt_valid = torch.abs(gt_boxes[..., :7]).sum(dim=-1) > 0        # (B, G)
+    iou = rois_iou3d(rois, gt_boxes[..., :7])
+    if num_class > 1:
+        same = roi_labels[:, :, None] == gt_boxes[:, None, :, 7].to(
+            torch.int32)
+        iou = torch.where(same, iou, 0.0)
+    iou = torch.where(gt_valid[:, None, :] & roi_valid[:, :, None], iou, 0.0)
+    max_overlaps, gt_assignment = torch.max(iou, dim=2)
+
+    fg_mask = (max_overlaps >= min(reg_fg, float(sc.CLS_FG_THRESH))) \
+        & roi_valid
+    easy_mask = (max_overlaps < cls_bg_lo) & roi_valid
+    hard_mask = ((max_overlaps < reg_fg) & (max_overlaps >= cls_bg_lo)
+                 & roi_valid)
+    n_fg, n_easy, n_hard = (m.sum(dim=1) for m in (fg_mask, easy_mask,
+                                                    hard_mask))
+    n_bg = n_easy + n_hard
+
+    fg_count = torch.where(n_bg > 0, torch.clamp(n_fg, max=fg_per_image), r)
+    fg_count = torch.where(n_fg > 0, fg_count, 0)
+    bg_count = r - fg_count
+    hard_num = torch.where(
+        (n_hard > 0) & (n_easy > 0),
+        (bg_count.to(torch.float32) * float(sc.HARD_BG_RATIO)).to(
+            torch.int64),
+        torch.where(n_hard > 0, bg_count, 0))
+    slots = torch.arange(r, device=rois.device)[None]
+    if picks is None:
+        fg_pick = torch.where(
+            (n_bg > 0)[:, None],
+            masked_choice(fg_mask, r, False, generator),
+            masked_choice(fg_mask, r, True, generator))
+        bg_pick = torch.where(slots - fg_count[:, None] < hard_num[:, None],
+                              masked_choice(hard_mask, r, True, generator),
+                              masked_choice(easy_mask, r, True, generator))
+        picks = torch.where(slots < fg_count[:, None], fg_pick, bg_pick)
+    picks = picks.to(rois.device, torch.int64)
+    if tuple(picks.shape) != (b, r):
+        raise ValueError('picks %s: want (B, ROI_PER_IMAGE) = %s'
+                         % (tuple(picks.shape), (b, r)))
+
+    def take(x):
+        if x.dim() == 2:
+            return torch.gather(x, 1, picks)
+        return torch.gather(x, 1, picks[..., None].expand(-1, -1,
+                                                          x.shape[-1]))
+
+    assigned = torch.gather(gt_assignment, 1, picks)
+    return {'rois': take(rois),
+            'gt_of_rois': torch.gather(gt_boxes, 1, assigned[..., None].expand(
+                -1, -1, gt_boxes.shape[-1])),
+            'roi_iou': take(max_overlaps),
+            'roi_raw_scores': take(roi_raw_scores),
+            'roi_labels': take(roi_labels),
+            'valid': (n_fg + n_bg > 0)[:, None].expand(b, r),
+            'picks': picks, 'n_fg': n_fg, 'n_hard': n_hard, 'n_easy': n_easy,
+            'fg_count': fg_count, 'hard_num': hard_num}
+
+
+def proposal_target_layer(roi_dict, gt_boxes, sampler_cfg, num_class,
+                          generator=None, picks=None):
+    """Sampling, the classification targets and the canonical transform of
+    each sampled RoI's GT into its frame (`pcdet_tpu.models.roi_heads.
+    proposal_target_layer`; the reference's proposal_target_layer:7-42 and
+    RCNNHead.assign_targets:25-54).
+
+    :return: rois, gt_of_rois (canonical), gt_of_rois_src, gt_iou,
+        rcnn_cls_labels, reg_valid_mask int32, roi_raw_scores, roi_labels,
+        roi_valid, and `sampler`: the sampler's picks and counts
+    """
+    sc = sampler_cfg
+    sampled = sample_rois(roi_dict['rois'], roi_dict['roi_raw_scores'],
+                          roi_dict['roi_labels'], roi_dict['roi_valid'],
+                          gt_boxes, sc, num_class, generator, picks)
+    roi_iou, valid = sampled['roi_iou'], sampled['valid']
+    reg_valid_mask = ((roi_iou > float(sc.REG_FG_THRESH)).to(torch.int32)
+                      * valid.to(torch.int32))
+    fg_thresh, bg_thresh = float(sc.CLS_FG_THRESH), float(sc.CLS_BG_THRESH)
+    if sc.CLS_SCORE_TYPE == 'cls':
+        cls_label = (roi_iou > fg_thresh).to(torch.float32)
+        cls_label = torch.where((roi_iou > bg_thresh) & (roi_iou < fg_thresh),
+                                -1.0, cls_label)
+    elif sc.CLS_SCORE_TYPE == 'roi_iou':
+        fg, bg = roi_iou > fg_thresh, roi_iou < bg_thresh
+        cls_label = torch.where(~fg & ~bg, roi_iou * 2 - 0.5,
+                                fg.to(torch.float32))
+    else:
+        raise NotImplementedError(sc.CLS_SCORE_TYPE)
+    cls_label = torch.where(valid, cls_label, -1.0)
+
+    rois, src = sampled['rois'], sampled['gt_of_rois']
+    roi_ry = torch.remainder(rois[..., 6], 2 * math.pi)
+    xyz = src[..., 0:3] - rois[..., 0:3]
+    ry = src[..., 6] - roi_ry
+    ang = -(roi_ry + math.pi / 2)
+    cosa, sina = torch.cos(ang), torch.sin(ang)
+    xr = xyz[..., 0] * cosa + xyz[..., 1] * sina
+    yr = -xyz[..., 0] * sina + xyz[..., 1] * cosa
+    ry = torch.remainder(ry, 2 * math.pi)
+    opposite = (ry > math.pi * 0.5) & (ry < math.pi * 1.5)
+    ry = torch.where(opposite, torch.remainder(ry + math.pi, 2 * math.pi), ry)
+    ry = torch.where(ry > math.pi, ry - math.pi * 2, ry)
+    ry = torch.clamp(ry, -math.pi / 2, math.pi / 2)
+    gt = torch.cat([xr[..., None], yr[..., None], xyz[..., 2:3],
+                    src[..., 3:6], ry[..., None], src[..., 7:]], dim=-1)
+    return {'rois': rois, 'gt_of_rois': gt, 'gt_of_rois_src': src,
+            'gt_iou': roi_iou, 'rcnn_cls_labels': cls_label,
+            'reg_valid_mask': reg_valid_mask,
+            'roi_raw_scores': sampled['roi_raw_scores'],
+            'roi_labels': sampled['roi_labels'], 'roi_valid': valid,
+            'sampler': {k: sampled[k] for k in (
+                'picks', 'n_fg', 'n_hard', 'n_easy', 'fg_count',
+                'hard_num')}}
+
+
 class DenseConv3d(nn.Module):
     """Weight holder of a 3x3x3 conv over a RoI grid, spconv's (3, 3, 3,
     Cin, Cout) layout, no bias."""
@@ -93,12 +281,16 @@ class DenseConv3d(nn.Module):
                                                out_channels))
 
     def forward(self, x, compute_dtype=None):
-        """(N, D, H, W, Cin) -> (N, D, H, W, Cout) f32, padding 1."""
+        """(N, D, H, W, Cin) -> (N, D, H, W, Cout), padding 1; in the
+        input's dtype, or f32 under a `compute_dtype`."""
         w = self.weight.permute(4, 3, 0, 1, 2)
         x = x.permute(0, 4, 1, 2, 3)
         if compute_dtype is not None:
             x, w = x.to(compute_dtype), w.to(compute_dtype)
-        return F.conv3d(x, w, padding=1).float().permute(0, 2, 3, 4, 1)
+        y = F.conv3d(x, w, padding=1)
+        if compute_dtype is not None:
+            y = y.float()
+        return y.permute(0, 2, 3, 4, 1)
 
 
 class MaskedConv3dBNReLU(nn.Sequential):
@@ -130,7 +322,9 @@ class Conv1x1(nn.Module):
         w = self.weight[..., 0]
         if compute_dtype is not None:
             x, w = x.to(compute_dtype), w.to(compute_dtype)
-        y = F.linear(x, w).float()
+        y = F.linear(x, w)
+        if compute_dtype is not None:
+            y = y.float()
         return y if self.bias is None else y + self.bias
 
 
@@ -162,6 +356,33 @@ class FCBlock(nn.Module):
         return torch.relu(self.bn(y))
 
 
+class Dropout(nn.Module):
+    """Dropout whose mask is drawn from `generator` (an explicit
+    torch.Generator on the input's device, set by the trainer; None:
+    torch's default one of that device), as flax's Dropout keeps with
+    probability 1 - p and scales by 1 / (1 - p).  `fixed_mask`, where set,
+    is used instead of a draw; `last_mask` keeps the mask of the last
+    training forward.  Identity in eval and at p = 0."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = float(p)
+        self.generator = None
+        self.fixed_mask = None
+        self.last_mask = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = self.fixed_mask
+        if keep is None:
+            keep = torch.rand(x.shape, generator=self.generator,
+                              device=x.device) >= self.p
+        keep = keep.to(x.device)
+        self.last_mask = keep
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
 def _fc_stack(in_channels, channels, dropout_after, dp_ratio):
     """FCBlocks with a Dropout after block i where `dropout_after(i)`."""
     layers = []
@@ -169,7 +390,7 @@ def _fc_stack(in_channels, channels, dropout_after, dp_ratio):
         layers.append(FCBlock(in_channels, ch))
         in_channels = ch
         if dropout_after(i):
-            layers.append(nn.Dropout(dp_ratio))
+            layers.append(Dropout(dp_ratio))
     return layers
 
 
@@ -281,6 +502,76 @@ class FCRCNN(_RCNNBase):
 
     def forward(self, pooled_part, pooled_rpn):
         return self.heads(self.parts(pooled_part, pooled_rpn)[1])
+
+
+def rcnn_loss(forward_ret, loss_weights, corner_loss_regularization=True,
+              code_size=7):
+    """The RCNN's BCE class loss over the valid labels, and its smooth-L1
+    and corner losses over the fg RoIs (`pcdet_tpu.models.roi_heads.
+    rcnn_loss`; the reference's RCNNHead.get_loss:56-143).  Rows that are
+    not fg take a unit box before the encode and decode, so that a padded
+    RoI of zero size cannot put a NaN (log 0, / 0) into the masked sums.
+
+    :return: loss, tb {rcnn_loss_cls, rcnn_loss_reg, rcnn_loss_corner,
+        rcnn_loss}
+    """
+    coder = ResidualCoder()
+    rcnn_cls = forward_ret['rcnn_cls'].reshape(-1)
+    cls_labels = forward_ret['rcnn_cls_labels'].reshape(-1)
+    reg_valid = forward_ret['reg_valid_mask'].reshape(-1)
+    gt_ct = forward_ret['gt_of_rois'][..., :code_size].reshape(-1, code_size)
+    gt_src = forward_ret['gt_of_rois_src'][..., :code_size].reshape(
+        -1, code_size)
+    rcnn_reg = forward_ret['rcnn_reg'].reshape(-1, code_size)
+    rois = forward_ret['rois'].reshape(-1, code_size)
+
+    p = torch.sigmoid(rcnn_cls)
+    eps = 1e-7
+    bce = -(cls_labels * torch.log(torch.clamp(p, eps, 1.0))
+            + (1 - cls_labels) * torch.log(torch.clamp(1 - p, eps, 1.0)))
+    cls_valid = (cls_labels >= 0).to(torch.float32)
+    loss_cls = ((bce * cls_valid).sum() / torch.clamp(cls_valid.sum(),
+                                                      min=1.0)
+                * loss_weights['rcnn_cls_weight'])
+
+    fg = (reg_valid > 0).to(torch.float32)
+    fg_sum = torch.clamp(fg.sum(), min=1.0)
+    safe = fg[:, None] > 0
+    dummy = rois.new_tensor([0, 0, 0, 1, 1, 1, 0])
+    rois_safe = torch.where(safe, rois, dummy)
+    gt_ct_safe = torch.where(safe, gt_ct, dummy)
+    gt_src_safe = torch.where(safe, gt_src, dummy)
+    zero3 = torch.zeros_like(rois_safe[:, :3])
+    rois_anchor = torch.cat([zero3, rois_safe[:, 3:6],
+                             torch.zeros_like(rois_safe[:, 6:7]),
+                             rois_safe[:, 7:]], dim=1)
+    reg_targets = coder.encode(gt_ct_safe, rois_anchor)
+    reg_l = loss_ops.weighted_smooth_l1(
+        rcnn_reg[None], reg_targets[None], sigma=3.0,
+        code_weights=loss_weights['code_weights'])[0]
+    loss_reg = ((reg_l * fg[:, None]).sum() / fg_sum
+                * loss_weights['rcnn_reg_weight'])
+    tb = {'rcnn_loss_cls': loss_cls, 'rcnn_loss_reg': loss_reg}
+
+    if corner_loss_regularization:
+        local = coder.decode(rcnn_reg, torch.cat([zero3, rois_safe[:, 3:]],
+                                                 dim=1))
+        ang = rois_safe[:, 6] + math.pi / 2
+        cosa, sina = torch.cos(ang), torch.sin(ang)
+        x = local[:, 0] * cosa + local[:, 1] * sina
+        y = -local[:, 0] * sina + local[:, 1] * cosa
+        boxes = torch.cat([x[:, None] + rois[:, 0:1],
+                           y[:, None] + rois[:, 1:2],
+                           local[:, 2:3] + rois[:, 2:3], local[:, 3:]],
+                          dim=1)
+        corner = loss_ops.corner_loss_lidar(boxes[:, :7], gt_src_safe[:, :7])
+        loss_corner = ((corner * fg).sum() / fg_sum
+                       * loss_weights['rcnn_corner_weight'])
+        loss_reg = loss_reg + loss_corner
+        tb['rcnn_loss_corner'] = loss_corner
+    total = loss_cls + loss_reg
+    tb['rcnn_loss'] = total
+    return total, tb
 
 
 def decode_rcnn_boxes(rcnn_reg, rois, box_coder, code_size=7):

@@ -18,7 +18,7 @@ from ..ops import host_books, sparse
 from ..utils.box_coder import ResidualCoder
 from .anchors import AnchorHeadTargets
 from .backbones3d import BackBone8x, effective_dtype, resolve_caps
-from .detector3d import detector_loss, post_process_from_head
+from .detector3d import TrainHooks, detector_loss, post_process_from_head
 from .layers import init_weights
 from .rpn_head import RPNV2
 from .vfe import MeanVFE
@@ -76,7 +76,7 @@ class SECONDNetModule(nn.Module):
         return ret
 
 
-class SECONDNet:
+class SECONDNet(TrainHooks):
     """Detector wrapper: module + anchors + host book spec + predict.
 
     :param loads: `ops.sparse.Loads` of the backbone's kw=3 convs (None:

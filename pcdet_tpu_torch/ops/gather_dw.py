@@ -22,8 +22,9 @@ same bits.  A chunk is sized so that the grid of (chunk, block of three
 taps, sample) blocks fills a few waves of the blocks the card holds at
 once (`chunk_rows`, `resident_blocks`).
 
-`LAUNCHES` counts kernel launches per variant, so a run can show that its
-path went through the kernels.
+`LAUNCHES` counts kernel launches per variant, and `PAIR_LAUNCHES` per
+(variant, Cin, Cout), so a run can show that its path went through the
+kernels and which instances.
 """
 import ctypes
 import functools
@@ -33,8 +34,12 @@ import torch
 from . import cuda_build, gather_xwin
 
 LAUNCHES = {'gather_dw': 0, 'gather_dw_xwin': 0, 'gather_dw_seg': 0}
-# (Cin, Cout) of the kernel's instances: the forward pairs of BackBone8x
-PAIRS = ((4, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64), (64, 128))
+PAIR_LAUNCHES = {}
+# (Cin, Cout) of the kernel's instances: the forward pairs of BackBone8x,
+# then those of UNetV2's decoder (conv_up_m4 / m3, conv_up_m2 and inv_conv3,
+# conv_up_m1 and inv_conv2)
+PAIRS = ((4, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64), (64, 128),
+         (128, 64), (64, 32), (32, 16))
 MAX_TAPS = 64
 _ROWS = 64                   # the kernels' sub-tile; chunks are multiples
 _TAPS = 3                    # taps per block (D: 3 of K; D″, D′: a group)
@@ -44,7 +49,9 @@ _MIN_TILES = 4               # sub-tiles per chunk at least (a fill and a
 _SOURCES = ('gather_dw.cu',)
 _XWIN_SOURCES = ('gather_dw_xwin.cu',)
 # (Cin, Cout) of the window and segment instances: the kw=3 convs' pairs
-XWIN_PAIRS = PAIRS[:-1]
+# (all but conv_out's (64, 128))
+XWIN_PAIRS = tuple(p for p in PAIRS if p != (64, 128))
+SMEM_LIMIT = 232448          # a block's shared memory on sm_90
 
 
 @functools.cache
@@ -59,6 +66,38 @@ def build():
     lib.pcdet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pcdet_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def row_stages(cin, cout):
+    """`Cfg::kRowStages` of the (Cin, Cout) instances: the table rows'
+    stages, 2 where they fit a block with D′'s staging at `SEG_S` rows,
+    else 1 ((128, 64))."""
+    return 2 if smem_bytes('seg', cin, cout, gather_xwin.SEG_S, 2) \
+        <= SMEM_LIMIT else 1
+
+
+def smem_bytes(kind, cin, cout, s=0, stages=None):
+    """`Cfg::smem_bytes`: a pass-1 block's dynamic shared memory, `kind`
+    'rows' (D), 'xwin' (D″) or 'seg' (D′ at `s` segment rows): two stages
+    of the rules or selectors, lists and counts, and of the g rows (64 +
+    a zero row, Cout + 4 floats each), and `stages` (None: `row_stages`)
+    stages of the staged table rows (Cin, or Cin + 4 from 32 on, floats
+    each; 193 slots, or s + 1 for D′ past 192)."""
+    rs = cin if cin < 32 else cin + 4
+    slots = 3 * _ROWS + 1 if kind != 'seg' else max(s, 3 * _ROWS) + 1
+    if stages is None:
+        stages = row_stages(cin, cout)
+    return 4 * 2 * (2 * _TAPS * _ROWS + 4) + 4 * (
+        2 * (_ROWS + 1) * (cout + 4) + stages * slots * rs)
+
+
+def max_seg_rows(cin, cout):
+    """The most segment rows D′'s (Cin, Cout) instance stages in a block
+    (at most 1022)."""
+    fixed = smem_bytes('seg', cin, cout, 0) - row_stages(cin, cout) * (
+        3 * _ROWS + 1) * (cin if cin < 32 else cin + 4) * 4
+    per = row_stages(cin, cout) * (cin if cin < 32 else cin + 4) * 4
+    return min(gather_xwin.SEG_MISS - 1, (SMEM_LIMIT - fixed) // per - 1)
 
 
 def gather_dw_plain(feats, rules, g, n_live):
@@ -183,7 +222,13 @@ def gather_dw(feats, rules, g, n_live):
             v_out, k, cin, cout, rows, stream)
     cuda_build.check(lib, rc)
     LAUNCHES['gather_dw'] += 1
+    _count_pair('gather_dw', cin, cout)
     return out
+
+
+def _count_pair(name, cin, cout):
+    PAIR_LAUNCHES[name, cin, cout] = PAIR_LAUNCHES.get((name, cin, cout),
+                                                       0) + 1
 
 
 @functools.cache
@@ -235,6 +280,10 @@ def _dw_window(seg, feats, base, sel, g, n_live, s):
     if (cin, cout) not in XWIN_PAIRS:
         raise ValueError('no kernel instance for Cin=%d, Cout=%d (pairs %s)'
                          % (cin, cout, XWIN_PAIRS))
+    if seg and s > max_seg_rows(cin, cout):
+        raise ValueError('%d segment rows do not fit the %d -> %d instance '
+                         '(at most %d)' % (s, cin, cout,
+                                           max_seg_rows(cin, cout)))
     k = 3 * groups
     out = torch.empty((k, cin, cout), dtype=torch.float32, device=feats.device)
     if b == 0 or v_out == 0:
@@ -255,7 +304,9 @@ def _dw_window(seg, feats, base, sel, g, n_live, s):
             out.data_ptr(), counter.data_ptr(), b, feats.shape[1], v_out,
             groups, cin, cout, rows, s, stream)
     cuda_build.check(lib, rc)
-    LAUNCHES['gather_dw_seg' if seg else 'gather_dw_xwin'] += 1
+    name = 'gather_dw_seg' if seg else 'gather_dw_xwin'
+    LAUNCHES[name] += 1
+    _count_pair(name, cin, cout)
     return out
 
 

@@ -50,10 +50,11 @@ LAUNCHES['xwin_selectors'] = 0
 PAIR_LAUNCHES = {}
 # (Cin, Cout) of the instances: BackBone8x's kw=3 convs and the feature
 # gradients over their transposed books (conv_input's is never taken), and
-# UNetV2's decoder: its merge convs over 128 channels (up4_m, up3_m) and its
-# inverse convs (64 -> 64, 64 -> 32, 32 -> 16)
+# UNetV2's decoder: its merge convs over 128 channels (up4_m, up3_m), their
+# feature gradient (64 -> 128) and its inverse convs (64 -> 64, 64 -> 32,
+# 32 -> 16)
 PAIRS = ((4, 16), (16, 16), (16, 32), (32, 32), (32, 64), (64, 64),
-         (32, 16), (64, 32), (128, 64))
+         (32, 16), (64, 32), (128, 64), (64, 128))
 TILE = 64              # rows per block, the tile of the segment descriptors
 SEG_S = 256            # segment rows
 MAX_GROUPS = 21
@@ -205,7 +206,7 @@ def _layout(bf16, cin, cout):
 def stages(dtype, cin, cout):
     """(W stages, row stages) of an instance, `Layout::kWStages` /
     `kRowStages`: (3, 2) where they fit a block at S = 256 and 21 groups,
-    else (2, 1) (f32 (128, 64))."""
+    else (2, 1) (f32 (128, 64) and (64, 128))."""
     row, w = _layout(dtype == torch.bfloat16, cin, cout)
     fits = (16 + 3 * w + row + 4 * MAX_GROUPS * (2 * TILE + 2)
             + 2 * SEG_S * row) <= SMEM_LIMIT

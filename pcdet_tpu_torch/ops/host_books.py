@@ -420,14 +420,15 @@ def make_batch_transform(model, training):
 # a loader batch's arrays that go to the device, in this order
 LOADER_KEYS = ('voxels', 'num_points', 'coordinates', 'voxel_mask',
                'voxel_overflow', 'gt_boxes', 'box_cls_labels',
-               'box_reg_targets')
+               'box_reg_targets', 'seg_labels', 'part_labels')
 
 
 def upload_loader_batch(batch, device, model, train):
     """A collated loader batch (numpy, `datasets.collate_batch`) -> the
     model's batch on `device`, in ONE copy: voxels, num_points (as
     `num_points_per_voxel`), coordinates, voxel_mask, voxel_overflow and,
-    where the batch has them, gt_boxes and the anchor targets; for a model
+    where the batch has them, gt_boxes, the anchor targets and Part-A²'s
+    per-voxel seg_labels / part_labels; for a model
     with sparse convs also its books at the train or eval caps, decoded
     into `books`: the batch's `hb_*` books, which the loader's
     `make_batch_transform` adds (a batch without them raises)."""

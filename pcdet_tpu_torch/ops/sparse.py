@@ -8,7 +8,8 @@ by the mask).  The rulebooks come from `ops/host_books.py` (the CLI
 default in `pcdet_tpu`); the device builders of `pcdet_tpu.ops.sparse`
 (`_rules_subm`, `_strided_out_set`, `_rules_inverse`) are not ported yet,
 so an inverse conv runs on indice-key reuse only: over the transpose of
-the book of the strided conv it inverts (`inverse_conv3d`).
+the book of the strided conv it inverts (`inverse_conv3d`), and its
+feature gradient over that conv's own forward book.
 
 Each conv is one launch of a gather-GEMM for the whole batch, through
 `RulebookConv`, whose backward is two more launches: the feature gradient
@@ -289,7 +290,8 @@ def inverse_rules(rules, fine_mask):
 
 
 def inverse_conv3d(level, target, weights, book, kernel, stride, padding,
-                   compute_dtype=None, *, loads, rules_t=None, xwin=None):
+                   compute_dtype=None, *, loads, rules_t=None, xwin=None,
+                   bwd_xwin=None):
     """Inverse (up) conv of a coarse level onto the sites of `target`, the
     fine level whose strided conv produced it: spconv's SparseInverseConv3d
     on indice-key reuse (`pcdet_tpu.ops.sparse.inverse_conv3d`).  Its book
@@ -305,6 +307,13 @@ def inverse_conv3d(level, target, weights, book, kernel, stride, padding,
     :param rules_t: `inverse_rules` of the book when the caller built it;
         None builds it here
     :param xwin: its selectors when the caller built them
+    :param bwd_xwin: the selectors of the book's rules when the caller
+        built them (the strided conv's own; None builds them where needed)
+
+    The feature gradient runs over the transpose of `rules_t`, which is
+    the strided conv's forward book on the fine level's live sites: the
+    book's rules as they are, which the backward takes (and `bwd_xwin`)
+    instead of rebuilding them by a scatter.
     :raises ValueError: where the book or the geometry is not the one that
         produced `level` from `target`
     """
@@ -330,7 +339,7 @@ def inverse_conv3d(level, target, weights, book, kernel, stride, padding,
         raise ValueError('rules_t %s: want (B, V_fine, K) = %s' % (
             tuple(rules_t.shape), (b, n_fine, rules.shape[2])))
     feats = _apply_rules(level, target.mask, rules_t, weights, compute_dtype,
-                         False, loads, kernel[2] == 3, None, xwin)
+                         False, loads, kernel[2] == 3, rules, xwin, bwd_xwin)
     return target._replace(features=feats, overflow=None)
 
 

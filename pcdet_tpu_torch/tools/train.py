@@ -6,8 +6,8 @@ under `cfg.ROOT_DIR`.  A run resumes from `--ckpt` or the latest checkpoint
 of its ckpt directory; `--pretrained_model` loads what fits of a `.pth`
 (the port's or a reference-keyed one).  The data comes from
 `datasets.build_dataloader` (host voxelizer, augmentation, anchor targets,
-and SECOND's books in the loader's `batch_transform`), the steps run on
-`--device` (default cuda):
+Part-A²'s per-voxel targets, and the sparse models' books in the loader's
+`batch_transform`), the steps run on `--device` (default cuda):
 
     python -m pcdet_tpu_torch.tools.train \
         --cfg_file tools/cfgs/pointpillar.yaml --batch_size 2 --epochs 80

@@ -6,12 +6,14 @@ checkpoint_state / save_checkpoint and detector3d.py load_params_*):
 - `save_checkpoint` writes `checkpoint_epoch_<N>.pth` with the reference's
   keys, `epoch`, `it`, `model_state` (the module's reference-keyed
   state_dict, so a reference `.pth` or `weights.state_dict_from_flax`'s
-  output loads as it is), `optimizer_state`, `version`; it writes a
+  output loads as it is), `optimizer_state`, `version` and, for a model
+  that draws in training (Part-A²), `rng_state`, its generator's; it writes a
   temporary name first and renames it (`os.replace`), so a run killed
   mid-write leaves no file that `list_checkpoints` lists; then it prunes to
   `max_ckpt_save_num`, oldest first by mtime (ties by epoch);
 - `latest_checkpoint` is the newest, `restore_train_state` resumes from a
-  file (parameters, BN statistics, optimizer moments and counts, the step);
+  file (parameters, BN statistics, optimizer moments and counts, the step,
+  the generator's state);
 - `load_params_partial` loads what fits of a file's `model_state` and logs
   each entry it leaves as it was.
 
@@ -42,6 +44,8 @@ def save_checkpoint(state, ckpt_dir, epoch, max_ckpt_save_num=None,
     payload = {'epoch': int(epoch), 'it': sd['it'],
                'model_state': sd['model_state'],
                'optimizer_state': sd['optimizer_state'], 'version': version}
+    if 'rng_state' in sd:
+        payload['rng_state'] = sd['rng_state']
     path = checkpoint_path(ckpt_dir, epoch)
     tmp = path + '.tmp'
     torch.save(payload, tmp)

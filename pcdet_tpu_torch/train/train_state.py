@@ -2,7 +2,8 @@
 
 Twin of `pcdet_tpu.train.train_state.make_train_step` for a model with a
 train-mode forward and a `loss(ret, batch)` (`models.pointpillar.
-PointPillar`, `models.second.SECONDNet`), in its order: train-mode forward
+PointPillar`, `models.second.SECONDNet`, `models.parta2.PartA2Net`), in
+its order: train-mode forward
 (the BN running statistics update in place), loss, gradients of the
 trained parameters only (the optimizer's: frozen ones are left out of the
 backward and the update), the optimizer update, the step count, `loss`
@@ -26,13 +27,15 @@ def loss_and_grads(model, params, batch):
 
 
 class TrainState:
-    """Model, its optimizer (bound to the trained parameters) and the step
-    count (`it`, the updates made)."""
+    """Model, its optimizer (bound to the trained parameters), the step
+    count (`it`, the updates made) and the generator the model draws from
+    in training (None for a model that draws nothing)."""
 
-    def __init__(self, model, optimizer):
+    def __init__(self, model, optimizer, generator=None):
         self.model = model
         self.params = optimizer.params
         self.optimizer = optimizer
+        self.generator = generator
         self.step = 0
 
     def train_step(self, batch):
@@ -46,13 +49,20 @@ class TrainState:
 
     def state_dict(self):
         """{'it', 'model_state' (the module's reference-keyed state_dict),
-        'optimizer_state'}: the live tensors, not copies."""
-        return {'it': self.step,
-                'model_state': self.model.module.state_dict(),
-                'optimizer_state': self.optimizer.state_dict()}
+        'optimizer_state'} and, with a generator, 'rng_state' (its
+        `get_state()`, so that a resumed run draws what the uninterrupted
+        one would): the live tensors, not copies."""
+        sd = {'it': self.step,
+              'model_state': self.model.module.state_dict(),
+              'optimizer_state': self.optimizer.state_dict()}
+        if self.generator is not None:
+            sd['rng_state'] = self.generator.get_state()
+        return sd
 
     def load_state_dict(self, sd):
-        """Copy a `state_dict` into this state's tensors."""
+        """Copy a `state_dict` into this state's tensors (and generator)."""
         self.model.module.load_state_dict(sd['model_state'])
         self.optimizer.load_state_dict(sd['optimizer_state'])
+        if self.generator is not None and 'rng_state' in sd:
+            self.generator.set_state(sd['rng_state'].cpu())
         self.step = int(sd['it'])

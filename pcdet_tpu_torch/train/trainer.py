@@ -1,5 +1,5 @@
-"""Training of PointPillar and SECOND, raw scans and boxes to optimizer
-steps.
+"""Training of PointPillar, SECOND and Part-A² (-fc), raw scans and boxes to
+optimizer steps.
 
     cfg = load_config()                            # tools/cfgs/pointpillar.yaml
     scans = TrainScans(cfg, num_scans=4, batch_size=2)
@@ -16,18 +16,23 @@ from the data loader (`datasets.build_dataloader`: host voxelizer,
 augmentation, anchor targets and SECOND's books on the host) through
 `upload`, or from raw scans on the device through `make_batch`, which
 does what the JAX loader and the train step's input side do, in order:
-voxelize_torch at the TRAIN voxel cap on the device; for SECOND, one copy
-of the coords to the host and the host rulebooks at the train level caps
-(`ops/host_books.py`, native builder); the anchor targets per sample on
-the host (`models/anchors.AnchorHeadTargets.assign`, as
-`pcdet_tpu.datasets.dataset` assigns them); one upload of books and
-targets.  `step` is `train_state.TrainState.train_step`: train-mode
-forward (masked-BN statistics; SECOND's gather-GEMMs), anchor loss,
-backward (SECOND: gather-GEMMs over the mirrored / transposed books, the
-dW kernels), the optimizer of `MODEL.TRAIN.OPTIMIZATION`.  `loads`
-(`ops.sparse.Loads`) picks the kernels of SECOND's kw=3 sparse convs: B /
-E / E′ for the forward and feature gradient, D / D″ / D′ for the weight
-gradient.
+voxelize_torch at the TRAIN voxel cap on the device; for SECOND and
+Part-A², one copy of the coords to the host and the host rulebooks at the
+train level caps (`ops/host_books.py`, native builder); the anchor
+targets per sample on the host (`models/anchors.AnchorHeadTargets.assign`,
+as `pcdet_tpu.datasets.dataset` assigns them) and the model's own host
+targets (`host_targets`; Part-A²: the GT boxes and the per-voxel
+segmentation and part targets); one upload of books and targets.  `step` is
+`train_state.TrainState.train_step`: train-mode forward (masked-BN
+statistics; the sparse convs' gather-GEMMs; Part-A²'s proposals, RoI
+sampler, pool and RCNN), the loss, backward (gather-GEMMs over the
+mirrored / transposed books, the dW kernels), the optimizer of
+`MODEL.TRAIN.OPTIMIZATION`.  `loads` (`ops.sparse.Loads`) picks the
+kernels of the kw=3 sparse convs: B / E / E′ for the forward and feature
+gradient, D / D″ / D′ for the weight gradient.  A model that draws at
+random in training (`draws`; Part-A²: the sampler and dropout) draws from
+the trainer's `generator`, a torch.Generator on the device seeded from
+`seed`, whose state a checkpoint carries.
 """
 import numpy as np
 import torch
@@ -101,12 +106,15 @@ class TrainScans:
 class Trainer:
     """A model, its optimizer and step count, with random weights from
     `seed` (a CPU torch.Generator, so every device gets the same ones);
-    SECOND's kw=3 sparse convs by `loads`.
+    the kw=3 sparse convs by `loads`.  A model that draws (`draws`;
+    Part-A²'s sampler and dropout) draws from `generator`, a generator on
+    the device seeded from `seed`.
 
     :param iters_each_epoch, epochs: the schedules' span (OneCycle over
         their product, step decay at DECAY_STEP_LIST epochs)
     :param frozen_prefixes: parameter name prefixes the optimizer leaves
-        out (e.g. 'vfe')
+        out (e.g. 'vfe'), besides the model's own `frozen_prefixes()`
+        (Part-A²'s stage 1 under MODEL.RPN.PARAMS_FIXED)
     """
 
     def __init__(self, cfg, device, seed=0, loads=None, iters_each_epoch=1,
@@ -123,11 +131,18 @@ class Trainer:
             generator=torch.Generator().manual_seed(seed), loads=loads)
         self.model.train_mode()
         self.device = self.model.device
+        self.generator = None
+        if self.model.draws:
+            self.generator = torch.Generator(device=self.device)
+            self.generator.manual_seed(seed)
+            self.model.set_generator(self.generator)
+        frozen_prefixes = (tuple(frozen_prefixes)
+                           + tuple(self.model.frozen_prefixes()))
         optimizer, self.lr_schedule = build_optimizer_and_schedule(
             cfg.MODEL.TRAIN.OPTIMIZATION, iters_each_epoch, epochs,
             frozen_prefixes)
         self.state = TrainState(self.model, optimizer.init(
-            self.model.module.named_parameters()))
+            self.model.module.named_parameters()), self.generator)
 
     def voxelize(self, points, point_mask):
         return voxelize_torch(points, point_mask, self.voxel_size,
@@ -146,21 +161,21 @@ class Trainer:
         """(B, P, 4) f32 points and (B, P) bool mask on the trainer's device,
         (B, M, 8) gt boxes with class ids (numpy) -> a batch for `step`."""
         batch = self.voxelize(points, point_mask)
-        arrays, spec = [], None
-        if hasattr(self.model, 'build_books'):            # SECOND
+        arrays, spec, coords = [], None, None
+        if hasattr(self.model, 'build_books'):            # SECOND, Part-A²
             coords = batch['coordinates'].cpu().numpy()
             flat = self.model.build_books(coords, train=True)
             spec = self.model.host_book_spec(coords.shape[1], train=True)
             arrays = host_books.wire_arrays(flat, spec)
         labels, reg = self.targets(gt_boxes)
-        t = host_books.upload(arrays + [
-            ('box_cls_labels', labels), ('box_reg_targets', reg)],
-            self.device)
+        targets = [('box_cls_labels', labels), ('box_reg_targets', reg)]
+        targets += self.model.host_targets(coords, gt_boxes)
+        t = host_books.upload(arrays + targets, self.device)
         if spec is not None:
             batch['books'] = host_books.decode_books(t, spec,
                                                      self.max_voxels)
-        batch['box_cls_labels'] = t['box_cls_labels']
-        batch['box_reg_targets'] = t['box_reg_targets']
+        for key, _ in targets:
+            batch[key] = t[key]
         return batch
 
     def upload(self, batch):
@@ -179,12 +194,13 @@ class Trainer:
 
 def build_trainer(cfg, device, seed=0, total_steps=None, loads=None,
                   iters_each_epoch=None, epochs=1, frozen_prefixes=()):
-    """A trainer of `cfg.MODEL.NAME` (PointPillar, SECOND / second_net).
+    """A trainer of `cfg.MODEL.NAME` (PointPillar, SECOND / second_net,
+    PartA2 / PartA2_net).
 
     The schedules span `iters_each_epoch` x `epochs` steps; given only
     `total_steps`, that is one epoch of `total_steps` iterations (both
     given, they must agree).  `loads` (None: the backbone's default,
-    `sparse.DEFAULT_LOADS`) picks SECOND's sparse convs' kernels;
+    `sparse.DEFAULT_LOADS`) picks the sparse convs' kernels;
     `frozen_prefixes` are left out of the update."""
     if iters_each_epoch is None:
         total = 1 if total_steps is None else int(total_steps)

@@ -1,9 +1,10 @@
-"""Box residual coder (SECOND encoding): decode on tensors, encode in numpy.
+"""Box residual coder (SECOND encoding): encode and decode on tensors, encode
+in numpy.
 
-Twin of `pcdet_tpu.utils.box_coder.ResidualCoder`: `decode` and
-`decode_with_head_direction` of its jnp half run on the device; `encode_np`
-is its numpy encode, which the host target assignment
-(`models/anchors.py`) calls.  Box layout (x, y, z, w, l, h, r [, extras])
+Twin of `pcdet_tpu.utils.box_coder.ResidualCoder`: `encode`, `decode` and
+`decode_with_head_direction` of its jnp half run on the device (the RCNN
+loss encodes its targets there); `encode_np` is its numpy encode, which
+the host target assignment (`models/anchors.py`) calls.  Box layout (x, y, z, w, l, h, r [, extras])
 with z at the bottom center.
 """
 import math
@@ -39,6 +40,23 @@ class ResidualCoder:
         rt = rg - ra
         cts = [g - a for g, a in zip(cgs, cas)]
         return np.concatenate([xt, yt, zt, wt, lt, ht, rt, *cts], axis=-1)
+
+    @staticmethod
+    def encode(boxes, anchors):
+        """(..., 7+) boxes vs (..., 7+) anchors -> (..., 7+) residuals
+        (`encode_jnp`)."""
+        xa, ya, za, wa, la, ha, ra = [anchors[..., i] for i in range(7)]
+        xg, yg, zg, wg, lg, hg, rg = [boxes[..., i] for i in range(7)]
+        zg = zg + hg / 2
+        za = za + ha / 2
+        diagonal = torch.sqrt(la ** 2 + wa ** 2)
+        out = torch.stack([(xg - xa) / diagonal, (yg - ya) / diagonal,
+                           (zg - za) / ha, torch.log(wg / wa),
+                           torch.log(lg / la), torch.log(hg / ha), rg - ra],
+                          dim=-1)
+        if anchors.shape[-1] > 7:
+            out = torch.cat([out, boxes[..., 7:] - anchors[..., 7:]], dim=-1)
+        return out
 
     @staticmethod
     def decode(box_encodings, anchors):

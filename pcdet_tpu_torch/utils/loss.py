@@ -2,14 +2,14 @@
 
 Parity targets: reference pcdet/utils/loss_utils.py, through the JAX
 package's functions of the same names.  Every function is elementwise over
-fixed shapes; weights carry the masking.  `corner_loss_lidar` and
-`huber_loss` (Part-A²'s RCNN) come with that model.
+fixed shapes; weights carry the masking.
 """
 import math
 
 import torch
 import torch.nn.functional as F
 
+from . import torch_common
 from .torch_common import limit_period
 
 
@@ -66,6 +66,36 @@ def weighted_softmax_ce(logits, one_hot_targets, weights, logit_scale=1.0):
     logp = F.log_softmax(logits, dim=-1)
     ce = -torch.gather(logp, -1, labels[..., None])[..., 0]
     return ce * weights
+
+
+def huber_loss(error, delta):
+    abs_error = torch.abs(error)
+    quadratic = torch.clamp(abs_error, max=delta)
+    linear = abs_error - quadratic
+    return 0.5 * quadratic ** 2 + delta * linear
+
+
+def corner_loss_lidar(pred_bbox3d, gt_bbox3d):
+    """Huber loss on the corner distances, the least over the GT heading
+    and its flip (loss_utils.py:231-249).
+
+    :param pred_bbox3d: (N, 7), :param gt_bbox3d: (N, 7)
+    :return: (N,)
+
+    At a zero corner distance the two packages' norms differ in their
+    gradient: `torch.linalg.norm` gives 0 there, `jnp.linalg.norm` NaN (x
+    / 0).  Neither is met in training: a prediction lands exactly on a GT
+    corner with probability 0.
+    """
+    pred_corners = torch_common.boxes3d_to_corners3d_lidar(pred_bbox3d)
+    gt_corners = torch_common.boxes3d_to_corners3d_lidar(gt_bbox3d)
+    gt_flip = torch.cat([gt_bbox3d[:, :6], gt_bbox3d[:, 6:7] + math.pi,
+                         gt_bbox3d[:, 7:]], dim=1)
+    gt_corners_flip = torch_common.boxes3d_to_corners3d_lidar(gt_flip)
+    dist = torch.minimum(
+        torch.linalg.norm(pred_corners - gt_corners, dim=2),
+        torch.linalg.norm(pred_corners - gt_corners_flip, dim=2))
+    return huber_loss(dist, delta=1.0).mean(dim=1)
 
 
 def add_sin_difference(boxes1, boxes2, dim=6):

@@ -14,3 +14,34 @@ def boxes3d_to_bev_corner_format(boxes3d):
     half_l, half_w = boxes3d[..., 4] / 2.0, boxes3d[..., 3] / 2.0
     return torch.stack([cu - half_w, cv - half_l, cu + half_w, cv + half_l,
                         boxes3d[..., 6]], dim=-1)
+
+
+def rotate_points_along_z(points, angles):
+    """Rotate batched points (..., P, 3+C) by angles (...,), the row-vector
+    convention [x, y] @ [[c, -s], [s, c]]."""
+    cosa = torch.cos(angles)[..., None, None]
+    sina = torch.sin(angles)[..., None, None]
+    x, y = points[..., 0:1], points[..., 1:2]
+    xr = x * cosa + y * sina
+    yr = -x * sina + y * cosa
+    return torch.cat([xr, yr, points[..., 2:]], dim=-1)
+
+
+def boxes3d_to_corners3d_lidar(boxes3d, bottom_center=True):
+    """Boxes (..., 7) [x, y, z, w, l, h, ry] -> corners (..., 8, 3)."""
+    w, l, h = boxes3d[..., 3], boxes3d[..., 4], boxes3d[..., 5]
+    x_sign = boxes3d.new_tensor([1, -1, -1, 1, 1, -1, -1, 1])
+    y_sign = boxes3d.new_tensor([-1, -1, 1, 1, -1, -1, 1, 1])
+    x_c = (w / 2)[..., None] * x_sign
+    y_c = (l / 2)[..., None] * y_sign
+    if bottom_center:
+        z_c = h[..., None] * boxes3d.new_tensor([0, 0, 0, 0, 1, 1, 1, 1])
+    else:
+        z_c = (h / 2)[..., None] * boxes3d.new_tensor(
+            [-1, -1, -1, -1, 1, 1, 1, 1])
+    ry = boxes3d[..., 6]
+    cosa, sina = torch.cos(ry)[..., None], torch.sin(ry)[..., None]
+    xr = x_c * cosa + y_c * sina
+    yr = -x_c * sina + y_c * cosa
+    return torch.stack([boxes3d[..., 0:1] + xr, boxes3d[..., 1:2] + yr,
+                        boxes3d[..., 2:3] + z_c], dim=-1)

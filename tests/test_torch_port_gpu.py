@@ -47,7 +47,9 @@ of the CPU (sin / cos round differently on the two devices).  The CLI pair
 on a KITTI-format tree (`chip_smoke.write_kitti_tree`): train on the card,
 then the evaluation of its checkpoint, recall through kernel A; the
 loader's batches from forked workers, with CUDA up in the parent, equal to
-the thread workers' bit for bit.
+the thread workers' bit for bit.  Two PartA2.yaml train steps at B2
+through kernels B, D, D′ (the decoder's pairs among them) and A, with fg
+RoIs and their regression losses.
 """
 import itertools
 
@@ -680,6 +682,33 @@ def test_gather_dw_window_matches_plain(cuda, no_tf32, books, variant, s, cin,
             torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
 
 
+@pytest.mark.parametrize('cin,cout', gather_dw.XWIN_PAIRS)
+def test_gather_dw_seg_rows_the_card_stages(cuda, no_tf32, cin, cout):
+    """`gather_dw.max_seg_rows` (and `row_stages`, `smem_bytes`) mirror the
+    kernel: D′ holds a block at that many segment rows and not at one
+    more; D′ there is within 1e-4 of plain, and the wrapper refuses one
+    row more."""
+    limit = gather_dw.max_seg_rows(cin, cout)
+    assert limit >= gather_xwin.SEG_S
+    lib = gather_dw.build_xwin()
+    assert lib.pcdet_gather_dw_xwin_resident(1, cin, cout, limit) > 0
+    if limit < gather_xwin.SEG_MISS - 1:
+        assert lib.pcdet_gather_dw_xwin_resident(1, cin, cout, limit + 1) < 0
+    rng = np.random.RandomState(cin + cout)
+    table, base, sel, _, grad = _xwin_inputs(rng, 2, 300, 200, 9, cin, cout,
+                                             cuda)
+    n_live = torch.full((2,), 200, dtype=torch.int32, device=cuda)
+    got = gather_dw.gather_dw_seg(table, base, sel, grad, n_live, s=limit)
+    want = gather_dw.gather_dw_seg_plain(table.cpu(), base.cpu(), sel.cpu(),
+                                         grad.cpu(), n_live.cpu(), s=limit)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4 * scale)
+    if limit < gather_xwin.SEG_MISS - 1:
+        with pytest.raises(ValueError, match='at most %d' % limit):
+            gather_dw.gather_dw_seg(table, base, sel, grad, n_live,
+                                    s=limit + 1)
+
+
 @pytest.mark.parametrize('b,v,g', [(1, 5, 1), (2, 300, 9), (3, 1000, 9)])
 def test_xwin_selectors_kernel_matches_plain(cuda, b, v, g):
     """Rules with found taps in and out of their 3-row window and misses."""
@@ -810,6 +839,50 @@ def test_pointpillar_train_step_on_card_matches_cpu(cuda, no_tf32_conv,
         for a, b in zip(gg, gc):
             scale = b.abs().max().item()
             assert (a - b).abs().max().item() <= 1e-9 * scale
+
+
+def test_parta2_train_steps_on_card(cuda, no_tf32_conv):
+    """Two PartA2.yaml steps at B2 on the card (4000 train voxels, the
+    UNet's caps by their fractions), the last 4 RoI slots a sample given
+    to moved and grown GT boxes (`chip_smoke.parta2_gt_proposals`): finite
+    loss terms, fg RoIs taken in every sample and a regression and corner
+    loss on them, and
+    per step 28 forward and 27 feature-gradient launches of kernel B, 27
+    of D′ (among them the decoder's (128, 64), (64, 32) and (32, 16)), 1
+    of D, and kernel A in the proposal NMS and the sampler."""
+    import chip_smoke
+    from pcdet_tpu_torch import detect
+    from pcdet_tpu_torch.ops import rotated_overlap
+    from pcdet_tpu_torch.train.trainer import build_trainer, make_train_scans
+    cfg = detect.load_config(detect.PARTA2_CFG)
+    cfg.DATA_CONFIG.TRAIN.MAX_NUMBER_OF_VOXELS = 4000
+    pts, mask, gt = make_train_scans(cfg, 2, ring_keep=0.35)
+    trainer = build_trainer(cfg, cuda, seed=0, total_steps=10)
+    batch = trainer.make_batch(torch.as_tensor(pts, device=cuda),
+                               torch.as_tensor(mask, device=cuda), gt)
+    chip_smoke.parta2_gt_proposals(trainer.model, batch['gt_boxes'])
+    counters = (gather_gemm.LAUNCHES, gather_dw.LAUNCHES)
+    before = [dict(c) for c in counters]
+    pairs = dict(gather_dw.PAIR_LAUNCHES)
+    a0 = rotated_overlap.LAUNCHES
+    tbs, samplers = [], []
+    for _ in range(2):
+        tbs.append(trainer.step(batch))
+        samplers.append(dict(trainer.model.last_sampler))
+    torch.cuda.synchronize()
+    grown = {k: c[k] - b.get(k, 0) for c, b in zip(counters, before)
+             for k in c if c[k] != b.get(k, 0)}
+    assert grown == {'gather_gemm_f32': 56, 'gather_gemm_f32_dgrad': 54,
+                     'gather_dw': 2, 'gather_dw_seg': 54}, grown
+    for cin, cout in ((128, 64), (64, 32), (32, 16)):
+        key = ('gather_dw_seg', cin, cout)
+        assert gather_dw.PAIR_LAUNCHES.get(key, 0) - pairs.get(key, 0) == 4
+    assert rotated_overlap.LAUNCHES - a0 > 2
+    for tb, sampler in zip(tbs, samplers):
+        assert all(torch.isfinite(v).all() for v in tb.values())
+        assert 'rcnn_loss_cls' in tb and 'rpn_loss_u_cls' in tb
+        assert int(sampler['fg_count'].min()) > 0, sampler['fg_count']
+        assert tb['rcnn_loss_reg'] > 0 and tb['rcnn_loss_corner'] > 0
 
 
 def test_train_model_checkpoint_eval_on_card(cuda, tmp_path):

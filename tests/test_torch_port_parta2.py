@@ -27,6 +27,9 @@ builds and uploads the books itself:
 - the loader path (`hb_*` books in the batch) gives what detect gives;
 - the port's state_dict converts back to the flax variables through
   `pcdet_tpu.train.torch_import.convert_state_dict`, with no unused key.
+- in train mode (`train.trainer.build_trainer`) the forward returns the
+  RCNN's sampled targets and `loss` pcdet_tpu's tb keys; under
+  MODEL.RPN.PARAMS_FIXED a step moves none of stage 1's parameters.
 """
 import copy
 
@@ -50,10 +53,11 @@ from pcdet_tpu.ops.voxelizer import voxelize_jnp
 from pcdet_tpu.train import torch_import
 from pcdet_tpu.utils.box_coder import ResidualCoder as JaxCoder
 from pcdet_tpu_torch import detect, weights
-from pcdet_tpu_torch.models import detector3d, roi_heads
+from pcdet_tpu_torch.models import detector3d, parta2, roi_heads
 from pcdet_tpu_torch.models.backbones3d import UNetV2
 from pcdet_tpu_torch.ops import roiaware_pool, sparse
 from pcdet_tpu_torch.ops.voxelizer import grid_size
+from pcdet_tpu_torch.train.trainer import build_trainer, make_train_scans
 from pcdet_tpu_torch.utils.box_coder import ResidualCoder
 
 torch.set_num_threads(1)
@@ -236,16 +240,69 @@ def test_state_dict_round_trip(whole):
             sd['rcnn_net.%s.bn.bn.running_mean' % key].numpy(), mean - bias)
 
 
-def test_forward_in_train_mode_raises(whole):
-    det = whole['det']
-    det.model.train_mode()
-    try:
-        with pytest.raises(NotImplementedError, match='Part-A2 training'):
-            det.model.forward({})
-        with pytest.raises(NotImplementedError, match='Part-A2 training'):
-            det.model.loss({}, {})
-    finally:
-        det.model.eval_mode()
+def _train_setup(whole, params_fixed=False):
+    cfg = copy.deepcopy(whole['cfg'])
+    cfg.MODEL.RPN.PARAMS_FIXED = params_fixed
+    trainer = build_trainer(cfg, 'cpu', seed=0, total_steps=2)
+    trainer.model.module.load_state_dict(weights.state_dict_from_flax(
+        whole['variables'], cfg.MODEL.RPN.RPN_HEAD.ARGS['layer_nums'],
+        cfg.MODEL.RCNN))
+    points, mask, gt = make_train_scans(cfg, 2)
+    return trainer, trainer.make_batch(torch.as_tensor(points),
+                                       torch.as_tensor(mask), gt)
+
+
+def test_forward_in_train_mode_returns_targets(whole):
+    """A train-mode forward samples ROI_PER_IMAGE RoIs a sample from TRAIN's
+    proposals and returns the RCNN's targets beside its outputs; `loss`
+    gives pcdet_tpu's tb keys."""
+    trainer, batch = _train_setup(whole)
+    model = trainer.model
+    with torch.no_grad():
+        ret = model.forward(batch)
+        loss, tb = model.loss(ret, batch)
+    rcnn = ret['rcnn']
+    r = int(whole['cfg'].MODEL.RCNN.TARGET_CONFIG.ROI_PER_IMAGE)
+    for k in ('rois', 'gt_of_rois', 'gt_of_rois_src'):
+        assert rcnn[k].shape == (2, r, 7 if k == 'rois' else 8), k
+    for k in ('gt_iou', 'rcnn_cls_labels', 'reg_valid_mask',
+              'roi_raw_scores', 'roi_labels', 'roi_valid', 'rcnn_cls'):
+        assert rcnn[k].shape == (2, r), k
+    assert rcnn['rcnn_reg'].shape == (2, r, 7)
+    assert sorted(model.last_sampler) == ['fg_count', 'hard_num', 'n_easy',
+                                          'n_fg', 'n_hard', 'picks']
+    assert 'roi_pts' in ret['overflow']
+    assert {'rpn_loss_u_cls', 'rpn_u_loss_reg', 'rpn_loss_unet',
+            'rpn_pos_num', 'rpn_loss_cls', 'rpn_loss_loc', 'rpn_loss_dir',
+            'rpn_loss', 'rcnn_loss_cls', 'rcnn_loss_reg', 'rcnn_loss_corner',
+            'rcnn_loss', 'loss', 'overflow/roi_pts'} <= set(tb)
+    assert torch.isfinite(loss) and float(tb['loss']) == float(loss)
+
+
+def test_params_fixed_step_leaves_stage1_unchanged(whole):
+    """MODEL.RPN.PARAMS_FIXED: the optimizer holds the RCNN's parameters
+    only; a step computes stage 1's losses (as without the flag) and
+    changes none of its parameters (its BN statistics still move)."""
+    free, batch = _train_setup(whole)
+    with torch.no_grad():
+        want = free.model.loss(free.model.forward(batch), batch)[1]
+    trainer, _ = _train_setup(whole, params_fixed=True)
+    names = {n for n, _ in trainer.model.module.named_parameters()
+             if n.startswith('rcnn_net.')}
+    assert set(trainer.state.optimizer.names) == names
+    before = {k: v.clone() for k, v in
+              trainer.model.module.state_dict().items()}
+    tb = trainer.step(batch)
+    for k in ('rpn_loss', 'rpn_loss_unet'):
+        np.testing.assert_allclose(float(tb[k]), float(want[k]), rtol=1e-6)
+    after = trainer.model.module.state_dict()
+    for k, v in before.items():
+        moved = not torch.equal(after[k], v)
+        if k.startswith(parta2.STAGE1):
+            assert moved == k.endswith(('running_mean', 'running_var',
+                                        'num_batches_tracked')), k
+    assert not torch.equal(after['rcnn_net.cls_layer.2.conv.weight'],
+                           before['rcnn_net.cls_layer.2.conv.weight'])
 
 
 # ------------------------------------------------------------- the UNet ---

@@ -15,6 +15,8 @@ pcdet_tpu (CPU, tiny configs).
 - resume: 1 epoch, a checkpoint, `restore_train_state` into a trainer of
   other weights, 1 more epoch equals 2 straight epochs bitwise (every
   parameter, buffer, optimizer moment, count and the step);
+- the same for Part-A²-fc with dropout on: its generator's state rides
+  in the checkpoint;
 - a checkpoint whose write was cut (its temporary file left) is never
   listed; `load_params_partial` skips a shape mismatch and logs it;
 - a `.pth` of `weights.state_dict_from_flax` restores into a detector
@@ -32,7 +34,7 @@ import optax
 import pytest
 import torch
 
-from tiny_config import tiny_pointpillar_cfg, tiny_second_cfg
+from tiny_config import tiny_parta2_cfg, tiny_pointpillar_cfg, tiny_second_cfg
 
 from pcdet_tpu.datasets.synthetic import make_scene
 from pcdet_tpu.models.pointpillar import PointPillar as JaxPointPillar
@@ -250,6 +252,34 @@ def test_resume_equals_straight_epochs_bitwise(tmp_path):
     assert any(k.startswith('opt.nu.') for k in got)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+def test_parta2_resume_equals_straight_epochs_bitwise(tmp_path):
+    """Part-A²-fc (dropout 0.3; the sampler and the dropouts draw from the
+    trainer's generator): its checkpoint carries the generator's state, so
+    1 epoch, a restore into a trainer of another seed and 1 more epoch
+    equal 2 straight epochs bit for bit."""
+    cfg = tiny_parta2_cfg(1)
+    rc = cfg.MODEL.RCNN
+    rc.NAME, rc.ROI_AWARE_POOL_SIZE, rc.SHARED_FC = 'FCRCNN', 12, [32, 64, 64]
+    straight, _, _ = _train(cfg, 2, tmp_path / 'straight')
+    first, _, _ = _train(cfg, 1, tmp_path / 'first', total_epochs=2)
+    path = checkpoint.latest_checkpoint(tmp_path / 'first')
+    assert 'rng_state' in checkpoint.load_checkpoint(path)
+    scans = TrainScans(cfg, 4, 2, seed=3)
+    resumed = build_trainer(cfg, 'cpu', seed=1, iters_each_epoch=len(scans),
+                            epochs=2)
+    _, epoch = checkpoint.restore_train_state(path, resumed.state)
+    assert torch.equal(resumed.generator.get_state(),
+                       first.generator.get_state())
+    train_model(resumed, scans, 2, start_epoch=epoch)
+    want, want_counts = _tensors(straight)
+    got, got_counts = _tensors(resumed)
+    assert got_counts == want_counts == (4, 4)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(resumed.generator.get_state(),
+                       straight.generator.get_state())
 
 
 def test_cut_write_is_never_listed(tmp_path, monkeypatch):

@@ -333,8 +333,8 @@ def test_max_seg_rows_fits_a_block(dtype, cin, cout):
     memory at 21 groups fits the 232,448 bytes of an sm_90 block and one
     row more would not (or the 10-bit limit 1022 binds), at least SEG_S,
     and the layout formula adds each staged row once per row stage (two,
-    but one for f32 (128, 64), whose W ring then has two x-taps), at the
-    row's bytes or 16 more."""
+    but one for f32 (128, 64) and (64, 128), whose 32 KB of W an x-tap
+    then take a ring of two), at the row's bytes or 16 more."""
     limit = gather_xwin.max_seg_rows(dtype, cin, cout)
     groups = gather_xwin.MAX_GROUPS
     assert gather_xwin.SEG_S <= limit <= gather_xwin.SEG_MISS - 1
@@ -346,7 +346,9 @@ def test_max_seg_rows_fits_a_block(dtype, cin, cout):
     size = 2 if dtype == torch.bfloat16 else 4
     w_stages, row_stages = gather_xwin.stages(dtype, cin, cout)
     assert (w_stages, row_stages) == (
-        (2, 1) if (dtype, cin, cout) == (torch.float32, 128, 64) else (3, 2))
+        (2, 1) if dtype == torch.float32 and (cin, cout) in ((128, 64),
+                                                             (64, 128))
+        else (3, 2))
     row = (gather_xwin.smem_bytes(dtype, cin, cout, 301, groups)
            - gather_xwin.smem_bytes(dtype, cin, cout, 300, groups)) \
         // row_stages
