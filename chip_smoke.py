@@ -2,7 +2,8 @@
 SECOND detect, SECOND training, the sparse convs' load strategies, the
 evaluation (recall and KITTI AP) of both models, PointPillar training
 through the epoch loop to a checkpoint and its evaluation, the CLI pair,
-and Part-A² / Part-A²-fc detect and evaluation.
+Part-A² / Part-A²-fc detect, evaluation and training, and the BEVSEG
+fork's pseudo-LiDAR training with its BEV segmentation head.
 
     python3 chip_smoke.py
 
@@ -232,13 +233,47 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
   R8. (in the CLI block) the train CLI on PartA2.yaml, 1 epoch of 2 B2
       batches with the loader's books and targets: finite losses, B, D and
       D' launch, no tap outside its window.
+  F1. the BEVSEG fork at the full width of tools/cfgs/argo/
+      pointpillar_forward50x50_pseudolidar.yaml under `USE_PSEUDOLIDAR True
+      MODE 3dobjdet+bev` (a 400 x 400 pillar grid, 16000 voxels x 32
+      points, RPNV2 3/5/5 with 384 channels at 200 x 200, 240,000 anchors,
+      the BEV head 384 -> 64 -> 64 -> 2): seeded depth maps of 375 x 1242
+      (5-45 m) and a one-channel semantic map, both requiring gradients,
+      lifted through `CalibrationTorch` (KITTI_P2 / KITTI_V2C) at stride 2
+      (58,374 points a frame, padded to 65536), the semantic value painted
+      into the 4th channel by a `point_feature_fn`, the hook voxelizing in
+      the step, `loss_with_bev` on seeded BEV masks: 3 steps at B2, every
+      loss term finite, bev_loss and miou in the tb, the 3rd loss below the
+      1st, the BEV head's weights moved, d loss / d depth and d loss / d
+      semantic finite and nonzero, overflow/voxelizer printed; then the
+      config's detect at B2 (conv_cls bias zeroed) with kernel A in its
+      NMS rounds and finite (2, 200, 200, 2) BEV logits;
+  F2. one B1 step of F1's path from the same seeded weights and inputs,
+      GPU vs CPU (`step_four_ways`): the f32 loss within 1e-4 relative, in
+      f64 the loss, every parameter gradient and d loss / d depth and d
+      semantic within 1e-9 of max;
+  F3. the CLI pair with the fork's flags on a tree of 4 train + 2 val
+      frames (`write_kitti_tree`) with 400 x 400 grey bev_DRIVABLE /
+      bev_VEHICLE maps (zlib / struct): create_data, the train CLI 1 epoch
+      of 2 B2 steps (finite losses, bev_loss logged), the test CLI on its
+      checkpoint (SCORE_THRESH 0: kernel A in NMS and recall, launches > 0;
+      the logged AP string equal to the evaluator on result.pkl) and
+      `BEVSegEvalAccumulator` over the eval batches' BEV logits (finite
+      test_miou);
+  F4. ms per step (median of 3, batch prebuilt) and samples/s at B2 and B8
+      with the hook and the BEV head, with either alone, and with neither
+      (voxels made before the step, MODE 3dobjdet); the re-voxelization's
+      and the BEV head's forward + backward ms by CUDA events; the device's
+      busy ms and top kernels at B2 with both and with neither
+      (torch.profiler); with the card's name and power limit.
 
 Prints the card's name and power limit, a JSON line with the kernels (A,
 B, C, D, E, E', D'', D', A', A'', and apart E and E''s (128, 64)
 instances of R1 and R6's D, D'', D' (32, 16), (64, 32), (128, 64) and E,
 E' (64, 128)), each with its launches on its main path
 (by path for A, B, C, D and D': the B2 detect, P4's evaluation, the CLI
-pair's training and evaluation), its error
+pair's training and evaluation, A also the fork's argo detect and its
+test CLI), its error
 against its plain version, its time and the plain version's, and its bound
 (`bound_ms`, the larger of its bytes over 3.35 TB/s and its operations over
 the peak rate of their type, 67 TFLOP/s for f32 outside the tensor cores
@@ -2747,10 +2782,14 @@ def pp_host_stages(trainer, points, mask, gt, iters=5):
 
 def grad_groups(names):
     """Parameter name -> its module group for the per-module errors:
-    'vfe', 'rpn_head.blocks.<i>', 'rpn_head.deblocks.<i>', 'rpn_head.conv_*'."""
+    'vfe', 'rpn_head.blocks.<i>', 'rpn_head.deblocks.<i>', 'rpn_head.conv_*',
+    'bev_seg_head'; an input ('input.<name>') is its own group."""
     out = {}
     for n in names:
         parts = n.split('.')
+        if parts[0] == 'input':
+            out[n] = n
+            continue
         out[n] = '.'.join(parts[:3] if parts[1] in ('blocks', 'deblocks')
                           else parts[:2] if parts[0] == 'rpn_head'
                           else parts[:1])
@@ -2771,9 +2810,11 @@ def step_four_ways(tag, what, cfg, dev, total, make):
     CPU (C), each in f32 (TF32 off) and f64; `make(trainer, device, dtype)`
     gives the batch.  Prints the losses and, per module, the largest
     gradient error over max |grad|; requires the f32 losses within 1e-4
-    relative, the f64 loss and every f64 gradient within 1e-9.  Returns
-    {'G32' / 'C32' / 'G64' / 'C64': (loss, {name: grad on the CPU in f64},
-    the batch's coordinates on the CPU)}."""
+    relative, the f64 loss and every f64 gradient within 1e-9.  `make` may
+    also return {name: input tensor} beside the batch: the loss's gradients
+    by those inputs are compared too.  Returns {'G32' / 'C32' / 'G64' /
+    'C64': (loss, {name: grad on the CPU in f64}, the step's voxel
+    coordinates on the CPU)}."""
     from pcdet_tpu_torch.train import train_state
     from pcdet_tpu_torch.train.trainer import build_trainer
 
@@ -2786,12 +2827,15 @@ def step_four_ways(tag, what, cfg, dev, total, make):
         tr.model.module.to(dtype)
         t0 = time.perf_counter()
         b = make(tr, d, dtype)
-        loss, _, grads = train_state.loss_and_grads(tr.model, tr.state.params,
-                                                    b)
-        names = [n for n, _ in tr.model.module.named_parameters()]
+        b, inputs = b if isinstance(b, tuple) else (b, {})
+        loss, _, grads = train_state.loss_and_grads(
+            tr.model, list(tr.state.params) + list(inputs.values()), b)
+        names = ([n for n, _ in tr.model.module.named_parameters()]
+                 + list(inputs))
+        coords = tr.step_coords(b) if tr.revoxelizes else b['coordinates']
         out[name] = (float(loss), {n: g.cpu().double()
                                    for n, g in zip(names, grads)},
-                     b['coordinates'].cpu())
+                     coords.cpu())
         print('%s %s train step %s: %.2f s' % (
             tag, name, what, time.perf_counter() - t0))
         del tr, b, grads
@@ -3025,19 +3069,31 @@ KITTI_CLASSES = ['Car', 'Pedestrian', 'Cyclist']
 TIMING_FRAMES = 32
 
 
-def png_bytes(width, height):
-    """A black RGB PNG, written with zlib and struct only."""
+def _png(width, height, colour, raw):
+    """A PNG of 8-bit samples of colour type `colour`, its scanlines `raw`
+    (each led by filter byte 0), written with zlib and struct only."""
     import struct
     import zlib
 
     def chunk(tag, data):
         return (struct.pack('>I', len(data)) + tag + data
                 + struct.pack('>I', zlib.crc32(tag + data) & 0xffffffff))
-    raw = (b'\x00' + bytes(3 * width)) * height
     return (b'\x89PNG\r\n\x1a\n'
-            + chunk(b'IHDR', struct.pack('>IIBBBBB', width, height, 8, 2, 0,
-                                         0, 0))
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', width, height, 8,
+                                         colour, 0, 0, 0))
             + chunk(b'IDAT', zlib.compress(raw)) + chunk(b'IEND', b''))
+
+
+def png_bytes(width, height):
+    """A black RGB PNG."""
+    return _png(width, height, 2, (b'\x00' + bytes(3 * width)) * height)
+
+
+def grey_png_bytes(pixels):
+    """An 8-bit grey PNG of (H, W) uint8 `pixels`."""
+    h, w = pixels.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), pixels], 1)
+    return _png(w, h, 0, rows.astype(np.uint8).tobytes())
 
 
 def write_kitti_frame(root, sid, seed, png):
@@ -4949,6 +5005,355 @@ def parta2_cli(dev, root, out_root, sets, val_infos):
                               train_counts['gather_dw_seg']}}
 
 
+# ----------------------------------------------------------------------------
+# F1-F4: the BEVSEG fork's paths at the full width of the argo PointPillar
+# config (tools/cfgs/argo/pointpillar_forward50x50_pseudolidar.yaml)
+# ----------------------------------------------------------------------------
+
+ARGO_PL_CFG = 'tools/cfgs/argo/pointpillar_forward50x50_pseudolidar.yaml'
+# how the fork switches its paths on
+FORK_SETS = ['USE_PSEUDOLIDAR', 'True', 'MODE', '3dobjdet+bev']
+FORK_STRIDE = 2            # pixels of the 375 x 1242 depth map lifted
+
+
+def fork_config(path, sets=FORK_SETS):
+    """The config at `path` with the `--set` pairs `sets` applied."""
+    from pcdet_tpu_torch.config import (cfg_from_list, cfg_from_yaml_file,
+                                        cfg_preprocess)
+    cfg = cfg_from_yaml_file(path)
+    cfg_from_list(list(sets), cfg)
+    return cfg_preprocess(cfg)
+
+
+def fork_inputs(dev, batch, seed=0):
+    """Seeded camera inputs for `batch` frames: depth maps (B, 375, 1242) of
+    5-45 m, smooth (a 12 x 40 field, bilinear), and a one-channel semantic
+    map (B, 375, 1242) in [0, 1), on `dev` (f32; the CPU's draws, so every
+    device gets the same), and BEV masks (B, 200, 200, 2) in {0, 1}."""
+    gen = torch.Generator().manual_seed(seed)
+    coarse = torch.rand((batch, 1, 12, 40), generator=gen)
+    depth = 5 + 40 * torch.nn.functional.interpolate(
+        coarse, size=(IMAGE_H, IMAGE_W), mode='bilinear',
+        align_corners=False)[:, 0]
+    sem = torch.rand((batch, IMAGE_H, IMAGE_W), generator=gen)
+    bev = (torch.rand((batch, 200, 200, 2), generator=gen) > 0.5).float()
+    return depth.to(dev), sem.to(dev), bev.to(dev)
+
+
+def fork_points(depth, sem, max_points, stride=FORK_STRIDE):
+    """Pseudo-LiDAR scans from depth maps through `CalibrationTorch`
+    (KITTI_P2 / KITTI_V2C), padded to `max_points`, and the
+    `point_feature_fn` that puts the semantic map's value at each lifted
+    pixel into the 4th channel: (points (B, P, 4) with channel 3 zero,
+    point_mask (B, P), fn).  Differentiable in depth and sem."""
+    from pcdet_tpu_torch.experiments import pseudolidar_points_from_depth
+    from pcdet_tpu_torch.utils.calibration import (Calibration,
+                                                   CalibrationTorch)
+    calib = CalibrationTorch(Calibration({
+        'P2': KITTI_P2, 'R0': np.eye(3, dtype=np.float32),
+        'Tr_velo2cam': KITTI_V2C}), depth.device, depth.dtype)
+    b, h, w = depth.shape
+    xyz = torch.stack([pseudolidar_points_from_depth(d, calib, stride=stride)
+                       for d in depth])
+    n = xyz.shape[1]
+    require(n <= max_points, '%d lifted points > MAX_POINTS %d'
+            % (n, max_points))
+    top, bottom = int(h * 0.35), int(h - h * 0.15)
+    vv, uu = torch.meshgrid(
+        torch.arange(top, bottom, stride, device=depth.device),
+        torch.arange(0, w, stride, device=depth.device), indexing='ij')
+    sem_pts = sem[:, vv.reshape(-1), uu.reshape(-1)]          # (B, n)
+    pad = max_points - n
+    points = torch.nn.functional.pad(
+        torch.cat([xyz, torch.zeros_like(xyz[..., :1])], -1), (0, 0, 0, pad))
+    mask = torch.zeros((b, max_points), dtype=torch.bool,
+                       device=depth.device)
+    mask[:, :n] = True
+    sem_pad = torch.nn.functional.pad(sem_pts, (0, pad))
+
+    def paint(p):
+        return torch.cat([p[..., :3], sem_pad[..., None]], -1)
+    return points, mask, paint
+
+
+def fork_batch(trainer, depth, sem, bev, gt):
+    """A fork train batch: the lift, the paint, `make_batch`, the BEV masks
+    (in the model's dtype)."""
+    dtype = next(trainer.model.module.parameters()).dtype
+    points, mask, paint = fork_points(
+        depth, sem, int(trainer.cfg.DATA_CONFIG.MAX_POINTS))
+    batch = trainer.make_batch(points, mask, gt, point_feature_fn=paint)
+    batch['bev'] = bev.to(dtype)
+    batch['box_reg_targets'] = batch['box_reg_targets'].to(dtype)
+    return batch
+
+
+def run_fork(dev, smi, cfg_path=ARGO_PL_CFG):
+    """Phases F1-F4 (`smi`: the card's name and power limit, for F4's
+    lines); returns kernel A's launches on the fork's paths: {path: n}."""
+    import os
+    import pickle
+    import tempfile
+
+    from pcdet_tpu_torch import detect as detect_mod
+    from pcdet_tpu_torch.datasets.kitti import kitti_eval_cli
+    from pcdet_tpu_torch.experiments import (BEVSegEvalAccumulator,
+                                             between_dataloading_and_feedforward,
+                                             bev_seg_loss)
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    from pcdet_tpu_torch.tools import create_data
+    from pcdet_tpu_torch.tools import test as test_cli
+    from pcdet_tpu_torch.tools import train as train_cli
+    from pcdet_tpu_torch.train.trainer import build_trainer, make_train_scans
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg_file = os.path.join(here, cfg_path)
+    cfg = fork_config(cfg_file)
+    paths = {}
+
+    # F1. full-width training from pseudo-LiDAR, B2, 3 steps ---------------
+    steps = 3
+    trainer = build_trainer(cfg, dev, seed=0, total_steps=50)
+    require(trainer.revoxelizes and trainer.model.with_bev_seg,
+            'the fork config did not switch the hook and the head on')
+    depth8, sem8, bev8 = fork_inputs(dev, 8)
+    _, _, gt8 = make_train_scans(cfg, 8)
+    depth = depth8[:2].clone().requires_grad_(True)
+    sem = sem8[:2].clone().requires_grad_(True)
+    head0 = [p.detach().clone()
+             for p in trainer.model.module.bev_seg_head.parameters()]
+    tbs = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        batch = fork_batch(trainer, depth, sem, bev8[:2], gt8[:2])
+        tbs.append({k: v.item() for k, v in trainer.step(
+            batch, inputs=(depth, sem) if i == 0 else ()).items()})
+        if i == 0:
+            g_depth, g_sem = trainer.state.input_grads
+    sync()
+    wall = time.perf_counter() - t0
+    n_pts = int(batch['point_mask'].sum(1).max())
+    losses = [tb['loss'] for tb in tbs]
+    moved = max((p.detach() - q).abs().max().item() for p, q in zip(
+        trainer.model.module.bev_seg_head.parameters(), head0))
+    g_stats = [(torch.isfinite(g).all().item(), g.abs().max().item(),
+                int((g != 0).sum())) for g in (g_depth, g_sem)]
+    print('[fork F1] %s with %s, B2: %d pseudo-LiDAR points a frame (depth '
+          '375 x 1242 at stride %d, padded to %d), %d steps on one batch in '
+          '%.2f s: loss %s; bev_loss %s, miou %s; overflow/voxelizer %s' % (
+              cfg_path, ' '.join(FORK_SETS), n_pts, FORK_STRIDE,
+              batch['points'].shape[1], steps, wall,
+              ', '.join('%.5f' % x for x in losses),
+              ', '.join('%.5f' % tb['bev_loss'] for tb in tbs),
+              ', '.join('%.4f' % tb['miou'] for tb in tbs),
+              [tb['overflow/voxelizer'] for tb in tbs]))
+    print('[fork F1] last tb %s; bev_seg_head moved by up to %.3g; d loss / '
+          'd depth (finite, max |g|, nonzero) %s, d loss / d semantic %s' % (
+              {k: round(v, 5) for k, v in tbs[-1].items()}, moved,
+              g_stats[0], g_stats[1]))
+    require(all(np.isfinite(v) for tb in tbs for v in tb.values()),
+            'fork training: a non-finite loss term')
+    require(all('bev_loss' in tb and 'miou' in tb for tb in tbs),
+            'fork training: no bev_loss / miou in the tb')
+    require(losses[-1] < losses[0], 'fork loss did not fall in %d steps: %s'
+            % (steps, losses))
+    require(moved > 0, 'the BEV head\'s weights did not move')
+    require(all(ok and mx > 0 and nz > 0 for ok, mx, nz in g_stats),
+            'd loss / d depth or d semantic not finite and nonzero: %s'
+            % g_stats)
+    require(all('overflow/voxelizer' in tb for tb in tbs),
+            'overflow/voxelizer is not in the tb')
+
+    # the fork config's detect at B2 through kernel A (NMS) --------------
+    det = detect_mod.build_detector(cfg, dev, state_dict={
+        k: v for k, v in trainer.model.module.state_dict().items()})
+    with torch.no_grad():
+        det.model.module.rpn_head.conv_cls.bias.zero_()
+        points, mask, paint = fork_points(depth.detach(), sem.detach(),
+                                          int(cfg.DATA_CONFIG.MAX_POINTS))
+        points = paint(points)
+    det.detect(points, mask)
+    sync()
+    ro.LAUNCHES = 0
+    with torch.inference_mode():
+        vox, ret = det.forward(points, mask)
+        preds = det.model.predict(ret)
+    sync()
+    paths['fork argo detect B2 (F1)'] = ro.LAUNCHES
+    logits = ret['bev_seg_logits']
+    print('[fork F1] argo detect B2 (conv_cls bias zeroed): num %s, kernel '
+          'A launches (NMS rounds) %d; bev_seg_logits %s %s finite %s' % (
+              preds['num'].tolist(), ro.LAUNCHES, tuple(logits.shape),
+              logits.dtype, bool(torch.isfinite(logits).all())))
+    require(ro.LAUNCHES > 0, 'the argo detect launched no kernel A')
+    require(tuple(logits.shape) == (2, 200, 200, 2)
+            and bool(torch.isfinite(logits).all()), 'BEV logits')
+    del trainer, det, batch, vox, ret
+    sync()
+
+    # F2. one B1 step, GPU vs CPU, f32 and f64, with d loss / d inputs ----
+    def make_b1(tr, d, dtype):
+        dep = depth8[:1].to(d, dtype).requires_grad_(True)
+        sm = sem8[:1].to(d, dtype).requires_grad_(True)
+        b1 = fork_batch(tr, dep, sm, bev8[:1].to(d), gt8[:1])
+        return b1, {'input.depth': dep, 'input.semantic': sm}
+    out = step_four_ways('[fork F2]', 'B1 (lift, hook, forward + BEV loss + '
+                         'backward)', cfg, dev, 50, make_b1)
+    print('[fork F2] GPU and CPU f32 pillar coords equal: %s' % torch.equal(
+        out['G32'][2], out['C32'][2]))
+
+    # F3. the CLI pair on a fabricated argo-layout KITTI tree -------------
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out_root = os.path.join(tmp, 'kitti'), os.path.join(tmp, 'out')
+        t0 = time.perf_counter()
+        write_kitti_tree(root, 4, 2)
+        rng = np.random.RandomState(0)
+        for cls in ('DRIVABLE', 'VEHICLE'):
+            d = os.path.join(root, 'training', 'bev_%s' % cls)
+            os.makedirs(d)
+            for i in range(6):
+                m = (rng.rand(400, 400) > 0.6).astype(np.uint8) * 255
+                with open(os.path.join(d, '%06d.png' % i), 'wb') as f:
+                    f.write(grey_png_bytes(m))
+        create_data.main(['kitti', '--cfg_file', cfg_file, '--data_path',
+                          root, '--workers', '4'])
+        sets = cli_sets(root, out_root) + FORK_SETS
+        argv = ['--cfg_file', cfg_file, '--batch_size', '2', '--epochs', '1',
+                '--workers', '4', '--ckpt_save_interval', '1',
+                '--log_interval', '1', '--extra_tag', 'chip_smoke',
+                '--device', dev.type, '--set'] + sets
+        tout = train_cli.main(argv)
+        sync()
+        t_train = time.perf_counter() - t0
+        losses = [float(x) for x in log_records(
+            tout['log_file'], r'iter \d+ loss (\S+) ')]
+        bev_losses = [float(x) for x in log_records(
+            tout['log_file'], r'bev_loss (\S+) ')]
+        tb_dir = os.path.join(str(tout['output_dir']), 'tensorboard')
+        events = os.listdir(tb_dir) if os.path.isdir(tb_dir) else []
+        print('[fork F3] tree of 4 + 2 frames with 400 x 400 BEV maps, '
+              'create_data, train CLI %s B2 1 epoch (2 steps, 4 thread '
+              'workers) in %.2f s: loss %s, bev_loss %s; tensorboard %s' % (
+                  ' '.join(FORK_SETS), t_train, losses, bev_losses,
+                  events or 'not written (no tensorboardX)'))
+        require(tout['trainer'].revoxelizes, 'the train CLI did not switch '
+                'the hook on')
+        require(len(losses) == len(bev_losses) == 2
+                and all(np.isfinite(losses + bev_losses)),
+                'train CLI: losses %s, bev_loss %s' % (losses, bev_losses))
+        ro.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = test_cli.main([
+            '--cfg_file', cfg_file, '--batch_size', '2', '--workers', '4',
+            '--extra_tag', 'chip_smoke', '--device', dev.type, '--ckpt',
+            os.path.join(str(tout['ckpt_dir']), 'checkpoint_epoch_1.pth'),
+            '--set'] + sets + ['MODEL.TEST.SCORE_THRESH', '0.0'])
+        sync()
+        a_launches = ro.LAUNCHES
+        paths['fork CLI eval (F3)'] = a_launches
+        eval_dir, result = res['results'][1]
+        with open(os.path.join(str(eval_dir), 'result.pkl'), 'rb') as f:
+            det_annos = pickle.load(f)
+        with open(os.path.join(root, 'kitti_infos_val.pkl'), 'rb') as f:
+            val_infos = pickle.load(f)
+        again, _ = kitti_eval_cli.evaluation(det_annos, val_infos,
+                                             KITTI_CLASSES)
+        logged = logged_result(res['log_file'])
+        # the BEV head over the eval batches against the loader's masks
+        det = res['detector']
+        acc = BEVSegEvalAccumulator(2)
+        from pcdet_tpu_torch.datasets import build_dataloader
+        fcfg = test_cli.parse_config(['--cfg_file', cfg_file, '--set']
+                                     + sets)[1]
+        ds, loader = build_dataloader(fcfg, 2, training=False, num_workers=0)
+        with torch.inference_mode():
+            for item in loader:
+                acc.add_batch(det.model.forward(det.upload(item))
+                              ['bev_seg_logits'], item['bev'])
+        miou = acc.results()
+        print('[fork F3] test CLI on its checkpoint, %d val frames in %.2f '
+              's: kernel A launches %d (NMS rounds and recall); recall/gt '
+              '%s; logged AP string == the evaluator on result.pkl: %s; '
+              'BEVSegEvalAccumulator %s' % (
+                  len(det_annos), time.perf_counter() - t0, a_launches,
+                  result['recall/gt'], logged == again.strip(),
+                  {k: round(float(v), 4) for k, v in miou.items()}))
+        require(a_launches > 0, 'the fork test CLI launched no kernel A')
+        require(logged == again.strip(), 'fork test CLI: the logged AP '
+                'string differs from the evaluator run again on result.pkl')
+        require(finite_numbers(logged), 'fork test CLI: non-finite AP')
+        require(np.isfinite(miou['test_miou']), 'test_miou not finite')
+        del det, res, tout
+    sync()
+
+    # F4. ms per step with and without the hook and the head --------------
+    settings = (('hook + BEV head', FORK_SETS),
+                ('hook only', FORK_SETS[:2]),
+                ('BEV head only (voxels made before the step)',
+                 FORK_SETS[2:]),
+                ('neither (voxels made before the step)', []))
+    for name, sets in settings:
+        c = fork_config(cfg_file, sets)
+        trainer = build_trainer(c, dev, seed=0, total_steps=50)
+        for b in (2, 8):
+            with torch.no_grad():
+                points, mask, paint = fork_points(
+                    depth8[:b], sem8[:b], int(c.DATA_CONFIG.MAX_POINTS))
+                points = paint(points)
+            batch = trainer.make_batch(points, mask, gt8[:b])
+            if trainer.model.with_bev_seg:
+                batch['bev'] = bev8[:b]
+            trainer.step(batch)                                  # warm-up
+            sync()
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                trainer.step(batch)
+                sync()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            step_ms = sorted(ms)[1]
+            extra = ''
+            if trainer.revoxelizes:
+                revox = cuda_ms(lambda: between_dataloading_and_feedforward(
+                    batch, c, train=True), 5)
+                extra += '; re-voxelization %.2f ms' % revox
+            if trainer.model.with_bev_seg:
+                head = trainer.model.module.bev_seg_head
+                with torch.no_grad():
+                    feats = trainer.model.forward(
+                        between_dataloading_and_feedforward(batch, c))[
+                            'spatial_features_last']
+                feats = torch.randn_like(feats).requires_grad_(True)
+
+                def head_fwd_bwd():
+                    loss, _ = bev_seg_loss(head(feats), bev8[:b])
+                    torch.autograd.grad(loss, [feats] + list(
+                        head.parameters()))
+                extra += ('; BEV head forward + backward %.2f ms'
+                          % cuda_ms(head_fwd_bwd, 5))
+            print('[fork F4 B%d] %s: %.2f ms per step (median of 3, '
+                  'prebuilt; %s), %.2f samples/s%s (CUDA events); %s' % (
+                      b, name, step_ms, ', '.join('%.2f' % x for x in ms),
+                      1e3 * b / step_ms, extra, smi))
+            if b == 2 and name.startswith(('hook + ', 'neither')):
+                busy, rows = profile_train(trainer, batch)
+                if not rows or busy > step_ms:
+                    print('[fork F4 B2] %s: device busy / idle not measured '
+                          '(no device time recorded, or more than the '
+                          'unprofiled step)' % name)
+                else:
+                    print('[fork F4 B2] %s: device busy %.2f ms per step '
+                          '(torch.profiler), idle %.1f%% of the unprofiled '
+                          'step; top kernels: %s' % (
+                              name, busy, 100 * (1 - busy / step_ms),
+                              '; '.join('%.3f ms %s' % (t, k[:60])
+                                        for t, k in rows[:6])))
+            del batch
+        del trainer
+        sync()
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; the port is checked on the GPU',
@@ -5261,6 +5666,7 @@ def main():
     pp_eval_launches = timed('PointPillar training P1-P4',
                              run_pointpillar_train, dev,
                              detect_mod.load_config())
+    fork_paths = timed('BEVSEG fork F1-F4', run_fork, dev, smi)
     parta2_entries, parta2_paths = timed('Part-A2 R1-R3', run_parta2, dev)
     train_entries, train_paths = timed('Part-A2 training R5-R7',
                                        run_parta2_train, dev)
@@ -5272,7 +5678,8 @@ def main():
         max_abs_err, kernel_ms, plain_ms, a_work)
     a_entry['launches_by_path'] = {
         'pointpillar detect B2': launches_b2,
-        'pointpillar trained checkpoint eval B2 (P4)': pp_eval_launches}
+        'pointpillar trained checkpoint eval B2 (P4)': pp_eval_launches,
+        **fork_paths}
     kernels = ([a_entry] + second + [dw_entry] + xwin + parta2_entries
                + train_entries + evals)
     for entry in kernels:

@@ -5,15 +5,17 @@ reference's BaseKittiDataset, KittiDataset and create_kitti_infos):
 fixed-shape examples (`datasets/dataset.py`); calib objects never enter the
 batch, predictions go back to the camera and image frames through the
 sample's info, looked up by sample_idx; the fork's PERCENT_OF_PTS,
-ALTERNATE_PT_CLOUD_ABS_DIR and TAG_PTS_IF_IN_GT_BBOXES are honoured.  An
-image's shape is read from its PNG header.  The fork's RGB-tagged points
-(TAG_PTS_WITH_RGB) and BEV segmentation (MODE 'bev') wait for the fork's
-camera paths (ROADMAP.md queue 1 item 6).
+ALTERNATE_PT_CLOUD_ABS_DIR, TAG_PTS_IF_IN_GT_BBOXES, TAG_PTS_WITH_RGB
+(`get_colored_lidar`) and MODE 'bev' (`get_bev`, the BEV segmentation
+masks as `bev` (200, 200, 2) in each example) are honoured.  Images are
+read without PIL: a shape from the PNG header (`png_shape`), the BEV masks'
+pixels by `read_png` (zlib and struct).
 """
 import copy
 import os
 import pickle
 import struct
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -32,6 +34,97 @@ def png_shape(path):
         raise ValueError('%s is not a PNG file' % path)
     width, height = struct.unpack('>II', head[16:24])
     return np.array([height, width], dtype=np.int32)
+
+
+# (colour type, bit depth) -> channels, for what `read_png` decodes: grey
+# (1 and 8 bit), RGB, palette indices, grey + alpha, RGBA
+_PNG_CHANNELS = {(0, 1): 1, (0, 8): 1, (2, 8): 3, (3, 8): 1, (4, 8): 2,
+                 (6, 8): 4}
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter(data, height, stride, bpp):
+    """The PNG scanline filters undone: (height, stride) uint8."""
+    rows = np.frombuffer(data, np.uint8)
+    if rows.size != height * (stride + 1):
+        raise ValueError('PNG image data holds %d bytes, want %d'
+                         % (rows.size, height * (stride + 1)))
+    rows = rows.reshape(height, stride + 1)
+    out = np.zeros((height, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(height):
+        kind, raw = rows[y, 0], rows[y, 1:]
+        if kind == 0:
+            cur = raw.copy()
+        elif kind == 1:                                    # Sub
+            cur = np.zeros(stride, np.uint8)
+            for c in range(bpp):
+                cur[c::bpp] = np.cumsum(raw[c::bpp], dtype=np.uint64) % 256
+        elif kind == 2:                                    # Up
+            cur = raw + prior
+        elif kind in (3, 4):                               # Average, Paeth
+            cur = bytearray(raw.tobytes())
+            up = prior.tobytes()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                if kind == 3:
+                    pred = (a + up[i]) >> 1
+                else:
+                    pred = _paeth(a, up[i], up[i - bpp] if i >= bpp else 0)
+                cur[i] = (cur[i] + pred) & 0xff
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError('PNG scanline filter %d does not exist' % kind)
+        out[y] = prior = cur
+    return out
+
+
+def read_png(path):
+    """A PNG's pixels as `np.array(PIL.Image.open(path))` gives them: (H, W)
+    uint8 for 8-bit grey and palette images (the indices), (H, W) bool for
+    1-bit grey, (H, W, 3 / 2 / 4) uint8 for RGB, grey + alpha and RGBA.
+
+    :raises ValueError: any other bit depth or colour type (16-bit ones
+        included), an interlaced image, or a file that is not a PNG
+    """
+    with open(path, 'rb') as f:
+        data = f.read()
+    if data[:8] != b'\x89PNG\r\n\x1a\n':
+        raise ValueError('%s is not a PNG file' % path)
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        length, tag = struct.unpack('>I4s', data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b'IHDR':
+            header = struct.unpack('>IIBBBBB', body)
+        elif tag == b'IDAT':
+            idat.append(body)
+        elif tag == b'IEND':
+            break
+    if header is None:
+        raise ValueError('%s has no IHDR chunk' % path)
+    width, height, depth, colour, _, _, interlace = header
+    if interlace:
+        raise ValueError('%s is interlaced: not decoded' % path)
+    channels = _PNG_CHANNELS.get((colour, depth))
+    if channels is None:
+        raise ValueError('%s: colour type %d at %d bits is not decoded'
+                         % (path, colour, depth))
+    stride = (width * channels * depth + 7) // 8
+    pixels = _unfilter(zlib.decompress(b''.join(idat)), height, stride,
+                       max(1, channels * depth // 8))
+    if depth == 1:
+        return np.unpackbits(pixels, axis=1)[:, :width].astype(bool)
+    pixels = pixels.reshape(height, width, channels)
+    return pixels[..., 0] if channels == 1 else pixels
 
 
 class KittiDataset(DatasetTemplate):
@@ -84,14 +177,49 @@ class KittiDataset(DatasetTemplate):
         return png_shape(img_file)
 
     def get_colored_lidar(self, idx):
-        raise NotImplementedError(
-            'TAG_PTS_WITH_RGB (points tagged with their image colors) waits '
-            'for the fork\'s camera paths, ROADMAP.md queue 1 item 6')
+        """Points in the image and the RGB of their projection: (n, 6) [xyz,
+        rgb] (TAG_PTS_WITH_RGB, `pcdet_tpu`'s `get_colored_lidar`).  The
+        reference zeroes the colours it samples (`colors *= 0`), so the
+        colours are zeros and only the image's shape is read."""
+        lidar_file = os.path.join(self.root_split_path, 'velodyne',
+                                  '%s.bin' % idx)
+        assert os.path.exists(lidar_file), lidar_file
+        pts = np.fromfile(lidar_file, dtype=np.float32).reshape(-1, 4)[:, :3]
+        calib = self.get_calib(idx)
+        pts_rect = calib.lidar_to_rect(pts)
+        fov_flag = self.get_fov_flag(pts_rect, self.get_image_shape(idx),
+                                     calib)
+        pts_fov = pts[fov_flag]
+        colors = np.zeros((len(pts_fov), 3), np.float32)
+        return np.hstack([pts_fov, colors]).astype(np.float32)
+
+    # BEV segmentation masks' crop (reference get_bev:164-203)
+    BEV_CLASSES = ('DRIVABLE', 'VEHICLE')
+    BEV_BOUNDS_M = (-50, 0, -25, 25)        # min x, max x, min y, max y
+    BEV_METER_PER_PIXEL = 0.25
 
     def get_bev(self, idx):
-        raise NotImplementedError(
-            "MODE 'bev' (BEV segmentation ground truth) waits for the fork's "
-            'camera paths, ROADMAP.md queue 1 item 6')
+        """BEV segmentation ground truth: (C, 200, 200) masks cropped to
+        BEV_BOUNDS_M around each map's centre from
+        training/bev_<class>/<idx>.png (the first channel of a colour
+        map)."""
+        pixel_bnds = (np.asarray(self.BEV_BOUNDS_M)
+                      / self.BEV_METER_PER_PIXEL).astype(np.int64)
+        bevs = []
+        for cls in self.BEV_CLASSES:
+            bev_path = os.path.join(self.root_split_path, 'bev_%s' % cls,
+                                    '%s.png' % idx)
+            assert os.path.exists(bev_path), bev_path
+            bev = read_png(bev_path)
+            if bev.ndim == 3:
+                bev = bev[..., 0]
+            rows_center, cols_center = np.asarray(bev.shape[:2]) // 2
+            top, bottom = (pixel_bnds[0] + rows_center,
+                           pixel_bnds[1] + rows_center)
+            left, right = (pixel_bnds[2] + cols_center,
+                           pixel_bnds[3] + cols_center)
+            bevs.append(bev[top:bottom, left:right])
+        return np.array(bevs)
 
     def get_label(self, idx):
         label_file = os.path.join(self.root_split_path, 'label_2', '%s.txt' % idx)

@@ -21,7 +21,9 @@ runs the same books into PartA2Net: MeanVFE, the UNetV2 sparse convs,
 RPNV2, the proposal layer (NMS through kernel A), RoI-aware pooling, the
 RCNN head, and the final NMS of the refined boxes.  A data loader's
 voxelized batch (`datasets.build_dataloader`) goes to the device through
-`upload`, with the sparse models' books from the loader.
+`upload`, with the sparse models' books from the loader; under the fork's
+cfg.TORCH_VOXEL_GENERATOR (USE_PSEUDOLIDAR, INJECT_SEMANTICS) its points are
+voxelized again on the device instead, at the TEST caps.
 `build_detector(cfg, device, checkpoint=path)` (a `train.checkpoint`
 `.pth`, or a reference one) or `state_dict=sd` puts trained weights in
 place of the random ones.
@@ -33,6 +35,7 @@ import torch
 
 from .config import cfg_from_yaml_file
 from .datasets.synthetic import make_scene
+from .experiments import between_dataloading_and_feedforward
 from .models.build import SPARSE_MODELS, build_network
 from .ops import host_books
 from .ops.voxelizer import grid_size, voxelize_torch
@@ -103,14 +106,26 @@ class Detector:
         vox = self.voxelize(points, point_mask)
         return vox, self.model.forward(vox)
 
+    @property
+    def revoxelizes(self):
+        """cfg.TORCH_VOXEL_GENERATOR: a loader batch's points are voxelized
+        again on the device, at the TEST caps."""
+        return bool(self.model.cfg.get('TORCH_VOXEL_GENERATOR', False))
+
     def upload(self, batch):
         """A collated eval batch of the data loader (numpy: the host
         voxelizer's voxels, gt_boxes, a sparse model's `hb_*` books) -> the
-        model's
-        batch on the device, in one upload (`host_books.
-        upload_loader_batch`)."""
-        return host_books.upload_loader_batch(batch, self.device, self.model,
-                                              train=False)
+        model's batch on the device, in one upload (`host_books.
+        upload_loader_batch`).  Under cfg.TORCH_VOXEL_GENERATOR the points
+        go up instead and the fork's hook voxelizes them at the TEST caps
+        (`experiments.between_dataloading_and_feedforward`, as
+        `pcdet_tpu`'s eval forward does)."""
+        out = host_books.upload_loader_batch(batch, self.device, self.model,
+                                             train=False)
+        if self.revoxelizes:
+            out = between_dataloading_and_feedforward(out, self.model.cfg,
+                                                      train=False)
+        return out
 
     @torch.inference_mode()
     def detect(self, points, point_mask):
@@ -135,6 +150,14 @@ class SparseDetector(Detector):
         coords = vox['coordinates'].cpu().numpy()
         return self.model.upload_books(self.model.build_books(coords),
                                        coords.shape[1])
+
+    def upload(self, batch):
+        """`Detector.upload`; under cfg.TORCH_VOXEL_GENERATOR the books are
+        built from the device voxelization's coords."""
+        out = super().upload(batch)
+        if self.revoxelizes:
+            out['books'] = self.books(out)
+        return out
 
     def forward(self, points, point_mask):
         """`Detector.forward` with the books built between the voxelizer and

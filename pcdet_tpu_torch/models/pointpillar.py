@@ -2,8 +2,11 @@
 the anchor-head loss.
 
 Twin of `pcdet_tpu.models.pointpillar` (`PointPillarNet` and the
-`PointPillar` wrapper, its stock loss; the BEV-segmentation loss of the
-fork's MODE is not ported).  Anchors and the training targets come from
+`PointPillar` wrapper): the stock loss, and under a MODE holding 'bev' the
+fork's BEV segmentation head (`experiments.BEVSegHead` over RPNV2's
+`spatial_features_last`, as `bev_seg_head`) and `loss_with_bev`, the
+detection loss plus `experiments.bev_seg_loss` (additive: the fork's 1e-7
+scaling of the detection loss is not reproduced).  Anchors and the training targets come from
 `models/anchors.py` (`AnchorHeadTargets`, numpy, on the host).
 `train_mode()` / `eval_mode()` switch BN between batch and running
 statistics and the bf16 eval stack (`compute_dtype_test`) off and on, as
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..experiments import BEVSegHead, bev_seg_loss
 from ..utils.box_coder import ResidualCoder
 from .anchors import AnchorHeadTargets
 from .detector3d import TrainHooks, detector_loss, post_process_from_head
@@ -27,7 +31,8 @@ class PointPillarNet(nn.Module):
 
     def __init__(self, num_class, num_anchors_per_location, grid_ny, grid_nx,
                  num_point_features, vfe_num_filters, vfe_with_distance,
-                 voxel_size, pc_range, rpn_args, use_norm=True):
+                 voxel_size, pc_range, rpn_args, use_norm=True,
+                 with_bev_seg=False, bev_num_classes=2, bev_out_size=200):
         super().__init__()
         self.grid_ny, self.grid_nx = grid_ny, grid_nx
         a = rpn_args
@@ -58,6 +63,11 @@ class PointPillarNet(nn.Module):
             use_direction_classifier=a.get('use_direction_classifier', True),
             num_direction_bins=a.get('num_direction_bins', 2),
             compute_dtype=torch.bfloat16 if bf16 else None)
+        self.bev_seg_head = None
+        if with_bev_seg:
+            self.bev_seg_head = BEVSegHead(self.rpn_head.c_head,
+                                           bev_num_classes,
+                                           out_size=bev_out_size)
 
     def forward(self, voxels, num_points, coords, voxel_mask):
         features = self.vfe(voxels, num_points, coords, voxel_mask)
@@ -65,7 +75,11 @@ class PointPillarNet(nn.Module):
             features = features.to(self.canvas_dtype)
         canvas = pillar_scatter(features, coords, voxel_mask,
                                 self.grid_ny, self.grid_nx)
-        return self.rpn_head(canvas)
+        ret = self.rpn_head(canvas)
+        if self.bev_seg_head is not None:
+            ret['bev_seg_logits'] = self.bev_seg_head(
+                ret['spatial_features_last'])
+        return ret
 
 
 class PointPillar(TrainHooks):
@@ -86,6 +100,7 @@ class PointPillar(TrainHooks):
         self.anchors = torch.as_tensor(targets.anchors, device=self.device)
         vfe_args = cfg.MODEL.VFE.ARGS
         data_cfg = cfg.DATA_CONFIG
+        self.with_bev_seg = 'bev' in str(cfg.get('MODE', ''))
         self.module = PointPillarNet(
             num_class=self.num_class,
             num_anchors_per_location=targets.num_anchors_per_location,
@@ -96,7 +111,8 @@ class PointPillar(TrainHooks):
             voxel_size=tuple(data_cfg.VOXEL_GENERATOR.VOXEL_SIZE),
             pc_range=tuple(data_cfg.POINT_CLOUD_RANGE),
             rpn_args=self.head_args,
-            use_norm=bool(vfe_args.get('use_norm', True)))
+            use_norm=bool(vfe_args.get('use_norm', True)),
+            with_bev_seg=self.with_bev_seg)
         if generator is not None:
             init_weights(self.module, generator)
             self.module.rpn_head.init_focal_bias(0.01)
@@ -126,6 +142,19 @@ class PointPillar(TrainHooks):
         (`pcdet_tpu.models.pointpillar.PointPillar.loss`): batch carries
         `box_cls_labels` (B, A) int32 and `box_reg_targets` (B, A, 7)."""
         return detector_loss(self, ret_dict, batch)
+
+    def loss_with_bev(self, ret_dict, batch):
+        """`loss` plus `bev_seg_loss` of the BEV logits against batch['bev']
+        (B, 200, 200, C) when MODE asks for the head and the batch carries
+        the masks; `loss` and the BEV scalars in the tb dict."""
+        loss, tb = self.loss(ret_dict, batch)
+        if self.with_bev_seg and 'bev' in batch:
+            bev_loss, tb_bev = bev_seg_loss(ret_dict['bev_seg_logits'],
+                                            batch['bev'])
+            tb.update(tb_bev)
+            loss = loss + bev_loss
+            tb['loss'] = loss
+        return loss, tb
 
     def predict(self, ret_dict):
         """Decoded, NMS'd fixed-shape predictions (B, post_max, ...)."""

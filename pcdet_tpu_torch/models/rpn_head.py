@@ -7,7 +7,9 @@ ReLU] * layer_num), so conv j sits at `blocks.{i}.{1+3j}` and its BN at
 
 The convolutions run NCHW on a channels-last view of the NHWC canvas; the
 head outputs come back NHWC, (B, H, W, A * code), so the anchor order of
-`pcdet_tpu.models.anchors` holds.  The bf16 compute dtype applies in eval
+`pcdet_tpu.models.anchors` holds, with the concatenated upsampled features
+the 1x1 heads read as `spatial_features_last` (B, H, W, C), which the
+fork's BEV segmentation head reads.  The bf16 compute dtype applies in eval
 only; training runs f32 (`layers.TorchConv`).
 """
 import math
@@ -49,7 +51,8 @@ class RPNV2(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.deblocks = nn.ModuleList(deblocks)
 
-        c_head = sum(num_upsample_filters) + (
+        # the width of spatial_features_last
+        self.c_head = c_head = sum(num_upsample_filters) + (
             num_input_features if concat_input else 0)
         a = num_anchors_per_location
         num_cls = a * num_class if encode_background_as_zeros \
@@ -80,7 +83,8 @@ class RPNV2(nn.Module):
             return t.permute(0, 2, 3, 1)
 
         ret = {'box_preds': nhwc(self.conv_box(x)),
-               'cls_preds': nhwc(self.conv_cls(x))}
+               'cls_preds': nhwc(self.conv_cls(x)),
+               'spatial_features_last': nhwc(x)}
         if self.conv_dir_cls is not None:
             ret['dir_cls_preds'] = nhwc(self.conv_dir_cls(x))
         return ret

@@ -399,8 +399,11 @@ def make_batch_transform(model, training):
     `hb_*` wire arrays at the model's train or eval caps
     (`model.host_book_spec(cap, training)`), by the native builders.  None
     for a model without sparse convs (PointPillar).  It runs in the
-    loader's producer thread, beside the device step."""
-    if not hasattr(model, 'host_book_spec'):
+    loader's producer thread, beside the device step.  None also under
+    cfg.TORCH_VOXEL_GENERATOR, whose books come from the device's voxels
+    (`train.trainer.Trainer.upload`, `detect.SparseDetector.upload`)."""
+    if (not hasattr(model, 'host_book_spec')
+            or model.cfg.get('TORCH_VOXEL_GENERATOR', False)):
         return None
     sparse_shape, spec = model.sparse_shape, []
 
@@ -420,37 +423,53 @@ def make_batch_transform(model, training):
 # a loader batch's arrays that go to the device, in this order
 LOADER_KEYS = ('voxels', 'num_points', 'coordinates', 'voxel_mask',
                'voxel_overflow', 'gt_boxes', 'box_cls_labels',
-               'box_reg_targets', 'seg_labels', 'part_labels')
+               'box_reg_targets', 'seg_labels', 'part_labels', 'points',
+               'point_mask', 'bev')
+# the loader's voxelizer outputs, which cfg.TORCH_VOXEL_GENERATOR replaces
+VOXEL_KEYS = ('voxels', 'num_points', 'coordinates', 'voxel_mask',
+              'voxel_overflow')
 
 
 def upload_loader_batch(batch, device, model, train):
     """A collated loader batch (numpy, `datasets.collate_batch`) -> the
     model's batch on `device`, in ONE copy: voxels, num_points (as
     `num_points_per_voxel`), coordinates, voxel_mask, voxel_overflow and,
-    where the batch has them, gt_boxes, the anchor targets and Part-A²'s
-    per-voxel seg_labels / part_labels; for a model
+    where the batch has them, gt_boxes, the anchor targets, Part-A²'s
+    per-voxel seg_labels / part_labels, the fork's points / point_mask
+    (B, P) and BEV masks `bev`; for a model
     with sparse convs also its books at the train or eval caps, decoded
     into `books`: the batch's `hb_*` books, which the loader's
-    `make_batch_transform` adds (a batch without them raises)."""
+    `make_batch_transform` adds (a batch without them raises).  Under
+    cfg.TORCH_VOXEL_GENERATOR the loader's voxels and books stay on the
+    host: the points are voxelized again on the device (`experiments.
+    between_dataloading_and_feedforward`)."""
+    revoxelize = model.cfg.get('TORCH_VOXEL_GENERATOR', False)
+    keys = tuple(k for k in LOADER_KEYS
+                 if not (revoxelize and k in VOXEL_KEYS))
     spec = None
-    if hasattr(model, 'host_book_spec'):
+    if hasattr(model, 'host_book_spec') and not revoxelize:
         if not any(k.startswith('hb_') for k in batch):
             raise ValueError(
                 'a batch for a model with sparse convs needs its hb_* '
                 'books: set the loader\'s batch_transform to '
                 'host_books.make_batch_transform(model, training)')
         spec = model.host_book_spec(batch['coordinates'].shape[1], train)
-    arrays = []
-    for key in LOADER_KEYS:
+    arrays, bools = [], []
+    for key in keys:
         if key in batch:
             a = np.ascontiguousarray(batch[key])
-            arrays.append((key, a.view(np.uint8) if a.dtype == bool else a))
+            if a.dtype == bool:
+                bools.append(key)
+                a = a.view(np.uint8)
+            arrays.append((key, a))
     if spec is not None:
         arrays += wire_arrays(batch, spec)
     t = upload(arrays, device)
-    out = {key: t[key] for key in LOADER_KEYS if key in t}
-    out['num_points_per_voxel'] = out.pop('num_points')
-    out['voxel_mask'] = out['voxel_mask'].view(torch.bool)
+    out = {key: t[key] for key in keys if key in t}
+    for key in bools:
+        out[key] = out[key].view(torch.bool)
+    if 'num_points' in out:
+        out['num_points_per_voxel'] = out.pop('num_points')
     if spec is not None:
         out['books'] = decode_books(t, spec, batch['coordinates'].shape[1])
     return out

@@ -1,8 +1,8 @@
 """Train CLI of the port.
 
 The argparse surface and output layout of `tools/train.py` (the
-reference's tools/train.py): output/<TAG>/<extra_tag>/{ckpt, log_train_*.txt}
-under `cfg.ROOT_DIR`.  A run resumes from `--ckpt` or the latest checkpoint
+reference's tools/train.py): output/<TAG>/<extra_tag>/{ckpt, tensorboard,
+log_train_*.txt} under `cfg.ROOT_DIR`.  A run resumes from `--ckpt` or the latest checkpoint
 of its ckpt directory; `--pretrained_model` loads what fits of a `.pth`
 (the port's or a reference-keyed one).  The data comes from
 `datasets.build_dataloader` (host voxelizer, augmentation, anchor targets,
@@ -12,9 +12,18 @@ Part-A²'s per-voxel targets, and the sparse models' books in the loader's
     python -m pcdet_tpu_torch.tools.train \
         --cfg_file tools/cfgs/pointpillar.yaml --batch_size 2 --epochs 80
 
+The fork's flags switch on its paths, as `--set USE_PSEUDOLIDAR True MODE
+3dobjdet+bev` does: the step voxelizes the loader's points again on the
+device, and PointPillar trains its BEV segmentation head on the loader's
+masks.  The parameters to freeze come from `experiments.
+training_before_epoch` (FREEZE_PARAM_PREFIXES, and `seg_model` under
+INJECT_SEMANTICS without TRAIN_SEMANTIC_NETWORK).  The tb scalars go to a
+tensorboardX `SummaryWriter` under output_dir/tensorboard where that
+package imports, and to wandb where a run is open.
+
 One card holds one BatchNorm group, which is what `--sync_bn` asks for,
-so the flag changes nothing.  Several hosts (`--multi_host`) and the
-tensorboard / wandb mirrors are not ported.
+so the flag changes nothing.  Several hosts (`--multi_host`) are not
+ported.
 """
 import argparse
 import datetime
@@ -25,6 +34,7 @@ import torch
 from ..config import cfg_from_list, cfg_from_yaml_file, cfg_preprocess
 from ..config import log_config_to_file
 from ..datasets import build_dataloader
+from ..experiments import training_before_epoch
 from ..ops import host_books
 from ..train.checkpoint import (latest_checkpoint, load_params_partial,
                                 restore_train_state)
@@ -74,7 +84,7 @@ def main(argv=None):
     if args.multi_host:
         raise NotImplementedError(
             '--multi_host: training across hosts (torch DDP) is not ported '
-            'yet, ROADMAP.md queue 1 item 6')
+            'yet, ROADMAP.md queue 1 item 6, its DDP part')
     if args.fix_random_seed:
         common.set_random_seed(666)
 
@@ -93,8 +103,7 @@ def main(argv=None):
         cfg, args.batch_size, training=True, logger=logger,
         num_workers=args.workers, seed=666 if args.fix_random_seed else 0,
         worker_mode=args.worker_mode)
-    frozen = tuple(str(p) for p in cfg.MODEL.TRAIN.get(
-        'FREEZE_PARAM_PREFIXES', []))
+    frozen = training_before_epoch(cfg)
     if frozen:
         logger.info('Freezing param prefixes: %s' % (frozen,))
     trainer = build_trainer(cfg, torch.device(args.device), seed=0,
@@ -115,12 +124,22 @@ def main(argv=None):
     logger.info('device: %s, %d samples, %d iterations an epoch' % (
         trainer.device, len(dataset), len(train_loader)))
 
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        SummaryWriter = None
+        logger.info('tensorboardX does not import: no tensorboard log')
+    tb_log = (None if SummaryWriter is None
+              else SummaryWriter(log_dir=str(output_dir / 'tensorboard')))
+
     logger.info('**********************Start training**********************')
     train_model(trainer, train_loader, total_epochs=args.epochs,
                 start_epoch=start_epoch, ckpt_save_dir=str(ckpt_dir),
                 ckpt_save_interval=args.ckpt_save_interval,
                 max_ckpt_save_num=args.max_ckpt_save_num, logger=logger,
-                log_interval=args.log_interval)
+                log_interval=args.log_interval, tb_log=tb_log)
+    if tb_log is not None:
+        tb_log.close()
     logger.info('**********************End training**********************')
     return {'output_dir': output_dir, 'ckpt_dir': ckpt_dir,
             'log_file': log_file, 'trainer': trainer,

@@ -87,17 +87,31 @@ def restore_train_state(path, state):
     return state, int(payload['epoch'])
 
 
+# a reference checkpoint's fork networks with no counterpart in the port
+# (`pcdet_tpu.train.torch_import.IGNORED_PREFIXES`): the smp-Unet BEV head
+# and the HRNet segmentation and depth networks
+IGNORED_PREFIXES = ('bev_conv.', 'seg_model.', 'depth_model.')
+
+
 def load_params_partial(path, module, logger=None):
     """Shape-tolerant load (the reference's load_params_from_file): each
     entry of `module.state_dict()` takes the file's `model_state` entry of
     the same name and shape (a bare state_dict is taken as one); any other
-    keeps its value and is logged.
+    keeps its value and is logged.  The file's entries under
+    `IGNORED_PREFIXES` are skipped, their count logged.
 
     :return: (the names not updated, the file's epoch (-1 where it has
         none), its it (0 where none))
     """
     payload = load_checkpoint(path, next(module.parameters()).device)
     disk = model_state(payload)
+    ignored = [k for k in disk if k.startswith(IGNORED_PREFIXES)]
+    if ignored and logger is not None:
+        logger.info('Ignored %d weights of the fork\'s networks (%s)'
+                    % (len(ignored), ', '.join(sorted(
+                        {k.split('.', 1)[0] for k in ignored}))))
+    disk = {k: v for k, v in disk.items()
+            if not k.startswith(IGNORED_PREFIXES)}
     own = module.state_dict()
     merged, skipped = {}, []
     for key, value in own.items():

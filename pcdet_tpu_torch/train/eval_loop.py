@@ -4,7 +4,9 @@ thread, the official KITTI AP on the host.
 Port of `pcdet_tpu.train.eval_loop.eval_one_epoch` (the PCDet reference's
 tools/eval_utils/eval_utils.py:eval_one_epoch): per batch, the upload (a
 data loader's voxelized batch through `detector.upload`, with the sparse
-models' books; raw points through the device voxelizer), the detector's forward
+models' books, or under the fork's cfg.TORCH_VOXEL_GENERATOR its points
+voxelized again on the device at the TEST caps; raw points through the
+device voxelizer), the detector's forward
 and predict, the recall counters through kernel A
 (`models.detector3d.batch_recall`) and the cap-overflow counters, both
 summed on the device and fetched once after the loop (for Part-A² also

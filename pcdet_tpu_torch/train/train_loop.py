@@ -9,10 +9,12 @@ every `ckpt_save_interval` epochs a checkpoint, pruned to
 `max_ckpt_save_num`.  The step count lives on the host (`TrainState.step`),
 and the tb values are read from the card only every `log_interval` steps,
 so the host prepares the next batch while the card runs the step.  A
-logged step's line carries its `overflow/*` counts, and a nonzero one is
-also logged as a `CAP OVERFLOW` warning: a static cap truncated real
-data.  The wandb mirror and the tensorboard writer of `pcdet_tpu` are not
-ported.
+logged step's line carries its `overflow/*` counts and the BEV head's
+`bev_loss` / `miou`, and a nonzero overflow is also logged as a `CAP
+OVERFLOW` warning: a static cap truncated real data.  The same logged
+steps' tb scalars go to `tb_log` (a tensorboardX writer: `train_<key>`
+and `learning_rate`) and to wandb where the package imports and a run is
+open (`pcdet_tpu`'s mirrors); a missing package means no mirror.
 """
 import time
 
@@ -21,10 +23,21 @@ import torch
 from .checkpoint import save_checkpoint
 
 
+def _wandb_log(scalars, step):
+    """The wandb mirror: used only where the package imports and a run was
+    opened (the fork hard-wires wandb)."""
+    try:
+        import wandb
+    except ImportError:
+        return
+    if wandb.run is not None:
+        wandb.log(scalars, step=step)
+
+
 def train_model(trainer, train_loader, total_epochs, start_epoch=0,
                 ckpt_save_dir=None, ckpt_save_interval=1,
                 max_ckpt_save_num=30, logger=None, log_interval=50,
-                hooks=None):
+                hooks=None, tb_log=None):
     """Train `trainer` (`trainer.Trainer`) from `start_epoch` up to
     `total_epochs`; return its `TrainState`.
 
@@ -34,6 +47,8 @@ def train_model(trainer, train_loader, total_epochs, start_epoch=0,
     :param hooks: optional object with `before_epoch(epoch)` /
         `after_iter(step, tb_dict)` callbacks (the fork's experiments
         hooks; tb holds tensors on the card)
+    :param tb_log: optional tensorboardX `SummaryWriter` for the logged
+        steps' scalars
     """
     state = trainer.state
     dev = trainer.device
@@ -55,19 +70,29 @@ def train_model(trainer, train_loader, total_epochs, start_epoch=0,
             n_iters += 1
             if hooks is not None and hasattr(hooks, 'after_iter'):
                 hooks.after_iter(state.step, tb)
-            if state.step % log_interval == 0 and logger is not None:
-                tb_host = {k: float(v) for k, v in tb.items()}
-                logger.info('epoch %d iter %d loss %.4f lr %.6f%s' % (
-                    epoch, state.step, tb_host['loss'],
-                    trainer.lr_schedule(state.step), ''.join(
-                        ' %s %d' % (k, int(v)) for k, v in tb_host.items()
-                        if k.startswith('overflow/'))))
+            if state.step % log_interval:
+                continue
+            tb_host = {k: float(v) for k, v in tb.items()}
+            lr = trainer.lr_schedule(state.step)
+            if logger is not None:
+                logger.info('epoch %d iter %d loss %.4f lr %.6f%s%s' % (
+                    epoch, state.step, tb_host['loss'], lr, ''.join(
+                        ' %s %.4f' % (k, tb_host[k])
+                        for k in ('bev_loss', 'miou') if k in tb_host),
+                    ''.join(' %s %d' % (k, int(v))
+                            for k, v in tb_host.items()
+                            if k.startswith('overflow/'))))
                 for k, v in tb_host.items():
                     if k.startswith('overflow/') and v > 0:
                         logger.warning(
                             'CAP OVERFLOW %s: %d active sites dropped this '
                             'step — raise the corresponding cap (level_caps '
                             '/ MAX_NUMBER_OF_VOXELS)' % (k, int(v)))
+            if tb_log is not None:
+                for k, v in tb_host.items():
+                    tb_log.add_scalar('train_' + k, v, state.step)
+                tb_log.add_scalar('learning_rate', lr, state.step)
+            _wandb_log(tb_host, state.step)
         if logger is not None:
             logger.info('epoch %d done in %.1fs (%d iters)'
                         % (epoch, time.time() - t_epoch, n_iters))

@@ -32,12 +32,18 @@ kernels of the kw=3 sparse convs: B / E / E′ for the forward and feature
 gradient, D / D″ / D′ for the weight gradient.  A model that draws at
 random in training (`draws`; Part-A²: the sampler and dropout) draws from
 the trainer's `generator`, a torch.Generator on the device seeded from
-`seed`, whose state a checkpoint carries.
+`seed`, whose state a checkpoint carries.  Under the fork's
+cfg.TORCH_VOXEL_GENERATOR (USE_PSEUDOLIDAR, INJECT_SEMANTICS) a batch
+carries its points instead of voxels and the step's hook voxelizes them at
+the TRAIN caps, so the loss reaches the points (`make_batch(...,
+point_feature_fn=)` paints them first; `step(batch, inputs=(depth,))`
+keeps the loss's gradient by a tensor the points came from).
 """
 import numpy as np
 import torch
 
 from ..datasets.synthetic import make_scene
+from ..experiments import between_dataloading_and_feedforward
 from ..models.build import build_network
 from ..ops import host_books
 from ..ops.voxelizer import grid_size, voxelize_torch
@@ -157,25 +163,63 @@ class Trainer:
         return (np.stack([t['labels'] for t in out]).astype(np.int32),
                 np.stack([t['bbox_targets'] for t in out]).astype(np.float32))
 
-    def make_batch(self, points, point_mask, gt_boxes):
-        """(B, P, 4) f32 points and (B, P) bool mask on the trainer's device,
-        (B, M, 8) gt boxes with class ids (numpy) -> a batch for `step`."""
-        batch = self.voxelize(points, point_mask)
-        arrays, spec, coords = [], None, None
+    @property
+    def revoxelizes(self):
+        """cfg.TORCH_VOXEL_GENERATOR: the step's hook voxelizes the batch's
+        points (`experiments.between_dataloading_and_feedforward`)."""
+        return bool(self.cfg.get('TORCH_VOXEL_GENERATOR', False))
+
+    def step_coords(self, batch):
+        """The voxel coords (B, V, 3) that the step's hook will give the
+        batch's points, without gradients: a sparse model's books are built
+        from them before the step."""
+        with torch.no_grad():
+            return between_dataloading_and_feedforward(
+                batch, self.cfg, train=True)['coordinates']
+
+    def host_batch(self, coords, gt_boxes, anchor_targets=True):
+        """What the host adds to a batch, in one upload: a sparse model's
+        books at the train caps from `coords` (device, one copy to the
+        host), the anchor targets of `gt_boxes` (numpy) unless
+        `anchor_targets` is False, and the model's own host targets."""
+        arrays, spec, coords_np = [], None, None
         if hasattr(self.model, 'build_books'):            # SECOND, Part-A²
-            coords = batch['coordinates'].cpu().numpy()
-            flat = self.model.build_books(coords, train=True)
-            spec = self.model.host_book_spec(coords.shape[1], train=True)
+            coords_np = coords.cpu().numpy()
+            flat = self.model.build_books(coords_np, train=True)
+            spec = self.model.host_book_spec(coords_np.shape[1], train=True)
             arrays = host_books.wire_arrays(flat, spec)
-        labels, reg = self.targets(gt_boxes)
-        targets = [('box_cls_labels', labels), ('box_reg_targets', reg)]
-        targets += self.model.host_targets(coords, gt_boxes)
+        targets = []
+        if anchor_targets:
+            labels, reg = self.targets(gt_boxes)
+            targets = [('box_cls_labels', labels), ('box_reg_targets', reg)]
+        targets += self.model.host_targets(coords_np, gt_boxes)
+        if not arrays + targets:
+            return {}
         t = host_books.upload(arrays + targets, self.device)
+        out = {key: t[key] for key, _ in targets}
         if spec is not None:
-            batch['books'] = host_books.decode_books(t, spec,
-                                                     self.max_voxels)
-        for key, _ in targets:
-            batch[key] = t[key]
+            out['books'] = host_books.decode_books(t, spec, self.max_voxels)
+        return out
+
+    def make_batch(self, points, point_mask, gt_boxes, point_feature_fn=None):
+        """(B, P, C) f32 points and (B, P) bool mask on the trainer's device,
+        (B, M, 8) gt boxes with class ids (numpy) -> a batch for `step`.
+
+        :param point_feature_fn: optional fn(points) -> points applied
+            first, differentiably (semantic painting)
+        Under cfg.TORCH_VOXEL_GENERATOR the batch carries the points and
+        the mask, and the step's hook voxelizes them; a sparse model's books
+        come from the same voxelization, made here without gradients."""
+        if point_feature_fn is not None:
+            points = point_feature_fn(points)
+        if self.revoxelizes:
+            batch = {'points': points, 'point_mask': point_mask}
+            coords = (self.step_coords(batch)
+                      if hasattr(self.model, 'build_books') else None)
+        else:
+            batch = self.voxelize(points, point_mask)
+            coords = batch['coordinates']
+        batch.update(self.host_batch(coords, gt_boxes))
         return batch
 
     def upload(self, batch):
@@ -183,13 +227,22 @@ class Trainer:
         the host voxelizer's voxels, the anchor targets and, for SECOND,
         the loader's `hb_*` books) -> a batch for `step`, in one upload
         (`host_books.upload_loader_batch`).  The loader's voxels are used as
-        they are, never voxelized again."""
-        return host_books.upload_loader_batch(batch, self.device, self.model,
-                                              train=True)
+        they are, unless cfg.TORCH_VOXEL_GENERATOR: then its points go up
+        instead and the step's hook voxelizes them on the device; a sparse
+        model's books and host targets are built from that voxelization's
+        coords, in a second upload."""
+        out = host_books.upload_loader_batch(batch, self.device, self.model,
+                                             train=True)
+        if self.revoxelizes and hasattr(self.model, 'build_books'):
+            out.update(self.host_batch(self.step_coords(out),
+                                       batch['gt_boxes'],
+                                       anchor_targets=False))
+        return out
 
-    def step(self, batch):
-        """One optimizer step on `batch`; returns the tb dict (tensors)."""
-        return self.state.train_step(batch)
+    def step(self, batch, inputs=()):
+        """One optimizer step on `batch`; returns the tb dict (tensors).
+        The loss's gradients by `inputs` land in `self.state.input_grads`."""
+        return self.state.train_step(batch, inputs)
 
 
 def build_trainer(cfg, device, seed=0, total_steps=None, loads=None,

@@ -10,7 +10,9 @@ state_dict (`vfe.pfn_layers.{i}.linear`, `rpn_net.conv_input.0`,
 `seg_{cls,reg}_layer` and `rcnn_net.*`), so the same dict also loads into
 the reference model.  Layout transforms:
   flax Dense kernel (in, out)            -> Linear weight (out, in)
-  flax conv kernel HWIO (kh, kw, in, out) -> Conv2d weight OIHW
+  flax conv kernel HWIO (kh, kw, in, out) -> Conv2d weight OIHW (RPNV2's
+      convs and PointPillar's `bev_seg_head`: Conv_0 / Conv_1 / Conv_2 ->
+      conv1 / conv2 / conv_out)
   flax deconv kernel (kh, kw, in, out)   -> ConvTranspose2d (in, out, kh, kw)
   flax sparse kernel (K, in, out)        -> spconv (k0, k1, k2, in, out)
   flax RCNN dense conv (3, 3, 3, in, out) -> the same (spconv's layout)
@@ -69,6 +71,9 @@ def _conv(sd, key, params):
         sd[key + '.bias'] = _t(params['bias'])
 
 
+# the fork's BEV segmentation head: flax Conv_0..2 -> these convs
+BEV_SEG_CONVS = ('conv1', 'conv2', 'conv_out')
+
 # BackBone8x's sparse convs: flax module -> (reference prefix, kernel)
 _BACKBONE8X = [('conv_input', 'rpn_net.conv_input', (3, 3, 3)),
                ('conv1_0', 'rpn_net.conv1.0', (3, 3, 3))] + [
@@ -113,6 +118,9 @@ def state_dict_from_flax(variables, layer_nums, rcnn_cfg=None):
             _bn(sd, key + '.norm', vp[name]['TorchBatchNorm_0'],
                 _sub(_sub(vs, name), 'TorchBatchNorm_0'))
     _rpnv2(sd, params, stats, layer_nums)
+    if 'bev_seg_head' in params:
+        for name, key in zip(('Conv_0', 'Conv_1', 'Conv_2'), BEV_SEG_CONVS):
+            _conv(sd, 'bev_seg_head.' + key, params['bev_seg_head'][name])
     return sd
 
 

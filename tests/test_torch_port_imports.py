@@ -11,8 +11,10 @@ own copies of pcdet_tpu's framework-free helpers give the same results.
   voxelizer and native bindings), the CLIs (`tools.create_data`, `train`,
   `test`) and `chip_smoke` and finds no `pcdet_tpu` module loaded;
 - no source of the package, nor `chip_smoke.py`, has an import of
-  `pcdet_tpu` (other than of `pcdet_tpu_torch`), nor of flax, orbax,
-  tensorboardX or wandb, which the machine with the card lacks;
+  `pcdet_tpu` (other than of `pcdet_tpu_torch`), nor of flax or orbax,
+  which the machine with the card lacks, and tensorboardX and wandb, which
+  it lacks too, are imported only inside a function, under `except
+  ImportError` (the optional mirrors);
 - the copies against pcdet_tpu, exactly: the host books (native and numpy
   builders) at the tiny config and at `tools/cfgs/second.yaml`'s eval and
   train caps at B2, the anchors and `AnchorHeadTargets.assign`, `make_scene`
@@ -22,7 +24,7 @@ own copies of pcdet_tpu's framework-free helpers give the same results.
   voxelizer_native.cpp`, `csrc/augmentation_native.cpp`) byte for byte,
   and their functions on random inputs; `SyntheticDataset`'s eval examples (points, point mask,
   padded GT with classes), GT annotations and annotations of predictions at
-  the tiny config and at `second.yaml`.
+  the tiny config and at `second.yaml`; `utils/metrics.py`'s code.
 """
 import copy
 import re
@@ -58,6 +60,7 @@ CFGS = REPO / 'tools' / 'cfgs'
 def test_port_loads_no_pcdet_tpu_module():
     code = ('import sys, chip_smoke, pcdet_tpu_torch.detect, '
             'pcdet_tpu_torch.train.trainer, pcdet_tpu_torch.train.eval_loop, '
+            'pcdet_tpu_torch.experiments, pcdet_tpu_torch.utils.metrics, '
             'pcdet_tpu_torch.models.build, '
             'pcdet_tpu_torch.models.parta2, '
             'pcdet_tpu_torch.models.roi_heads, '
@@ -105,7 +108,14 @@ def test_port_sources_have_no_pcdet_tpu_import():
 
 
 _OTHER_IMPORT = re.compile(
-    r'^\s*(from|import)\s+(flax|orbax|tensorboardX|wandb)(\.|\s|$)', re.M)
+    r'^\s*(from|import)\s+(flax|orbax)(\.|\s|$)', re.M)
+# the optional mirrors: imported only inside a function, under
+# `except ImportError` (the subprocess test above finds them unloaded)
+_MIRROR_IMPORT = re.compile(
+    r'^(from|import)\s+(tensorboardX|wandb)(\.|\s|$)', re.M)
+_MIRROR_GUARDED = re.compile(
+    r'^( +)try:\n\1    (from tensorboardX import SummaryWriter|import wandb)'
+    r'\n\1except ImportError:', re.M)
 
 
 def test_port_sources_import_no_flax_orbax_tensorboard_wandb():
@@ -116,7 +126,16 @@ def test_port_sources_import_no_flax_orbax_tensorboard_wandb():
     bad = {str(p.relative_to(REPO)): m.group(0).strip()
            for p in sources for m in [_OTHER_IMPORT.search(p.read_text())]
            if m}
+    bad.update({str(p.relative_to(REPO)): m.group(0).strip()
+                for p in sources
+                for m in [_MIRROR_IMPORT.search(p.read_text())] if m})
     assert bad == {}
+    # every import of a mirror package is an optional one
+    for p in sources:
+        text = p.read_text()
+        n = len(re.findall(r'^\s*(from|import)\s+(tensorboardX|wandb)\b',
+                           text, re.M))
+        assert len(_MIRROR_GUARDED.findall(text)) == n, p.name
 
 
 def _plain(x):
@@ -413,3 +432,14 @@ def test_synthetic_dataset_equals_pcdet_tpu(which):
     names = list(cfg.CLASS_NAMES)
     _annos_equal(got.generate_annotations(batch, preds, names),
                  want.generate_annotations(batch, preds, names))
+
+
+def _code(path):
+    """A module's source past its docstring."""
+    text = path.read_text()
+    return text[text.index('"""', 3) + 3:]
+
+
+def test_metrics_equals_pcdet_tpu():
+    assert _code(REPO / 'pcdet_tpu_torch' / 'utils' / 'metrics.py') == \
+        _code(REPO / 'pcdet_tpu' / 'utils' / 'metrics.py')

@@ -219,8 +219,20 @@ def test_png_shape_rejects_other_files(tmp_path):
 
 @pytest.mark.parametrize('flag', ['TAG_PTS_WITH_RGB', 'MODE'])
 def test_camera_paths_wait_for_their_port(trees, flag):
+    """The camera paths are ported (tests/test_torch_port_fork_data.py
+    holds them to pcdet_tpu on a tree with BEV maps): on this tree the
+    RGB-tagged example equals pcdet_tpu's, and MODE bev without BEV maps
+    fails as pcdet_tpu's does, naming the missing map."""
     cfg = kitti_cfg(trees['port'])
     cfg[flag] = True if flag == 'TAG_PTS_WITH_RGB' else '3dobjdet_bev'
     ds = kitti_dataset.KittiDataset(cfg, training=False)
-    with pytest.raises(NotImplementedError, match='queue 1 item 6'):
-        ds[0]
+    want_ds = jax_kitti.KittiDataset(cfg, training=False)
+    for d, targets in ((ds, AnchorHeadTargets), (want_ds, JaxTargets)):
+        d.set_anchor_targets(targets(cfg.MODEL.RPN.RPN_HEAD.TARGET_CONFIG,
+                                     d.grid_size, cfg.CLASS_NAMES))
+    if flag == 'TAG_PTS_WITH_RGB':
+        assert_equal(ds[0], want_ds[0])
+        return
+    for d in (ds, want_ds):
+        with pytest.raises(AssertionError, match='bev_DRIVABLE'):
+            d[0]
