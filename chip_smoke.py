@@ -2,8 +2,9 @@
 SECOND detect, SECOND training, the sparse convs' load strategies, the
 evaluation (recall and KITTI AP) of both models, PointPillar training
 through the epoch loop to a checkpoint and its evaluation, the CLI pair,
-Part-A² / Part-A²-fc detect, evaluation and training, and the BEVSEG
-fork's pseudo-LiDAR training with its BEV segmentation head.
+Part-A² / Part-A²-fc detect, evaluation and training, the BEVSEG fork's
+pseudo-LiDAR training with its BEV segmentation head, and data-parallel
+training over torch.distributed.
 
     python3 chip_smoke.py
 
@@ -71,7 +72,7 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
   T5. timings at B2 and B8: ms per step and samples/s with the batch built
       in the step and prebuilt, the voxelize / books / targets / forward /
       backward / optimizer split, a torch.profiler breakdown with kernel B's
-      and D's share and the idle share; the prebuilt step again with
+      and D's share and the idle share; the prebuilt B2 step again with
       cuDNN's autotuner on.
   X1. the x-window and segment kernels E, E' (f32, bf16; csrc/
       gather_gemm_xwin.cu) and D'', D' (csrc/gather_dw_xwin.cu) vs their
@@ -100,7 +101,7 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       builds, and per direction each loads choice's kernel sum plus the
       selector builds it adds over the default; detect frames/s and
       backbone ms at B2 and B8 under each loads.fwd; the prebuilt train
-      step and its forward / backward split at B2 and B8 under each loads
+      step and its forward / backward split at B2 under each loads
       choice.
   V1. kernel A'' (csrc/rotated_overlap_sorted.cu, built in phase 1, its
       registers and spills reported there) vs its plain version at the NMS
@@ -164,12 +165,12 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       `overflow/voxelizer` in every logged step; the loader's epoch 0
       bitwise equal under 4 process workers (forked with CUDA up) and 0
       workers; one step from its first batch GPU vs CPU as P2's (f32 loss
-      1e-4 relative, f64 loss and every gradient 1e-9); on a second tree of
-      32 train frames, ms per step and samples/s at B2 and B8 with the
+      1e-4 relative, f64 loss and every gradient 1e-9); on the same 16
+      train frames, ms per step and samples/s at B2 and B8 with the
       loader's prefetch (4 workers) and without (0): each epoch's first
       step (the pool's start and an empty queue) apart from the steady
-      steps after it, the ms the loop waits on the loader, the device's
-      idle share (torch.profiler), the upload;
+      steps after it, the ms the loop waits on the loader, with the
+      prefetch the device's idle share (torch.profiler), the upload;
   L3. the test CLI on L2's last checkpoint, 8 val frames at B2: kernel A's
       launches (from 0) > 0, recall, the official AP and the COCO strings
       finite, the logged AP string equal to the evaluator run again on the
@@ -261,11 +262,42 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       `BEVSegEvalAccumulator` over the eval batches' BEV logits (finite
       test_miou);
   F4. ms per step (median of 3, batch prebuilt) and samples/s at B2 and B8
-      with the hook and the BEV head, with either alone, and with neither
-      (voxels made before the step, MODE 3dobjdet); the re-voxelization's
+      with the hook and the BEV head and with neither (voxels made before
+      the step, MODE 3dobjdet), at B2 with either alone; the re-voxelization's
       and the BEV head's forward + backward ms by CUDA events; the device's
       busy ms and top kernels at B2 with both and with neither
       (torch.profiler); with the card's name and power limit.
+  M1. data-parallel SECOND (`tools/cfgs/second.yaml` at full width, train
+      caps, TF32 off): a global B2 over two gloo ranks spawned on the one
+      card (`parallel.ddp.launch_local`, one scan a rank, each joining the
+      group over a file:// rendezvous), each rank with its own BN
+      statistics against one process on the card with bn_groups 2, and
+      synced BN against one BN group.  P64 (the plain versions in f64):
+      the summed loss, every summed gradient and the BN running statistics
+      within 1e-9 of the one process's.  K32 (kernels B, D, D'): the loss
+      within 1e-4 relative; against the one process's P64, the ranks'
+      relative L2 gradient error within twice the one process's K32 (or
+      1e-3) and each gradient's own under 0.3 (f32 runs of one batch split
+      two ways sit up to ~1e-1 of max apart in the BN-cancelling tensors);
+      each rank's launches; 3 steps, after which every tensor of
+      the state is bitwise equal on both ranks; the ms a step and the
+      gloo all-reduce of the gradients per rank;
+  M2. the same for Part-A² (`tools/cfgs/PartA2.yaml`, f32 on the kernels,
+      the one process's P64 as the referee), the proposals, sampler picks
+      and dropout masks of a one-process K32 run (its last 4 RoI slots a
+      sample on moved GT boxes) injected on both sides; fg_sum, cls_valid
+      and pos_norm per rank and global; kernel A (the sampler's IoU) in
+      both ranks;
+  M3. the train CLI under `python -m torch.distributed.run --standalone
+      --nproc_per_node 1 ... --multi_host` (NCCL) on pointpillar.yaml, B2,
+      2 epochs on L1's tree, with deterministic cuDNN, against the same
+      epochs without a group (the two launches side by side): the same
+      losses and every tensor of checkpoint_epoch_2 bitwise equal; the
+      checkpoint restored into a trainer of other weights, every tensor
+      the file's; NCCL's gradient all-reduce at W=1 per step; the test CLI
+      on the checkpoint through kernel A, the logged AP string equal to
+      the evaluator's on result.pkl.
+  Every phase prints its wall time, and the whole script's.
 
 Prints the card's name and power limit, a JSON line with the kernels (A,
 B, C, D, E, E', D'', D', A', A'', and apart E and E''s (128, 64)
@@ -284,11 +316,13 @@ result line, when no CUDA device is present or any phase fails.
 """
 import concurrent.futures
 import copy
+import gc
 import itertools
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -382,17 +416,30 @@ def skipped_share(rules, n_in, n_live, tile):
     return 1.0 - int(per_tile[live_tiles].sum()) / pairs if pairs else 0.0
 
 
-def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, work):
-    """One element of the `kernels` JSON line."""
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, work,
+                 library_ms=None):
+    """One element of the `kernels` JSON line; `library_ms` is cuBLAS's
+    yardstick where one was timed (`gemm_yardstick`, `dw_yardstick`)."""
     b_ms, b_by = bound_ms(*work)
     return {'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': launches, 'max_abs_err': err,
             'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
-            'bound_by': b_by, 'library_ms': None}
+            'bound_by': b_by, 'library_ms': library_ms}
 
 
 def sync():
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+_MARK = [time.perf_counter()]
+
+
+def mark(tag):
+    """Print the wall time since the previous mark (a block's parts)."""
+    now = time.perf_counter()
+    print('[time]   %s: %.1f s' % (tag, now - _MARK[0]))
+    _MARK[0] = now
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -748,15 +795,30 @@ def device_ms(fn, iters):
     return queued_ms(fn, iters)[0]
 
 
+def pre_gathered(table, rules, live):
+    """The live rows' table rows of every tap, (sum of live rows, K Cin)."""
+    k, cin = rules.shape[2], table.shape[2]
+    return torch.cat([table[i, rules[i, :int(n)].long()].reshape(-1, k * cin)
+                      for i, n in enumerate(live.tolist())])
+
+
 def gemm_yardstick(table, rules, w, live):
     """ms of cuBLAS's (sum of live rows, K Cin) @ (K Cin, Cout) on the
     pre-gathered rows of every tap, in the operands' dtype: the math of a
     gather-GEMM without its gather (not the same function)."""
     k, cin, cout = w.shape
-    gathered = torch.cat([table[i, rules[i, :int(n)].long()].reshape(-1, k * cin)
-                          for i, n in enumerate(live.tolist())])
+    gathered = pre_gathered(table, rules, live)
     flat = w.reshape(k * cin, cout)
     return device_ms(lambda: torch.matmul(gathered, flat), 20)
+
+
+def dw_yardstick(table, rules, g, live):
+    """ms of cuBLAS's (K Cin, sum of live rows) @ (sum of live rows, Cout)
+    on the pre-gathered rows of every tap and the live rows of g: the math
+    of a dW over a rulebook without its gather (not the same function)."""
+    gathered = pre_gathered(table, rules, live).t()
+    g_live = torch.cat([g[i, :int(n)] for i, n in enumerate(live.tolist())])
+    return device_ms(lambda: torch.matmul(gathered, g_live), 20)
 
 
 def gather_gemm_vs_plain(dev, det, books):
@@ -830,7 +892,8 @@ def gather_gemm_vs_plain(dev, det, books):
                               'plain_ms': plain_ms, 'work': gather_work(
                                   table, rules, live, cout, 4 * k,
                                   w.numel() * w.element_size()
-                                  + 4 * b * v_out * cout)}
+                                  + 4 * b * v_out * cout),
+                              'library_ms': gemm_ms}
     return stats
 
 
@@ -1107,7 +1170,7 @@ def run_second(dev, cfg, batches=(2, 8)):
         return kernel_entry('gather_gemm_' + tag,
                             'pcdet_tpu_torch/csrc/gather_gemm.cu', replaces,
                             launches, k['err'], k['ms'], k['plain_ms'],
-                            k['work'])
+                            k['work'], k['library_ms'])
     return [entry('f32', launches_b,
                   'pcdet_tpu/ops/pallas/gather_gemm.py:700'),
             entry('bf16', launches_c,
@@ -1196,10 +1259,15 @@ def dw_vs_plain(dev, trainer, batch, timed=True):
             ms, plain_ms))
         if name != 'conv_out':
             continue
+        lib_ms = dw_yardstick(feats, rules, g, live)
+        print('[train T2] kernel D conv_out yardstick: cuBLAS on the '
+              'pre-gathered rows %.4f ms (not the same function; kernel %.4f '
+              'ms)' % (lib_ms, ms))
         stats['d'] = {'err': err, 'rel': err / scale, 'ms': ms,
                       'plain_ms': plain_ms, 'work': gather_work(
                           feats, rules, live, cout, 4 * k,
-                          4 * cout * int(live.sum()) + 4 * k * cin * cout)}
+                          4 * cout * int(live.sum()) + 4 * k * cin * cout),
+                      'library_ms': lib_ms}
         # conv_out's feature gradient: B (128 -> 64) over the transposed book
         n_live_in = in_mask.sum(1, dtype=torch.int32)
         bwd = sparse.transpose_rules(rules, n_in, v_out)
@@ -1366,30 +1434,17 @@ def run_train(dev, cfg, batches=(2, 8), steps=5, timed_steps=2):
     require(counts == expect, 'launches over %d steps %s, want %s'
             % (steps, counts, expect))
 
+    mark('T1-T3')
     # T4. one train step at B1: GPU vs CPU, kernels vs plain, f64 --------
     # K32: the card through kernels B and D; P32 / P64: the card through
     # their plain versions in f32 / f64; C32 / C64: the CPU in f32 / f64.
-    from pcdet_tpu_torch.ops import gather_xwin as gx
-    from pcdet_tpu_torch.ops import sparse
-    names = ('gather_gemm', 'gather_gemm_xwin', 'gather_gemm_seg',
-             'gather_dw', 'gather_dw_xwin', 'gather_dw_seg')
-    kernels = {n: getattr(sparse, n) for n in names}
-    plains = {'gather_gemm': gg.gather_gemm_plain,
-              'gather_gemm_xwin': gx.gather_gemm_xwin_plain,
-              'gather_gemm_seg': gx.gather_gemm_seg_plain,
-              'gather_dw': gd.gather_dw_plain,
-              'gather_dw_xwin': gd.gather_dw_xwin_plain,
-              'gather_dw_seg': gd.gather_dw_seg_plain}
     out = {}
     for name, d, dtype in (('K32', dev, torch.float32),
                            ('P32', dev, torch.float32),
                            ('P64', dev, torch.float64),
                            ('C32', torch.device('cpu'), torch.float32),
                            ('C64', torch.device('cpu'), torch.float64)):
-        if name.startswith('P'):
-            for n, fn in plains.items():
-                setattr(sparse, n, lambda *a, _fn=fn, dgrad=False: _fn(*a))
-        try:
+        with plain_sparse(name.startswith('P')):
             tr = build_trainer(cfg, d, seed=0, total_steps=total)
             tr.model.module.to(dtype)
             t0 = time.perf_counter()
@@ -1399,9 +1454,6 @@ def run_train(dev, cfg, batches=(2, 8), steps=5, timed_steps=2):
                 b1[key] = b1[key].to(dtype)
             loss, _, grads = train_state.loss_and_grads(
                 tr.model, tr.state.params, b1)
-        finally:
-            for n, fn in kernels.items():
-                setattr(sparse, n, fn)
         names = [n for n, _ in tr.model.module.named_parameters()]
         out[name] = (float(loss), {n: g.cpu().double()
                                    for n, g in zip(names, grads)
@@ -1441,6 +1493,7 @@ def run_train(dev, cfg, batches=(2, 8), steps=5, timed_steps=2):
     require(max(dev64.values()) <= 1e-9,
             'f64 sparse conv dW GPU vs CPU: %s' % dev64)
 
+    mark('T4')
     # T5. timings -----------------------------------------------------------
     for b in batches:
         pts, mask = pts_all[:b].contiguous(), mask_all[:b].contiguous()
@@ -1505,7 +1558,7 @@ def run_train(dev, cfg, batches=(2, 8), steps=5, timed_steps=2):
     # the same prebuilt steps with cuDNN's autotuner choosing the RPN's
     # f32 conv algorithms (its heuristic picks FFT convolutions above)
     torch.backends.cudnn.benchmark = True
-    for b in batches:
+    for b in batches[:1]:
         batch = trainer.make_batch(pts_all[:b].contiguous(),
                                    mask_all[:b].contiguous(), gt_np[:b])
         for _ in range(2):
@@ -1528,7 +1581,7 @@ def run_train(dev, cfg, batches=(2, 8), steps=5, timed_steps=2):
     return (kernel_entry('gather_dw', 'pcdet_tpu_torch/csrc/gather_dw.cu',
                          'pcdet_tpu/ops/pallas/gather_gemm.py:882',
                          counts.get('gather_dw', 0), d['err'], d['ms'],
-                         d['plain_ms'], d['work']),
+                         d['plain_ms'], d['work'], d['library_ms']),
             {'train_launches': counts.get('gather_gemm_f32', 0),
              'backward_launches': counts.get('gather_gemm_f32_dgrad', 0),
              'b128_max_abs_err': kstats['b128']['err']})
@@ -1735,14 +1788,18 @@ def xwin_vs_plain(dev, eval_books, train_books, train_books8):
                              else gx.gather_gemm_seg_plain)
                     plain_ms = cuda_ms(lambda: plain(table, base, sel, w,
                                                      live), 3, 1)
+                    lib_ms = gemm_yardstick(table, rules, w, live)
                     stats[key] = {'err': err, 'ms': ms, 'plain_ms': plain_ms,
                                   'work': gather_work(
                                       table, rules, live, cout,
                                       8 * base.shape[2],
                                       w.numel() * w.element_size()
-                                      + 4 * b * v_out * cout)}
+                                      + 4 * b * v_out * cout),
+                                  'library_ms': lib_ms}
                     print('[xwin X1] %s %s conv2_1: kernel %.4f ms, plain '
-                          '%.4f ms' % (variant, tag, ms, plain_ms))
+                          '%.4f ms, yardstick cuBLAS on the pre-gathered '
+                          'rows %.4f ms' % (variant, tag, ms, plain_ms,
+                                            lib_ms))
     for name, case, cin, cout in (
             ('conv2_1', train_books['subm2'], 32, 32),
             ('conv3_0', train_books['spconv3'], 32, 64),
@@ -1803,14 +1860,17 @@ def xwin_vs_plain(dev, eval_books, train_books, train_books8):
                 ms = device_ms(lambda: fn(feats, base, sel, g, live), 20)
                 plain_ms = cuda_ms(lambda: plain(feats, base, sel, g, live),
                                    3, 1)
+                lib_ms = dw_yardstick(feats, rules, g, live)
                 stats['gather_dw_' + variant] = {
                     'err': err, 'ms': ms, 'plain_ms': plain_ms,
                     'work': gather_work(feats, rules, live, cout,
                                         8 * base.shape[2],
                                         4 * cout * int(live.sum())
-                                        + 4 * k * cin * cout)}
+                                        + 4 * k * cin * cout),
+                    'library_ms': lib_ms}
                 print('[xwin X1] dW %s conv2_1: kernel %.4f ms (device), '
-                      'plain %.4f ms' % (variant, ms, plain_ms))
+                      'plain %.4f ms, yardstick cuBLAS on the pre-gathered '
+                      'rows %.4f ms' % (variant, ms, plain_ms, lib_ms))
     require(min(tiles_seen) > 0, 'a segment branch never ran: %s'
             % tiles_seen)
     return stats
@@ -2177,12 +2237,12 @@ def xwin_times(dev, cfg, eval_books, train_books, pts, mask, gt):
               trn['seg'], t_sel['added'], trn['seg'] + t_sel['added']))
     del fwd_sel, transposed
 
-    # end to end: detect under each loads.fwd, in two passes
+    # end to end: detect under each loads.fwd
     dets = {fwd: second_detector(cfg, dev, sparse.Loads(fwd, 'rows'))
             for fwd in ('rows', 'xwin', 'seg')}
     for b in (2, 8):
         p, m = pts[:b].contiguous(), mask[:b].contiguous()
-        for order in (('rows', 'xwin', 'seg'), ('seg', 'xwin', 'rows')):
+        for order in (('rows', 'xwin', 'seg'),):
             for fwd in order:
                 det = dets[fwd]
                 det.detect(p, m)
@@ -2217,7 +2277,7 @@ def xwin_times(dev, cfg, eval_books, train_books, pts, mask, gt):
     choices = (sparse.ROWS, sparse.Loads('xwin', 'rows'),
                sparse.Loads('seg', 'rows'), sparse.Loads('rows', 'xwin'),
                sparse.Loads('rows', 'seg'))
-    for b in (2, 8):
+    for b in (2,):
         for loads in choices:
             trainer = build_trainer(cfg, dev, seed=0, total_steps=50,
                                     loads=loads)
@@ -2269,8 +2329,10 @@ def run_xwin(dev, cfg):
     del det, trainer, batch8
 
     stats = xwin_vs_plain(dev, eval_books, train_books, train_books8)  # X1
+    mark('X1')
     launches = xwin_detect(dev, cfg, pts2, mask2)                # X2
     launches.update(xwin_train(dev, cfg, pts, mask, gt_np))      # X3
+    mark('X2-X3')
     xwin_times(dev, cfg, eval_books, train_books, pts, mask, gt_np)  # X4
 
     entries = []
@@ -2283,7 +2345,8 @@ def run_xwin(dev, cfg):
         base = name.rsplit('_', 1)[0] if 'gemm' in name else name
         entries.append(kernel_entry(
             name, DW_SRC if 'dw' in name else GEMM_SRC, REPLACES[base], n,
-            st['err'], st['ms'], st['plain_ms'], st['work']))
+            st['err'], st['ms'], st['plain_ms'], st['work'],
+            st.get('library_ms')))
     return entries
 
 
@@ -2697,6 +2760,7 @@ def run_eval(dev, g1_launches, cfgs):
         runs[name] = (cfg, det, dataset, counts)
         sync()
 
+    mark('V1-V3')
     # V4. times --------------------------------------------------------------
     name = next(iter(runs))
     cfg, det, dataset, counts = runs[name]
@@ -2911,6 +2975,7 @@ def run_pointpillar_train(dev, cfg, steps=5, timed_steps=2):
     require(losses[-1] < losses[0], 'PointPillar loss did not fall in %d '
             'steps: %s' % (steps, losses))
 
+    mark('P1')
     # P2. one B1 step: GPU vs CPU in f32 (TF32 off) and f64 ------------------
     def make_b1(tr, d, dtype):
         b1 = tr.make_batch(pts_all[:1].to(d), mask_all[:1].to(d), gt_np[:1])
@@ -2922,6 +2987,7 @@ def run_pointpillar_train(dev, cfg, steps=5, timed_steps=2):
     require(torch.equal(out['G32'][2], out['C32'][2]),
             'GPU and CPU pillar coords differ')
 
+    mark('P2')
     # P3. timings at B2 and B8 ------------------------------------------------
     for b in (2, 8):
         pts, mask = pts_all[:b].contiguous(), mask_all[:b].contiguous()
@@ -2977,6 +3043,7 @@ def run_pointpillar_train(dev, cfg, steps=5, timed_steps=2):
     del trainer, batch, batch2
     sync()
 
+    mark('P3')
     # P4. two epochs through train_model, a checkpoint, its evaluation -------
     scans = TrainScans(cfg, 4, 2)
     trainer = build_trainer(cfg, dev, seed=0, iters_each_epoch=len(scans),
@@ -3064,9 +3131,6 @@ KITTI_P2 = np.array([[700., 0., 600., 0.], [0., 700., 180., 0.],
                      [0., 0., 1., 0.]], np.float32)
 IMAGE_W, IMAGE_H = 1242, 375
 KITTI_CLASSES = ['Car', 'Pedestrian', 'Cyclist']
-# L2's timing tree: 32 frames keep the whole script near half of the 1200 s
-# it may take
-TIMING_FRAMES = 32
 
 
 def _png(width, height, colour, raw):
@@ -3295,9 +3359,12 @@ def batches_equal(a, b):
     return True
 
 
-def run_cli(dev):
+def run_cli(dev, workdir=None):
     """Phases L1-L4; returns the launches of the CLI paths by kernel entry
-    name: {name: {'cli_train' / 'cli_eval': n}}."""
+    name: {name: {'cli_train' / 'cli_eval': n}}.  The KITTI tree and the
+    outputs go under `workdir` (kitti/, out/) where one is given, else
+    under a temporary directory."""
+    import contextlib
     import os
     import pickle
     import tempfile
@@ -3316,7 +3383,8 @@ def run_cli(dev):
     pp_cfg = str(detect_mod.DEFAULT_CFG)
     second_cfg = str(detect_mod.SECOND_CFG)
     paths = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with (contextlib.nullcontext(workdir) if workdir
+          else tempfile.TemporaryDirectory()) as tmp:
         root, out_root = os.path.join(tmp, 'kitti'), os.path.join(tmp, 'out')
 
         # L1. a KITTI-format tree, then create_data ---------------------------
@@ -3417,26 +3485,18 @@ def run_cli(dev):
                        'forward, loss, backward)', cfg, dev, 16,
                        make_loader_batch)
         del ref, batch0
+        mark('L1-L2 checks')
         # ms per step with the loader's prefetch (4 thread workers) and
-        # without (0 workers), B2 and B8, on a tree of TIMING_FRAMES train
-        # frames, so that each epoch's cold first batch is one of 16 / 4;
-        # the upload on its own
-        troot = os.path.join(tmp, 'kitti_timing')
-        write_kitti_tree(troot, TIMING_FRAMES, 2)
-        proc = subprocess.run(
-            [sys.executable, '-m', 'pcdet_tpu_torch.tools.create_data',
-             'kitti', '--cfg_file', pp_cfg, '--data_path', troot,
-             '--workers', '4'], cwd=here, capture_output=True, text=True,
-            timeout=600)
-        require(proc.returncode == 0, 'create_data (timing tree) failed:\n%s'
-                % proc.stderr[-3000:])
-        tcfg = train_cli.parse_config(argv[:-len(sets)] + cli_sets(
-            troot, out_root))[1]
+        # without (0 workers), B2 and B8, on L1's 16 train frames, so that
+        # each epoch's cold first batch is one of 8 / 2; the device's busy
+        # share with the prefetch; the upload on its own
+        tcfg = cfg
+        n_frames = len(infos['train'])
         trainer = build_trainer(tcfg, dev, seed=0, total_steps=1000)
         for b, epochs in ((2, 1), (8, 1)):
             for w in (4, 0):
                 t = loader_epochs(trainer, tcfg, b, w, epochs,
-                                  warm_up=(w == 4), profile=True)
+                                  warm_up=(w == 4), profile=(w == 4))
                 idle = ('busy %.2f ms a step, idle %.1f%% of a steady step, '
                         '%.1f%% of all' % (
                             t['busy'], 100 * (1 - t['busy'] / t['steady']),
@@ -3452,7 +3512,7 @@ def run_cli(dev):
                       '%.2f ms; each epoch\'s first step %.2f ms (waiting '
                       '%.2f); all steps %.2f ms (%.2f samples/s); %sdevice '
                       '%s' % (
-                          b, w, TIMING_FRAMES, t['steady'],
+                          b, w, n_frames, t['steady'],
                           1e3 * b / t['steady'],
                           t['steady_steps'], epochs, t['wait'], t['upload'],
                           t['step'], t['first'], t['first_wait'], t['ms'],
@@ -3479,6 +3539,7 @@ def run_cli(dev):
         del trainer
         sync()
 
+        mark('L2 loader timing')
         # L3. the test CLI on the last checkpoint, 8 val frames at B2 --------
         eval_sets = sets + ['MODEL.TEST.SCORE_THRESH', '0.0']
         targv = ['--cfg_file', pp_cfg, '--batch_size', '2', '--workers', '4',
@@ -3540,6 +3601,7 @@ def run_cli(dev):
         del tout, aout
         sync()
 
+        mark('L3')
         # L4. SECOND through the same pair: 2 B2 steps, 4 val frames ---------
         for split, n in (('train', 4), ('val', 4)):
             with open(os.path.join(root, 'kitti_infos_%s4.pkl' % split),
@@ -3613,6 +3675,7 @@ def run_cli(dev):
         del seout
         sync()
 
+        mark('L4')
         # R8 and R4. Part-A2 through the train and test CLIs, 4 + 4 frames --
         parta2_paths = parta2_cli(dev, root, out_root, s_sets,
                                   infos['val'][:4])
@@ -4259,11 +4322,13 @@ def parta2_inject(model, src, dev, dtype, proposals=True):
 
 
 def parta2_to(trainer, dtype):
-    """The trainer's model and the wrapper's own tensors in `dtype`."""
+    """The trainer's model and the wrapper's own tensors (those it has of
+    anchors, voxel_size, pc_origin) in `dtype`."""
     model = trainer.model
     model.module.to(dtype)
     for attr in ('anchors', 'voxel_size', 'pc_origin'):
-        setattr(model, attr, getattr(model, attr).to(dtype))
+        if torch.is_tensor(getattr(model, attr, None)):
+            setattr(model, attr, getattr(model, attr).to(dtype))
 
 
 def parta2_four_ways(tag, cfg, dev, pts, mask, gt):
@@ -4284,24 +4349,8 @@ def parta2_four_ways(tag, cfg, dev, pts, mask, gt):
     Requires the f32 losses within 1e-4 relative, the f64 loss and every
     f64 gradient within 1e-9; prints the per-module errors.  Returns K32's
     trainer, batch and record."""
-    from pcdet_tpu_torch.models import roi_heads
-    from pcdet_tpu_torch.ops import gather_dw as gd
-    from pcdet_tpu_torch.ops import gather_gemm as gg
-    from pcdet_tpu_torch.ops import gather_xwin as gx
-    from pcdet_tpu_torch.ops import rotated_iou, rotated_overlap as ro
-    from pcdet_tpu_torch.ops import sparse
     from pcdet_tpu_torch.train import train_state
     from pcdet_tpu_torch.train.trainer import build_trainer
-    names = ('gather_gemm', 'gather_gemm_xwin', 'gather_gemm_seg',
-             'gather_dw', 'gather_dw_xwin', 'gather_dw_seg')
-    kernels = {n: getattr(sparse, n) for n in names}
-    real_iou = roi_heads.rois_iou3d
-    plains = {'gather_gemm': gg.gather_gemm_plain,
-              'gather_gemm_xwin': gx.gather_gemm_xwin_plain,
-              'gather_gemm_seg': gx.gather_gemm_seg_plain,
-              'gather_dw': gd.gather_dw_plain,
-              'gather_dw_xwin': gd.gather_dw_xwin_plain,
-              'gather_dw_seg': gd.gather_dw_seg_plain}
     out, src, keep = {}, {}, None
     for name, d, dtype in (('K32', dev, torch.float32),
                            ('C32', torch.device('cpu'), torch.float32),
@@ -4321,20 +4370,11 @@ def parta2_four_ways(tag, cfg, dev, pts, mask, gt):
             parta2_inject(model, src, d, dtype)
         if name == 'C32':
             model.proposals = parta2_also_own(model, rec)
-        if name == 'P64':
-            for n, fn in plains.items():
-                setattr(sparse, n, lambda *a, _fn=fn, dgrad=False: _fn(*a))
-        if dtype == torch.float64:
-            roi_heads.rois_iou3d = lambda r, g: (
-                rotated_iou.boxes_iou3d_batched(
-                    r, g, ro.pair_overlap_batched_plain))
-        try:
+        # f64 through the plain versions (kernel A, which the sampler's IoU
+        # runs, takes f32 only; on the CPU the sparse convs are plain anyway)
+        with plain_sparse(dtype == torch.float64):
             loss, tb, grads = train_state.loss_and_grads(model,
                                                          tr.state.params, b1)
-        finally:
-            for n, fn in kernels.items():
-                setattr(sparse, n, fn)
-            roi_heads.rois_iou3d = real_iou
         tb = {k: float(v) for k, v in tb.items()}
         sampler = {k: v.tolist() for k, v in model.last_sampler.items()
                    if k != 'picks'}
@@ -4837,6 +4877,7 @@ def run_parta2_train(dev):
     paths['gather_dw_seg'] = {r5: counts.get('gather_dw_seg', 0)}
     print('[parta2 R5] %.1f s' % (time.perf_counter() - t0))
 
+    mark('R5')
     # R6. B1 GPU vs CPU, the new instances, the window loads --------------
     t0 = time.perf_counter()
     k_trainer, b1, src = parta2_four_ways('[parta2 R6]', cfg, dev, pts1,
@@ -4846,6 +4887,7 @@ def run_parta2_train(dev):
     window_pairs = parta2_window_steps(cfg, dev, pts1, mask1, gt_np[:1], src)
     print('[parta2 R6] %.1f s' % (time.perf_counter() - t0))
 
+    mark('R6')
     # R7. ms per step at B2 and B8; PartA2_fc.yaml --------------------------
     t0 = time.perf_counter()
     torch.backends.cudnn.allow_tf32 = True       # the trainer's default
@@ -5191,6 +5233,7 @@ def run_fork(dev, smi, cfg_path=ARGO_PL_CFG):
     del trainer, det, batch, vox, ret
     sync()
 
+    mark('F1')
     # F2. one B1 step, GPU vs CPU, f32 and f64, with d loss / d inputs ----
     def make_b1(tr, d, dtype):
         dep = depth8[:1].to(d, dtype).requires_grad_(True)
@@ -5202,6 +5245,7 @@ def run_fork(dev, smi, cfg_path=ARGO_PL_CFG):
     print('[fork F2] GPU and CPU f32 pillar coords equal: %s' % torch.equal(
         out['G32'][2], out['C32'][2]))
 
+    mark('F2')
     # F3. the CLI pair on a fabricated argo-layout KITTI tree -------------
     with tempfile.TemporaryDirectory() as tmp:
         root, out_root = os.path.join(tmp, 'kitti'), os.path.join(tmp, 'out')
@@ -5286,6 +5330,7 @@ def run_fork(dev, smi, cfg_path=ARGO_PL_CFG):
         del det, res, tout
     sync()
 
+    mark('F3')
     # F4. ms per step with and without the hook and the head --------------
     settings = (('hook + BEV head', FORK_SETS),
                 ('hook only', FORK_SETS[:2]),
@@ -5295,7 +5340,8 @@ def run_fork(dev, smi, cfg_path=ARGO_PL_CFG):
     for name, sets in settings:
         c = fork_config(cfg_file, sets)
         trainer = build_trainer(c, dev, seed=0, total_steps=50)
-        for b in (2, 8):
+        for b in ((2, 8) if name.startswith(('hook + ', 'neither')) else
+                  (2,)):
             with torch.no_grad():
                 points, mask, paint = fork_points(
                     depth8[:b], sem8[:b], int(c.DATA_CONFIG.MAX_POINTS))
@@ -5352,6 +5398,660 @@ def run_fork(dev, smi, cfg_path=ARGO_PL_CFG):
         del trainer
         sync()
     return paths
+
+
+# ----------------------------------------------------------------------------
+# M1-M3: data-parallel training over torch.distributed
+# ----------------------------------------------------------------------------
+
+DDP_WORLD = 2
+DDP_MODES = ('per_rank', 'sync')
+DDP_STEPS = 3
+SPARSE_PLAIN_NAMES = ('gather_gemm', 'gather_gemm_xwin', 'gather_gemm_seg',
+                      'gather_dw', 'gather_dw_xwin', 'gather_dw_seg')
+
+
+class plain_sparse:
+    """Context: the sparse convs and the RoI sampler's IoU through their
+    kernels' plain versions (the kernels take f32 only; P64 runs the plain
+    versions in f64)."""
+
+    def __init__(self, on=True):
+        self.on = on
+
+    def __enter__(self):
+        from pcdet_tpu_torch.models import roi_heads
+        from pcdet_tpu_torch.ops import gather_dw as gd
+        from pcdet_tpu_torch.ops import gather_gemm as gg
+        from pcdet_tpu_torch.ops import gather_xwin as gx
+        from pcdet_tpu_torch.ops import rotated_iou
+        from pcdet_tpu_torch.ops import rotated_overlap as ro
+        from pcdet_tpu_torch.ops import sparse
+        self.kernels = {n: getattr(sparse, n) for n in SPARSE_PLAIN_NAMES}
+        self.iou = roi_heads.rois_iou3d
+        plains = {'gather_gemm': gg.gather_gemm_plain,
+                  'gather_gemm_xwin': gx.gather_gemm_xwin_plain,
+                  'gather_gemm_seg': gx.gather_gemm_seg_plain,
+                  'gather_dw': gd.gather_dw_plain,
+                  'gather_dw_xwin': gd.gather_dw_xwin_plain,
+                  'gather_dw_seg': gd.gather_dw_seg_plain}
+        if self.on:
+            for n, fn in plains.items():
+                setattr(sparse, n, lambda *a, _fn=fn, dgrad=False: _fn(*a))
+            roi_heads.rois_iou3d = lambda r, g: (
+                rotated_iou.boxes_iou3d_batched(
+                    r, g, ro.pair_overlap_batched_plain))
+        return self
+
+    def __exit__(self, *exc):
+        from pcdet_tpu_torch.models import roi_heads
+        from pcdet_tpu_torch.ops import sparse
+        for n, fn in self.kernels.items():
+            setattr(sparse, n, fn)
+        roi_heads.rois_iou3d = self.iou
+
+
+def ddp_config(model):
+    from pcdet_tpu_torch import detect as detect_mod
+    return detect_mod.load_config(detect_mod.SECOND_CFG if model == 'second'
+                                  else detect_mod.PARTA2_CFG)
+
+
+def ddp_counts(model):
+    """Wrap a Part-A² model's loss to keep the counts its global
+    normalizers sum: fg RoIs (`fg_sum`), valid class labels (`cls_valid`),
+    positive voxels (`pos_norm`), this rank's."""
+    counts = {}
+    real = model.loss
+
+    def loss(ret, batch):
+        rc = ret['rcnn']
+        counts.update(fg_sum=int((rc['reg_valid_mask'] > 0).sum()),
+                      cls_valid=int((rc['rcnn_cls_labels'] >= 0).sum()),
+                      pos_norm=int((batch['seg_labels'] > 0).sum()))
+        return real(ret, batch)
+    model.loss = loss
+    return counts
+
+
+def ddp_trainer(job, cfg, dev, group, bn_groups, dtype, rank, world, scans):
+    """A trainer of the job's model on this rank's samples, its batch (the
+    floats in `dtype`), and Part-A²'s RoIs injected from `job['inject']` or
+    recorded (GT slots) into the returned rec."""
+    from pcdet_tpu_torch.train.trainer import build_trainer
+    tr = build_trainer(cfg, dev, seed=0, total_steps=10, bn_groups=bn_groups,
+                       process_group=group, sync_bn=job['sync_bn'])
+    model = tr.model
+    parta2_to(tr, dtype)
+    b = job['batch'] // world
+    sl = slice(rank * b, rank * b + b)
+    pts, mask, gt = scans
+    batch = tr.make_batch(torch.as_tensor(pts[sl], device=dev),
+                          torch.as_tensor(mask[sl], device=dev), gt[sl])
+    batch = {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
+             else v for k, v in batch.items()}
+    rec = None
+    src = job.get('inject')
+    if src is not None:
+        r = int(src['picks'].shape[1])
+        parta2_inject(model, {
+            'roi': {k: v[sl] for k, v in src['roi'].items()},
+            'picks': src['picks'][sl],
+            'masks': [m[rank * b * r:(rank * b + b) * r]
+                      for m in src['masks']]}, dev, dtype)
+    elif job.get('record'):
+        parta2_gt_proposals(model, batch['gt_boxes'])
+        rec = parta2_record(model)
+    return tr, batch, rec
+
+
+def unequal_across_ranks(trainer, group):
+    """The names of the state tensors (parameters, buffers, optimizer
+    moments) in which this rank differs from rank 0, bit for bit, and
+    whether the step counts differ."""
+    import torch.distributed as dist
+    from pcdet_tpu_torch.parallel import ddp
+    sd = trainer.state.state_dict()
+    tensors = {'model.' + k: v for k, v in sd['model_state'].items()}
+    for slot, d in sd['optimizer_state']['state'].items():
+        tensors.update({'opt.%s.%s' % (slot, k): v for k, v in d.items()})
+    bad = []
+    for name, t in tensors.items():
+        ref = t.detach().clone().contiguous()
+        dist.broadcast(ref, 0, group=group)
+        if not torch.equal(ref, t):
+            bad.append(name)
+    counts = ddp.all_gather_object(
+        (sd['it'], sd['optimizer_state']['count']), group)
+    return bad, len(set(counts)) > 1
+
+
+def ddp_run(job, dev, group=None, rank=0, bn_groups=1):
+    """One M1 / M2 job on one rank (or, without a group, the one-process
+    reference on the whole batch): per dtype ('float32' through the
+    kernels, 'float64' through their plain versions) the step's loss
+    (summed over the ranks) and this rank's share, the tb summed, the
+    gradients (summed, rank 0's, on the CPU), the BN running statistics
+    after rank 0's broadcast, this rank's kernel launches and Part-A²'s
+    counts; in f32 under a group, the gradient all-reduce's ms and
+    `job['steps']` steps (ms, losses, launches, the tensors that differ
+    from rank 0's)."""
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    from pcdet_tpu_torch.parallel import ddp
+    from pcdet_tpu_torch.train.trainer import make_train_scans
+    cfg = job['cfg']
+    world = ddp.world_size(group)
+    scans = make_train_scans(cfg, job['batch'], ring_keep=0.35)
+    out = {}
+    for name in job['dtypes']:
+        f64 = name == 'float64'
+        dtype = torch.float64 if f64 else torch.float32
+        res = {}
+        with plain_sparse(f64):
+            tr, batch, rec = ddp_trainer(job, cfg, dev, group, bn_groups,
+                                         dtype, rank, world, scans)
+            counts = (ddp_counts(tr.model) if job['model'] == 'parta2'
+                      else {})
+            sync()
+            reset_launches()
+            ro.LAUNCHES = 0
+            loss, tb, grads = tr.state.loss_and_grads(batch)
+            ddp.broadcast_buffers(tr.model.module, group)
+            sync()
+            res['launches'] = dict(nonzero(all_launches()), A=ro.LAUNCHES)
+            res['loss'] = float(ddp.all_sum(loss.detach(), group))
+            res['share'] = float(loss)
+            res['tb'] = {k: float(v) for k, v in
+                         ddp.reduce_tb(tb, group).items()}
+            res['counts'] = dict(counts)
+            names = [n for n, _ in tr.model.module.named_parameters()]
+            if rank == 0:
+                res['grads'] = {n: g.detach().double().cpu()
+                                for n, g in zip(names, grads)}
+                res['stats'] = {
+                    k: v.detach().double().cpu() for k, v in
+                    tr.model.module.state_dict().items()
+                    if k.endswith(('running_mean', 'running_var'))}
+            if rec is not None:
+                res['inject'] = {
+                    'roi': {k: v.detach().cpu() for k, v in
+                            rec['roi'].items()},
+                    'picks': tr.model.last_sampler['picks'].cpu(),
+                    'masks': [d.last_mask.cpu()
+                              for d in tr.model.dropouts()]}
+            if group is not None and not f64:
+                ms = []
+                for _ in range(3):
+                    ddp.barrier(group)
+                    sync()
+                    t0 = time.perf_counter()
+                    ddp.all_reduce_grads([g.clone() for g in grads], group)
+                    sync()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                res['allreduce_ms'] = sorted(ms)[1]
+                res['grad_mb'] = sum(g.numel() * g.element_size()
+                                     for g in grads) / 2 ** 20
+            del grads
+            if group is not None and not f64 and job.get('steps'):
+                # the steps go on from the step above (its BN statistics,
+                # equal on every rank after the broadcast)
+                reset_launches()
+                ro.LAUNCHES = 0
+                ms, losses = [], []
+                for _ in range(job['steps']):
+                    ddp.barrier(group)
+                    sync()
+                    t0 = time.perf_counter()
+                    tb = tr.step(batch)
+                    sync()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                    losses.append(float(ddp.reduce_tb(tb, group)['loss']))
+                res['step_launches'] = dict(nonzero(all_launches()),
+                                            A=ro.LAUNCHES)
+                res['step_ms'], res['step_losses'] = ms, losses
+                res['unequal'] = unequal_across_ranks(tr, group)
+            del tr, batch
+        out[name] = res
+    return out
+
+
+def ddp_rank(rank, group, path, jobs):
+    """M1 / M2 on one rank: a process spawned by `ddp.launch_local` on the
+    one card, over gloo (NCCL refuses two ranks on one device)."""
+    from pcdet_tpu_torch.parallel import ddp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ddp.save_rank_result(path, rank, [
+        ddp_run(job, torch.device(job['device']), group, rank)
+        for job in jobs])
+
+
+def ddp_module_errs(got, want):
+    """Per gradient (or statistic) name, |got - want| / max |want|, and the
+    largest per module group."""
+    groups = grad_groups(want)
+    each, per = {}, {}
+    for n, w in want.items():
+        scale = w.abs().max().item()
+        each[n] = (got[n] - w).abs().max().item() / (scale if scale else 1.0)
+        per[groups[n]] = max(per.get(groups[n], 0.0), each[n])
+    return each, per
+
+
+def ddp_l2(got, want):
+    """||got - want|| / ||want|| over every tensor of the dicts."""
+    num = sum(float(((got[n] - w) ** 2).sum()) for n, w in want.items())
+    den = sum(float((w ** 2).sum()) for w in want.values())
+    return (num / den) ** 0.5 if den else num ** 0.5
+
+
+def ddp_report(tag, job, ranks, ref, mode):
+    """Print and check one M1 / M2 job: the ranks against the one-process
+    reference (P64, the one-process step in f64 through the plain versions,
+    referees the f32 steps), the launches per rank, the steps."""
+    what = ('one process, bn_groups %d' % DDP_WORLD if mode == 'per_rank'
+            else 'one process, one BN group')
+    p64 = ref['float64']
+    for name in job['dtypes']:
+        f64 = name == 'float64'
+        kind = 'P64 (plain versions, f64)' if f64 else 'K32 (the kernels)'
+        got, want = ranks[0][name], ref[name]
+        rel = abs(got['loss'] - want['loss']) / abs(want['loss'])
+        each, per = ddp_module_errs(got['grads'], want['grads'])
+        stats = max(ddp_module_errs(got['stats'], want['stats'])[0].values())
+        print('[ddp %s %s] %s: loss, the ranks\' shares %s summed %.10g vs '
+              '%s %.10g (rel %.3g); gradients summed over the ranks vs one '
+              'process, largest error / max |grad| %.3g, per module: %s; BN '
+              'running statistics (rank 0\'s, broadcast) %.3g of max' % (
+                  tag, mode, kind, ', '.join('%.8g' % r[name]['share']
+                                             for r in ranks), got['loss'],
+                  what, want['loss'], rel, max(each.values()),
+                  ', '.join('%s %.2e' % x for x in per.items()), stats))
+        require(all(r[name]['loss'] == got['loss'] for r in ranks),
+                '%s %s: the ranks\' summed losses differ' % (tag, name))
+        if f64:
+            require(rel <= 1e-9 and max(each.values()) <= 1e-9
+                    and stats <= 1e-9, '%s %s P64: loss %g, gradients %g, BN '
+                    'statistics %g of max from one process' % (
+                        tag, mode, rel, max(each.values()), stats))
+        else:
+            # each f32 step against the f64 one: f32 runs of one batch split
+            # two ways sit up to ~1e-1 of max apart in the BN-cancelling
+            # tensors (T4, R6, M1-M2), so the ranks' f32 step is held to be
+            # as accurate as the one process's: its relative L2 error over
+            # all gradients within twice the one process's (or 1e-3), and
+            # each gradient's own relative L2 error under 0.3 (a rank's
+            # share left unsummed is off by about 0.5 or more)
+            _, rank_per = ddp_module_errs(got['grads'], p64['grads'])
+            _, one_per = ddp_module_errs(want['grads'], p64['grads'])
+            l2_rank = ddp_l2(got['grads'], p64['grads'])
+            l2_one = ddp_l2(want['grads'], p64['grads'])
+            each_l2 = {n: ddp_l2({n: got['grads'][n]}, {n: w})
+                       for n, w in p64['grads'].items()}
+            worst = max(each_l2, key=each_l2.get)
+            print('[ddp %s %s] K32 against P64 (the one-process step in '
+                  'f64): relative L2 over all gradients, the ranks\' %.3g, '
+                  'one process\'s %.3g; one gradient\'s largest, the '
+                  'ranks\' %s %.3g (one process %.3g); largest error / max '
+                  '|grad| per module, the ranks\' / one process\'s: %s' % (
+                      tag, mode, l2_rank, l2_one, worst, each_l2[worst],
+                      ddp_l2({worst: want['grads'][worst]},
+                             {worst: p64['grads'][worst]}), ', '.join(
+                          '%s %.2e / %.2e' % (k, v, one_per[k])
+                          for k, v in rank_per.items())))
+            require(rel <= 1e-4 and stats <= 1e-3
+                    and l2_rank <= max(1e-3, 2 * l2_one)
+                    and each_l2[worst] <= 0.3,
+                    '%s %s K32: loss %g relative, BN statistics %g of max, '
+                    'relative L2 %g (one process %g), %s %g' % (
+                        tag, mode, rel, stats, l2_rank, l2_one, worst,
+                        each_l2[worst]))
+        for r, rank in enumerate(ranks):
+            res = rank[name]
+            print('[ddp %s %s] %s rank %d: launches %s%s' % (
+                tag, mode, name, r, res['launches'],
+                '; fg_sum %d, cls_valid %d, pos_norm %d' % (
+                    res['counts']['fg_sum'], res['counts']['cls_valid'],
+                    res['counts']['pos_norm']) if res['counts'] else ''))
+        if f64:
+            continue
+        for r, rank in enumerate(ranks):
+            res = rank[name]
+            keys = ('gather_gemm_f32', 'gather_gemm_f32_dgrad', 'gather_dw',
+                    'gather_dw_seg') + (('A',) if job['model'] == 'parta2'
+                                        else ())
+            for launches in (res['launches'], res['step_launches']):
+                require(all(launches.get(k, 0) > 0 for k in keys),
+                        '%s %s rank %d: launches %s lack one of %s' % (
+                            tag, mode, r, launches, keys))
+            bad, steps_differ = res['unequal']
+            print('[ddp %s %s] rank %d: %d steps, loss %s, ms a step %s '
+                  '(two ranks on one card, gloo); gradient all-reduce %.2f '
+                  'ms for %.1f MB (median of 3, gloo on one card); launches '
+                  'over the steps %s; state tensors differing from rank '
+                  '0\'s, bit for bit: %d' % (
+                      tag, mode, r, len(res['step_ms']),
+                      ', '.join('%.6f' % x for x in res['step_losses']),
+                      ', '.join('%.2f' % x for x in res['step_ms']),
+                      res['allreduce_ms'], res['grad_mb'],
+                      res['step_launches'], len(bad)))
+            require(not bad and not steps_differ, '%s %s rank %d: after %d '
+                    'steps the state differs from rank 0\'s in %s' % (
+                        tag, mode, r, DDP_STEPS, bad[:5]))
+        require(ranks[0][name]['step_losses'] == ranks[1][name][
+            'step_losses'], '%s %s: the ranks\' step losses differ' % (
+                tag, mode))
+        if job['model'] == 'parta2':
+            c = [r[name]['counts'] for r in ranks]
+            total = {k: sum(x[k] for x in c) for k in c[0]}
+            print('[ddp %s %s] global fg_sum %d, cls_valid %d, pos_norm %d; '
+                  'tb rpn_pos_num %g, rcnn_loss_reg %.6g, rcnn_loss_corner '
+                  '%.6g' % (tag, mode, total['fg_sum'], total['cls_valid'],
+                            total['pos_norm'], got['tb']['rpn_pos_num'],
+                            got['tb']['rcnn_loss_reg'],
+                            got['tb']['rcnn_loss_corner']))
+            require(all(x['fg_sum'] > 0 for x in c)
+                    and got['tb']['rcnn_loss_reg'] > 0
+                    and total['pos_norm'] == got['tb']['rpn_pos_num'],
+                    '%s %s: counts %s, tb %s' % (tag, mode, c, got['tb']))
+
+
+def run_ddp(dev):
+    """Phases M1 (SECOND) and M2 (Part-A²) over two gloo ranks on the one
+    card; returns the ranks' launches by kernel entry name and path."""
+    import os
+    import tempfile
+    from pcdet_tpu_torch.parallel import ddp
+    jobs, refs = [], []
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if dev.type == 'cuda':
+        dev = torch.device('cuda', torch.cuda.current_device())
+    t0 = time.perf_counter()
+    for model, phase in (('second', 'M1'), ('parta2', 'M2')):
+        for mode in DDP_MODES:
+            groups = DDP_WORLD if mode == 'per_rank' else 1
+            job = {'model': model, 'cfg': ddp_config(model),
+                   'device': str(dev), 'batch': DDP_WORLD,
+                   'steps': DDP_STEPS, 'sync_bn': mode == 'sync',
+                   'tag': phase, 'mode': mode,
+                   'dtypes': (('float32', 'float64') if model == 'second'
+                              else ('float32',))}
+            if model == 'parta2':
+                # the run that records the RoIs is the f32 reference: the
+                # others take its proposals and picks, so compute its step
+                ref = ddp_run(dict(job, record=True, steps=0), dev,
+                              bn_groups=groups)
+                job['inject'] = ref['float32'].pop('inject')
+                ref.update(ddp_run(dict(job, steps=0, dtypes=('float64',)),
+                                   dev, bn_groups=groups))
+            else:
+                ref = ddp_run(dict(job, steps=0, dtypes=(
+                    'float32', 'float64')), dev, bn_groups=groups)
+            refs.append(ref)
+            jobs.append(job)
+    sync()
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    t_ref = time.perf_counter() - t0
+    # the ranks share the card with this process: hand back its cached
+    # blocks first
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'result')
+        ddp.launch_local(ddp_rank, DDP_WORLD, (path, jobs), backend='gloo',
+                         device=dev, timeout=900)
+        ranks = ddp.load_rank_results(path, DDP_WORLD)
+    t_ranks = time.perf_counter() - t0
+    print('[ddp M1-M2] one-process references (Part-A²\'s RoIs recorded) '
+          '%.1f s; %d gloo ranks on the one card, spawned, all jobs: %.1f s'
+          % (t_ref, DDP_WORLD, t_ranks))
+    paths = {}
+    for i, (job, ref) in enumerate(zip(jobs, refs)):
+        tag = '%s %s' % (job['tag'], job['model'])
+        ddp_report(tag, job, [r[i] for r in ranks], ref, job['mode'])
+        for r, rank in enumerate(ranks):
+            res = rank[i]['float32']
+            counts = {k: res['launches'].get(k, 0)
+                      + res['step_launches'].get(k, 0)
+                      for k in set(res['launches']) | set(
+                          res['step_launches'])}
+            where = 'ddp %s %s rank %d (B1 step + %d steps)' % (
+                job['tag'], job['mode'], r, DDP_STEPS)
+            for entry, keys in (
+                    ('gather_gemm_f32', ('gather_gemm_f32',
+                                         'gather_gemm_f32_dgrad')),
+                    ('gather_dw', ('gather_dw',)),
+                    ('gather_dw_seg', ('gather_dw_seg',)),
+                    ('rotated_overlap', ('A',))):
+                n = sum(counts.get(k, 0) for k in keys)
+                if n:
+                    paths.setdefault(entry, {})[where] = n
+    return paths
+
+
+M3_DRIVER = """\"\"\"The train CLI with deterministic cuDNN and torch algorithms, timing
+the gradient all-reduce (chip_smoke.py M3).\"\"\"
+import sys
+import time
+
+T_START = time.time()
+import torch  # noqa: E402
+
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+torch.use_deterministic_algorithms(True, warn_only=True)
+
+from pcdet_tpu_torch.parallel import ddp  # noqa: E402
+from pcdet_tpu_torch.tools import train  # noqa: E402
+
+real = ddp.all_reduce_grads
+times, nbytes = [], []
+
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def timed(grads, group, *args, **kw):
+    sync()
+    t0 = time.perf_counter()
+    out = real(grads, group, *args, **kw)
+    sync()
+    times.append(1e3 * (time.perf_counter() - t0))
+    nbytes.append(sum(g.numel() * g.element_size() for g in grads))
+    return out
+
+
+ddp.all_reduce_grads = timed
+T_MAIN = time.time()
+train.main(sys.argv[1:])
+print('M3_ALLREDUCE_MS ' + ' '.join('%.4f' % t for t in times))
+print('M3_GRAD_MB %.2f' % (max(nbytes, default=0) / 2 ** 20))
+print('M3_TIMES %.3f %.3f %.3f' % (T_START, T_MAIN, time.time()))
+"""
+
+
+def run_ddp_cli(dev, workdir):
+    """M3: the train CLI under torchrun (`--multi_host`, NCCL, one rank) on
+    L1's tree (`workdir`/kitti), 2 epochs, bitwise against the same 2
+    epochs without a group, launched beside it; its checkpoint restored
+    bitwise; the test CLI on it through kernel A."""
+    import glob
+    import os
+    import pickle
+    from pcdet_tpu_torch import detect as detect_mod
+    from pcdet_tpu_torch.datasets.kitti import kitti_eval_cli
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    from pcdet_tpu_torch.tools import test as test_cli
+    from pcdet_tpu_torch.tools import train as train_cli
+    from pcdet_tpu_torch.train.checkpoint import restore_train_state
+    from pcdet_tpu_torch.train.trainer import build_trainer
+    from pcdet_tpu_torch.weights import load_checkpoint
+    here = os.path.dirname(os.path.abspath(__file__))
+    pp_cfg = str(detect_mod.DEFAULT_CFG)
+    root, out_root = (os.path.join(workdir, 'kitti'),
+                      os.path.join(workdir, 'out'))
+    with open(os.path.join(root, 'kitti_infos_val.pkl'), 'rb') as f:
+        val_infos = pickle.load(f)
+    with open(os.path.join(root, 'kitti_infos_train.pkl'), 'rb') as f:
+        per_epoch = len(pickle.load(f)) // 2
+    backend = 'NCCL' if dev.type == 'cuda' else 'gloo'
+    sets = cli_sets(root, out_root)
+    os.makedirs(out_root, exist_ok=True)
+    driver = os.path.join(out_root, 'm3_train.py')
+    with open(driver, 'w') as f:
+        f.write(M3_DRIVER)
+    # one environment for both launches (torchrun would set OMP_NUM_THREADS
+    # to 1 where it is unset: the host pipeline's threads)
+    env = dict(os.environ, PYTHONPATH=here, OMP_NUM_THREADS='4',
+               CUBLAS_WORKSPACE_CONFIG=':4096:8')
+    for key in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR',
+                'MASTER_PORT'):
+        env.pop(key, None)
+    torchrun = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+                '--nproc_per_node', '1', driver, '--multi_host']
+
+    def start(tag, epochs, launch):
+        argv = ['--cfg_file', pp_cfg, '--batch_size', '2', '--epochs',
+                str(epochs), '--workers', '4', '--ckpt_save_interval', '1',
+                '--log_interval', '1', '--extra_tag', tag, '--device',
+                dev.type, '--set'] + sets
+        proc = subprocess.Popen(launch + argv, cwd=here, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        return tag, proc, time.perf_counter(), time.time()
+
+    def finish(run):
+        tag, proc, t0, t_wall = run
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        wall = time.perf_counter() - t0
+        t_end = time.time()
+        require(proc.returncode == 0, 'M3 train %s failed:\n%s\n%s' % (
+            tag, stdout[-3000:], stderr[-3000:]))
+        ar = [float(x) for line in stdout.splitlines()
+              if line.startswith('M3_ALLREDUCE_MS')
+              for x in line.split()[1:]]
+        mb = [float(line.split()[1]) for line in stdout.splitlines()
+              if line.startswith('M3_GRAD_MB')]
+        nondet = sorted({m for m in re.findall(
+            r'UserWarning: (.*?) does not have a deterministic', stderr)})
+        out, = glob.glob(os.path.join(out_root, 'output', '*', tag))
+        logs = sorted(x for x in os.listdir(out)
+                      if x.startswith('log_train_'))
+        with open(os.path.join(out, logs[-1])) as f:
+            text = f.read()
+        marks = [float(x) for line in stdout.splitlines()
+                 if line.startswith('M3_TIMES') for x in line.split()[1:]]
+        split = ('start %.1f s, imports %.1f s, main %.1f s, exit %.1f s' % (
+            marks[0] - t_wall, marks[1] - marks[0], marks[2] - marks[1],
+            t_end - marks[2]) if len(marks) == 3 else 'not measured')
+        return {'wall': wall, 'split': split, 'allreduce_ms': ar,
+                'grad_mb': mb[0] if mb else float('nan'),
+                'out': out, 'log': text, 'nondeterministic': nondet,
+                'epochs': [(int(n), float(t), int(i)) for n, t, i in
+                           re.findall(r'epoch (\d+) done in ([0-9.]+)s '
+                                      r'\((\d+) iters\)', text)],
+                'losses': [float(x) for x in re.findall(
+                    r'iter \d+ loss (\S+) ', text)]}
+
+    def differing(a, b):
+        """The names of the tensors of two states (on any devices) that
+        differ, bit for bit."""
+        out = [k for k, v in a['model_state'].items()
+               if not torch.equal(v.cpu(), b['model_state'][k].cpu())]
+        return out + ['opt.%s.%s' % (slot, k)
+                      for slot, d in a['optimizer_state']['state'].items()
+                      for k, v in d.items() if not torch.equal(
+                          v.cpu(), b['optimizer_state']['state'][slot][k]
+                          .cpu())]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the two launches share the card and run side by side
+    runs = [start('m3_ddp', 2, torchrun),
+            start('m3_plain', 2, [sys.executable, driver])]
+    first, plain = [finish(r) for r in runs]
+    last = os.path.join(first['out'], 'ckpt', 'checkpoint_epoch_2.pth')
+    a = load_checkpoint(last)
+    b = load_checkpoint(os.path.join(plain['out'], 'ckpt',
+                                     'checkpoint_epoch_2.pth'))
+    differ = differing(a, b)
+    # rank 0's checkpoint resumes: restored into a trainer of other weights
+    # on this device, every tensor of its state is the file's
+    tcfg = train_cli.parse_config(['--cfg_file', pp_cfg, '--set'] + sets)[1]
+    resumed = build_trainer(tcfg, dev, seed=1, iters_each_epoch=per_epoch,
+                            epochs=2)
+    _, epoch = restore_train_state(last, resumed.state)
+    c = resumed.state.state_dict()
+    differ_resumed = differing(c, a)
+    del resumed
+    ro.LAUNCHES = 0
+    t0 = time.perf_counter()
+    tout = test_cli.main(
+        ['--cfg_file', pp_cfg, '--batch_size', '2', '--workers', '4',
+         '--extra_tag', 'm3', '--device', dev.type, '--ckpt', last,
+         '--set'] + sets + ['MODEL.TEST.SCORE_THRESH', '0.0'])
+    sync()
+    t_test = time.perf_counter() - t0
+    a_launches = ro.LAUNCHES
+    ar = first['allreduce_ms']
+    for tag, run in (('torchrun, epochs 1-2', first),
+                     ('no group, epochs 1-2, beside it', plain)):
+        print('[ddp M3] train CLI pointpillar.yaml B2 on L1\'s tree, %s: '
+              '%.1f s wall (%s); epochs (index, s, iterations) %s; loss %s; '
+              'ops without a deterministic implementation %s' % (
+                  tag, run['wall'], run['split'], run['epochs'], ', '.join(
+                      '%.4f' % x for x in run['losses']),
+                  run['nondeterministic'] or 'none'))
+    print('[ddp M3] checkpoint_epoch_2 under torchrun --multi_host (%s, 1 '
+          'rank, deterministic cuDNN) it %d, without a group it %d: tensors '
+          'differing bit for bit %d of %d; restored (`restore_train_state`) '
+          'into a trainer of other weights: epoch %d, it %d, tensors '
+          'differing from the file %d; gradient all-reduce (%s, W=1) of '
+          '%.2f MB %.4f ms a step (median of %d, %.4f-%.4f)' % (
+              backend, a['it'], b['it'], len(differ),
+              len(a['model_state']) + sum(
+                  len(d) for d in a['optimizer_state']['state'].values()),
+              epoch, c['it'], len(differ_resumed), backend,
+              first['grad_mb'], float(np.median(ar)) if ar else float('nan'), len(ar),
+              min(ar, default=float('nan')), max(ar, default=float('nan'))))
+    require('rank 0 of 1' in first['log'], 'M3: the run did not join a '
+            'group')
+    require(len(plain['losses']) == 2 * per_epoch
+            and plain['losses'] == first['losses']
+            and all(np.isfinite(plain['losses'])),
+            'M3 losses: torchrun %s, no group %s' % (first['losses'],
+                                                     plain['losses']))
+    require(a['it'] == b['it'] == c['it'] == 2 * per_epoch and epoch == 2
+            and not differ and not differ_resumed,
+            'M3: under torchrun the state differs from the run without a '
+            'group in %s, restored in %s' % (differ[:5], differ_resumed[:5]))
+    require(len(ar) == 2 * per_epoch, 'M3: %d all-reduces timed' % len(ar))
+    eval_dir, result = tout['results'][2]
+    with open(os.path.join(str(eval_dir), 'result.pkl'), 'rb') as f:
+        det_annos = pickle.load(f)
+    again, _ = kitti_eval_cli.evaluation(det_annos, val_infos, KITTI_CLASSES)
+    logged = logged_result(tout['log_file'])
+    print('[ddp M3] test CLI on the torchrun checkpoint, %d val frames in '
+          '%.2f s: kernel A launches %d; recall/gt %s; '
+          'logged AP string == the evaluator on result.pkl: %s' % (
+              len(det_annos), t_test, a_launches,
+              result['recall/gt'], logged == again.strip()))
+    require(a_launches > 0 and logged == again.strip()
+            and finite_numbers(logged), 'M3 test CLI: A %d, AP string '
+            'equal %s' % (a_launches, logged == again.strip()))
+    return {'rotated_overlap': {'ddp M3 test CLI': a_launches}}
 
 
 def main():
@@ -5645,8 +6345,9 @@ def main():
     sync()
 
     def timed(tag, fn, *args):
-        t0 = time.perf_counter()
+        t0 = _MARK[0] = time.perf_counter()
         out = fn(*args)
+        mark('the rest of ' + tag)
         print('[time] %s: %.1f s' % (tag, time.perf_counter() - t0))
         return out
 
@@ -5670,7 +6371,16 @@ def main():
     parta2_entries, parta2_paths = timed('Part-A2 R1-R3', run_parta2, dev)
     train_entries, train_paths = timed('Part-A2 training R5-R7',
                                        run_parta2_train, dev)
-    cli_paths = timed('CLI pair L1-L4, R8 and R4', run_cli, dev)
+    with tempfile.TemporaryDirectory() as workdir:
+        cli_paths = timed('CLI pair L1-L4, R8 and R4', run_cli, dev,
+                          workdir)
+        t_ddp = time.perf_counter()
+        ddp_paths = timed('data-parallel M1-M2', run_ddp, dev)
+        for name, by_path in timed('data-parallel M3', run_ddp_cli, dev,
+                                   workdir).items():
+            ddp_paths.setdefault(name, {}).update(by_path)
+        print('[time] data-parallel M1-M3: %.1f s'
+              % (time.perf_counter() - t_ddp))
 
     a_entry = kernel_entry(
         'rotated_overlap', 'pcdet_tpu_torch/csrc/rotated_overlap.cu',
@@ -5683,10 +6393,11 @@ def main():
     kernels = ([a_entry] + second + [dw_entry] + xwin + parta2_entries
                + train_entries + evals)
     for entry in kernels:
-        for paths in (parta2_paths, train_paths, cli_paths):
+        for paths in (parta2_paths, train_paths, cli_paths, ddp_paths):
             if entry['name'] in paths:
                 entry.setdefault('launches_by_path', {}).update(
                     paths[entry['name']])
+    print('[time] the whole script: %.1f s' % (time.perf_counter() - t_start))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -2,7 +2,9 @@
 
 The port's copy of `pcdet_tpu.datasets.loader` (in place of the reference's
 torch DataLoader + DistributedSampler): a worker pool maps `dataset[i]`
-over a shuffled, per-host strided index shard, and a bounded queue keeps
+over a shuffled, per-host strided index shard (every host's of one size:
+the batches a rank iterates are the ones every other rank iterates, and
+`len()` counts them), and a bounded queue keeps
 `prefetch` collated batches ready ahead of the device step.
 
 Two worker modes (`worker_mode`):
@@ -64,22 +66,35 @@ class DataLoader:
         """DistributedSampler.set_epoch equivalent — reshuffles per epoch."""
         self.epoch = epoch
 
+    def _per_host(self):
+        """Samples in each host's shard: the dataset split evenly, its tail
+        dropped with `drop_last`, else padded by wrapping to the start (as
+        DistributedSampler does), so that every host iterates the same
+        number of batches, the number `len()` gives."""
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.num_hosts
+        return (n + self.num_hosts - 1) // self.num_hosts
+
     def _epoch_indices(self):
         n = len(self.dataset)
         idx = np.arange(n)
         if self.shuffle:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(idx)
-        # per-host strided shard (DistributedSampler equivalent)
-        idx = idx[self.host_id::self.num_hosts]
+        # per-host strided shard (DistributedSampler equivalent), of equal
+        # size on every host
+        total = self._per_host() * self.num_hosts
+        if total > n:
+            idx = np.resize(idx, total)
+        idx = idx[self.host_id:total:self.num_hosts]
         if self.drop_last:
             usable = (len(idx) // self.batch_size) * self.batch_size
             idx = idx[:usable]
         return idx
 
     def __len__(self):
-        n = len(self.dataset)
-        per_host = (n + self.num_hosts - 1) // self.num_hosts
+        per_host = self._per_host()
         if self.drop_last:
             return per_host // self.batch_size
         return (per_host + self.batch_size - 1) // self.batch_size

@@ -26,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .ops.voxelizer import voxelize_torch
+from .parallel import ddp
 from .utils.metrics import Evaluator
 
 # the keys the hook reads from a batch
@@ -129,9 +130,13 @@ class BEVSegHead(nn.Module):
         return x.permute(0, 2, 3, 1)
 
 
-def bev_seg_loss(logits, gt_masks):
+def bev_seg_loss(logits, gt_masks, group=None):
     """BCE-with-logits BEV segmentation loss and per-class IoU scalars
-    (`pcdet_tpu.experiments.bev_seg_loss`).
+    (`pcdet_tpu.experiments.bev_seg_loss`).  With a process `group` of more
+    than one rank the loss is this rank's share of the global batch's mean
+    (the sum over the global batch's elements), and the IoU comes from the
+    intersections and unions summed over the ranks, in one all-reduce
+    (telemetry: no gradient).
 
     :param logits: (B, H, W, C); :param gt_masks: (B, H, W, C) in {0, 1}
     :return: loss, tb {'bev_loss', 'iou_cls1'.., 'miou'}
@@ -139,11 +144,14 @@ def bev_seg_loss(logits, gt_masks):
     gt = gt_masks.to(logits.dtype)
     ce = (torch.clamp(logits, min=0) - logits * gt
           + torch.log1p(torch.exp(-torch.abs(logits))))
-    loss = ce.mean()
+    world = ddp.world_size(group)
+    loss = ce.mean() if world == 1 else ce.sum() / (ce.numel() * world)
     preds = logits.detach() > 0
     gt_on = gt > 0.5
     inter = (preds & gt_on).sum(dim=(0, 1, 2))
     union = (preds | gt_on).sum(dim=(0, 1, 2))
+    if world > 1:
+        inter, union = ddp.all_sum(torch.stack([inter, union]), group)
     iou = inter.to(logits.dtype) / torch.clamp(union, min=1).to(logits.dtype)
     tb = {'bev_loss': loss}
     for c in range(logits.shape[-1]):

@@ -14,6 +14,7 @@ forward and loss.
 import torch
 
 from ..ops import nms as nms_ops
+from ..parallel import ddp
 from ..ops import rotated_iou
 from ..utils import torch_common
 from .rpn_head import anchor_head_loss
@@ -27,6 +28,9 @@ class TrainHooks:
     # True: the model draws at random in training, from the device
     # generator that the trainer hands to `set_generator`
     draws = False
+    # the ranks that share the global batch (`parallel.ddp`; set by the
+    # trainer): the losses divide by the global batch's normalizers
+    process_group = None
 
     def frozen_prefixes(self):
         """Parameter name prefixes that the optimizer leaves out."""
@@ -279,7 +283,8 @@ def detector_loss(model, ret_dict, batch):
     head arguments, then the `overflow/*` counters.
 
     :param model: a `PointPillar` or `SECONDNet` wrapper (cfg, head_args,
-        anchors, num_class, box_coder)
+        anchors, num_class, box_coder, process_group: the loss is the
+        rank's share of the global batch's)
     :param batch: carries `box_cls_labels` (B, A) int32 and
         `box_reg_targets` (B, A, 7)
     :return: loss, tb dict of scalar tensors
@@ -299,7 +304,8 @@ def detector_loss(model, ret_dict, batch):
         encode_background_as_zeros=a.get('encode_background_as_zeros', True),
         use_direction_classifier=a.get('use_direction_classifier', True),
         dir_offset=a.get('dir_offset', 0.78539),
-        num_direction_bins=a.get('num_direction_bins', 2))
+        num_direction_bins=a.get('num_direction_bins', 2),
+        world=ddp.world_size(model.process_group))
     merge_overflow_tb(tb, ret_dict, batch)
     return loss, tb
 

@@ -2,8 +2,10 @@
 
 Twins of `pcdet_tpu.models.layers`: BatchNorm with eps 1e-3 and momentum
 0.01 normalises by its running statistics in eval and by the batch's in
-training (`TorchBatchNorm`, one BN group), optionally over the rows a mask
-keeps.
+training (`TorchBatchNorm`), optionally over the rows a mask keeps: over
+the whole batch, per block of the batch (`BN_GROUPS`), or over the whole
+batch of every rank of a process group (`--sync_bn`), as
+`set_batch_norm` sets on a module tree.
 
 Parameters keep PyTorch's own layouts (Linear (out, in), Conv2d OIHW,
 ConvTranspose2d (in, out, kh, kw)), so a reference state_dict loads as it is.
@@ -22,17 +24,30 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import ddp
+
 
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis (channels-last) or axis 1 (NCHW).
 
-    Training (`pcdet_tpu.models.layers.TorchBatchNorm`, BN_GROUPS 1):
-    normalise by the batch mean and biased variance over every axis but the
-    channel's, or over the rows `mask` keeps (a (B, V) mask of a
-    channels-last (B, V, C) input: the live voxels of the whole batch); the
-    running statistics take momentum 0.01 of the mean and of the unbiased
-    variance var * n / (n - 1).  Written out by hand: F.batch_norm takes no
-    mask.  `mask` is ignored in eval.
+    Training (`pcdet_tpu.models.layers.TorchBatchNorm`): normalise by the
+    batch mean and biased variance over every axis but the channel's, or
+    over the rows `mask` keeps (a mask of every axis but the channel's, as
+    a (B, V) mask of a channels-last (B, V, C) input: the live voxels of
+    the whole batch); the running statistics take momentum 0.01 of the
+    mean and of the unbiased variance var * n / (n - 1).  Written out by
+    hand: F.batch_norm takes no mask.  `mask` is ignored in eval.
+
+    Where the statistics come from (`set_batch_norm`):
+      - `groups` > 1 (JAX's BN_GROUPS, per-device BN in one process): per
+        contiguous block of the leading axis, each block its own n; one
+        group where the input has fewer than 2 axes or a leading axis that
+        `groups` does not divide; the running statistics take group 0's
+        (DDP's rank 0);
+      - `process_group` of more than one rank (`--sync_bn`, JAX's
+        BN_GROUPS 1 over a sharded batch): the mean from the summed
+        (sum of x w, n) of every rank, then the variance from the summed
+        sum of (x - mean)^2 w, both through the differentiable all-reduce.
     """
 
     def __init__(self, features, eps=1e-3, momentum=0.01, channel_dim=-1):
@@ -40,6 +55,8 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.momentum = momentum
         self.channel_dim = channel_dim
+        self.groups = 1
+        self.process_group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('running_mean', torch.zeros(features))
@@ -55,8 +72,14 @@ class BatchNorm(nn.Module):
             inv = torch.rsqrt(self.running_var + self.eps).view(shape)
             return ((x - mean) * inv * self.weight.view(shape)
                     + self.bias.view(shape))
+        if (self.groups > 1 and x.dim() >= 2
+                and x.shape[0] % self.groups == 0):
+            return self._grouped(x, mask, shape)
         dims = [d for d in range(x.dim()) if d != self.channel_dim % x.dim()]
-        if mask is None:
+        group = self.process_group
+        if ddp.world_size(group) > 1:
+            mean, var, n = self._synced(x, mask, dims, shape, group)
+        elif mask is None:
             n = torch.tensor(float(x.numel() // x.shape[self.channel_dim]),
                              dtype=x.dtype, device=x.device)
             mean = x.mean(dim=dims)
@@ -66,14 +89,81 @@ class BatchNorm(nn.Module):
             n = torch.clamp(w.sum(), min=1.0)
             mean = (x * w).sum(dim=dims) / n
             var = (torch.square(x - mean.view(shape)) * w).sum(dim=dims) / n
-        with torch.no_grad():
-            m = self.momentum
-            unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
-            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-            self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
-            self.num_batches_tracked += 1
+        self._track(mean, var, n)
         y = (x - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
         return y * self.weight.view(shape) + self.bias.view(shape)
+
+    @torch.no_grad()
+    def _track(self, mean, var, n):
+        m = self.momentum
+        unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+        self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+        self.num_batches_tracked += 1
+
+    def _synced(self, x, mask, dims, shape, group):
+        """Mean, biased variance and n over every rank's batch: two passes,
+        as JAX's statistics over a sharded batch."""
+        if mask is None:
+            local_n = x.new_tensor(float(x.numel() // x.shape[
+                self.channel_dim]))
+            s = x.sum(dim=dims)
+            w = None
+        else:
+            w = mask.to(x.dtype)[..., None]
+            local_n = w.sum()
+            s = (x * w).sum(dim=dims)
+        total = ddp.all_reduce_sum(torch.cat([s, local_n[None]]), group)
+        n = total[-1].detach()
+        if w is not None:
+            n = torch.clamp(n, min=1.0)
+        mean = total[:-1] / n
+        d2 = torch.square(x - mean.view(shape))
+        if w is not None:
+            d2 = d2 * w
+        var = ddp.all_reduce_sum(d2.sum(dim=dims), group) / n
+        return mean, var, n
+
+    def _grouped(self, x, mask, shape):
+        """Statistics per contiguous block of the leading axis."""
+        g = self.groups
+        xg = x.reshape((g, x.shape[0] // g) + tuple(x.shape[1:]))
+        cdim = self.channel_dim % x.dim() + 1
+        dims = [d for d in range(1, xg.dim()) if d != cdim]
+        gshape = [1] * xg.dim()
+        gshape[0], gshape[cdim] = g, -1
+        if mask is None:
+            n = torch.full((g,), float(xg[0].numel() // x.shape[
+                self.channel_dim]), dtype=x.dtype, device=x.device)
+            mean = xg.mean(dim=dims)                               # (g, C)
+            var = torch.square(xg - mean.view(gshape)).mean(dim=dims)
+        else:
+            w = mask.to(x.dtype).reshape(
+                (g, x.shape[0] // g) + tuple(mask.shape[1:]))[..., None]
+            n = torch.clamp(w.sum(dim=dims), min=1.0)[:, 0]       # (g,)
+            mean = (xg * w).sum(dim=dims) / n[:, None]
+            var = (torch.square(xg - mean.view(gshape)) * w).sum(
+                dim=dims) / n[:, None]
+        self._track(mean[0], var[0], n[0])
+        y = (xg - mean.view(gshape)) * torch.rsqrt(var.view(gshape)
+                                                   + self.eps)
+        return (y.reshape(x.shape) * self.weight.view(shape)
+                + self.bias.view(shape))
+
+
+def set_batch_norm(module, groups=1, process_group=None):
+    """Where every BatchNorm of `module` takes its training statistics:
+    per block of `groups` of the batch (JAX's `set_bn_groups`), or over
+    the ranks of `process_group` (sync BN; a group of one rank is the
+    batch's own statistics).  Per module tree, not per process, so that one
+    process can hold trainers of either kind."""
+    if groups > 1 and ddp.world_size(process_group) > 1:
+        raise ValueError('BN groups and a synced process group exclude each '
+                         'other')
+    for mod in module.modules():
+        if isinstance(mod, BatchNorm):
+            mod.groups = max(int(groups), 1)
+            mod.process_group = process_group
 
 
 class TorchLinear(nn.Linear):

@@ -19,6 +19,7 @@ import torch
 from ..datasets.dataset import generate_voxel_part_targets
 from ..ops import sparse
 from ..ops.roiaware_pool import roiaware_pool3d_multi_batched
+from ..parallel import ddp
 from ..utils import loss as loss_ops
 from .backbones3d import UNetV2
 from .detector3d import detector_loss, post_process_batch
@@ -31,10 +32,15 @@ from .second import SECONDNet, SECONDNetModule
 STAGE1 = ('vfe', 'rpn_net', 'rpn_head')
 
 
-def unet_loss(u_seg_preds, u_reg_preds, seg_labels, part_labels):
+def unet_loss(u_seg_preds, u_reg_preds, seg_labels, part_labels,
+              group=None):
     """Focal segmentation loss and BCE part loss over the fg voxels
     (`pcdet_tpu.models.parta2.unet_loss`; the reference's
-    rpn_unet.get_loss:109-143).
+    rpn_unet.get_loss:109-143).  With a process `group`, the fg count
+    `pos_norm` (and its `pos_norm > 0`) is the global batch's, summed over
+    the ranks, so the loss is this rank's share of the global batch's;
+    `rpn_pos_num` stays the rank's own count (the ranks' sum is the
+    global one).
 
     :param u_seg_preds: (B, V, 1); :param u_reg_preds: (B, V, 3)
     :param seg_labels: (B, V) int32 (-1 ignore, 0 bg, class id fg)
@@ -43,7 +49,8 @@ def unet_loss(u_seg_preds, u_reg_preds, seg_labels, part_labels):
     seg = u_seg_preds[..., 0]
     pos = (seg_labels > 0).to(torch.float32)
     neg = (seg_labels == 0).to(torch.float32)
-    pos_norm = pos.sum()
+    pos_num = pos.sum()
+    pos_norm = ddp.all_sum(pos_num, group)
     weights = (pos + neg) / torch.clamp(pos_norm, min=1.0)
     cls_loss = loss_ops.sigmoid_focal_loss(
         seg[..., None], pos[..., None], weights, gamma=2.0,
@@ -57,7 +64,7 @@ def unet_loss(u_seg_preds, u_reg_preds, seg_labels, part_labels):
                                                          min=1.0)
     loss = cls_loss + torch.where(pos_norm > 0, reg_loss, 0.0)
     return loss, {'rpn_loss_u_cls': cls_loss, 'rpn_u_loss_reg': reg_loss,
-                  'rpn_loss_unet': loss, 'rpn_pos_num': pos_norm}
+                  'rpn_loss_unet': loss, 'rpn_pos_num': pos_num}
 
 
 class PartA2Module(SECONDNetModule):
@@ -252,11 +259,12 @@ class PartA2Net(SECONDNet):
         `pcdet_tpu`'s names, `overflow/*` included (`pcdet_tpu.models.
         parta2.PartA2Net.loss`; the reference's get_training_loss:
         128-161): batch carries the anchor targets, `seg_labels` (B, V)
-        int32 and `part_labels` (B, V, 3)."""
+        int32 and `part_labels` (B, V, 3).  Under a process group each
+        term is the rank's share of the global batch's."""
         lw = self.cfg.MODEL.LOSSES.LOSS_WEIGHTS
         u_loss, tb = unet_loss(ret_dict['u_seg_preds'],
                                ret_dict['u_reg_preds'], batch['seg_labels'],
-                               batch['part_labels'])
+                               batch['part_labels'], self.process_group)
         rpn_loss, tb_rpn = detector_loss(self, ret_dict, batch)
         tb.update(tb_rpn)
         r_loss, tb_rcnn = rcnn_loss(
@@ -268,7 +276,7 @@ class PartA2Net(SECONDNet):
                 'code_weights': list(lw['code_weights'])},
             corner_loss_regularization=bool(self.cfg.MODEL.LOSSES.get(
                 'CORNER_LOSS_REGULARIZATION', True)),
-            code_size=self.box_coder.code_size)
+            code_size=self.box_coder.code_size, group=self.process_group)
         tb.update(tb_rcnn)
         total = u_loss + rpn_loss + r_loss
         tb['loss'] = total

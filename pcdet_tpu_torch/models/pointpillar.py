@@ -150,7 +150,7 @@ class PointPillar(TrainHooks):
         loss, tb = self.loss(ret_dict, batch)
         if self.with_bev_seg and 'bev' in batch:
             bev_loss, tb_bev = bev_seg_loss(ret_dict['bev_seg_logits'],
-                                            batch['bev'])
+                                            batch['bev'], self.process_group)
             tb.update(tb_bev)
             loss = loss + bev_loss
             tb['loss'] = loss

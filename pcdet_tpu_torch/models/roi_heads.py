@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from ..ops import nms as nms_ops
 from ..ops import rotated_iou
+from ..parallel import ddp
 from ..utils import loss as loss_ops
 from ..utils import torch_common
 from ..utils.box_coder import ResidualCoder
@@ -505,12 +506,15 @@ class FCRCNN(_RCNNBase):
 
 
 def rcnn_loss(forward_ret, loss_weights, corner_loss_regularization=True,
-              code_size=7):
+              code_size=7, group=None):
     """The RCNN's BCE class loss over the valid labels, and its smooth-L1
     and corner losses over the fg RoIs (`pcdet_tpu.models.roi_heads.
     rcnn_loss`; the reference's RCNNHead.get_loss:56-143).  Rows that are
     not fg take a unit box before the encode and decode, so that a padded
     RoI of zero size cannot put a NaN (log 0, / 0) into the masked sums.
+    With a process `group` the normalizers (the valid labels, the fg RoIs)
+    are the global batch's, summed over the ranks, so the loss is this
+    rank's share of the global batch's.
 
     :return: loss, tb {rcnn_loss_cls, rcnn_loss_reg, rcnn_loss_corner,
         rcnn_loss}
@@ -530,12 +534,16 @@ def rcnn_loss(forward_ret, loss_weights, corner_loss_regularization=True,
     bce = -(cls_labels * torch.log(torch.clamp(p, eps, 1.0))
             + (1 - cls_labels) * torch.log(torch.clamp(1 - p, eps, 1.0)))
     cls_valid = (cls_labels >= 0).to(torch.float32)
-    loss_cls = ((bce * cls_valid).sum() / torch.clamp(cls_valid.sum(),
-                                                      min=1.0)
+    fg = (reg_valid > 0).to(torch.float32)
+    if group is None:
+        valid_sum, fg_total = cls_valid.sum(), fg.sum()
+    else:
+        valid_sum, fg_total = ddp.all_sum(
+            torch.stack([cls_valid.sum(), fg.sum()]), group)
+    loss_cls = ((bce * cls_valid).sum() / torch.clamp(valid_sum, min=1.0)
                 * loss_weights['rcnn_cls_weight'])
 
-    fg = (reg_valid > 0).to(torch.float32)
-    fg_sum = torch.clamp(fg.sum(), min=1.0)
+    fg_sum = torch.clamp(fg_total, min=1.0)
     safe = fg[:, None] > 0
     dummy = rois.new_tensor([0, 0, 0, 1, 1, 1, 0])
     rois_safe = torch.where(safe, rois, dummy)

@@ -94,10 +94,12 @@ def anchor_head_loss(ret_dict, anchors, box_cls_labels, box_reg_targets,
                      num_class, loss_weights, box_code_size=7,
                      encode_background_as_zeros=True,
                      use_direction_classifier=True, dir_offset=0.78539,
-                     num_direction_bins=2):
+                     num_direction_bins=2, world=1):
     """RPN losses: focal cls + smooth-L1 (sin) loc + direction CE
     (`pcdet_tpu.models.rpn_head.anchor_head_loss`; reference
-    rpn_head.AnchorHead.get_loss:129-210).
+    rpn_head.AnchorHead.get_loss:129-210).  Each term is divided by the
+    global batch, this batch times `world` (the ranks, each with a batch
+    of this size), so a rank's loss is its share of the global batch's.
 
     :param ret_dict: NHWC head outputs; :param anchors: (A, 7)
     :param box_cls_labels: (B, A) int32, -1 don't care / 0 bg / 1..C fg
@@ -109,6 +111,7 @@ def anchor_head_loss(ret_dict, anchors, box_cls_labels, box_reg_targets,
     cls_preds = ret_dict['cls_preds']
     dir_preds = ret_dict.get('dir_cls_preds', None)
     batch_size = box_preds.shape[0]
+    global_batch = batch_size * world
     f32 = box_preds.dtype
 
     cared = box_cls_labels >= 0
@@ -131,7 +134,7 @@ def anchor_head_loss(ret_dict, anchors, box_cls_labels, box_reg_targets,
 
     cls_loss = loss_ops.sigmoid_focal_loss(cls_preds, one_hot, cls_weights,
                                            gamma=2.0, alpha=0.25)
-    cls_loss_reduced = (cls_loss.sum() / batch_size
+    cls_loss_reduced = (cls_loss.sum() / global_batch
                         * loss_weights['rpn_cls_weight'])
 
     box_preds = box_preds.reshape(batch_size, -1, box_code_size)
@@ -140,7 +143,7 @@ def anchor_head_loss(ret_dict, anchors, box_cls_labels, box_reg_targets,
     loc_loss = loss_ops.weighted_smooth_l1(
         box_preds_sin, reg_targets_sin, weights=reg_weights, sigma=3.0,
         code_weights=loss_weights['code_weights'])
-    loc_loss_reduced = (loc_loss.sum() / batch_size
+    loc_loss_reduced = (loc_loss.sum() / global_batch
                         * loss_weights['rpn_loc_weight'])
 
     rpn_loss = loc_loss_reduced + cls_loss_reduced
@@ -157,7 +160,7 @@ def anchor_head_loss(ret_dict, anchors, box_cls_labels, box_reg_targets,
                                         min=1.0)
         dir_loss = loss_ops.weighted_softmax_ce(dir_logits, dir_targets,
                                                 weights)
-        dir_loss = (dir_loss.sum() / batch_size
+        dir_loss = (dir_loss.sum() / global_batch
                     * loss_weights['rpn_dir_weight'])
         rpn_loss = rpn_loss + dir_loss
         tb['rpn_loss_dir'] = dir_loss

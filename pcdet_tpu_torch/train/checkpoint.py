@@ -7,7 +7,8 @@ checkpoint_state / save_checkpoint and detector3d.py load_params_*):
   keys, `epoch`, `it`, `model_state` (the module's reference-keyed
   state_dict, so a reference `.pth` or `weights.state_dict_from_flax`'s
   output loads as it is), `optimizer_state`, `version` and, for a model
-  that draws in training (Part-A²), `rng_state`, its generator's; it writes a
+  that draws in training (Part-A²), `rng_state`, its generator's (and,
+  trained on several ranks, `rng_states`, every rank's); it writes a
   temporary name first and renames it (`os.replace`), so a run killed
   mid-write leaves no file that `list_checkpoints` lists; then it prunes to
   `max_ckpt_save_num`, oldest first by mtime (ties by epoch);
@@ -17,13 +18,17 @@ checkpoint_state / save_checkpoint and detector3d.py load_params_*):
 - `load_params_partial` loads what fits of a file's `model_state` and logs
   each entry it leaves as it was.
 
-Tensors load onto the device of the state or module they go into.
+Tensors load onto the device of the state or module they go into.  Under
+a process group every rank calls `save_checkpoint` (the generators' states
+are gathered), rank 0 writes and prunes, the others wait for it; every
+rank restores from the file onto its own device.
 """
 import os
 import re
 
 import torch
 
+from ..parallel import ddp
 from ..weights import load_checkpoint, model_state
 
 VERSION = 'pcdet_tpu_torch+0.1.0'
@@ -38,22 +43,27 @@ def checkpoint_path(ckpt_dir, epoch):
 def save_checkpoint(state, ckpt_dir, epoch, max_ckpt_save_num=None,
                     version=VERSION):
     """Write `state` (`train_state.TrainState`) after `epoch` epochs; return
-    the file's path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    the file's path (on every rank; rank 0 writes it)."""
+    group = state.process_group
     sd = state.state_dict()
-    payload = {'epoch': int(epoch), 'it': sd['it'],
-               'model_state': sd['model_state'],
-               'optimizer_state': sd['optimizer_state'], 'version': version}
-    if 'rng_state' in sd:
-        payload['rng_state'] = sd['rng_state']
     path = checkpoint_path(ckpt_dir, epoch)
-    tmp = path + '.tmp'
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    if max_ckpt_save_num is not None:
-        ckpts = list_checkpoints(ckpt_dir)
-        while len(ckpts) > max_ckpt_save_num:
-            os.remove(ckpts.pop(0))
+    if ddp.rank(group) == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        payload = {'epoch': int(epoch), 'it': sd['it'],
+                   'model_state': sd['model_state'],
+                   'optimizer_state': sd['optimizer_state'],
+                   'version': version}
+        for key in ('rng_state', 'rng_states'):
+            if key in sd:
+                payload[key] = sd[key]
+        tmp = path + '.tmp'
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        if max_ckpt_save_num is not None:
+            ckpts = list_checkpoints(ckpt_dir)
+            while len(ckpts) > max_ckpt_save_num:
+                os.remove(ckpts.pop(0))
+    ddp.barrier(group)
     return path
 
 

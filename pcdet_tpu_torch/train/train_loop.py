@@ -15,11 +15,18 @@ OVERFLOW` warning: a static cap truncated real data.  The same logged
 steps' tb scalars go to `tb_log` (a tensorboardX writer: `train_<key>`
 and `learning_rate`) and to wandb where the package imports and a run is
 open (`pcdet_tpu`'s mirrors); a missing package means no mirror.
+
+Under the trainer's process group every rank runs the loop on its own
+shard of the loader (as many batches on each rank); the logged steps' tb
+values are summed over the ranks (`ddp.reduce_tb`, on every rank at the
+same steps), rank 0 logs and writes the mirrors, and every rank enters
+`save_checkpoint`, which rank 0 writes while the others wait.
 """
 import time
 
 import torch
 
+from ..parallel import ddp
 from .checkpoint import save_checkpoint
 
 
@@ -52,6 +59,9 @@ def train_model(trainer, train_loader, total_epochs, start_epoch=0,
     """
     state = trainer.state
     dev = trainer.device
+    group = trainer.process_group
+    if ddp.rank(group):
+        logger = tb_log = None
     for epoch in range(start_epoch, total_epochs):
         train_loader.set_epoch(epoch)
         if hooks is not None and hasattr(hooks, 'before_epoch'):
@@ -72,7 +82,8 @@ def train_model(trainer, train_loader, total_epochs, start_epoch=0,
                 hooks.after_iter(state.step, tb)
             if state.step % log_interval:
                 continue
-            tb_host = {k: float(v) for k, v in tb.items()}
+            tb_host = {k: float(v)
+                       for k, v in ddp.reduce_tb(tb, group).items()}
             lr = trainer.lr_schedule(state.step)
             if logger is not None:
                 logger.info('epoch %d iter %d loss %.4f lr %.6f%s%s' % (
@@ -92,7 +103,8 @@ def train_model(trainer, train_loader, total_epochs, start_epoch=0,
                 for k, v in tb_host.items():
                     tb_log.add_scalar('train_' + k, v, state.step)
                 tb_log.add_scalar('learning_rate', lr, state.step)
-            _wandb_log(tb_host, state.step)
+            if not ddp.rank(group):
+                _wandb_log(tb_host, state.step)
         if logger is not None:
             logger.info('epoch %d done in %.1fs (%d iters)'
                         % (epoch, time.time() - t_epoch, n_iters))

@@ -32,7 +32,13 @@ kernels of the kw=3 sparse convs: B / E / E′ for the forward and feature
 gradient, D / D″ / D′ for the weight gradient.  A model that draws at
 random in training (`draws`; Part-A²: the sampler and dropout) draws from
 the trainer's `generator`, a torch.Generator on the device seeded from
-`seed`, whose state a checkpoint carries.  Under the fork's
+`seed`, whose state a checkpoint carries.  Data-parallel training
+(`process_group`, one process a card: `parallel.ddp`) gives each rank its
+share of the global batch; the weights are the same on every rank (the
+CPU generator from `seed`), the device generator is seeded from `seed` and
+the rank.  `bn_groups` > 1 takes the BatchNorm statistics per block of the
+batch (JAX's BN_GROUPS: what W ranks with their own statistics compute,
+in one process); `sync_bn` takes them over the group's ranks.  Under the fork's
 cfg.TORCH_VOXEL_GENERATOR (USE_PSEUDOLIDAR, INJECT_SEMANTICS) a batch
 carries its points instead of voxels and the step's hook voxelizes them at
 the TRAIN caps, so the loss reaches the points (`make_batch(...,
@@ -45,7 +51,9 @@ import torch
 from ..datasets.synthetic import make_scene
 from ..experiments import between_dataloading_and_feedforward
 from ..models.build import build_network
+from ..models.layers import set_batch_norm
 from ..ops import host_books
+from ..parallel import ddp
 from ..ops.voxelizer import grid_size, voxelize_torch
 from .optimization import build_optimizer_and_schedule
 from .train_state import TrainState
@@ -111,20 +119,26 @@ class TrainScans:
 
 class Trainer:
     """A model, its optimizer and step count, with random weights from
-    `seed` (a CPU torch.Generator, so every device gets the same ones);
-    the kw=3 sparse convs by `loads`.  A model that draws (`draws`;
+    `seed` (a CPU torch.Generator, so every device and rank gets the same
+    ones); the kw=3 sparse convs by `loads`.  A model that draws (`draws`;
     Part-A²'s sampler and dropout) draws from `generator`, a generator on
-    the device seeded from `seed`.
+    the device seeded from `seed` and the rank (`ddp.rank_seed`).
 
     :param iters_each_epoch, epochs: the schedules' span (OneCycle over
         their product, step decay at DECAY_STEP_LIST epochs)
     :param frozen_prefixes: parameter name prefixes the optimizer leaves
         out (e.g. 'vfe'), besides the model's own `frozen_prefixes()`
         (Part-A²'s stage 1 under MODEL.RPN.PARAMS_FIXED)
+    :param bn_groups: BatchNorm statistics per this many blocks of the
+        batch (`layers.set_batch_norm`)
+    :param process_group: the ranks that share the global batch (None:
+        this process alone); `device` is this rank's
+    :param sync_bn: BatchNorm statistics over the ranks of the group
     """
 
     def __init__(self, cfg, device, seed=0, loads=None, iters_each_epoch=1,
-                 epochs=1, frozen_prefixes=()):
+                 epochs=1, frozen_prefixes=(), bn_groups=1,
+                 process_group=None, sync_bn=False):
         data_cfg = cfg.DATA_CONFIG
         self.cfg = cfg
         self.voxel_size = tuple(data_cfg.VOXEL_GENERATOR.VOXEL_SIZE)
@@ -137,10 +151,15 @@ class Trainer:
             generator=torch.Generator().manual_seed(seed), loads=loads)
         self.model.train_mode()
         self.device = self.model.device
+        self.process_group = process_group
+        self.model.process_group = process_group
+        set_batch_norm(self.model.module, bn_groups,
+                       process_group if sync_bn else None)
         self.generator = None
         if self.model.draws:
             self.generator = torch.Generator(device=self.device)
-            self.generator.manual_seed(seed)
+            self.generator.manual_seed(ddp.rank_seed(
+                seed, ddp.rank(process_group)))
             self.model.set_generator(self.generator)
         frozen_prefixes = (tuple(frozen_prefixes)
                            + tuple(self.model.frozen_prefixes()))
@@ -148,7 +167,8 @@ class Trainer:
             cfg.MODEL.TRAIN.OPTIMIZATION, iters_each_epoch, epochs,
             frozen_prefixes)
         self.state = TrainState(self.model, optimizer.init(
-            self.model.module.named_parameters()), self.generator)
+            self.model.module.named_parameters()), self.generator,
+            process_group)
 
     def voxelize(self, points, point_mask):
         return voxelize_torch(points, point_mask, self.voxel_size,
@@ -246,7 +266,8 @@ class Trainer:
 
 
 def build_trainer(cfg, device, seed=0, total_steps=None, loads=None,
-                  iters_each_epoch=None, epochs=1, frozen_prefixes=()):
+                  iters_each_epoch=None, epochs=1, frozen_prefixes=(),
+                  bn_groups=1, process_group=None, sync_bn=False):
     """A trainer of `cfg.MODEL.NAME` (PointPillar, SECOND / second_net,
     PartA2 / PartA2_net).
 
@@ -254,7 +275,8 @@ def build_trainer(cfg, device, seed=0, total_steps=None, loads=None,
     `total_steps`, that is one epoch of `total_steps` iterations (both
     given, they must agree).  `loads` (None: the backbone's default,
     `sparse.DEFAULT_LOADS`) picks the sparse convs' kernels;
-    `frozen_prefixes` are left out of the update."""
+    `frozen_prefixes` are left out of the update; `bn_groups`,
+    `process_group` and `sync_bn` as `Trainer`'s."""
     if iters_each_epoch is None:
         total = 1 if total_steps is None else int(total_steps)
         if total % epochs:
@@ -266,4 +288,4 @@ def build_trainer(cfg, device, seed=0, total_steps=None, loads=None,
         raise ValueError('total_steps %d != %d iterations x %d epochs'
                          % (total_steps, iters_each_epoch, epochs))
     return Trainer(cfg, device, seed, loads, iters_each_epoch, epochs,
-                   frozen_prefixes)
+                   frozen_prefixes, bn_groups, process_group, sync_bn)

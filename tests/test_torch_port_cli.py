@@ -21,7 +21,8 @@ grid:
   a step on them; `eval_one_epoch` over the eval loader
   with its books;
 - `--ckpt` takes a bare reference-keyed state_dict (`weights.
-  state_dict_from_flax`'s layout), `--multi_host` raises;
+  state_dict_from_flax`'s layout), `--multi_host` outside torchrun's
+  environment raises, naming the launch;
 - Part-A² (tiny widths, 3 classes): the test CLI on a checkpoint that
   `save_checkpoint` wrote from random weights evaluates both val frames
   over the loader's books (its logged AP string equals the evaluator on
@@ -367,6 +368,12 @@ def test_parta2_evaluates_through_the_test_cli(setup, tmp_path):
         assert torch.equal(got[k], v), k
 
 
-def test_multi_host_is_not_ported(setup):
-    with pytest.raises(NotImplementedError, match='queue 1 item 6'):
+def test_multi_host_is_not_ported(setup, monkeypatch):
+    """--multi_host is ported (tests/test_torch_port_ddp_cli.py launches it
+    under torchrun); outside torchrun's environment it raises, naming the
+    launch."""
+    for key in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR',
+                'MASTER_PORT'):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match='torch.distributed.run'):
         train.main(['--cfg_file', setup['cfg_file'], '--multi_host'])

@@ -17,8 +17,8 @@
   file written, the test CLI's logged AP string equal to the evaluator on
   its result.pkl;
 - the train CLI freezes what `experiments.training_before_epoch` names
-  (`seg_model` under INJECT_SEMANTICS), and `--multi_host` raises naming
-  the DDP item.
+  (`seg_model` under INJECT_SEMANTICS), and `--multi_host` outside
+  torchrun's environment raises, naming the launch.
 """
 import os
 import pickle
@@ -328,7 +328,12 @@ def test_train_cli_freezes_through_training_before_epoch(cli, monkeypatch):
                     '--batch_size', '2', '--workers', '0', '--extra_tag',
                     'frozen', '--set', 'INJECT_SEMANTICS', 'True'])
     assert seen['frozen_prefixes'] == ('seg_model',)
-    with pytest.raises(NotImplementedError, match='DDP'):
+    # --multi_host joins torchrun's process group; without its environment
+    # it says how to launch
+    for key in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR',
+                'MASTER_PORT'):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match='torch.distributed.run'):
         train.main(['--cfg_file', cli['cfg_file'], '--device', 'cpu',
                     '--multi_host'])
 

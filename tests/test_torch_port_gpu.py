@@ -49,7 +49,9 @@ then the evaluation of its checkpoint, recall through kernel A; the
 loader's batches from forked workers, with CUDA up in the parent, equal to
 the thread workers' bit for bit.  Two PartA2.yaml train steps at B2
 through kernels B, D, D′ (the decoder's pairs among them) and A, with fg
-RoIs and their regression losses.
+RoIs and their regression losses.  Two gloo ranks spawned on the card
+against one process on it (`ddp_ranks.py`; chip_smoke.py M1 at the tiny
+SECOND widths), with per-rank and with synced BatchNorm.
 """
 import itertools
 
@@ -883,6 +885,45 @@ def test_parta2_train_steps_on_card(cuda, no_tf32_conv):
         assert 'rcnn_loss_cls' in tb and 'rpn_loss_u_cls' in tb
         assert int(sampler['fg_count'].min()) > 0, sampler['fg_count']
         assert tb['rcnn_loss_reg'] > 0 and tb['rcnn_loss_corner'] > 0
+
+
+@pytest.mark.parametrize('mode', ['per_rank', 'sync'])
+def test_two_gloo_ranks_on_card_match_one_process(cuda, no_tf32_conv,
+                                                  tmp_path, mode):
+    """chip_smoke.py M1 at the tiny SECOND widths (`tests/tiny_config.py`,
+    3 classes): a global batch of 2 over two gloo ranks spawned on the one
+    card (each with its own BN statistics, or synced) against one process
+    on the card (bn_groups 2, or one group), through kernels B and D: the
+    summed loss within 1e-4 relative, every summed gradient within 1e-3 of
+    max (the tolerance chip_smoke.py T4 holds the kernels to against plain)
+    and the BN running statistics too, kernels B and D launched on both
+    ranks, and after 3 steps both ranks' states bitwise equal."""
+    import ddp_ranks
+    from tiny_config import tiny_second_cfg
+    from pcdet_tpu_torch.train.trainer import build_trainer, make_train_scans
+    cfg = ddp_ranks.port_cfg(tiny_second_cfg(num_class=3))
+    cfg.DATA_CONFIG.MAX_GT_BOXES = 32
+    points, mask, gt = make_train_scans(cfg, 2, num_objects=6)
+    job = {'cfg': cfg, 'state': build_trainer(cfg, 'cpu', seed=1).model
+           .module.state_dict(), 'points': points, 'mask': mask, 'gt': gt,
+           'sync_bn': mode == 'sync', 'device': 'cuda:0'}
+    want = ddp_ranks.step_job(job, bn_groups=2 if mode == 'per_rank' else 1)
+    got = [r[0] for r in ddp_ranks.run_ranks(
+        tmp_path, ddp_ranks.step_rank, [dict(job, steps=3)],
+        device='cuda:0')]
+    for r in got:
+        assert abs(r['loss'] - want['loss']) <= 1e-4 * abs(want['loss'])
+        for n, g in want['grads'].items():
+            assert ddp_ranks.max_rel_err(r['grads'][n], g) <= 1e-3, n
+        for n, v in want['stats'].items():
+            assert ddp_ranks.max_rel_err(r['stats'][n], v) <= 1e-3, n
+        assert r['launches'].get('gather_gemm_f32', 0) > 0
+        assert r['launches'].get('gather_gemm_f32_dgrad', 0) > 0
+        assert r['launches'].get('gather_dw', 0) > 0
+    (s0, c0), (s1, c1) = got[0]['state'], got[1]['state']
+    assert c0 == c1 == (3, 3)
+    for k in s0:
+        assert torch.equal(s0[k], s1[k]), k
 
 
 def test_train_model_checkpoint_eval_on_card(cuda, tmp_path):

@@ -8,8 +8,10 @@ own copies of pcdet_tpu's framework-free helpers give the same results.
   modules (`train.eval_loop`, the KITTI evaluator and its native bindings),
   the data pipeline's (the KITTI dataset and its helpers, the
   augmentations, the DB sampler, `datasets.dataset`, the loader, the host
-  voxelizer and native bindings), the CLIs (`tools.create_data`, `train`,
-  `test`) and `chip_smoke` and finds no `pcdet_tpu` module loaded;
+  voxelizer and native bindings), the data-parallel runtime
+  (`parallel`, `parallel.ddp`), the CLIs (`tools.create_data`, `train`,
+  `test`) and `chip_smoke` and finds no `pcdet_tpu` (nor jax) module
+  loaded;
 - no source of the package, nor `chip_smoke.py`, has an import of
   `pcdet_tpu` (other than of `pcdet_tpu_torch`), nor of flax or orbax,
   which the machine with the card lacks, and tensorboardX and wandb, which
@@ -86,9 +88,12 @@ def test_port_loads_no_pcdet_tpu_module():
             'pcdet_tpu_torch.utils.object3d, '
             'pcdet_tpu_torch.tools.create_data, '
             'pcdet_tpu_torch.tools.train, '
-            'pcdet_tpu_torch.tools.test; '
+            'pcdet_tpu_torch.tools.test, '
+            'pcdet_tpu_torch.parallel, '
+            'pcdet_tpu_torch.parallel.ddp; '
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('pcdet_tpu', 'flax', 'orbax', 'tensorboardX', 'wandb')); "
+            "('pcdet_tpu', 'jax', 'flax', 'orbax', 'tensorboardX', "
+            "'wandb')); "
             'print(bad); sys.exit(1 if bad else 0)')
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
