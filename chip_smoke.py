@@ -4,7 +4,7 @@ evaluation (recall and KITTI AP) of both models, PointPillar training
 through the epoch loop to a checkpoint and its evaluation, the CLI pair,
 Part-A² / Part-A²-fc detect, evaluation and training, the BEVSEG fork's
 pseudo-LiDAR training with its BEV segmentation head, and data-parallel
-training over torch.distributed.
+training over torch.distributed, and the rulebooks built on the card.
 
     python3 chip_smoke.py
 
@@ -72,8 +72,7 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
   T5. timings at B2 and B8: ms per step and samples/s with the batch built
       in the step and prebuilt, the voxelize / books / targets / forward /
       backward / optimizer split, a torch.profiler breakdown with kernel B's
-      and D's share and the idle share; the prebuilt B2 step again with
-      cuDNN's autotuner on.
+      and D's share and the idle share.
   X1. the x-window and segment kernels E, E' (f32, bf16; csrc/
       gather_gemm_xwin.cu) and D'', D' (csrc/gather_dw_xwin.cu) vs their
       plain versions on real B2 books at conv2_1 (subm, 32 -> 32), conv3's
@@ -297,6 +296,28 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       the file's; NCCL's gradient all-reduce at W=1 per step; the test CLI
       on the checkpoint through kernel A, the logged AP string equal to
       the evaluator's on result.pkl.
+  K1. (after R5-R7) the rulebooks built on the card (PCDET_HOST_BOOKS=0,
+      `host_books.build_books_device`) for second.yaml at full width on
+      B2 and B8 of `make_scans`, at the eval and the train caps: every
+      tensor equal to the host books (native build, uploaded, decoded);
+      the builders under torch.cuda's sync debug mode 'error' (a host sync
+      raises); the host stage (copy, build, upload; host clock) against the
+      device build (CUDA events; host clock); detect on device books equal
+      to detect on host books (every prediction, the launches), frames/s
+      both ways (median of 3 runs of 5 batches);
+  K3. on K1's B2 conv2 level (spconv2's output set, 16 random channels):
+      `SparseBottleneck(16, 16)` (1x1x1, 3x3x3, 1x1x1 subm convs and the
+      1x1x1 projection: 4 launches of B) in eval and train mode, and
+      `sparse_maxpool3d` 3 / 2 / 1 at spconv3's cap (its output set
+      spconv3's book), each against its own CPU run within 1e-5 of max
+      |out|; `subm_rules` of the level equal to its subm2 book;
+  K2. PartA2.yaml at full width, B2: books and detect as K1; the eval
+      forward with every inverse conv's book withheld (the geometric
+      inverse rules) bitwise equal to key reuse; one train step on device
+      books against host books from one seed (TF32 off, deterministic
+      algorithms, warn only: the ops warned of are printed): loss, tb and
+      every gradient bitwise equal, or within 1e-5 of max |g| where an op
+      was warned of.
   Every phase prints its wall time, and the whole script's.
 
 Prints the card's name and power limit, a JSON line with the kernels (A,
@@ -305,7 +326,7 @@ instances of R1 and R6's D, D'', D' (32, 16), (64, 32), (128, 64) and E,
 E' (64, 128)), each with its launches on its main path
 (by path for A, B, C, D and D': the B2 detect, P4's evaluation, the CLI
 pair's training and evaluation, A also the fork's argo detect and its
-test CLI), its error
+test CLI, and K1-K3's paths on device books), its error
 against its plain version, its time and the plain version's, and its bound
 (`bound_ms`, the larger of its bytes over 3.35 TB/s and its operations over
 the peak rate of their type, 67 TFLOP/s for f32 outside the tensor cores
@@ -315,10 +336,12 @@ and as its last line {"ok": true, "device": {...}}.  Exits nonzero, with no
 result line, when no CUDA device is present or any phase fails.
 """
 import concurrent.futures
+import contextlib
 import copy
 import gc
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1094,10 +1117,10 @@ def run_second(dev, cfg, batches=(2, 8)):
         batch_ms = []
         for _ in range(3):
             t0 = time.perf_counter()
-            for _ in range(10):
+            for _ in range(5):
                 det.detect(pts, mask)
             sync()
-            batch_ms.append(1e3 * (time.perf_counter() - t0) / 10)
+            batch_ms.append(1e3 * (time.perf_counter() - t0) / 5)
         ms = sorted(batch_ms)[1]
         t = {}
         with torch.inference_mode():
@@ -1135,7 +1158,7 @@ def run_second(dev, cfg, batches=(2, 8)):
             t['topk_decode'] = cuda_ms(
                 lambda: candidates(det.model, ret, tc), 5)
             t['nms'] = cuda_ms(lambda: run_nms(cand, tc), 5)
-        print('[second S5 B%d] detect %.2f frames/s (median of 3 runs of 10 '
+        print('[second S5 B%d] detect %.2f frames/s (median of 3 runs of 5 '
               'batches; ms per batch %s); voxelize %.2f ms; books %.2f ms '
               '(coords to host %.2f, host build %.2f, upload + decode %.2f); '
               'backbone %.2f ms; RPN %.2f ms; predict %.2f ms (of it top-k + '
@@ -1555,27 +1578,6 @@ def run_train(dev, cfg, batches=(2, 8), steps=5, timed_steps=2):
         for tt, name in rows[:12]:
             print('[train T5 B%d]   kernel %7.3f ms %5.1f%%  %s' % (
                 b, tt, 100 * tt / busy, name[:90]))
-    # the same prebuilt steps with cuDNN's autotuner choosing the RPN's
-    # f32 conv algorithms (its heuristic picks FFT convolutions above)
-    torch.backends.cudnn.benchmark = True
-    for b in batches[:1]:
-        batch = trainer.make_batch(pts_all[:b].contiguous(),
-                                   mask_all[:b].contiguous(), gt_np[:b])
-        for _ in range(2):
-            trainer.step(batch)
-        sync()
-        pre = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            for _ in range(timed_steps):
-                trainer.step(batch)
-            sync()
-            pre.append(1e3 * (time.perf_counter() - t0) / timed_steps)
-        print('[train T5 B%d] prebuilt batch with torch.backends.cudnn.'
-              'benchmark on: %.2f ms (%.2f samples/s; %s)' % (
-                  b, sorted(pre)[1], 1e3 * b / sorted(pre)[1],
-                  ', '.join('%.2f' % x for x in pre)))
-    torch.backends.cudnn.benchmark = False
     sync()
     d = kstats['d']
     return (kernel_entry('gather_dw', 'pcdet_tpu_torch/csrc/gather_dw.cu',
@@ -6054,6 +6056,411 @@ def run_ddp_cli(dev, workdir):
     return {'rotated_overlap': {'ddp M3 test CLI': a_launches}}
 
 
+# K1-K3: the rulebooks built on the card (PCDET_HOST_BOOKS=0) -------------
+
+class device_books_on:
+    """Context: PCDET_HOST_BOOKS=0, the sparse models' books built on the
+    card (`host_books.use_host_books`); the variable restored on exit."""
+
+    def __enter__(self):
+        self.old = os.environ.get('PCDET_HOST_BOOKS')
+        os.environ['PCDET_HOST_BOOKS'] = '0'
+        return self
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            del os.environ['PCDET_HOST_BOOKS']
+        else:
+            os.environ['PCDET_HOST_BOOKS'] = self.old
+
+
+def books_equal(tag, got, want):
+    """Require two decoded book dicts equal element for element (dtype,
+    shape, every value); returns the number of tensors compared."""
+    require(sorted(got) == sorted(want), '%s: keys %s vs %s'
+            % (tag, sorted(got), sorted(want)))
+    n = 0
+    for key, book in want.items():
+        other = got[key]
+        for a, b in (zip(book, other) if isinstance(book, tuple)
+                     else [(book, other)]):
+            require(a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a, b), '%s: book %s differs' % (tag, key))
+            n += 1
+    return n
+
+
+def sync_free_books(model, coords, train):
+    """`model.device_books` under torch.cuda's sync debug mode 'error': a
+    host sync inside the builders raises."""
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        return model.device_books(coords, train)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def book_stage_ms(model, coords, train, iters=5):
+    """(the host stage: coords to the host, the native build, the upload and
+    decode, ms by the host clock to synced; the device build's ms on the
+    card, queued behind a spin kernel; the host ms to enqueue it; and its
+    ms by the host clock to synced)."""
+    def host():
+        c = coords.cpu().numpy()
+        return model.upload_books(model.build_books(c, train), c.shape[1],
+                                  train)
+
+    def device():
+        return model.device_books(coords, train)
+
+    walls = []
+    for fn in (host, device):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync()
+        walls.append(1e3 * (time.perf_counter() - t0) / iters)
+    dev_ms, enqueue_ms = queued_ms(device, iters)
+    return walls[0], dev_ms, enqueue_ms / iters, walls[1]
+
+
+def books_both_ways(tag, det, coords, train, iters=5):
+    """K1 / K2's book check and times at one batch and caps; returns the
+    device books."""
+    model = det.model
+    want = model.upload_books(model.build_books(coords.cpu().numpy(), train),
+                              coords.shape[1], train)
+    got = sync_free_books(model, coords, train)
+    n = books_equal(tag, got, want)
+    host_ms, dev_ms, enqueue_ms, wall_ms = book_stage_ms(model, coords, train,
+                                                         iters)
+    print('%s %s caps: device books == host books (%d tensors, built with '
+          'no host sync); live per level %s, drops %s; host stage (copy, '
+          'native build, upload) %.2f ms; device build %.2f ms by CUDA '
+          'events behind a spin kernel (launch-bound where the %.2f ms a '
+          'build takes to enqueue is more), %.2f ms by the host clock to '
+          'synced'
+          % (tag, 'train' if train else 'eval', n,
+             {k: v[2].sum(1).tolist() for k, v in got.items()
+              if isinstance(v, tuple)},
+             {k: v[3].tolist() for k, v in got.items()
+              if isinstance(v, tuple)}, host_ms, dev_ms, enqueue_ms, wall_ms))
+    return got
+
+
+def detect_both_ways(tag, det, pts, mask, runs=3, n=5):
+    """Detect on host books and on device books: the predictions equal
+    (every tensor), the launches equal; frames/s both ways (median of
+    `runs` runs of `n` batches).  Returns the device run's launches (the
+    sparse kernels' and A's)."""
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    out = {}
+    for way in ('host', 'device'):
+        with (device_books_on() if way == 'device'
+              else contextlib.nullcontext()):
+            det.detect(pts, mask)
+            sync()
+            reset_launches()
+            ro.LAUNCHES = 0
+            preds = det.detect(pts, mask)
+            sync()
+            counts = (nonzero(all_launches()), ro.LAUNCHES)
+            ms = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    det.detect(pts, mask)
+                sync()
+                ms.append(1e3 * (time.perf_counter() - t0) / n)
+            out[way] = (preds, counts, sorted(ms)[len(ms) // 2])
+    (hp, hc, hms), (dp, dc, dms) = out['host'], out['device']
+    for k, v in hp.items():
+        require(torch.equal(dp[k], v), '%s: detect %s differs between host '
+                'and device books' % (tag, k))
+    require(hc == dc, '%s: launches %s with host books, %s with device '
+            'books' % (tag, hc, dc))
+    b = pts.shape[0]
+    print('%s detect B%d: predictions equal on host and device books (num '
+          '%s); launches %s, kernel A %d; %.2f frames/s on host books (%.2f '
+          'ms a batch), %.2f on device books (%.2f ms)' % (
+              tag, b, hp['num'].tolist(), dc[0], dc[1], 1e3 * b / hms, hms,
+              1e3 * b / dms, dms))
+    return dc
+
+
+def flat_outputs(ret, prefix=''):
+    """A model's output dict as (name, tensor) pairs, nested dicts in."""
+    out = []
+    for k, v in sorted(ret.items()):
+        if isinstance(v, dict):
+            out += flat_outputs(v, prefix + k + '.')
+        elif torch.is_tensor(v):
+            out.append((prefix + k, v))
+    return out
+
+
+def geometric_decoder_equal(det, pts, mask):
+    """Part-A²'s forward with every inverse conv's book withheld (its rules
+    from the geometry, `sparse.inverse_rules_geometric`) against key
+    reuse: every output bitwise equal.  Returns the outputs compared."""
+    from pcdet_tpu_torch.ops import sparse
+    inverse = sparse.inverse_conv3d
+
+    def withheld(level, target, weights, book, *args, rules_t=None,
+                 xwin=None, bwd_xwin=None, **kw):
+        return inverse(level, target, weights, None, *args, **kw)
+
+    with torch.inference_mode():
+        vox = det.voxelize(pts, mask)
+        books = det.books(vox)
+        ref = flat_outputs(det.model.forward(dict(vox, books=books)))
+        sparse.inverse_conv3d = withheld
+        try:
+            geo = flat_outputs(det.model.forward(dict(vox, books=books)))
+        finally:
+            sparse.inverse_conv3d = inverse
+    sync()
+    require([k for k, _ in geo] == [k for k, _ in ref], 'output keys')
+    for (k, a), (_, b) in zip(geo, ref):
+        require(torch.equal(a, b), 'K2: the geometric inverse rules change '
+                '%s' % k)
+    return len(ref)
+
+
+def step_both_ways(cfg, dev, pts, mask, gt):
+    """One Part-A² train step's loss and gradients on host and on device
+    books from the same seed, TF32 off and deterministic algorithms
+    (warnings recorded): {way: (loss, tb, grads, books, launches, A)},
+    the parameter names and the ops warned of as nondeterministic."""
+    import warnings
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    from pcdet_tpu_torch.train import train_state
+    from pcdet_tpu_torch.train.trainer import build_trainer
+    out, names = {}, None
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            for way in ('host', 'device'):
+                with (device_books_on() if way == 'device'
+                      else contextlib.nullcontext()):
+                    trainer = build_trainer(cfg, dev, seed=0, total_steps=2)
+                    batch = trainer.make_batch(pts, mask, gt)
+                    parta2_gt_proposals(trainer.model, batch['gt_boxes'])
+                    sync()
+                    reset_launches()
+                    ro.LAUNCHES = 0
+                    loss, tb, grads = train_state.loss_and_grads(
+                        trainer.model, list(trainer.state.params), batch)
+                    sync()
+                    out[way] = (loss, tb, grads, batch['books'],
+                                nonzero(all_launches()), ro.LAUNCHES)
+                    names = trainer.state.optimizer.names
+                    del trainer, batch
+    finally:
+        torch.use_deterministic_algorithms(False)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    warned = sorted({str(w.message).split('\n')[0][:160] for w in caught
+                     if 'deterministic' in str(w.message)})
+    return out, names, warned
+
+
+def run_device_books(dev, smi):
+    """Phases K1-K3; returns the launches by path {name: {path: n}}."""
+    from pcdet_tpu_torch import detect as detect_mod
+    from pcdet_tpu_torch.models.backbones3d import SparseBottleneck
+    from pcdet_tpu_torch.models.layers import init_weights
+    from pcdet_tpu_torch.ops import sparse
+    from pcdet_tpu_torch.train.trainer import make_train_scans
+    paths = {'gather_gemm_bf16': {}, 'rotated_overlap': {},
+             'gather_gemm_f32': {}, 'gather_dw': {}, 'gather_dw_seg': {}}
+    print('[books K] %s' % smi)
+
+    # K1. SECOND at full width, B2 and B8 ----------------------------------
+    t0 = time.perf_counter()
+    cfg = detect_mod.load_config(detect_mod.SECOND_CFG)
+    det = second_detector(cfg, dev)
+    caps = {False: det.max_voxels,
+            True: int(cfg.DATA_CONFIG.TRAIN.MAX_NUMBER_OF_VOXELS)}
+    pts_np, mask_np = detect_mod.make_scans(cfg, 8)
+    pts8 = torch.as_tensor(pts_np, device=dev)
+    mask8 = torch.as_tensor(mask_np, device=dev)
+    level2 = None
+    for b in (2, 8):
+        pts, mask = pts8[:b].contiguous(), mask8[:b].contiguous()
+        for train in (False, True):
+            det.max_voxels = caps[train]
+            vox = det.voxelize(pts, mask)
+            got = books_both_ways('[books K1] second.yaml B%d' % b, det,
+                                  vox['coordinates'], train)
+            if b == 2 and not train:
+                level2 = got
+        det.max_voxels = caps[False]
+        counts, a = detect_both_ways('[books K1] second.yaml', det, pts, mask)
+        require(counts.get('gather_gemm_bf16', 0) > 0 and a > 0,
+                'K1: detect launched %s, kernel A %d' % (counts, a))
+        if b == 2:
+            path = 'second detect B2, device books (K1)'
+            paths['gather_gemm_bf16'][path] = counts.get('gather_gemm_bf16',
+                                                         0)
+            paths['rotated_overlap'][path] = a
+    print('[books K1] %.1f s' % (time.perf_counter() - t0))
+    mark('K1')
+
+    # K3. SparseBottleneck and sparse_maxpool3d on K1's conv2 level --------
+    t0 = time.perf_counter()
+    ids, coords, mask, _, _ = level2['spconv2']
+    shape = sparse.conv_out_shape(det.model.sparse_shape, 3, 2, 1)
+    gen = torch.Generator().manual_seed(0)
+    feats = torch.randn(*mask.shape, 16, generator=gen).to(dev)
+    level = sparse.SparseLevel(feats * mask[..., None], ids, coords, mask,
+                               shape)
+    cpu_level = sparse.SparseLevel(*(t.cpu() for t in level[:4]), shape)
+    require(torch.equal(sparse.subm_rules(level), level2['subm2']),
+            'K3: subm_rules of the conv2 level is not its subm2 book')
+    net = SparseBottleneck(16, 16)
+    init_weights(net, gen)
+    for bn in (m for m in net.modules() if hasattr(m, 'running_var')):
+        bn.running_mean.copy_(torch.rand(bn.running_mean.shape,
+                                         generator=gen) * 0.2 - 0.1)
+        bn.running_var.copy_(torch.rand(bn.running_var.shape,
+                                        generator=gen) + 0.5)
+    card = copy.deepcopy(net).to(dev)
+    for train in (False, True):
+        net.train(train)
+        card.train(train)
+        with torch.no_grad():
+            reset_launches()
+            out = card(level, level2['subm2'])
+            sync()
+            counts = nonzero(all_launches())
+            want = net(cpu_level)
+        err = (out.features.cpu() - want.features).abs().max().item()
+        scale = want.features.abs().max().item()
+        print('[books K3] SparseBottleneck(16, 16) %s on the conv2 level of '
+              'K1\'s B2 scans (%s live rows of %d, 16 -> 16 -> 16 -> 64, '
+              'projection 16 -> 64): launches %s; max |card - CPU| %.3g of '
+              'max |out| %.3g' % ('train' if train else 'eval',
+                                  mask.sum(1).tolist(), mask.shape[1],
+                                  counts, err, scale))
+        require(counts.get('gather_gemm_f32', 0) == 4,
+                'K3: SparseBottleneck launched %s, want 4 of B' % counts)
+        require(scale > 0 and err <= 1e-5 * scale,
+                'K3: SparseBottleneck card vs CPU %g of %g' % (err, scale))
+        if not train:
+            paths['gather_gemm_f32'][
+                'SparseBottleneck on the conv2 level B2 (K3)'] = counts.get(
+                    'gather_gemm_f32', 0)
+    cap = level2['spconv3'][0].shape[1]
+    pooled = sparse.sparse_maxpool3d(level, 3, 2, 1, cap)
+    want = sparse.sparse_maxpool3d(cpu_level, 3, 2, 1, cap)
+    pool_ms = cuda_ms(lambda: sparse.sparse_maxpool3d(level, 3, 2, 1, cap), 5)
+    err = (pooled.features.cpu() - want.features).abs().max().item()
+    scale = want.features.abs().max().item()
+    for a, b in zip(pooled[1:4], want[1:4]):
+        require(torch.equal(a.cpu(), b), 'K3: max-pool output set differs')
+    require(torch.equal(pooled.ids, level2['spconv3'][0]),
+            'K3: the max-pool output set is not spconv3\'s')
+    require(scale > 0 and err <= 1e-5 * scale,
+            'K3: sparse_maxpool3d card vs CPU %g of %g' % (err, scale))
+    print('[books K3] sparse_maxpool3d 3 / 2 / 1 at cap %d: output set == '
+          'spconv3\'s book, max |card - CPU| %.3g of %.3g, %.2f ms a call'
+          % (cap, err, scale, pool_ms))
+    del det, level, card
+    print('[books K3] %.1f s' % (time.perf_counter() - t0))
+    mark('K3')
+
+    # K2. Part-A² at full width, B2 ----------------------------------------
+    t0 = time.perf_counter()
+    cfg = detect_mod.load_config(detect_mod.PARTA2_CFG)
+    det = second_detector(cfg, dev)
+    pts_np, mask_np, gt_np = make_train_scans(cfg, 2, ring_keep=0.35)
+    pts = torch.as_tensor(pts_np, device=dev)
+    mask = torch.as_tensor(mask_np, device=dev)
+    caps = {False: det.max_voxels,
+            True: int(cfg.DATA_CONFIG.TRAIN.MAX_NUMBER_OF_VOXELS)}
+    for train in (False, True):
+        det.max_voxels = caps[train]
+        books_both_ways('[books K2] PartA2.yaml B2', det,
+                        det.voxelize(pts, mask)['coordinates'], train)
+    det.max_voxels = caps[False]
+    counts, a = detect_both_ways('[books K2] PartA2.yaml', det, pts, mask)
+    require(counts.get('gather_gemm_bf16', 0) > 0 and a > 0,
+            'K2: detect launched %s, kernel A %d' % (counts, a))
+    path = 'parta2 detect B2, device books (K2)'
+    paths['gather_gemm_bf16'][path] = counts.get('gather_gemm_bf16', 0)
+    paths['rotated_overlap'][path] = a
+    with device_books_on():
+        n = geometric_decoder_equal(det, pts, mask)
+    print('[books K2] PartA2.yaml B2 eval forward with the inverse convs\' '
+          'books withheld (geometric inverse rules): %d outputs bitwise '
+          'equal to key reuse' % n)
+    del det
+    runs, names, warned = step_both_ways(cfg, dev, pts, mask, gt_np)
+    (hl, htb, hg, hb, hc, ha), (dl, dtb, dg, db, dc, da) = (runs['host'],
+                                                            runs['device'])
+    books_equal('[books K2] train step', db, hb)
+    require(hc == dc and ha == da, 'K2 step launches %s / %d with host '
+            'books, %s / %d with device books' % (hc, ha, dc, da))
+    require(torch.equal(dl, hl), 'K2 step loss %r vs %r' % (float(dl),
+                                                          float(hl)))
+    require(sorted(dtb) == sorted(htb), 'K2 step tb keys')
+    for k, v in htb.items():
+        require(torch.equal(dtb[k], v), 'K2 step %s differs' % k)
+    apart = []
+    for name, g, h in zip(names, dg, hg):
+        if not torch.equal(g, h):
+            apart.append((name, (g - h).abs().max().item()
+                          / max(h.abs().max().item(), 1e-30)))
+    print('[books K2] PartA2.yaml train step B2 (f32, TF32 off, '
+          'deterministic algorithms): loss %.6f equal on host and device '
+          'books, %d tb scalars equal, %d of %d gradients bitwise equal%s; '
+          'launches %s, kernel A %d; ops warned of as nondeterministic: %s'
+          % (float(hl), len(htb), len(names) - len(apart), len(names),
+             ', the rest within %s of their max' % apart if apart else '',
+             dc, da, warned or 'none'))
+    require(all(r <= 1e-5 for _, r in apart) and (not apart or warned),
+            'K2 step gradients differ: %s (ops warned of: %s)'
+            % (apart, warned))
+    path = 'parta2 train step B2, device books (K2)'
+    paths['gather_gemm_f32'][path] = (dc.get('gather_gemm_f32', 0)
+                                      + dc.get('gather_gemm_f32_dgrad', 0))
+    paths['gather_dw'][path] = dc.get('gather_dw', 0)
+    paths['gather_dw_seg'][path] = dc.get('gather_dw_seg', 0)
+    paths['rotated_overlap'][path] = da
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print('[books K2] %.1f s' % (time.perf_counter() - t0))
+    mark('K2')
+    return paths
+
+
+def build_all():
+    """Build every kernel (one nvcc each), the KITTI evaluator and the host
+    book builder, all at once; returns the host book builder's library
+    (None where g++ failed)."""
+    from pcdet_tpu_torch.datasets.kitti.kitti_eval import (
+        native as kitti_native)
+    from pcdet_tpu_torch.ops import host_books
+    from pcdet_tpu_torch.ops import gather_dw as gd
+    from pcdet_tpu_torch.ops import gather_gemm as gg
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    builds = (ro.build, ro.build_sorted, gg.build, gd.build, gx.build,
+              gd.build_xwin, kitti_native.get_lib, host_books.native_lib)
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        jobs = [pool.submit(fn) for fn in builds]
+        return [j.result() for j in jobs][-1]
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; the port is checked on the GPU',
@@ -6061,12 +6468,7 @@ def main():
         return 2
 
     from pcdet_tpu_torch import detect as detect_mod
-    from pcdet_tpu_torch.datasets.kitti.kitti_eval import (
-        native as kitti_native)
     from pcdet_tpu_torch.ops import cuda_build, host_books, rotated_iou
-    from pcdet_tpu_torch.ops import gather_dw as gd
-    from pcdet_tpu_torch.ops import gather_gemm as gg
-    from pcdet_tpu_torch.ops import gather_xwin as gx
     from pcdet_tpu_torch.ops import rotated_overlap as ro
 
     dev = torch.device('cuda')
@@ -6083,11 +6485,7 @@ def main():
 
     # 1. build: every kernel (one nvcc each) and the host book builder at once
     t_start = t0 = time.perf_counter()
-    builds = (ro.build, ro.build_sorted, gg.build, gd.build, gx.build,
-              gd.build_xwin, kitti_native.get_lib, host_books.native_lib)
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-        jobs = [pool.submit(fn) for fn in builds]
-        native_lib = [j.result() for j in jobs][-1]
+    native_lib = build_all()
     print('[build] all builds: %.2f s wall; native host book builder: %s'
           % (time.perf_counter() - t0, host_books._NATIVE.get('path')))
     require(native_lib is not None, 'the host book builder did not build: %s'
@@ -6371,6 +6769,7 @@ def main():
     parta2_entries, parta2_paths = timed('Part-A2 R1-R3', run_parta2, dev)
     train_entries, train_paths = timed('Part-A2 training R5-R7',
                                        run_parta2_train, dev)
+    books_paths = timed('device books K1-K3', run_device_books, dev, smi)
     with tempfile.TemporaryDirectory() as workdir:
         cli_paths = timed('CLI pair L1-L4, R8 and R4', run_cli, dev,
                           workdir)
@@ -6393,7 +6792,8 @@ def main():
     kernels = ([a_entry] + second + [dw_entry] + xwin + parta2_entries
                + train_entries + evals)
     for entry in kernels:
-        for paths in (parta2_paths, train_paths, cli_paths, ddp_paths):
+        for paths in (parta2_paths, train_paths, cli_paths, ddp_paths,
+                      books_paths):
             if entry['name'] in paths:
                 entry.setdefault('launches_by_path', {}).update(
                     paths[entry['name']])

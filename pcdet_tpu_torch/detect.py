@@ -12,8 +12,10 @@
 runs voxelize_torch -> PointPillarNet (VFE, scatter, RPNV2) -> predict
 (masked top-k, decode of the survivors, batched rotated NMS).  SECOND's
 (`load_config(SECOND_CFG)`) runs voxelize_torch on the device, one copy of
-the coords to the host, the host rulebook build, one upload of the books,
-SECONDNetModule (MeanVFE, BackBone8x sparse convs, RPNV2) and predict;
+the coords to the host, the host rulebook build, one upload of the books
+(under PCDET_HOST_BOOKS=0: the books built on the device instead,
+`ops/host_books.build_books_device`), SECONDNetModule (MeanVFE, BackBone8x
+sparse convs, RPNV2) and predict;
 `build_detector(cfg, device, loads=ops.sparse.Loads(fwd, dw))` chooses the
 sparse convs' load strategy (`ops.sparse.DEFAULT_LOADS` unless given).
 Part-A²'s (`load_config(PARTA2_CFG)`, or `PARTA2_FC_CFG` for Part-A²-fc)
@@ -136,7 +138,8 @@ class Detector:
 
 class SparseDetector(Detector):
     """SECOND or Part-A²: the sparse backbone runs over rulebooks built on
-    the host from the voxelizer's coords, its kw=3 convs by `loads`
+    the host (or, under PCDET_HOST_BOOKS=0, on the device) from the
+    voxelizer's coords, its kw=3 convs by `loads`
     (`ops.sparse.Loads`)."""
 
     @property
@@ -146,7 +149,11 @@ class SparseDetector(Detector):
 
     def books(self, vox):
         """One device -> host copy of the coords (the mask is coords >= 0),
-        the host build, one upload: decoded books on the device."""
+        the host build, one upload: decoded books on the device; under
+        PCDET_HOST_BOOKS=0 the same books built on the device
+        (`model.device_books`), with no copy."""
+        if not host_books.use_host_books():
+            return self.model.device_books(vox['coordinates'])
         coords = vox['coordinates'].cpu().numpy()
         return self.model.upload_books(self.model.build_books(coords),
                                        coords.shape[1])

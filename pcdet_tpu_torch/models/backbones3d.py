@@ -2,15 +2,18 @@
 and training.
 
 Twin of `pcdet_tpu.models.backbones3d.SpConvBNReLU` / `BackBone8x` /
-`SparseBasicBlock` / `UNetV2` with the reference's module names
+`SparseBasicBlock` / `SparseBottleneck` / `UNetV2` with the reference's
+module names
 (`conv_input.0`, `conv1.0.0`, `conv{2,3,4}.{0,1,2}.0`, `conv_out.0`; BN at
 `.1`; the UNet's `conv_up_t{n}.{conv1,bn1,conv2,bn2}`, `conv_up_m{n}`,
 `inv_conv{n}`, `conv5.0`, `seg_{cls,reg}_layer`), so a reference
 state_dict loads as it is.
 Sparse-conv weights keep spconv's layout (k0, k1, k2, Cin, Cout).
 
-Every conv runs over a host-built rulebook (`ops/host_books.py`, keys of
-`encoder_spec`): the 8 subm convs share the 4 subm books of their levels,
+Every conv runs over a rulebook built on the host (`ops/host_books.py`,
+keys of `encoder_spec`) or, under PCDET_HOST_BOOKS=0, on the device
+(`host_books.build_books_device`): the 8 subm convs share the 4 subm
+books of their levels,
 and each strided conv's book carries its output set.  In training the
 backward of each conv runs over the mirrored (subm) or transposed
 (strided) book; a level's mirrored book is built once and shared by its
@@ -19,7 +22,7 @@ subm convs.  BN then takes masked batch statistics.  `loads`
 wide in x (all but conv_out): their books' x-window selectors are built
 once per book and step here, with the transposed or mirrored book's when
 a backward will run, and each selector build's count of dropped taps is
-kept in `xwin_clamped` (0 on host books).
+kept in `xwin_clamped` (0 on host and device books).
 """
 import math
 
@@ -249,6 +252,57 @@ class SparseBasicBlock(nn.Module):
                          **shared)
         f = torch.relu(self.bn2(out.features, out.mask) + level.features)
         return out._replace(features=f * mask)
+
+
+class SparseBottleneck(nn.Module):
+    """1x1x1 -> 3x3x3 -> 1x1x1 residual bottleneck of subm convs, expansion
+    4 (`pcdet_tpu.models.backbones3d.SparseBottleneck`, the reference's
+    resnet_utils.py:51-86; in the block library, used by no shipped
+    model): conv1 -> bn1 -> ReLU -> conv2 -> bn2 -> ReLU -> conv3 -> bn3,
+    plus the input, or where `inplanes` != 4 * planes its 1x1x1
+    projection (`downsample`: conv, BN), ReLU, `* mask`.  The books are
+    built on the level's device: the 1x1x1 book is the identity on live
+    rows, the 3x3x3 book `sparse.subm_rules` unless the caller gives it.
+    Its convs run kernels B / C (the 3x3x3 one by `loads`)."""
+
+    expansion = 4
+
+    def __init__(self, inplanes, planes):
+        super().__init__()
+        out = planes * self.expansion
+        one = dict(kernel=(1, 1, 1), padding=(0, 0, 0))
+        self.conv1 = SparseConv3d(inplanes, planes, **one)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = SparseConv3d(planes, planes)
+        self.bn2 = BatchNorm(planes)
+        self.conv3 = SparseConv3d(planes, out, **one)
+        self.bn3 = BatchNorm(out)
+        self.downsample = (nn.Sequential(SparseConv3d(inplanes, out, **one),
+                                         BatchNorm(out))
+                           if inplanes != out else None)
+
+    def forward(self, level, book=None, compute_dtype=None, loads=sparse.ROWS):
+        """:param book: the level's 3x3x3 subm book (B, V, 27), or None to
+        build it here"""
+        mask = level.mask[..., None].to(level.features.dtype)
+        one = sparse.subm_rules(level, (1, 1, 1))
+        book = sparse.subm_rules(level) if book is None else book
+        out = level
+        for conv, bn, rules in ((self.conv1, self.bn1, one),
+                                (self.conv2, self.bn2, book),
+                                (self.conv3, self.bn3, one)):
+            out = conv(out, rules, compute_dtype, loads)
+            f = bn(out.features, out.mask)
+            if conv is not self.conv3:
+                f = torch.relu(f)
+            out = out._replace(features=f * mask)
+        identity = level.features
+        if self.downsample is not None:
+            conv, bn = self.downsample
+            identity = bn(conv(level, one, compute_dtype, loads).features,
+                          level.mask)
+        return out._replace(
+            features=torch.relu(out.features + identity) * mask)
 
 
 class UNetV2(BackBone8x):

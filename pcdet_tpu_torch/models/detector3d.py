@@ -31,6 +31,9 @@ class TrainHooks:
     # the ranks that share the global batch (`parallel.ddp`; set by the
     # trainer): the losses divide by the global batch's normalizers
     process_group = None
+    # True: `host_targets` reads the voxel coords (Part-A²'s per-voxel
+    # targets), so the trainer gives it the step's coords
+    coord_targets = False
 
     def frozen_prefixes(self):
         """Parameter name prefixes that the optimizer leaves out."""
@@ -40,8 +43,9 @@ class TrainHooks:
         """The targets made on the host beside the anchor targets, as
         (name, numpy array) pairs for the batch's one upload.
 
-        :param coords: (B, V, 3) ZYX voxel coords on the host, -1 rows for
-            padding (None for a model without host books)
+        :param coords: (B, V, 3) ZYX voxel coords, -1 rows for padding:
+            numpy, or a tensor on the device (None where the batch's
+            points are voxelized in the step and no host target needs them)
         :param gt_boxes: (B, M, 8) boxes with class ids, zero rows padding
         """
         return []

@@ -106,6 +106,7 @@ class PartA2Net(SECONDNet):
     """
 
     draws = True
+    coord_targets = True
 
     def __init__(self, cfg, grid_size, device='cuda', generator=None,
                  loads=None):
@@ -143,7 +144,10 @@ class PartA2Net(SECONDNet):
         """The GT boxes (B, M, 8) f32 for the sampler and the per-voxel
         targets of the UNet loss, as the loader makes them
         (`datasets.dataset.generate_voxel_part_targets` on the voxel
-        centres): seg_labels (B, V) int32, part_labels (B, V, 3) f32."""
+        centres): seg_labels (B, V) int32, part_labels (B, V, 3) f32.
+        Coords on the device are copied to the host here."""
+        if torch.is_tensor(coords):
+            coords = coords.cpu().numpy()
         data_cfg = self.cfg.DATA_CONFIG
         target_cfg = self.cfg.MODEL.RPN.BACKBONE.TARGET_CONFIG
         vs = np.asarray(data_cfg.VOXEL_GENERATOR.VOXEL_SIZE, np.float32)

@@ -2,9 +2,11 @@
 or the anchor-head loss.
 
 Twin of `pcdet_tpu.models.second` (`SECONDNetModule` and the `SECONDNet`
-wrapper).  The sparse backbone runs over host-built rulebooks
-(`ops/host_books.py`) that `forward` takes from the batch: `books`, decoded
-on the device, or the loader's `hb_*` wire arrays.  Anchors and the
+wrapper).  The sparse backbone runs over rulebooks that `forward` takes
+from the batch: `books`, decoded on the device, or the loader's `hb_*` wire
+arrays (`ops/host_books.py`); a batch with neither gets books built on the
+device from its coords under PCDET_HOST_BOOKS=0 (`device_books`), as the
+JAX backbone builds absent books in the step.  Anchors and the
 training targets come from `models/anchors.py` (`AnchorHeadTargets`,
 numpy, on the host).  `train_mode()` / `eval_mode()` switch the caps, the
 compute dtypes and BN between the two, as `train=` does in JAX.  `loads`
@@ -164,14 +166,26 @@ class SECONDNet(TrainHooks):
             flat, self.host_book_spec(input_cap, train), input_cap,
             self.device)
 
+    def device_books(self, coords, train=None):
+        """The books of `build_books`, built where the (B, V, 3) coords lie
+        (-1 rows for padding voxels) and decoded, at the current mode's
+        caps unless `train` says which (`host_books.build_books_device`):
+        no host copy."""
+        train = self.training if train is None else train
+        return host_books.build_books_device(
+            coords, coords[..., 0] >= 0, self.sparse_shape,
+            self.host_book_spec(coords.shape[1], train))
+
     def forward(self, batch):
         """:param batch: voxelizer outputs plus the books: `books` (decoded,
-        on the device) or the loader's `hb_*` wire arrays."""
+        on the device) or the loader's `hb_*` wire arrays; with neither,
+        under PCDET_HOST_BOOKS=0, `device_books` of its coordinates."""
         books = batch.get('books')
-        if books is None:
-            books = self.upload_books(
-                {k: v for k, v in batch.items() if k.startswith('hb_')},
-                batch['coordinates'].shape[1])
+        wire = {k: v for k, v in batch.items() if k.startswith('hb_')}
+        if books is None and not wire and not host_books.use_host_books():
+            books = self.device_books(batch['coordinates'])
+        elif books is None:
+            books = self.upload_books(wire, batch['coordinates'].shape[1])
         return self.module(batch['voxels'], batch['num_points_per_voxel'],
                            batch['coordinates'], batch['voxel_mask'], books)
 

@@ -18,8 +18,16 @@ them there into the gather-GEMM's rules: (B, V_out, K) int32, misses
 routed to the input level's zero row V_in; `upload_loader_batch` does so
 for a loader batch's voxels, targets and books together, and
 `make_batch_transform` builds the books in the loader.
+
+Under `PCDET_HOST_BOOKS=0` (`use_host_books`, read where `pcdet_tpu` reads
+it) the books are built on the device instead, from the voxelizer's coords
+where they lie (`build_books_device`, over the builders of
+`ops/sparse.py`), in `decode_books`' layout with no wire format and no
+host copy: the loader builds none (`make_batch_transform` gives None) and
+`upload_loader_batch` builds them from the uploaded coords.
 """
 import ctypes
+import os
 
 import numpy as np
 import torch
@@ -265,6 +273,44 @@ def _books_sample_np(coords, mask, sparse_shape, spec):
 
 # ------------------------------------------------------------------ API ---
 
+def use_host_books():
+    """False under PCDET_HOST_BOOKS=0: the sparse models' books are built on
+    the device (`build_books_device`), as `pcdet_tpu`'s loader then leaves
+    them to the step (`pcdet_tpu.ops.host_books.make_batch_transform`).
+    Read at each call."""
+    return os.environ.get('PCDET_HOST_BOOKS', '1') != '0'
+
+
+def build_books_device(coords, mask, sparse_shape, spec):
+    """Every book of `spec` for a batch, built where `coords` lie: the
+    decoded books of `decode_books` (bit for bit those of `upload_books(
+    build_books_batch(..))`), by the builders of `ops/sparse.py`, which
+    walk the spec as `_build_books_batch_native` does (each subm book on the
+    level of the strided book before it).  No host sync.
+
+    :param coords: (B, V, 3) int ZYX sorted by linear id, -1 padded
+    :param mask: (B, V) bool live voxels, a prefix per sample
+    """
+    from . import sparse
+    shape = tuple(int(s) for s in sparse_shape)
+    ids = torch.where(mask, sparse.linearize(coords.to(torch.int64), shape),
+                      int(INT_MAX)).to(torch.int32)
+    level = sparse.SparseLevel(None, ids, coords, mask, shape)
+    books = {}
+    for op in spec:
+        if op[0] == 'subm':
+            books[op[1]] = sparse.subm_rules(level)
+            continue
+        _, key, kernel, stride, padding, cap = op
+        books[key] = sparse.strided_out_set(level, kernel, stride, padding,
+                                            int(cap))
+        ids, coords, mask = books[key][:3]
+        level = sparse.SparseLevel(None, ids, coords, mask, _out_shape(
+            shape, _triple(kernel), _triple(stride), _triple(padding)))
+        shape = level.shape
+    return books
+
+
 def encoder_spec(sparse_shape, caps, last_pad):
     """Book spec of BackBone8x's encoder geometry.
 
@@ -401,8 +447,10 @@ def make_batch_transform(model, training):
     for a model without sparse convs (PointPillar).  It runs in the
     loader's producer thread, beside the device step.  None also under
     cfg.TORCH_VOXEL_GENERATOR, whose books come from the device's voxels
-    (`train.trainer.Trainer.upload`, `detect.SparseDetector.upload`)."""
-    if (not hasattr(model, 'host_book_spec')
+    (`train.trainer.Trainer.upload`, `detect.SparseDetector.upload`), and
+    under PCDET_HOST_BOOKS=0 (`use_host_books`), whose books are built on
+    the device."""
+    if (not hasattr(model, 'host_book_spec') or not use_host_books()
             or model.cfg.get('TORCH_VOXEL_GENERATOR', False)):
         return None
     sparse_shape, spec = model.sparse_shape, []
@@ -439,21 +487,26 @@ def upload_loader_batch(batch, device, model, train):
     (B, P) and BEV masks `bev`; for a model
     with sparse convs also its books at the train or eval caps, decoded
     into `books`: the batch's `hb_*` books, which the loader's
-    `make_batch_transform` adds (a batch without them raises).  Under
+    `make_batch_transform` adds, or, for a batch without them under
+    PCDET_HOST_BOOKS=0, books built on the device from the uploaded coords
+    (`model.device_books`; without them otherwise it raises).  Under
     cfg.TORCH_VOXEL_GENERATOR the loader's voxels and books stay on the
     host: the points are voxelized again on the device (`experiments.
     between_dataloading_and_feedforward`)."""
     revoxelize = model.cfg.get('TORCH_VOXEL_GENERATOR', False)
     keys = tuple(k for k in LOADER_KEYS
                  if not (revoxelize and k in VOXEL_KEYS))
-    spec = None
+    spec, on_device = None, False
     if hasattr(model, 'host_book_spec') and not revoxelize:
-        if not any(k.startswith('hb_') for k in batch):
+        on_device = not any(k.startswith('hb_') for k in batch)
+        if on_device and use_host_books():
             raise ValueError(
                 'a batch for a model with sparse convs needs its hb_* '
                 'books: set the loader\'s batch_transform to '
-                'host_books.make_batch_transform(model, training)')
-        spec = model.host_book_spec(batch['coordinates'].shape[1], train)
+                'host_books.make_batch_transform(model, training), or '
+                'build the books on the device under PCDET_HOST_BOOKS=0')
+        if not on_device:
+            spec = model.host_book_spec(batch['coordinates'].shape[1], train)
     arrays, bools = [], []
     for key in keys:
         if key in batch:
@@ -472,4 +525,6 @@ def upload_loader_batch(batch, device, model, train):
         out['num_points_per_voxel'] = out.pop('num_points')
     if spec is not None:
         out['books'] = decode_books(t, spec, batch['coordinates'].shape[1])
+    elif on_device:
+        out['books'] = model.device_books(out['coordinates'], train)
     return out

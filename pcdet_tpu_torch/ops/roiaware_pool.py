@@ -13,9 +13,12 @@ ops here: no TPU kernel stands behind it.  Per RoI:
   4. the value at each run's end written once into its (RoI, cell) slot.
 
 The mean sums in the scan's tree order, not JAX's, so it agrees to
-rounding; the max is exact.
+rounding; the max is exact.  `points_in_boxes_batch` is the reference's
+points_in_boxes op (`pcdet_tpu.ops.roiaware_pool.points_in_boxes_batch`).
 """
 import torch
+
+from ..utils.torch_common import points_in_boxes
 
 INT_MAX = torch.iinfo(torch.int32).max
 
@@ -136,3 +139,13 @@ def roiaware_pool3d_multi_batched(rois, points, feature_specs, point_mask,
         n_in_box = in_box_all.sum(dim=2)
         return outs, torch.clamp(n_in_box - k, min=0).sum().to(torch.int32)
     return outs
+
+
+def points_in_boxes_batch(points, boxes, point_mask=None):
+    """(P, 3+) points x (N, 7) boxes -> (N, P) bool, each point in each box
+    (`utils.torch_common.points_in_boxes`), masked by `point_mask` (P,)
+    where given."""
+    m = points_in_boxes(points, boxes)
+    if point_mask is not None:
+        m = m & point_mask[None, :]
+    return m

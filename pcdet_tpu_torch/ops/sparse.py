@@ -1,15 +1,23 @@
-"""Batched sparse 3D convolution over host-built rulebooks.
+"""Batched sparse 3D convolution over rulebooks, and the rulebooks' device
+builders.
 
-Port of `pcdet_tpu.ops.sparse`'s book-driven convs with the batch written
-out (JAX vmaps per sample).  A level keeps the JAX contracts: ids sorted
-ascending per sample and INT_MAX padded, so live rows are a prefix; coords
--1 on padding rows; features zero on them (every conv multiplies its output
-by the mask).  The rulebooks come from `ops/host_books.py` (the CLI
-default in `pcdet_tpu`); the device builders of `pcdet_tpu.ops.sparse`
-(`_rules_subm`, `_strided_out_set`, `_rules_inverse`) are not ported yet,
-so an inverse conv runs on indice-key reuse only: over the transpose of
-the book of the strided conv it inverts (`inverse_conv3d`), and its
-feature gradient over that conv's own forward book.
+Port of `pcdet_tpu.ops.sparse` with the batch written out (JAX vmaps per
+sample).  A level keeps the JAX contracts: ids sorted ascending per sample
+and INT_MAX padded, so live rows are a prefix; coords -1 on padding rows;
+features zero on them (every conv multiplies its output by the mask).  The
+rulebooks come from the host (`ops/host_books.py`, the default) or from
+the builders here, on the level's own device (`subm_rules`,
+`strided_out_set`, `inverse_rules_geometric`: `pcdet_tpu`'s
+`_rules_subm` / `_rules_affine`, `_strided_out_set` and `_rules_inverse`),
+through `host_books.build_books_device`.  Both give the same books, element
+for element, in `host_books.decode_books`' layout: (B, V_out, K) int32
+rules with misses at the input level's zero row V_in, taps in
+`_kernel_offsets` order.  The device builders are sorts, binary searches
+(`torch.searchsorted` on each sample's sorted ids, where the JAX package
+merge-sorts to dodge the TPU's gathers), cumulative sums and scatters into
+one spare slot: fixed shapes from static caps and no host sync.  An inverse
+conv runs over the transpose of the book of the strided conv it inverts
+(indice-key reuse) or, without that book, over `inverse_rules_geometric`.
 
 Each conv is one launch of a gather-GEMM for the whole batch, through
 `RulebookConv`, whose backward is two more launches: the feature gradient
@@ -26,7 +34,8 @@ the book as x-window selectors (`xwin_selectors`), built once per book
 and level.  On CPU tensors every kernel runs its plain version, so the CPU
 tests hold the same formulas that the card runs.  Features stay f32
 between layers; with compute_dtype bf16 a conv casts its input table to
-bf16 once (JAX rounds inside the conv too).
+bf16 once (JAX rounds inside the conv too).  `sparse_maxpool3d` is plain
+torch, as `pcdet_tpu` leaves it to XLA.
 """
 import math
 from typing import Any, NamedTuple, Tuple
@@ -112,6 +121,148 @@ def conv_out_shape(in_shape, kernel, stride, padding):
     kernel, stride, padding = _triple(kernel), _triple(stride), _triple(padding)
     return tuple((in_shape[i] + 2 * padding[i] - kernel[i]) // stride[i] + 1
                  for i in range(3))
+
+
+def _tap_offsets(kernel, device):
+    """(K, 3) int64 tap offsets (dz, dy, dx), x fastest (the weight layout's
+    and every book's tap order, `pcdet_tpu.ops.sparse._kernel_offsets`),
+    made on `device`: no host to device copy, which would sync."""
+    _, kh, kw = kernel
+    t = torch.arange(math.prod(kernel), dtype=torch.int64, device=device)
+    return torch.stack([t // (kh * kw), t // kw % kh, t % kw], -1)
+
+
+def _lookup(ids, query, valid):
+    """Rows of `query` ids in each sample's sorted `ids`.
+
+    :param ids: (B, V) int32, ascending, INT_MAX padded
+    :param query: (B, M) int64 ids; :param valid: (B, M) bool queries to find
+    :return: rows (B, M) int64 clamped to [0, V - 1], found (B, M) bool
+    """
+    table = ids.to(torch.int64)
+    rows = torch.searchsorted(table, query).clamp_(max=ids.shape[1] - 1)
+    return rows, valid & (torch.gather(table, 1, rows) == query)
+
+
+def _rules(rows, found, n_in, k):
+    """(B, K * V) rows and found, tap-major -> (B, V, K) int32 rules with
+    misses at `n_in`."""
+    b = rows.shape[0]
+    rules = torch.where(found, rows, n_in).to(torch.int32)
+    return rules.reshape(b, k, -1).transpose(1, 2).contiguous()
+
+
+def subm_rules(level, kernel=(3, 3, 3)):
+    """Submanifold book of a level, built on its device: (B, V, K) int32,
+    tap t of output row i the row of the live site at coords[i] + offs[t]
+    - kernel // 2, else V (`pcdet_tpu.ops.sparse._rules_subm`, and
+    `_rules_affine` for a kernel other than 1 or 3 wide).  The centre tap of
+    an odd kernel is the identity on live rows.  Needs only `ids`,
+    `coords`, `mask` and `shape` of the level."""
+    kernel = _triple(kernel)
+    b, v = level.ids.shape
+    dev = level.ids.device
+    eoffs = _tap_offsets(kernel, dev)[:, None, :]              # (K, 1, 3)
+    c = level.coords.to(torch.int64)[:, None]                  # (B, 1, V, 3)
+    ok = level.mask[:, None]
+    for d in range(3):
+        cd = c[..., d] + (eoffs[None, ..., d] - kernel[d] // 2)  # (B, K, V)
+        ok = ok & (cd >= 0) & (cd < level.shape[d])
+    _, h, w = level.shape
+    lin = linearize(eoffs, level.shape) - (
+        (kernel[0] // 2 * h + kernel[1] // 2) * w + kernel[2] // 2)  # (K, 1)
+    query = linearize(c[:, 0], level.shape)[:, None] + lin[None]
+    k = eoffs.shape[0]
+    rows, found = _lookup(level.ids, query.reshape(b, -1), ok.reshape(b, -1))
+    return _rules(rows, found, v, k)
+
+
+def strided_out_set(level, kernel, stride, padding, out_cap):
+    """Output set and forward book of a strided conv or pool, built on the
+    level's device (`pcdet_tpu.ops.sparse._strided_out_set`): every output
+    position whose receptive field touches a live input, the first
+    `out_cap` of them in id order.  Each live input proposes its <=
+    prod(ceil(k / s)) candidate outputs, carrying `tap * V + input row`;
+    one sort of the candidates per sample and a run-length count give the
+    output rows, and every kept candidate IS a book entry ((output, tap)
+    pairs are unique), scattered into place.
+
+    :return: ids (B, O) int32 ascending, INT_MAX padded; coords (B, O, 3)
+        int32, -1 padded; mask (B, O) bool; dropped (B,) int32, the live
+        outputs past the cap; rules (B, O, K) int32, misses at V
+    """
+    kernel, stride, padding = _triple(kernel), _triple(stride), _triple(padding)
+    b, v = level.ids.shape
+    dev = level.ids.device
+    big = int(INT_MAX)          # a Python int: no tensor to copy to `dev`
+    out_shape = conv_out_shape(level.shape, kernel, stride, padding)
+    _, kh, kw = kernel
+    k = math.prod(kernel)
+    # the candidates of every input at once, (B, C, V): candidate-major, as
+    # the JAX package concatenates them
+    cand = _tap_offsets(tuple(-(-kernel[d] // stride[d]) for d in range(3)),
+                        dev)[:, None, :]                        # (C, 1, 3)
+    c = level.coords.to(torch.int64)[:, None]                  # (B, 1, V, 3)
+    ok = level.mask[:, None]
+    o, t = [], []
+    for d in range(3):
+        cd = c[..., d]
+        od = -((kernel[d] - 1 - padding[d] - cd) // stride[d]) + cand[..., d]
+        ok = ok & (od <= (cd + padding[d]) // stride[d]) & (od >= 0) & (
+            od < out_shape[d])
+        o.append(od)
+        t.append(cd + padding[d] - od * stride[d])    # in = out * s - p + t
+    row = torch.arange(v, dtype=torch.int64, device=dev)
+    cand_ids = torch.where(ok, (o[0] * out_shape[1] + o[1]) * out_shape[2]
+                           + o[2], big).reshape(b, -1)
+    cand_origin = (((t[0] * kh + t[1]) * kw + t[2]) * v + row).reshape(b, -1)
+    keys, order = torch.sort(cand_ids, dim=1, stable=True)
+    origin = torch.gather(cand_origin, 1, order)
+    live = keys < big
+    first = live.clone()
+    first[:, 1:] &= keys[:, 1:] != keys[:, :-1]
+    rank = torch.cumsum(first, 1) - 1                  # output row
+    dropped = (first.sum(1) - out_cap).clamp_(min=0).to(torch.int32)
+    slot = torch.where(first & (rank < out_cap), rank, out_cap)
+    ids = torch.full((b, out_cap + 1), big, dtype=torch.int64, device=dev)
+    ids = ids.scatter_(1, slot, keys)[:, :out_cap]
+    mask = ids < big
+    plane = out_shape[1] * out_shape[2]
+    coords = torch.stack([ids // plane, ids // out_shape[2] % out_shape[1],
+                          ids % out_shape[2]], -1)
+    coords = torch.where(mask[..., None], coords, -1).to(torch.int32)
+    slot = torch.where(live & (rank < out_cap), rank * k + origin // v,
+                       out_cap * k)
+    rules = torch.full((b, out_cap * k + 1), v, dtype=torch.int32, device=dev)
+    rules = rules.scatter_(1, slot, (origin % v).to(torch.int32))
+    return (ids.to(torch.int32).contiguous(), coords, mask, dropped,
+            rules[:, :out_cap * k].reshape(b, out_cap, k).contiguous())
+
+
+def inverse_rules_geometric(level, target, kernel, stride, padding):
+    """Book of the inverse conv of `level` (coarse) onto the sites of
+    `target` (fine) from the geometry alone, built on the device
+    (`pcdet_tpu.ops.sparse._rules_inverse`): tap t of fine row u reads the
+    live coarse site (u + padding - t) / stride, where that divides.
+    Equal to `inverse_rules` of the strided conv's book that made `level`
+    from `target`, which the JAX package's key reuse gives.
+
+    :return: (B, V_fine, K) int32 rules, misses at V_coarse
+    """
+    kernel, stride, padding = _triple(kernel), _triple(stride), _triple(padding)
+    b, n_coarse = level.ids.shape
+    offs = _tap_offsets(kernel, level.ids.device)[:, None, :]   # (K, 1, 3)
+    u = target.coords.to(torch.int64)[:, None]                # (B, 1, Vf, 3)
+    ok = target.mask[:, None]
+    q = []
+    for d in range(3):
+        num = u[..., d] + padding[d] - offs[None, ..., d]      # (B, K, Vf)
+        qd = num // stride[d]
+        ok = ok & (num >= 0) & (num % stride[d] == 0) & (qd < level.shape[d])
+        q.append(qd)
+    query = linearize(torch.stack(q, -1), level.shape)
+    rows, found = _lookup(level.ids, query.reshape(b, -1), ok.reshape(b, -1))
+    return _rules(rows, found, n_coarse, offs.shape[0])
 
 
 def transpose_rules(rules, n_in, n_out):
@@ -294,14 +445,18 @@ def inverse_conv3d(level, target, weights, book, kernel, stride, padding,
                    bwd_xwin=None):
     """Inverse (up) conv of a coarse level onto the sites of `target`, the
     fine level whose strided conv produced it: spconv's SparseInverseConv3d
-    on indice-key reuse (`pcdet_tpu.ops.sparse.inverse_conv3d`).  Its book
-    is the transpose of that conv's forward book, so tap t meets weight
-    tap t as in the JAX package.
+    (`pcdet_tpu.ops.sparse.inverse_conv3d`).  On indice-key reuse its book
+    is the transpose of that conv's forward book, so tap t meets weight tap
+    t as in the JAX package; where `book` is None or is not the book that
+    made `level` (its rules' shape or output ids differ), the book comes
+    from the geometry (`inverse_rules_geometric`, the same rules), as
+    `pcdet_tpu` falls back to `_rules_inverse`.
 
     :param level: the coarse input level (the strided conv's output sites)
     :param target: the fine level; its ids, coords and mask are the output's
     :param book: the strided conv's (out_ids, out_coords, out_mask,
-        dropped, rules) from `ops.host_books.upload_books`
+        dropped, rules) from `ops.host_books.upload_books` or
+        `build_books_device`, or None
     :param kernel, stride, padding: the strided conv's
     :param loads: `Loads` (no default here), for a kernel 3 wide in x
     :param rules_t: `inverse_rules` of the book when the caller built it;
@@ -310,15 +465,15 @@ def inverse_conv3d(level, target, weights, book, kernel, stride, padding,
     :param bwd_xwin: the selectors of the book's rules when the caller
         built them (the strided conv's own; None builds them where needed)
 
-    The feature gradient runs over the transpose of `rules_t`, which is
-    the strided conv's forward book on the fine level's live sites: the
-    book's rules as they are, which the backward takes (and `bwd_xwin`)
-    instead of rebuilding them by a scatter.
-    :raises ValueError: where the book or the geometry is not the one that
-        produced `level` from `target`
+    On reuse the feature gradient runs over the transpose of `rules_t`,
+    which is the strided conv's forward book on the fine level's live
+    sites: the book's rules as they are, which the backward takes (and
+    `bwd_xwin`) instead of rebuilding them by a scatter.  On the geometric
+    book the backward transposes `rules_t`, which gives the same rules.
+    :raises ValueError: where the geometry does not give `level`'s shape
+        from `target`'s
     """
     kernel, stride, padding = _triple(kernel), _triple(stride), _triple(padding)
-    out_ids, _, _, _, rules = book
     b, n_coarse = level.ids.shape
     n_fine = target.ids.shape[1]
     if conv_out_shape(target.shape, kernel, stride, padding) != level.shape:
@@ -327,20 +482,49 @@ def inverse_conv3d(level, target, weights, book, kernel, stride, padding,
                                           target.shape, conv_out_shape(
                                               target.shape, kernel, stride,
                                               padding), level.shape))
-    if (tuple(rules.shape) != (b, n_coarse, math.prod(kernel))
-            or (out_ids is not level.ids
-                and not torch.equal(out_ids, level.ids))):
-        raise ValueError('the book (rules %s) is not the one whose strided '
-                         'conv produced the input level (%d sites)'
-                         % (tuple(rules.shape), n_coarse))
-    if rules_t is None:
+    rules = None if book is None else book[4]
+    if (rules is None
+            or tuple(rules.shape) != (b, n_coarse, math.prod(kernel))
+            or (book[0] is not level.ids
+                and not torch.equal(book[0], level.ids))):
+        rules = xwin = bwd_xwin = None
+        rules_t = inverse_rules_geometric(level, target, kernel, stride,
+                                          padding)
+    elif rules_t is None:
         rules_t = inverse_rules(rules, target.mask)
-    elif tuple(rules_t.shape) != (b, n_fine, rules.shape[2]):
+    if tuple(rules_t.shape) != (b, n_fine, math.prod(kernel)):
         raise ValueError('rules_t %s: want (B, V_fine, K) = %s' % (
-            tuple(rules_t.shape), (b, n_fine, rules.shape[2])))
+            tuple(rules_t.shape), (b, n_fine, math.prod(kernel))))
     feats = _apply_rules(level, target.mask, rules_t, weights, compute_dtype,
                          False, loads, kernel[2] == 3, rules, xwin, bwd_xwin)
     return target._replace(features=feats, overflow=None)
+
+
+def sparse_maxpool3d(level, kernel=3, stride=2, padding=1, out_cap=None):
+    """Sparse max-pool (spconv SparseMaxPool3d, `pcdet_tpu.ops.sparse.
+    sparse_maxpool3d`): each output, the output set of a strided conv of
+    the same geometry (`strided_out_set`, at `out_cap`, the input cap when
+    None), takes the per-channel max over the live inputs of its taps; 0
+    on padding rows.  Plain torch: the JAX package leaves it to XLA.
+
+    :return: SparseLevel at the output shape, `overflow` the dropped
+        outputs (B,) int32
+    """
+    kernel, stride, padding = _triple(kernel), _triple(stride), _triple(padding)
+    ids, coords, mask, dropped, rules = strided_out_set(
+        level, kernel, stride, padding, out_cap or level.ids.shape[1])
+    f = level.features
+    b, _, c = f.shape
+    neg = torch.finfo(f.dtype).min
+    table = torch.cat([f, f.new_full((b, 1, c), neg)], 1)
+    acc = table.new_full((b, rules.shape[1], c), neg)
+    for t in range(rules.shape[2]):
+        idx = rules[..., t].to(torch.int64)[..., None].expand(-1, -1, c)
+        acc = torch.maximum(acc, torch.gather(table, 1, idx))
+    feats = torch.where(mask[..., None] & (acc > neg / 2), acc, 0.0)
+    return SparseLevel(feats, ids, coords, mask,
+                       conv_out_shape(level.shape, kernel, stride, padding),
+                       overflow=dropped)
 
 
 def to_dense(level):

@@ -18,7 +18,9 @@ augmentation, anchor targets and SECOND's books on the host) through
 does what the JAX loader and the train step's input side do, in order:
 voxelize_torch at the TRAIN voxel cap on the device; for SECOND and
 Part-A², one copy of the coords to the host and the host rulebooks at the
-train level caps (`ops/host_books.py`, native builder); the anchor
+train level caps (`ops/host_books.py`, native builder; under
+PCDET_HOST_BOOKS=0 the books are built on the device from the device's
+coords, `host_books.build_books_device`); the anchor
 targets per sample on the host (`models/anchors.AnchorHeadTargets.assign`,
 as `pcdet_tpu.datasets.dataset` assigns them) and the model's own host
 targets (`host_targets`; Part-A²: the GT boxes and the per-voxel
@@ -191,32 +193,48 @@ class Trainer:
 
     def step_coords(self, batch):
         """The voxel coords (B, V, 3) that the step's hook will give the
-        batch's points, without gradients: a sparse model's books are built
-        from them before the step."""
+        batch's points, without gradients: host books and a model's host
+        targets (`coord_targets`) are built from them before the step."""
         with torch.no_grad():
             return between_dataloading_and_feedforward(
                 batch, self.cfg, train=True)['coordinates']
 
+    @property
+    def coords_before_step(self):
+        """Under cfg.TORCH_VOXEL_GENERATOR, whether the batch needs the
+        step's voxel coords before the step (`step_coords`): for host books
+        or a model's host targets.  With device books alone the step's
+        forward builds its books from the hook's coords, so the points are
+        voxelized once."""
+        return hasattr(self.model, 'build_books') and (
+            host_books.use_host_books() or self.model.coord_targets)
+
     def host_batch(self, coords, gt_boxes, anchor_targets=True):
         """What the host adds to a batch, in one upload: a sparse model's
-        books at the train caps from `coords` (device, one copy to the
-        host), the anchor targets of `gt_boxes` (numpy) unless
-        `anchor_targets` is False, and the model's own host targets."""
-        arrays, spec, coords_np = [], None, None
-        if hasattr(self.model, 'build_books'):            # SECOND, Part-A²
-            coords_np = coords.cpu().numpy()
-            flat = self.model.build_books(coords_np, train=True)
-            spec = self.model.host_book_spec(coords_np.shape[1], train=True)
-            arrays = host_books.wire_arrays(flat, spec)
+        books at the train caps from `coords` (on the device; one copy to
+        the host and the host build, or, under PCDET_HOST_BOOKS=0, books
+        built on the device, none where the step's hook voxelizes), the
+        anchor targets of `gt_boxes` (numpy) unless `anchor_targets` is
+        False, and the model's own host targets."""
+        arrays, spec, books = [], None, None
+        if hasattr(self.model, 'build_books') and coords is not None:
+            if host_books.use_host_books():               # SECOND, Part-A²
+                coords = coords.cpu().numpy()
+                flat = self.model.build_books(coords, train=True)
+                spec = self.model.host_book_spec(coords.shape[1], train=True)
+                arrays = host_books.wire_arrays(flat, spec)
+            elif not self.revoxelizes:
+                books = self.model.device_books(coords, train=True)
         targets = []
         if anchor_targets:
             labels, reg = self.targets(gt_boxes)
             targets = [('box_cls_labels', labels), ('box_reg_targets', reg)]
-        targets += self.model.host_targets(coords_np, gt_boxes)
+        targets += self.model.host_targets(coords, gt_boxes)
+        out = {} if books is None else {'books': books}
         if not arrays + targets:
-            return {}
+            return out
         t = host_books.upload(arrays + targets, self.device)
-        out = {key: t[key] for key, _ in targets}
+        out.update({key: t[key] for key, _ in targets})
         if spec is not None:
             out['books'] = host_books.decode_books(t, spec, self.max_voxels)
         return out
@@ -228,14 +246,15 @@ class Trainer:
         :param point_feature_fn: optional fn(points) -> points applied
             first, differentiably (semantic painting)
         Under cfg.TORCH_VOXEL_GENERATOR the batch carries the points and
-        the mask, and the step's hook voxelizes them; a sparse model's books
-        come from the same voxelization, made here without gradients."""
+        the mask, and the step's hook voxelizes them; a sparse model's host
+        books and host targets come from the same voxelization, made here
+        without gradients (`coords_before_step`)."""
         if point_feature_fn is not None:
             points = point_feature_fn(points)
         if self.revoxelizes:
             batch = {'points': points, 'point_mask': point_mask}
-            coords = (self.step_coords(batch)
-                      if hasattr(self.model, 'build_books') else None)
+            coords = (self.step_coords(batch) if self.coords_before_step
+                      else None)
         else:
             batch = self.voxelize(points, point_mask)
             coords = batch['coordinates']
@@ -249,11 +268,12 @@ class Trainer:
         (`host_books.upload_loader_batch`).  The loader's voxels are used as
         they are, unless cfg.TORCH_VOXEL_GENERATOR: then its points go up
         instead and the step's hook voxelizes them on the device; a sparse
-        model's books and host targets are built from that voxelization's
-        coords, in a second upload."""
+        model's host books and host targets are built from that
+        voxelization's coords, in a second upload (`coords_before_step`;
+        device books are built in the step)."""
         out = host_books.upload_loader_batch(batch, self.device, self.model,
                                              train=True)
-        if self.revoxelizes and hasattr(self.model, 'build_books'):
+        if self.revoxelizes and self.coords_before_step:
             out.update(self.host_batch(self.step_coords(out),
                                        batch['gt_boxes'],
                                        anchor_targets=False))

@@ -45,3 +45,20 @@ def boxes3d_to_corners3d_lidar(boxes3d, bottom_center=True):
     yr = -x_c * sina + y_c * cosa
     return torch.stack([boxes3d[..., 0:1] + xr, boxes3d[..., 1:2] + yr,
                         boxes3d[..., 2:3] + z_c], dim=-1)
+
+
+def points_in_boxes(points, boxes3d):
+    """(P, 3+) points, (N, 7) boxes [x, y, z (bottom), w, l, h, ry] -> (N, P)
+    bool: each point in each box's canonical frame within the half extents
+    in x, y and between the bottom and the top in z (`pcdet_tpu.utils.
+    jnp_common.points_in_boxes`, the twin of `box_np_ops.
+    points_in_boxes_mask`)."""
+    shift = points[None, :, :3] - boxes3d[:, None, 0:3]
+    cosa = torch.cos(-boxes3d[:, 6])[:, None]
+    sina = torch.sin(-boxes3d[:, 6])[:, None]
+    lx = shift[..., 0] * cosa + shift[..., 1] * sina
+    ly = -shift[..., 0] * sina + shift[..., 1] * cosa
+    lz = shift[..., 2]
+    return ((torch.abs(lx) <= boxes3d[:, 3:4] / 2)
+            & (torch.abs(ly) <= boxes3d[:, 4:5] / 2)
+            & (lz >= 0) & (lz <= boxes3d[:, 5:6]))

@@ -7,8 +7,9 @@ state_dict (`vfe.pfn_layers.{i}.linear`, `rpn_net.conv_input.0`,
 `rpn_net.conv{1..4}.{j}.0`, `rpn_net.conv_out.0`, `rpn_head.blocks.{i}.{1+3j}`,
 `rpn_head.deblocks.{i}.0`, `rpn_head.conv_*`; Part-A²'s
 `rpn_net.conv_up_t{n}`, `conv_up_m{n}`, `inv_conv{n}`, `conv5.0`,
-`seg_{cls,reg}_layer` and `rcnn_net.*`), so the same dict also loads into
-the reference model.  Layout transforms:
+`seg_{cls,reg}_layer` and `rcnn_net.*`; a SparseBottleneck's `conv1`
+.. `conv3`, `bn1` .. `bn3`, `downsample.{0,1}`), so the same dict also
+loads into the reference model.  Layout transforms:
   flax Dense kernel (in, out)            -> Linear weight (out, in)
   flax conv kernel HWIO (kh, kw, in, out) -> Conv2d weight OIHW (RPNV2's
       convs and PointPillar's `bev_seg_head`: Conv_0 / Conv_1 / Conv_2 ->
@@ -85,8 +86,10 @@ _BACKBONE8X = [('conv_input', 'rpn_net.conv_input', (3, 3, 3)),
 def state_dict_from_flax(variables, layer_nums, rcnn_cfg=None):
     """:param variables: {'params': ..., 'batch_stats': ...} of
         `pcdet_tpu.models.pointpillar.PointPillarNet`,
-        `pcdet_tpu.models.second.SECONDNetModule` or
-        `pcdet_tpu.models.parta2.PartA2Net` (numpy or jax arrays)
+        `pcdet_tpu.models.second.SECONDNetModule`,
+        `pcdet_tpu.models.parta2.PartA2Net` or a
+        `pcdet_tpu.models.backbones3d.SparseBottleneck` (numpy or jax
+        arrays)
     :param layer_nums: RPNV2's `layer_nums` (flax numbers its ConvBNReLUs
         across blocks, torch within each block)
     :param rcnn_cfg: Part-A²'s `MODEL.RCNN` (its head, FC stacks, dropout
@@ -96,6 +99,8 @@ def state_dict_from_flax(variables, layer_nums, rcnn_cfg=None):
     """
     params, stats = variables['params'], variables.get('batch_stats')
     sd = {}
+    if 'kernel3' in params:
+        return bottleneck_state_dict(sd, '', params, stats)
     if 'stage1' in params:
         return _parta2(sd, params, stats, layer_nums, rcnn_cfg)
     if 'backbone_3d' in params:
@@ -127,6 +132,25 @@ def state_dict_from_flax(variables, layer_nums, rcnn_cfg=None):
 def _spconv(sd, key, kernel, params, name='kernel'):
     w = np.asarray(params[name])
     sd[key] = _t(w.reshape(*kernel, *w.shape[1:]))
+
+
+def bottleneck_state_dict(sd, prefix, params, stats):
+    """`pcdet_tpu.models.backbones3d.SparseBottleneck`'s variables (kernel1
+    .. kernel3, kernel_down; bn1 .. bn3, bn_down) -> `models.backbones3d.
+    SparseBottleneck`'s keys under `prefix` (conv1 .. conv3 with bn1 ..
+    bn3; downsample.0 / .1) in `sd`, which it returns."""
+    one, three = (1, 1, 1), (3, 3, 3)
+    for i, kernel in ((1, one), (2, three), (3, one)):
+        _spconv(sd, '%sconv%d.weight' % (prefix, i), kernel, params,
+                'kernel%d' % i)
+        _bn(sd, '%sbn%d' % (prefix, i), params['bn%d' % i],
+            _sub(stats, 'bn%d' % i))
+    if 'kernel_down' in params:
+        _spconv(sd, prefix + 'downsample.0.weight', one, params,
+                'kernel_down')
+        _bn(sd, prefix + 'downsample.1', params['bn_down'],
+            _sub(stats, 'bn_down'))
+    return sd
 
 
 def _parta2(sd, params, stats, layer_nums, rcnn_cfg):

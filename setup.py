@@ -33,5 +33,6 @@ if __name__ == '__main__':
         license='Apache License 2.0',
         packages=find_packages(exclude=['tools', 'tests', 'output']),
         package_data={'pcdet_tpu.native': ['*.cpp'],
-                      'pcdet_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh', 'csrc/*.cpp']},
+                      'pcdet_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh', 'csrc/*.cpp',
+                                          'datasets/converters/splits/*.txt']},
     )

@@ -51,7 +51,11 @@ the thread workers' bit for bit.  Two PartA2.yaml train steps at B2
 through kernels B, D, D′ (the decoder's pairs among them) and A, with fg
 RoIs and their regression losses.  Two gloo ranks spawned on the card
 against one process on it (`ddp_ranks.py`; chip_smoke.py M1 at the tiny
-SECOND widths), with per-rank and with synced BatchNorm.
+SECOND widths), with per-rank and with synced BatchNorm.  The rulebooks
+built on the card (`host_books.build_books_device`, under torch.cuda's
+sync debug mode 'error') equal to the host books, outputs dropped at small
+caps; `SparseBottleneck` (4 launches of B) and `sparse_maxpool3d` on the
+card against the CPU.
 """
 import itertools
 
@@ -1033,3 +1037,62 @@ def test_loader_batches_after_cuda_is_up(cuda, kitti_tree, workers):
     want = chip_smoke.first_epoch(cfg, targets, 2, 'thread')
     got = chip_smoke.first_epoch(cfg, targets, workers, 'process')
     assert len(got) == 2 and chip_smoke.batches_equal(got, want)
+
+
+@pytest.mark.parametrize('caps', [(768, 512, 384, 256), (300, 120, 60, 40)])
+def test_device_books_on_card_equal_host_books(cuda, caps):
+    """`host_books.build_books_device` on the card, under torch.cuda's sync
+    debug mode 'error' (a host sync raises), against the host books
+    uploaded and decoded: every tensor equal; small caps drop outputs."""
+    rng = np.random.RandomState(0)
+    shape = (9, 40, 40)
+    coords = _sorted_coords(rng, (700, 600), 700, shape)
+    spec = host_books.encoder_spec(shape, caps, (1, 0, 0))
+    want = host_books.upload_books(host_books.build_books_batch(
+        coords, coords[..., 0] >= 0, shape, spec), spec, 700, cuda)
+    c = torch.as_tensor(coords, device=cuda)
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = host_books.build_books_device(c, c[..., 0] >= 0, shape, spec)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sorted(got) == sorted(want)
+    for key, book in want.items():
+        pairs = (zip(book, got[key]) if isinstance(book, tuple)
+                 else [(book, got[key])])
+        for a, b in pairs:
+            assert a.dtype == b.dtype and torch.equal(a, b), key
+    assert caps[0] > 300 or int(got['spconv2'][3].sum()) > 0
+
+
+def test_bottleneck_and_maxpool_on_card_match_cpu(cuda, no_tf32):
+    """SparseBottleneck(16, 16) (16 -> 16 -> 16 -> 64 and the 16 -> 64
+    projection: 4 launches of kernel B's instances) and sparse_maxpool3d
+    on device-built books against the same modules on the CPU: 1e-5 of max
+    |out| (B sums in its own order), the pool's output set equal."""
+    from pcdet_tpu_torch.models.backbones3d import SparseBottleneck
+    from pcdet_tpu_torch.models.layers import init_weights
+    rng = np.random.RandomState(1)
+    shape = (9, 40, 40)
+    coords = torch.as_tensor(_sorted_coords(rng, (700, 500), 700, shape))
+    mask = coords[..., 0] >= 0
+    feats = torch.as_tensor(rng.randn(2, 700, 16).astype(np.float32))
+    level = sparse.from_voxelizer(feats * mask[..., None], coords, mask,
+                                  shape)
+    net = SparseBottleneck(16, 16)
+    init_weights(net, torch.Generator().manual_seed(0))
+    card = SparseBottleneck(16, 16).to(cuda)
+    card.load_state_dict(net.state_dict())
+    on_card = sparse.SparseLevel(*(t.to(cuda) for t in level[:4]), shape)
+    before = gather_gemm.LAUNCHES['gather_gemm_f32']
+    with torch.no_grad():
+        got = card(on_card).features.cpu()
+        want = net(level).features
+    assert gather_gemm.LAUNCHES['gather_gemm_f32'] - before == 4
+    scale = float(want.abs().max())
+    assert scale > 0 and float((got - want).abs().max()) <= 1e-5 * scale
+    pooled = sparse.sparse_maxpool3d(on_card, 3, 2, 1, 300)
+    ref = sparse.sparse_maxpool3d(level, 3, 2, 1, 300)
+    for a, b in zip(pooled[:4], ref[:4]):
+        assert torch.equal(a.cpu(), b)
+    assert int(ref.overflow.sum()) > 0

@@ -9,8 +9,10 @@ own copies of pcdet_tpu's framework-free helpers give the same results.
   the data pipeline's (the KITTI dataset and its helpers, the
   augmentations, the DB sampler, `datasets.dataset`, the loader, the host
   voxelizer and native bindings), the data-parallel runtime
-  (`parallel`, `parallel.ddp`), the CLIs (`tools.create_data`, `train`,
-  `test`) and `chip_smoke` and finds no `pcdet_tpu` (nor jax) module
+  (`parallel`, `parallel.ddp`), the data tooling (`datasets.splits`,
+  `datasets.converters` with `kitti_writer`), the CLIs (`tools.create_data`,
+  `train`, `test`, `convert_to_kitti`) and `chip_smoke` and finds no
+  `pcdet_tpu` (nor jax) module
   loaded;
 - no source of the package, nor `chip_smoke.py`, has an import of
   `pcdet_tpu` (other than of `pcdet_tpu_torch`), nor of flax or orbax,
@@ -26,7 +28,10 @@ own copies of pcdet_tpu's framework-free helpers give the same results.
   voxelizer_native.cpp`, `csrc/augmentation_native.cpp`) byte for byte,
   and their functions on random inputs; `SyntheticDataset`'s eval examples (points, point mask,
   padded GT with classes), GT annotations and annotations of predictions at
-  the tiny config and at `second.yaml`; `utils/metrics.py`'s code.
+  the tiny config and at `second.yaml`; `utils/metrics.py`'s code, and the
+  code of the data tooling's copies (`datasets/converters/`:
+  `kitti_writer`, `argoverse`, `nuscenes`, the package's `__init__`;
+  `datasets/splits.py`).
 """
 import copy
 import re
@@ -81,6 +86,10 @@ def test_port_loads_no_pcdet_tpu_module():
             'pcdet_tpu_torch.datasets.dataset, '
             'pcdet_tpu_torch.datasets.loader, '
             'pcdet_tpu_torch.datasets.synthetic, '
+            'pcdet_tpu_torch.datasets.splits, '
+            'pcdet_tpu_torch.datasets.converters, '
+            'pcdet_tpu_torch.datasets.converters.kitti_writer, '
+            'pcdet_tpu_torch.tools.convert_to_kitti, '
             'pcdet_tpu_torch.ops.host_native, '
             'pcdet_tpu_torch.ops.voxelizer, '
             'pcdet_tpu_torch.utils.box_np_ops, '
@@ -448,3 +457,12 @@ def _code(path):
 def test_metrics_equals_pcdet_tpu():
     assert _code(REPO / 'pcdet_tpu_torch' / 'utils' / 'metrics.py') == \
         _code(REPO / 'pcdet_tpu' / 'utils' / 'metrics.py')
+
+
+@pytest.mark.parametrize('rel', ['converters/__init__.py',
+                                 'converters/kitti_writer.py',
+                                 'converters/argoverse.py',
+                                 'converters/nuscenes.py', 'splits.py'])
+def test_data_tooling_equals_pcdet_tpu(rel):
+    assert (_code(REPO / 'pcdet_tpu_torch' / 'datasets' / rel)
+            == _code(REPO / 'pcdet_tpu' / 'datasets' / rel))

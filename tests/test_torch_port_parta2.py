@@ -11,8 +11,9 @@ builds and uploads the books itself:
   largest value (f32); in bf16 (UNetV2 alone, on random features) within
   3e-2, and not the f32 result;
 - the inverse conv alone against `pcdet_tpu.ops.sparse.inverse_conv3d` on
-  the same books, 1e-5 of max |out|; it refuses a book or geometry that did
-  not make its input;
+  the same books, 1e-5 of max |out|; it refuses a geometry that did not
+  make its input, and takes its rules from the geometry for another conv's
+  book or none;
 - `roiaware_pool3d_multi_batched` on a scene with points on the cells'
   boundaries: max bitwise, avg to 1e-6 of max, the overflow count equal;
   the cells whose points' (cell, in-box) differ between the two
@@ -433,14 +434,23 @@ def test_inverse_conv_matches_jax(whole):
 
 
 def test_inverse_conv_refuses_other_books(whole):
+    """A geometry that does not give the input level's shape raises; another
+    conv's book is not used: the rules come from the geometry, as
+    pcdet_tpu falls back to `_rules_inverse`, and give the right book's
+    output."""
     _, fine_p, _, coarse_p, books = _coarse_level(whole, 16, 9)
-    w = torch.zeros(27, 16, 16)
+    w = torch.as_tensor(np.random.RandomState(3).uniform(
+        -0.2, 0.2, (27, 16, 16)).astype(np.float32))
     with pytest.raises(ValueError):                 # another geometry
         sparse.inverse_conv3d(coarse_p, fine_p, w, books['spconv2'], 3, 2,
                               (0, 1, 1), loads=sparse.ROWS)
-    with pytest.raises(ValueError):                 # another conv's book
-        sparse.inverse_conv3d(coarse_p, fine_p, w, books['spconv3'], 3, 2, 1,
-                              loads=sparse.ROWS)
+    want = sparse.inverse_conv3d(coarse_p, fine_p, w, books['spconv2'], 3, 2,
+                                 1, loads=sparse.ROWS)
+    for other in (books['spconv3'], None):          # another conv's, none
+        got = sparse.inverse_conv3d(coarse_p, fine_p, w, other, 3, 2, 1,
+                                    loads=sparse.ROWS)
+        assert torch.equal(got.features, want.features)
+    assert want.features.abs().max() > 0
 
 
 # ---------------------------------------------------------- RoI pooling ---
