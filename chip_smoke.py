@@ -4,7 +4,8 @@ evaluation (recall and KITTI AP) of both models, PointPillar training
 through the epoch loop to a checkpoint and its evaluation, the CLI pair,
 Part-A² / Part-A²-fc detect, evaluation and training, the BEVSEG fork's
 pseudo-LiDAR training with its BEV segmentation head, and data-parallel
-training over torch.distributed, and the rulebooks built on the card.
+training over torch.distributed (on every card of the host where there are
+two or more), and the rulebooks built on the card.
 
     python3 chip_smoke.py
 
@@ -296,6 +297,25 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       the file's; NCCL's gradient all-reduce at W=1 per step; the test CLI
       on the checkpoint through kernel A, the logged AP string equal to
       the evaluator's on result.pkl.
+  M4. (two cards or more; on one card one line says it did not run) every
+      card of the host, W of them, with each card's name, power limit and
+      the links between them (`nvidia-smi topo -m`): (a) every kernel (A,
+      A', A'', B, C, D, D', D'', E and E' in f32 and bf16, the selector
+      kernel) with its operands on cuda:1, launched from a thread whose
+      current device is cuda:0, bitwise equal to the same launch on cuda:0
+      and within its plain version's tolerance, each launch counted,
+      nothing allocated on cuda:0; kernel A'''s blocks an SM and device
+      time on every card; W ranks building kernel A and the host book
+      builder at once into one fresh build directory, each launching A on
+      its card; (b) M1 and M2 over W NCCL ranks, one card a rank, a B1
+      share each, against one process on cuda:0 with bn_groups W or one BN
+      group, with M1's and M2's checks and bounds; (c) the train CLI under
+      torchrun --nproc_per_node W on pointpillar.yaml, B = 2W, 2 epochs on
+      L1's tree, and at one rank, B2; the test CLI on the W-rank
+      checkpoint through kernel A, its AP string equal to the evaluator's;
+      (d) NCCL's gradient all-reduce ms of SECOND's and Part-A2's
+      gradients against 2(W-1)/W x bytes over 450 GB/s, a rank's step ms
+      against one process's at B1, samples/s across W cards against one.
   K1. (after R5-R7) the rulebooks built on the card (PCDET_HOST_BOOKS=0,
       `host_books.build_books_device`) for second.yaml at full width on
       B2 and B8 of `make_scans`, at the eval and the train caps: every
@@ -339,6 +359,7 @@ import concurrent.futures
 import contextlib
 import copy
 import gc
+import glob
 import itertools
 import json
 import os
@@ -5535,9 +5556,9 @@ def ddp_run(job, dev, group=None, rank=0, bn_groups=1):
     (summed over the ranks) and this rank's share, the tb summed, the
     gradients (summed, rank 0's, on the CPU), the BN running statistics
     after rank 0's broadcast, this rank's kernel launches and Part-A²'s
-    counts; in f32 under a group, the gradient all-reduce's ms and
-    `job['steps']` steps (ms, losses, launches, the tensors that differ
-    from rank 0's)."""
+    counts; in f32 under a group, the gradient all-reduce's ms; in f32,
+    `job['steps']` steps (ms, losses, launches, and under a group the
+    tensors that differ from rank 0's)."""
     from pcdet_tpu_torch.ops import rotated_overlap as ro
     from pcdet_tpu_torch.parallel import ddp
     from pcdet_tpu_torch.train.trainer import make_train_scans
@@ -5593,8 +5614,11 @@ def ddp_run(job, dev, group=None, rank=0, bn_groups=1):
                 res['allreduce_ms'] = sorted(ms)[1]
                 res['grad_mb'] = sum(g.numel() * g.element_size()
                                      for g in grads) / 2 ** 20
+                if torch.distributed.get_backend(group) == 'nccl':
+                    res['collective_ms'] = collective_ms(
+                        sum(g.numel() for g in grads), dev, group)
             del grads
-            if group is not None and not f64 and job.get('steps'):
+            if not f64 and job.get('steps'):
                 # the steps go on from the step above (its BN statistics,
                 # equal on every rank after the broadcast)
                 reset_launches()
@@ -5611,20 +5635,51 @@ def ddp_run(job, dev, group=None, rank=0, bn_groups=1):
                 res['step_launches'] = dict(nonzero(all_launches()),
                                             A=ro.LAUNCHES)
                 res['step_ms'], res['step_losses'] = ms, losses
-                res['unequal'] = unequal_across_ranks(tr, group)
+                if group is not None:
+                    res['unequal'] = unequal_across_ranks(tr, group)
+            if dev.type == 'cuda':
+                # what this process put on the host's other cards (0 bytes:
+                # the rank's work stays on its card)
+                res['elsewhere'] = {
+                    i: torch.cuda.max_memory_allocated(i)
+                    for i in range(torch.cuda.device_count())
+                    if i != dev.index}
             del tr, batch
         out[name] = res
     return out
 
 
+def collective_ms(numel, dev, group, iters=10):
+    """Mean device ms of one `all_reduce` of a flat f32 buffer of `numel`
+    elements over `group` (CUDA events around `iters` calls after 3, the
+    ranks lined up by a barrier): the collective alone, without the
+    gradient bucketing's copies and Python."""
+    import torch.distributed as dist
+    from pcdet_tpu_torch.parallel import ddp
+    flat = torch.zeros(numel, dtype=torch.float32, device=dev)
+    for _ in range(3):
+        dist.all_reduce(flat, group=group)
+    ddp.barrier(group)
+    sync()
+    return cuda_ms(lambda: dist.all_reduce(flat, group=group), iters,
+                   warmup=0)
+
+
 def ddp_rank(rank, group, path, jobs):
-    """M1 / M2 on one rank: a process spawned by `ddp.launch_local` on the
-    one card, over gloo (NCCL refuses two ranks on one device)."""
+    """M1 / M2 (M4) on one rank: a process spawned by `ddp.launch_local`
+    on the one card over gloo (NCCL refuses two ranks on one device), or
+    on its own card over NCCL (a job's 'device' None: the card `ddp.init`
+    made current)."""
     from pcdet_tpu_torch.parallel import ddp
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // ddp.world_size(group)))
     ddp.save_rank_result(path, rank, [
-        ddp_run(job, torch.device(job['device']), group, rank)
+        ddp_run(job, torch.device(job['device']) if job['device'] else
+                torch.device('cuda', torch.cuda.current_device()),
+                group, rank)
         for job in jobs])
 
 
@@ -5651,7 +5706,7 @@ def ddp_report(tag, job, ranks, ref, mode):
     """Print and check one M1 / M2 job: the ranks against the one-process
     reference (P64, the one-process step in f64 through the plain versions,
     referees the f32 steps), the launches per rank, the steps."""
-    what = ('one process, bn_groups %d' % DDP_WORLD if mode == 'per_rank'
+    what = ('one process, bn_groups %d' % len(ranks) if mode == 'per_rank'
             else 'one process, one BN group')
     p64 = ref['float64']
     for name in job['dtypes']:
@@ -5726,23 +5781,28 @@ def ddp_report(tag, job, ranks, ref, mode):
                 require(all(launches.get(k, 0) > 0 for k in keys),
                         '%s %s rank %d: launches %s lack one of %s' % (
                             tag, mode, r, launches, keys))
+            require(not any(res.get('elsewhere', {}).values()),
+                    '%s %s rank %d: bytes allocated on the other cards %s' % (
+                        tag, mode, r, res.get('elsewhere')))
             bad, steps_differ = res['unequal']
             print('[ddp %s %s] rank %d: %d steps, loss %s, ms a step %s '
-                  '(two ranks on one card, gloo); gradient all-reduce %.2f '
-                  'ms for %.1f MB (median of 3, gloo on one card); launches '
-                  'over the steps %s; state tensors differing from rank '
-                  '0\'s, bit for bit: %d' % (
+                  '(%s); gradient all-reduce %.2f ms for %.1f MB (median of '
+                  '3); launches over the steps %s; state tensors differing '
+                  'from rank 0\'s, bit for bit: %d; bytes on the other cards '
+                  '%s' % (
                       tag, mode, r, len(res['step_ms']),
                       ', '.join('%.6f' % x for x in res['step_losses']),
                       ', '.join('%.2f' % x for x in res['step_ms']),
+                      job.get('how', 'two gloo ranks on one card'),
                       res['allreduce_ms'], res['grad_mb'],
-                      res['step_launches'], len(bad)))
+                      res['step_launches'], len(bad),
+                      res.get('elsewhere', 'not read')))
             require(not bad and not steps_differ, '%s %s rank %d: after %d '
                     'steps the state differs from rank 0\'s in %s' % (
                         tag, mode, r, DDP_STEPS, bad[:5]))
-        require(ranks[0][name]['step_losses'] == ranks[1][name][
-            'step_losses'], '%s %s: the ranks\' step losses differ' % (
-                tag, mode))
+        require(all(r[name]['step_losses'] == ranks[0][name]['step_losses']
+                    for r in ranks), '%s %s: the ranks\' step losses differ'
+                % (tag, mode))
         if job['model'] == 'parta2':
             c = [r[name]['counts'] for r in ranks]
             total = {k: sum(x[k] for x in c) for k in c[0]}
@@ -5837,7 +5897,8 @@ def run_ddp(dev):
 
 
 M3_DRIVER = """\"\"\"The train CLI with deterministic cuDNN and torch algorithms, timing
-the gradient all-reduce (chip_smoke.py M3).\"\"\"
+the gradient all-reduce (chip_smoke.py M3, M4); rank 0 prints the times.\"\"\"
+import os
 import sys
 import time
 
@@ -5873,10 +5934,76 @@ def timed(grads, group, *args, **kw):
 ddp.all_reduce_grads = timed
 T_MAIN = time.time()
 train.main(sys.argv[1:])
-print('M3_ALLREDUCE_MS ' + ' '.join('%.4f' % t for t in times))
-print('M3_GRAD_MB %.2f' % (max(nbytes, default=0) / 2 ** 20))
-print('M3_TIMES %.3f %.3f %.3f' % (T_START, T_MAIN, time.time()))
+if os.environ.get('RANK', '0') == '0':
+    print('M3_ALLREDUCE_MS ' + ' '.join('%.4f' % t for t in times))
+    print('M3_GRAD_MB %.2f' % (max(nbytes, default=0) / 2 ** 20))
+    print('M3_TIMES %.3f %.3f %.3f' % (T_START, T_MAIN, time.time()))
 """
+
+
+def train_cli_start(tag, launch, argv, env, cwd):
+    """Start the train CLI (`launch` + `argv`, in a subprocess under `env`
+    in `cwd`); returns the run for `train_cli_finish`."""
+    proc = subprocess.Popen(launch + argv, cwd=cwd, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return tag, proc, time.perf_counter(), time.time()
+
+
+def train_cli_finish(run, out_root, phase, timeout=600):
+    """Wait for a run of `train_cli_start` (the driver script `M3_DRIVER`
+    under `python` or torchrun) and read it: wall time and its split, rank
+    0's gradient all-reduce ms and MB, the ops without a deterministic
+    implementation, its output directory and rank 0's log, the epochs
+    (index, s, iterations) and the logged losses."""
+    tag, proc, t0, t_wall = run
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    t_end = time.time()
+    require(proc.returncode == 0, '%s train %s failed:\n%s\n%s' % (
+        phase, tag, stdout[-3000:], stderr[-3000:]))
+    ar = [float(x) for line in stdout.splitlines()
+          if line.startswith('M3_ALLREDUCE_MS')
+          for x in line.split()[1:]]
+    mb = [float(line.split()[1]) for line in stdout.splitlines()
+          if line.startswith('M3_GRAD_MB')]
+    nondet = sorted({m for m in re.findall(
+        r'UserWarning: (.*?) does not have a deterministic', stderr)})
+    out, = glob.glob(os.path.join(out_root, 'output', '*', tag))
+    logs = sorted(x for x in os.listdir(out) if x.startswith('log_train_'))
+    with open(os.path.join(out, logs[-1])) as f:
+        text = f.read()
+    marks = [float(x) for line in stdout.splitlines()
+             if line.startswith('M3_TIMES') for x in line.split()[1:]]
+    split = ('start %.1f s, imports %.1f s, main %.1f s, exit %.1f s' % (
+        marks[0] - t_wall, marks[1] - marks[0], marks[2] - marks[1],
+        t_end - marks[2]) if len(marks) == 3 else 'not measured')
+    return {'wall': wall, 'split': split, 'allreduce_ms': ar,
+            'grad_mb': mb[0] if mb else float('nan'),
+            'out': out, 'log': text, 'nondeterministic': nondet,
+            'epochs': [(int(n), float(t), int(i)) for n, t, i in
+                       re.findall(r'epoch (\d+) done in ([0-9.]+)s '
+                                  r'\((\d+) iters\)', text)],
+            'losses': [float(x) for x in re.findall(
+                r'iter \d+ loss (\S+) ', text)]}
+
+
+def train_cli_env(here):
+    """The environment of a train CLI subprocess: the checkout on the
+    path, the host pipeline's threads set (torchrun sets OMP_NUM_THREADS
+    to 1 where it is unset), deterministic cuBLAS, no torchrun variables
+    of this process."""
+    env = dict(os.environ, PYTHONPATH=here, OMP_NUM_THREADS='4',
+               CUBLAS_WORKSPACE_CONFIG=':4096:8')
+    for key in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR',
+                'MASTER_PORT'):
+        env.pop(key, None)
+    return env
 
 
 def run_ddp_cli(dev, workdir):
@@ -5884,8 +6011,6 @@ def run_ddp_cli(dev, workdir):
     L1's tree (`workdir`/kitti), 2 epochs, bitwise against the same 2
     epochs without a group, launched beside it; its checkpoint restored
     bitwise; the test CLI on it through kernel A."""
-    import glob
-    import os
     import pickle
     from pcdet_tpu_torch import detect as detect_mod
     from pcdet_tpu_torch.datasets.kitti import kitti_eval_cli
@@ -5909,13 +6034,8 @@ def run_ddp_cli(dev, workdir):
     driver = os.path.join(out_root, 'm3_train.py')
     with open(driver, 'w') as f:
         f.write(M3_DRIVER)
-    # one environment for both launches (torchrun would set OMP_NUM_THREADS
-    # to 1 where it is unset: the host pipeline's threads)
-    env = dict(os.environ, PYTHONPATH=here, OMP_NUM_THREADS='4',
-               CUBLAS_WORKSPACE_CONFIG=':4096:8')
-    for key in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR',
-                'MASTER_PORT'):
-        env.pop(key, None)
+    # one environment for both launches
+    env = train_cli_env(here)
     torchrun = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
                 '--nproc_per_node', '1', driver, '--multi_host']
 
@@ -5924,48 +6044,7 @@ def run_ddp_cli(dev, workdir):
                 str(epochs), '--workers', '4', '--ckpt_save_interval', '1',
                 '--log_interval', '1', '--extra_tag', tag, '--device',
                 dev.type, '--set'] + sets
-        proc = subprocess.Popen(launch + argv, cwd=here, env=env,
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-        return tag, proc, time.perf_counter(), time.time()
-
-    def finish(run):
-        tag, proc, t0, t_wall = run
-        try:
-            stdout, stderr = proc.communicate(timeout=600)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-        wall = time.perf_counter() - t0
-        t_end = time.time()
-        require(proc.returncode == 0, 'M3 train %s failed:\n%s\n%s' % (
-            tag, stdout[-3000:], stderr[-3000:]))
-        ar = [float(x) for line in stdout.splitlines()
-              if line.startswith('M3_ALLREDUCE_MS')
-              for x in line.split()[1:]]
-        mb = [float(line.split()[1]) for line in stdout.splitlines()
-              if line.startswith('M3_GRAD_MB')]
-        nondet = sorted({m for m in re.findall(
-            r'UserWarning: (.*?) does not have a deterministic', stderr)})
-        out, = glob.glob(os.path.join(out_root, 'output', '*', tag))
-        logs = sorted(x for x in os.listdir(out)
-                      if x.startswith('log_train_'))
-        with open(os.path.join(out, logs[-1])) as f:
-            text = f.read()
-        marks = [float(x) for line in stdout.splitlines()
-                 if line.startswith('M3_TIMES') for x in line.split()[1:]]
-        split = ('start %.1f s, imports %.1f s, main %.1f s, exit %.1f s' % (
-            marks[0] - t_wall, marks[1] - marks[0], marks[2] - marks[1],
-            t_end - marks[2]) if len(marks) == 3 else 'not measured')
-        return {'wall': wall, 'split': split, 'allreduce_ms': ar,
-                'grad_mb': mb[0] if mb else float('nan'),
-                'out': out, 'log': text, 'nondeterministic': nondet,
-                'epochs': [(int(n), float(t), int(i)) for n, t, i in
-                           re.findall(r'epoch (\d+) done in ([0-9.]+)s '
-                                      r'\((\d+) iters\)', text)],
-                'losses': [float(x) for x in re.findall(
-                    r'iter \d+ loss (\S+) ', text)]}
+        return train_cli_start(tag, launch, argv, env, here)
 
     def differing(a, b):
         """The names of the tensors of two states (on any devices) that
@@ -5983,7 +6062,7 @@ def run_ddp_cli(dev, workdir):
     # the two launches share the card and run side by side
     runs = [start('m3_ddp', 2, torchrun),
             start('m3_plain', 2, [sys.executable, driver])]
-    first, plain = [finish(r) for r in runs]
+    first, plain = [train_cli_finish(r, out_root, 'M3') for r in runs]
     last = os.path.join(first['out'], 'ckpt', 'checkpoint_epoch_2.pth')
     a = load_checkpoint(last)
     b = load_checkpoint(os.path.join(plain['out'], 'ckpt',
@@ -6054,6 +6133,507 @@ def run_ddp_cli(dev, workdir):
             and finite_numbers(logged), 'M3 test CLI: A %d, AP string '
             'equal %s' % (a_launches, logged == again.strip()))
     return {'rotated_overlap': {'ddp M3 test CLI': a_launches}}
+
+
+# M4: every card of the host ------------------------------------------------
+
+# the NVLink rate each way between two cards of an H100 SXM host (NVIDIA's
+# data sheet: 900 GB/s to the other cards, all to all, 450 GB/s each way)
+NVLINK_BYTES_PER_S = 450e9
+# the window-structured kw=3 book of M4 (a): batch, table rows, output rows,
+# x-groups (27 taps), channels in and out (conv2_1's instance)
+CARD_BOOK = (2, 20000, 16000, 9, 32, 32)
+
+
+def card_kernel_inputs(seed=0, book=CARD_BOOK):
+    """CPU inputs of one launch of every kernel, from `seed`: kernel A's NMS
+    shape (G = 2, 64 x 4096 random boxes' corners) for A, A' (its first
+    group) and A''; a window-structured kw=3 book (`book`: bases ascending
+    along the rows as a sorted book's are, a quarter of the x-taps missing,
+    the last rows' windows at the table's end), its rules for B, C, D and
+    the selector kernel, its (base, sel) for E, E', D'', D'; a table (row
+    V_in zero), weights, an output gradient, n_live all and three
+    quarters."""
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    from pcdet_tpu_torch.ops import rotated_iou
+    rng = np.random.RandomState(seed)
+    b, v_in, v_out, groups, cin, cout = book
+    corners = rotated_iou.boxes5_to_corners(torch.as_tensor(
+        rand_boxes5(rng, (2, 4096)))).contiguous()
+    table = rng.randn(b, v_in + 1, cin).astype(np.float32)
+    table[:, v_in] = 0
+    base = np.sort(rng.randint(0, v_in - 2, (b, v_out, groups)), axis=1)
+    off = rng.randint(0, 3, (b, v_out, groups, 3))
+    off[rng.rand(b, v_out, groups, 3) < 0.25] = 3             # misses
+    base[:, -3:], off[:, -3:] = v_in - 1, [0, 3, 3]
+    sel = off[..., 0] | (off[..., 1] << 2) | (off[..., 2] << 4)
+    base = torch.as_tensor(base.astype(np.int32))
+    sel = torch.as_tensor(sel.astype(np.int32))
+    return {'ca': corners[:, :64].contiguous(), 'cb': corners,
+            'table': torch.as_tensor(table), 'base': base, 'sel': sel,
+            'rules': gx.rules_from_xwin(base, sel, v_in).contiguous(),
+            'w': torch.as_tensor(
+                rng.randn(3 * groups, cin, cout).astype(np.float32) * 0.2),
+            'g': torch.as_tensor(rng.randn(b, v_out, cout).astype(np.float32)),
+            'n_live': torch.as_tensor(
+                np.array([v_out, 3 * v_out // 4][:b], np.int32))}
+
+
+# each entry: the kernels' outputs by name, the launch counter it moves, and
+# its plain version's tolerance (a fraction of max |plain|; 0: bitwise)
+CARD_KERNELS = {
+    'A': ('rotated_overlap', 0.0), "A'": ('rotated_overlap', 0.0),
+    "A''": ('rotated_overlap_sorted', 0.0),
+    'B': ('gather_gemm_f32', 1e-5), 'C': ('gather_gemm_bf16', 1e-5),
+    'D': ('gather_dw', 1e-4), "D'": ('gather_dw_seg', 1e-4),
+    "D''": ('gather_dw_xwin', 1e-4),
+    'E f32': ('gather_gemm_xwin_f32', 1e-5),
+    'E bf16': ('gather_gemm_xwin_bf16', 1e-5),
+    "E' f32": ('gather_gemm_seg_f32', 1e-5),
+    "E' bf16": ('gather_gemm_seg_bf16', 1e-5),
+    'selectors': ('xwin_selectors', 0.0)}
+
+
+def card_launches():
+    """Every kernel's launch counter, by `CARD_KERNELS`' names."""
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    return dict(all_launches(), rotated_overlap=ro.LAUNCHES,
+                rotated_overlap_sorted=ro.LAUNCHES_SORTED)
+
+
+def card_kernel_outputs(dev, inputs, plain=False):
+    """{name: output (a tuple for the selectors), on the CPU} of one launch
+    of each kernel with its operands on `dev`, or of its plain version."""
+    from pcdet_tpu_torch.ops import gather_dw as gd
+    from pcdet_tpu_torch.ops import gather_gemm as gg
+    from pcdet_tpu_torch.ops import gather_xwin as gx
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    t = {k: v.to(dev) for k, v in inputs.items()}
+    ca, cb, base, sel, nl = t['ca'], t['cb'], t['base'], t['sel'], t['n_live']
+    tables = {'f32': (t['table'], t['w']),
+              'bf16': (t['table'].bfloat16(), t['w'].bfloat16())}
+    v_in = int(t['table'].shape[1]) - 1
+    if plain:
+        a = ro.pair_overlap_batched_plain
+        fns = {'A': lambda: a(ca, cb), "A'": lambda: a(ca[:1], cb[:1])[0],
+               "A''": lambda: ro.pair_overlap_sorted_plain(ca, cb),
+               'selectors': lambda: gx.xwin_selectors_plain(t['rules'], v_in)}
+        gemm, dw = gg.gather_gemm_plain, gd.gather_dw_plain
+        xwin, seg = gx.gather_gemm_xwin_plain, gx.gather_gemm_seg_plain
+        dw_xwin, dw_seg = gd.gather_dw_xwin_plain, gd.gather_dw_seg_plain
+    else:
+        fns = {'A': lambda: ro.pair_overlap_batched(ca, cb),
+               "A'": lambda: ro.pair_overlap(ca[0], cb[0]),
+               "A''": lambda: ro.pair_overlap_sorted_batched(ca, cb),
+               'selectors': lambda: gx.xwin_selectors(t['rules'], v_in)}
+        gemm, dw = gg.gather_gemm, gd.gather_dw
+        xwin, seg = gx.gather_gemm_xwin, gx.gather_gemm_seg
+        dw_xwin, dw_seg = gd.gather_dw_xwin, gd.gather_dw_seg
+    fns.update({
+        'B': lambda: gemm(t['table'], t['rules'], t['w'], nl),
+        'C': lambda: gemm(tables['bf16'][0], t['rules'], tables['bf16'][1],
+                          nl),
+        'D': lambda: dw(t['table'], t['rules'], t['g'], nl),
+        "D'": lambda: dw_seg(t['table'], base, sel, t['g'], nl),
+        "D''": lambda: dw_xwin(t['table'], base, sel, t['g'], nl)})
+    for kind, (table, w) in tables.items():
+        fns['E ' + kind] = (lambda tb=table, ww=w: xwin(tb, base, sel, ww, nl))
+        fns["E' " + kind] = (lambda tb=table, ww=w: seg(tb, base, sel, ww, nl))
+    out = {}
+    for name in CARD_KERNELS:
+        got = fns[name]()
+        out[name] = (tuple(x.cpu() for x in got) if isinstance(got, tuple)
+                     else got.cpu())
+    return out
+
+
+def outputs_equal(a, b):
+    """Two `card_kernel_outputs` values bitwise equal (NaN equal to NaN)."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(outputs_equal, a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(torch.int32) if a.dtype == torch.float32 else a,
+        b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+def kernels_on_second_card(inputs, first=0, second=1):
+    """Every kernel with its operands on card `second`, launched from a new
+    thread whose current device is card `first`: (its outputs, the launches
+    it counted, the thread's current device before and after, the bytes it
+    allocated on card `first` at its peak, the outputs' devices)."""
+    def run():
+        before = torch.cuda.current_device()
+        torch.cuda.synchronize(first)
+        torch.cuda.reset_peak_memory_stats(first)
+        held = torch.cuda.memory_allocated(first)
+        counts = card_launches()
+        out = card_kernel_outputs(torch.device('cuda', second), inputs)
+        torch.cuda.synchronize(second)
+        launches = {k: v - counts[k] for k, v in card_launches().items()
+                    if v != counts[k]}
+        return (out, launches, (before, torch.cuda.current_device()),
+                torch.cuda.max_memory_allocated(first) - held)
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        return pool.submit(run).result()
+
+
+def fresh_build_rank(rank, group, path, build_dir):
+    """M4 (a) on one rank spawned on card `rank`: kernel A's library and the
+    host book builder built at once by every rank into one fresh
+    `build_dir`, then kernel A on its card against its plain version."""
+    from pathlib import Path
+    from pcdet_tpu_torch.ops import cuda_build, host_books
+    from pcdet_tpu_torch.ops import rotated_iou
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    from pcdet_tpu_torch.parallel import ddp
+    cuda_build.BUILD_DIR = Path(build_dir)
+    dev = torch.device('cuda', torch.cuda.current_device())
+    corners = rotated_iou.boxes5_to_corners(torch.as_tensor(
+        rand_boxes5(np.random.RandomState(rank), (1, 1024)),
+        device=dev)).contiguous()
+    ddp.barrier(group)              # every rank starts its builds at once
+    t0 = time.perf_counter()
+    native = host_books.native_lib()
+    got = ro.pair_overlap_batched(corners[:, :64].contiguous(), corners)
+    want = ro.pair_overlap_batched_plain(corners[:, :64], corners)
+    sync()
+    ddp.save_rank_result(path, rank, {
+        'device': str(got.device), 'equal': bool(torch.equal(got, want)),
+        'native': native is not None, 's': time.perf_counter() - t0,
+        'cached': cuda_build.BUILD_LOG['rotated_overlap']['cached']})
+
+
+def run_cards_kernels(world):
+    """M4 (a): every kernel on cuda:1 from a thread whose current device is
+    cuda:0, bitwise equal to the same launch on cuda:0 and within its
+    plain version's tolerance on cuda:1; kernel A'''s blocks an SM and
+    device time on each card; `world` ranks building at once into one
+    fresh build directory."""
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    from pcdet_tpu_torch.parallel import ddp
+    t0 = time.perf_counter()
+    inputs = card_kernel_inputs()
+    first = card_kernel_outputs(torch.device('cuda', 0), inputs)
+    sync()
+    got, launches, current, peak = kernels_on_second_card(inputs)
+    plain = card_kernel_outputs(torch.device('cuda', 1), inputs, plain=True)
+    rows = []
+    for name, (counter, tol) in CARD_KERNELS.items():
+        equal = outputs_equal(got[name], first[name])
+        want = plain[name]
+        if isinstance(want, tuple):
+            err, ok = 0.0, outputs_equal(got[name], want)
+        else:
+            scale = float(want.abs().max())
+            err = float((got[name] - want).abs().max())
+            ok = (outputs_equal(got[name], want) if tol == 0
+                  else err <= tol * max(scale, 1e-30))
+        rows.append('%s %s (%s launches)' % (name, 'bitwise' if equal else
+                                             'DIFFERS', launches.get(counter)))
+        require(equal, 'M4 %s: cuda:1 differs from cuda:0' % name)
+        require(ok, 'M4 %s: cuda:1 against its plain version, %g' % (
+            name, err))
+        require(launches.get(counter, 0) > 0, 'M4 %s: no launch counted on '
+                'cuda:1 (%s)' % (name, launches))
+    print('[ddp M4 a] every kernel on cuda:1 from a thread on cuda:0 '
+          '(current device %d before, %d after; %d bytes allocated on '
+          'cuda:0 at the peak), against the same launch on cuda:0: %s; each '
+          'within its plain version\'s tolerance on cuda:1' % (
+              current[0], current[1], peak, ', '.join(rows)))
+    require(current == (0, 0) and peak == 0, 'M4: the launches on cuda:1 '
+            'moved the current device %s or allocated %d bytes on cuda:0'
+            % (current, peak))
+    blocks, times = [], []
+    fn_inputs = {i: (inputs['ca'].to(i), inputs['cb'].to(i))
+                 for i in range(torch.cuda.device_count())}
+    for i in range(torch.cuda.device_count()):
+        with torch.cuda.device(i):
+            blocks.append(ro.sorted_blocks_per_sm())
+            ca, cb = fn_inputs[i]
+            times.append(queued_ms(
+                lambda: ro.pair_overlap_sorted_batched(ca, cb), 50)[0])
+    print("[ddp M4 a] kernel A'' at the NMS shape on each card: blocks of "
+          "128 an SM %s, device time (queued) %s ms" % (
+              blocks, ', '.join('%.4f' % x for x in times)))
+    require(len(set(blocks)) == 1, "M4: kernel A''s blocks an SM differ by "
+            "card: %s" % blocks)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        build_dir = os.path.join(tmp, 'build')
+        path = os.path.join(tmp, 'result')
+        ddp.launch_local(fresh_build_rank, world, (path, build_dir),
+                         backend='nccl', timeout=300,
+                         device=[torch.device('cuda', r)
+                                 for r in range(world)])
+        ranks = ddp.load_rank_results(path, world)
+        left = sorted(os.listdir(build_dir))
+    print('[ddp M4 a] %d ranks building kernel A and the host book builder '
+          'at once into a fresh build directory (%.1f s with the spawn): '
+          'built afresh / reused by rank %s, s %s, kernel A == plain on '
+          'each rank\'s card %s; files left %s' % (
+              world, time.perf_counter() - t1,
+              ['reused' if r['cached'] else 'built' for r in ranks],
+              ', '.join('%.1f' % r['s'] for r in ranks),
+              [r['equal'] for r in ranks], left))
+    require(all(r['equal'] and r['native'] for r in ranks)
+            and [r['device'] for r in ranks] == ['cuda:%d' % i
+                                                 for i in range(world)]
+            and len(left) == 2 and not any('.tmp' in x for x in left),
+            'M4: the fresh builds under %d ranks: %s, files %s' % (
+                world, ranks, left))
+    print('[ddp M4 a] %.1f s' % (time.perf_counter() - t0))
+
+
+def run_cards_ddp(devices):
+    """M4 (b): M1 / M2 over one NCCL rank a card of `devices`, each rank a
+    B1 share of the global batch against one process on the first card
+    with bn_groups W (per-rank BN) or one BN group (synced BN); each
+    model's one-process B1 step on the first card timed beside them.
+    Returns (the launches by kernel entry and path, the jobs' results for
+    (d))."""
+    from pcdet_tpu_torch.parallel import ddp
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world, dev = len(devices), devices[0]
+    backend = ddp.default_backend(dev)
+    how = '%d %s ranks, one card each' % (world, backend)
+    jobs, refs, single = [], [], {}
+    t0 = time.perf_counter()
+    for model, phase in (('second', 'M4 b'), ('parta2', 'M4 b')):
+        for mode in DDP_MODES:
+            groups = world if mode == 'per_rank' else 1
+            # 'device' None: each rank on the card ddp.init made current
+            job = {'model': model, 'cfg': ddp_config(model),
+                   'device': None if dev.type == 'cuda' else str(dev),
+                   'batch': world, 'steps': DDP_STEPS,
+                   'sync_bn': mode == 'sync', 'tag': phase, 'mode': mode,
+                   'how': how, 'dtypes': (('float32', 'float64')
+                                          if model == 'second'
+                                          else ('float32',))}
+            if model == 'parta2':
+                ref = ddp_run(dict(job, record=True, steps=0), dev,
+                              bn_groups=groups)
+                job['inject'] = ref['float32'].pop('inject')
+                ref.update(ddp_run(dict(job, steps=0, dtypes=('float64',)),
+                                   dev, bn_groups=groups))
+            else:
+                ref = ddp_run(dict(job, steps=0, dtypes=(
+                    'float32', 'float64')), dev, bn_groups=groups)
+            if mode == 'per_rank':
+                # one card, one process, the ranks' B1: the steps timed
+                single[model] = ddp_run(dict(job, batch=1, dtypes=(
+                    'float32',)), dev)['float32']['step_ms']
+            refs.append(ref)
+            jobs.append(job)
+    sync()
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    t_ref = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'result')
+        ddp.launch_local(ddp_rank, world, (path, jobs), backend=backend,
+                         device=list(devices), timeout=900)
+        ranks = ddp.load_rank_results(path, world)
+    print('[ddp M4 b] one-process references on %s %.1f s; %s, spawned, '
+          'all jobs: %.1f s' % (dev, t_ref, how, time.perf_counter() - t0))
+    paths, results = {}, []
+    for i, (job, ref) in enumerate(zip(jobs, refs)):
+        tag = '%s %s' % (job['tag'], job['model'])
+        ddp_report(tag, job, [r[i] for r in ranks], ref, job['mode'])
+        results.append((job, [r[i]['float32'] for r in ranks],
+                        single[job['model']]))
+        for r, rank in enumerate(ranks):
+            res = rank[i]['float32']
+            counts = {k: res['launches'].get(k, 0)
+                      + res['step_launches'].get(k, 0)
+                      for k in set(res['launches']) | set(
+                          res['step_launches'])}
+            where = 'ddp M4 %s %s rank %d on %s (B1 step + %d steps)' % (
+                job['model'], job['mode'], r, devices[r], DDP_STEPS)
+            for entry, keys in (
+                    ('gather_gemm_f32', ('gather_gemm_f32',
+                                         'gather_gemm_f32_dgrad')),
+                    ('gather_dw', ('gather_dw',)),
+                    ('gather_dw_seg', ('gather_dw_seg',)),
+                    ('rotated_overlap', ('A',))):
+                n = sum(counts.get(k, 0) for k in keys)
+                if n:
+                    paths.setdefault(entry, {})[where] = n
+    return paths, results
+
+
+def run_cards_cli(world, workdir, device_type='cuda'):
+    """M4 (c): the train CLI under torchrun at --nproc_per_node `world` on
+    pointpillar.yaml, B = 2 `world`, 2 epochs on L1's tree, then the test
+    CLI on rank 0's checkpoint through kernel A, its logged AP string equal
+    to the evaluator's; the same CLI at one rank, B2, for the samples/s of
+    one card at the same per-rank batch.  Returns (kernel A's launches by
+    path, the two runs)."""
+    import pickle
+    from pcdet_tpu_torch import detect as detect_mod
+    from pcdet_tpu_torch.datasets.kitti import kitti_eval_cli
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    from pcdet_tpu_torch.tools import test as test_cli
+    here = os.path.dirname(os.path.abspath(__file__))
+    pp_cfg = str(detect_mod.DEFAULT_CFG)
+    root, out_root = (os.path.join(workdir, 'kitti'),
+                      os.path.join(workdir, 'out'))
+    with open(os.path.join(root, 'kitti_infos_val.pkl'), 'rb') as f:
+        val_infos = pickle.load(f)
+    sets = cli_sets(root, out_root)
+    os.makedirs(out_root, exist_ok=True)
+    driver = os.path.join(out_root, 'm4_train.py')
+    with open(driver, 'w') as f:
+        f.write(M3_DRIVER)
+    env = train_cli_env(here)
+    runs = {}
+    for w in (world, 1):
+        tag = 'm4_w%d' % w
+        argv = ['--cfg_file', pp_cfg, '--batch_size', str(2 * w),
+                '--epochs', '2', '--workers', '4', '--ckpt_save_interval',
+                '1', '--log_interval', '1', '--extra_tag', tag, '--device',
+                device_type, '--set'] + sets
+        launch = [sys.executable, '-m', 'torch.distributed.run',
+                  '--standalone', '--nproc_per_node', str(w), driver,
+                  '--multi_host']
+        runs[w] = train_cli_finish(
+            train_cli_start(tag, launch, argv, env, here), out_root, 'M4 c')
+        run = runs[w]
+        print('[ddp M4 c] train CLI pointpillar.yaml under torchrun '
+              '--nproc_per_node %d (%s), B%d (%d a rank), on L1\'s tree: '
+              '%.1f s wall (%s); epochs (index, s, iterations) %s; loss %s; '
+              'gradient all-reduce (rank 0) of %.2f MB, ms a step %s' % (
+                  w, 'NCCL' if device_type == 'cuda' else 'gloo', 2 * w, 2,
+                  run['wall'], run['split'], run['epochs'],
+                  ', '.join('%.4f' % x for x in run['losses']),
+                  run['grad_mb'], ', '.join('%.3f' % x
+                                            for x in run['allreduce_ms'])))
+        require('rank 0 of %d' % w in run['log'] and len(run['epochs']) == 2
+                and run['losses'] and all(np.isfinite(run['losses'])),
+                'M4 train CLI at %d ranks: %s' % (w, run['log'][-2000:]))
+    last = os.path.join(runs[world]['out'], 'ckpt', 'checkpoint_epoch_2.pth')
+    ro.LAUNCHES = 0
+    t0 = time.perf_counter()
+    tout = test_cli.main(
+        ['--cfg_file', pp_cfg, '--batch_size', '2', '--workers', '4',
+         '--extra_tag', 'm4', '--device', device_type, '--ckpt', last,
+         '--set'] + sets
+        + ['MODEL.TEST.SCORE_THRESH', '0.0'])
+    sync()
+    a_launches = ro.LAUNCHES
+    eval_dir, result = tout['results'][2]
+    with open(os.path.join(str(eval_dir), 'result.pkl'), 'rb') as f:
+        det_annos = pickle.load(f)
+    again, _ = kitti_eval_cli.evaluation(det_annos, val_infos, KITTI_CLASSES)
+    logged = logged_result(tout['log_file'])
+    print('[ddp M4 c] test CLI on rank 0\'s checkpoint of %d ranks, %d val '
+          'frames on %s in %.2f s: kernel A launches %d; recall/gt %s; '
+          'logged AP string == the evaluator on result.pkl: %s' % (
+              world, len(det_annos), device_type, time.perf_counter() - t0,
+              a_launches,
+              result['recall/gt'], logged == again.strip()))
+    require(a_launches > 0 and logged == again.strip()
+            and finite_numbers(logged), 'M4 test CLI: A %d, AP string '
+            'equal %s' % (a_launches, logged == again.strip()))
+    return {'rotated_overlap': {'ddp M4 test CLI (%d-rank checkpoint)'
+                                % world: a_launches}}, runs
+
+
+def samples_per_s(run, batch):
+    """The train CLI's samples a second over its last epoch (the first
+    holds the loader's start and the first steps' warm-up)."""
+    _, s, iters = run['epochs'][-1]
+    return iters * batch / s
+
+
+def run_multi_card(workdir):
+    """M4 on every card of the host (two or more): (a) every kernel on
+    cuda:1 from a thread on cuda:0, and fresh builds under W ranks; (b)
+    SECOND and Part-A² steps over W NCCL ranks; (c) the train CLI under
+    torchrun at W ranks and the test CLI on its checkpoint; (d) their
+    times, with the cards' names, power limits and links.  Returns the
+    launches by kernel entry and path."""
+    world = torch.cuda.device_count()
+    if world < 2:
+        print('[ddp M4] needs two cards, %d visible: M4 did not run' % world)
+        return {}
+    t0 = time.perf_counter()
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    topo = subprocess.run(['nvidia-smi', 'topo', '-m'], capture_output=True,
+                          text=True)
+    links = sorted({x for line in topo.stdout.splitlines()
+                    if line.startswith('GPU')
+                    for x in line.split()[1:world + 1] if x != 'X'})
+    nvlink = subprocess.run(['nvidia-smi', 'nvlink', '--status', '-i', '0'],
+                            capture_output=True, text=True)
+    speeds = re.findall(r'Link \d+: ([0-9.]+ GB/s)', nvlink.stdout)
+    peer = [torch.cuda.can_device_access_peer(0, i) for i in range(1, world)]
+    print('[ddp M4] %d cards: %s; links between the cards: nvidia-smi topo '
+          '-m %s; card 0\'s NVLink links (nvidia-smi nvlink --status) %s; '
+          'peer access from cuda:0 to the others %s' % (
+              world, '; '.join(smi),
+              links or 'not read (%s)' % (topo.stdout + topo.stderr).strip(),
+              '%d x %s' % (len(speeds), sorted(set(speeds))) if speeds else
+              'not read (%s)' % (nvlink.stdout + nvlink.stderr).strip()[:200],
+              peer))
+    run_cards_kernels(world)
+    mark('M4 a')
+    paths, steps = run_cards_ddp([torch.device('cuda', r)
+                                  for r in range(world)])
+    mark('M4 b')
+    cli_paths, runs = run_cards_cli(world, workdir)
+    mark('M4 c')
+    for name, by_path in cli_paths.items():
+        paths.setdefault(name, {}).update(by_path)
+    # (d) the times against their bounds
+    factor = 2 * (world - 1) / world
+    for job, ranks, one in steps:
+        ar = [r['allreduce_ms'] for r in ranks]
+        bare = [r['collective_ms'] for r in ranks]
+        mb = ranks[0]['grad_mb']
+        bound = 1e3 * factor * mb * 2 ** 20 / NVLINK_BYTES_PER_S
+        print('[ddp M4 d] %s %s: NCCL all_reduce of one flat %.1f MB buffer '
+              '%s ms by rank (CUDA events, mean of 10): %.1f GB/s of bus '
+              'bandwidth, 2(W-1)/W x bytes / ms, against %.0f' % (
+                  job['model'], job['mode'], mb,
+                  ', '.join('%.3f' % x for x in bare),
+                  factor * mb * 2 ** 20 / (1e6 * max(bare)),
+                  NVLINK_BYTES_PER_S / 1e9))
+        step = [float(np.median(r['step_ms'])) for r in ranks]
+        one_ms = float(np.median(one))
+        print('[ddp M4 d] %s %s: NCCL gradient all-reduce of %.1f MB %s ms '
+              'by rank (median of 3 each), bound 2(W-1)/W x bytes over %.0f '
+              'GB/s NVLink %.4f ms; a rank\'s B1 step %s ms (median of %d), '
+              'one process on one card at B1 %.2f ms; samples/s across %d '
+              'cards %.2f against one card %.2f (%.2fx)' % (
+                  job['model'], job['mode'], mb,
+                  ', '.join('%.3f' % x for x in ar),
+                  NVLINK_BYTES_PER_S / 1e9, bound,
+                  ', '.join('%.2f' % x for x in step), DDP_STEPS, one_ms,
+                  world, 1e3 * world / max(step), 1e3 / one_ms,
+                  one_ms * world / max(step)))
+    w_run, one_run = runs[world], runs[1]
+    many, single = (samples_per_s(w_run, 2 * world),
+                    samples_per_s(one_run, 2))
+    print('[ddp M4 d] train CLI pointpillar.yaml through the loader (4 '
+          'workers a rank), the last epoch: %.2f samples/s across %d cards '
+          '(B%d) against %.2f on one card (B2), %.2fx; gradient all-reduce '
+          '(rank 0, median) %.3f ms at %d ranks, %.3f at 1, bound %.4f ms' % (
+              many, world, 2 * world, single, many / single,
+              float(np.median(w_run['allreduce_ms'])), world,
+              float(np.median(one_run['allreduce_ms'])),
+              1e3 * factor * w_run['grad_mb'] * 2 ** 20
+              / NVLINK_BYTES_PER_S))
+    print('[ddp M4] %.1f s' % (time.perf_counter() - t0))
+    return paths
 
 
 # K1-K3: the rulebooks built on the card (PCDET_HOST_BOOKS=0) -------------
@@ -6778,7 +7358,10 @@ def main():
         for name, by_path in timed('data-parallel M3', run_ddp_cli, dev,
                                    workdir).items():
             ddp_paths.setdefault(name, {}).update(by_path)
-        print('[time] data-parallel M1-M3: %.1f s'
+        for name, by_path in timed('every card M4', run_multi_card,
+                                   workdir).items():
+            ddp_paths.setdefault(name, {}).update(by_path)
+        print('[time] data-parallel M1-M4: %.1f s'
               % (time.perf_counter() - t_ddp))
 
     a_entry = kernel_entry(

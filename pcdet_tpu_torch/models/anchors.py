@@ -6,10 +6,11 @@ matches, positives above the matched threshold, negatives below the
 unmatched one, the rest don't-care) on the nearest axis-aligned BEV IoU,
 evaluated only on the window of anchors around the boxes, and the residual
 encoding of the positives (`utils/box_coder.ResidualCoder.encode_np`); the
-BEV helpers are `utils/box_np_ops`'.
+BEV helpers are `utils/box_np_ops`'.  With SAMPLE_POS_FRACTION >= 0 each
+class keeps at most SAMPLE_POS_FRACTION * SAMPLE_SIZE positives and labels
+negatives drawn from the background to fill SAMPLE_SIZE, the rest -1, the
+draws from `np.random` (or the `rng` given), as `pcdet_tpu` draws them.
 Outputs are fixed-shape over the whole anchor grid and equal `pcdet_tpu`'s.
-The positive-fraction sampling (SAMPLE_POS_FRACTION >= 0) is not ported:
-no config sets it.
 """
 import numpy as np
 
@@ -89,14 +90,14 @@ def build_anchor_generators(anchor_generator_cfgs, class_names):
 class TargetAssigner:
     """Per-class anchor-GT matching (detectron-style with forced matches)."""
 
-    def __init__(self, anchor_generators, pos_fraction,
+    def __init__(self, anchor_generators, pos_fraction, sample_size,
                  region_similarity_fn_name, box_coder):
-        if pos_fraction >= 0 or region_similarity_fn_name != \
-                'nearest_iou_similarity':
-            raise ValueError('only SAMPLE_POS_FRACTION < 0 and '
-                             'nearest_iou_similarity are ported, got %r, %r'
-                             % (pos_fraction, region_similarity_fn_name))
+        if region_similarity_fn_name != 'nearest_iou_similarity':
+            raise ValueError('only nearest_iou_similarity is ported, got %r'
+                             % (region_similarity_fn_name,))
         self.anchor_generators = anchor_generators
+        self.pos_fraction = pos_fraction if pos_fraction >= 0 else None
+        self.sample_size = sample_size
         self.box_coder = box_coder
 
     @property
@@ -156,7 +157,8 @@ class TargetAssigner:
                 flat_anchors, gt_boxes[mask], gt_classes[mask],
                 anchor_dict['matched_thresholds'],
                 anchor_dict['unmatched_thresholds'],
-                anchor_dict['near_bbox'], anchor_dict['grid']))
+                anchor_dict['near_bbox'], anchor_dict['grid'],
+                self.pos_fraction, self.sample_size))
             feature_map_size = anchor_dict['anchors'].shape[:3]
 
         code = self.box_coder.code_size
@@ -192,11 +194,17 @@ class TargetAssigner:
 
     def create_target_np(self, all_anchors, gt_boxes, gt_classes,
                          matched_threshold, unmatched_threshold,
-                         anchors_near_bbox, grid):
+                         anchors_near_bbox, grid, positive_fraction=None,
+                         rpn_batch_size=300, rng=None):
         """Single-class targets over the candidate window of `grid`:
         forced matches (each GT's best anchors, ties included), positives at
         overlap >= matched_threshold, negatives below unmatched_threshold,
-        the rest -1."""
+        the rest -1.  With `positive_fraction`, at most positive_fraction *
+        rpn_batch_size positives stay (the others drawn without replacement
+        from `rng` become -1) and rpn_batch_size less the positives
+        negatives are drawn, with replacement, from the background."""
+        if rng is None:
+            rng = np.random
         num_inside = all_anchors.shape[0]
         labels = np.full((num_inside,), -1, dtype=np.int32)
         anchors_with_max_overlap = gt_inds_force = None
@@ -230,7 +238,18 @@ class TargetAssigner:
         else:
             bg_inds = np.arange(num_inside)
 
-        if cand is None:
+        if positive_fraction is not None:
+            fg_inds = np.where(labels > 0)[0]
+            num_fg = int(positive_fraction * rpn_batch_size)
+            if len(fg_inds) > num_fg:
+                disable = rng.choice(fg_inds, size=len(fg_inds) - num_fg,
+                                     replace=False)
+                labels[disable] = -1
+            num_bg = rpn_batch_size - np.sum(labels > 0)
+            if len(bg_inds) > num_bg:
+                enable = bg_inds[rng.randint(len(bg_inds), size=num_bg)]
+                labels[enable] = 0
+        elif cand is None:
             labels[:] = 0
         else:
             labels[bg_inds] = 0
@@ -270,6 +289,7 @@ class AnchorHeadTargets:
         self.assigner = TargetAssigner(
             anchor_generators=gens,
             pos_fraction=anchor_target_cfg.SAMPLE_POS_FRACTION,
+            sample_size=anchor_target_cfg.SAMPLE_SIZE,
             region_similarity_fn_name=anchor_target_cfg.REGION_SIMILARITY_FN,
             box_coder=self.box_coder)
         feature_map_size = (np.asarray(grid_size[:2])

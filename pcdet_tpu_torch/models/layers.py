@@ -80,8 +80,8 @@ class BatchNorm(nn.Module):
         if ddp.world_size(group) > 1:
             mean, var, n = self._synced(x, mask, dims, shape, group)
         elif mask is None:
-            n = torch.tensor(float(x.numel() // x.shape[self.channel_dim]),
-                             dtype=x.dtype, device=x.device)
+            n = torch.full((), float(x.numel() // x.shape[self.channel_dim]),
+                           dtype=x.dtype, device=x.device)
             mean = x.mean(dim=dims)
             var = torch.square(x - mean.view(shape)).mean(dim=dims)
         else:
@@ -105,8 +105,9 @@ class BatchNorm(nn.Module):
         """Mean, biased variance and n over every rank's batch: two passes,
         as JAX's statistics over a sharded batch."""
         if mask is None:
-            local_n = x.new_tensor(float(x.numel() // x.shape[
-                self.channel_dim]))
+            # filled on the device: a host tensor's copy would wait on it
+            local_n = torch.full((), float(x.numel() // x.shape[
+                self.channel_dim]), dtype=x.dtype, device=x.device)
             s = x.sum(dim=dims)
             w = None
         else:

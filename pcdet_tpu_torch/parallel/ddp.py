@@ -26,10 +26,12 @@ single-process run computes what it computed before, bit for bit.
 (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); `launch_local`
 starts W ranks of a function on this host over a `file://` rendezvous
 (the `spawn` start method, which CUDA needs: the function's module is
-imported again in each child, so it must not import jax).  NCCL serves
-CUDA and gloo the CPU by default; two ranks on one card must take gloo,
-since NCCL refuses two ranks on a device (gloo's `all_reduce` and
-`broadcast` take CUDA tensors).
+imported again in each child, so it must not import jax), on one device
+or one card a rank.  NCCL serves CUDA and gloo the CPU by default; two
+ranks on one card must take gloo, since NCCL refuses two ranks on a device
+(gloo's `all_reduce` and `broadcast` take CUDA tensors).  Over NCCL the
+gradient, BatchNorm and buffer collectives queue on the rank's stream and
+do not wait on the card.
 """
 import os
 import pickle
@@ -247,9 +249,13 @@ def reduce_tb(tb, group):
 
 
 def _rank_main(rank_, fn, world, init_method, backend, device, args):
+    if isinstance(device, (list, tuple)):
+        device = device[rank_]
     group = init(backend, init_method, rank_, world, device)
     try:
         fn(rank_, group, *args)
+        # no rank leaves while another is still in a collective
+        dist.barrier(group=group)
     finally:
         dist.destroy_process_group()
 
@@ -261,7 +267,8 @@ def launch_local(fn, world, args=(), backend='gloo', device=None,
     most `timeout` seconds, then stop every rank and raise.
 
     :param fn: a module-level function of a module that does not import jax
-    :param device: the device every rank binds to (None: the CPU)
+    :param device: the device every rank binds to (None: the CPU), or a
+        sequence of one device a rank (NCCL takes one card a rank)
     """
     ctx = torch.multiprocessing.get_context('spawn')
     with tempfile.TemporaryDirectory() as tmp:

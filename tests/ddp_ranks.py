@@ -40,12 +40,14 @@ def foreign_modules():
                   if m.split('.')[0] in ('jax', 'pcdet_tpu', 'flax'))
 
 
-def run_ranks(tmp_path, fn, payload, world=2, timeout=300, device=None):
-    """fn(rank, group, path, payload) on `world` gloo ranks spawned here;
-    their results in rank order."""
+def run_ranks(tmp_path, fn, payload, world=2, timeout=300, device=None,
+              backend='gloo'):
+    """fn(rank, group, path, payload) on `world` ranks spawned here (gloo;
+    NCCL with one card a rank in `device`); their results in rank
+    order."""
     path = str(tmp_path / 'result')
     ddp.launch_local(fn, world, (path, payload), timeout=timeout,
-                     device=device)
+                     device=device, backend=backend)
     return ddp.load_rank_results(path, world)
 
 
@@ -106,8 +108,13 @@ def state_tensors(trainer):
 
 
 def step_job(job, group=None, rank=0, dev=None, bn_groups=1):
-    """See the module docstring; returns a dict of CPU results."""
-    dev = torch.device(job.get('device', 'cpu') if dev is None else dev)
+    """See the module docstring; returns a dict of CPU results.  A job's
+    'device' 'card' is the card `ddp.init` made current (a rank's own)."""
+    if dev is None:
+        dev = job.get('device', 'cpu')
+        if dev == 'card':
+            dev = torch.device('cuda', torch.cuda.current_device())
+    dev = torch.device(dev)
     world = ddp.world_size(group)
     tr = make_trainer(job, group, dev, bn_groups)
     batch, rec = prepare(job, tr, rank, world, dev)
@@ -197,15 +204,20 @@ def loss_shares_rank(rank, group, path, cases):
 
 
 def bn_rank(rank, group, path, cases):
-    """`BatchNorm` synced over the ranks on this rank's half of each case's
+    """`BatchNorm` synced over the ranks on this rank's share of each case's
     (f64) input: the output, the input's gradient under the case's
-    cotangent, this rank's parameter gradients and the running
-    statistics."""
+    cotangent, this rank's parameter gradients and the running statistics
+    (on the CPU).  With `case['card']` on this rank's card, the forward and
+    backward under torch.cuda's sync debug mode 'error' (a host sync
+    raises), after one collective has brought the communicator up."""
     from pcdet_tpu_torch.models.layers import BatchNorm, set_batch_norm
     torch.set_num_threads(1)
     world = ddp.world_size(group)
     out = []
     for case in cases:
+        card = case.get('card', False)
+        dev = (torch.device('cuda', torch.cuda.current_device()) if card
+               else torch.device('cpu'))
         x, cot, mask = case['x'], case['cot'], case.get('mask')
         b = len(x) // world
         sl = slice(rank * b, rank * b + b)
@@ -213,15 +225,27 @@ def bn_rank(rank, group, path, cases):
                        channel_dim=case.get('channel_dim', -1)).double()
         bn.weight.data.copy_(torch.as_tensor(case['scale']))
         bn.bias.data.copy_(torch.as_tensor(case['bias']))
+        bn.to(dev)
         set_batch_norm(bn, process_group=group)
         bn.train()
-        tx = torch.as_tensor(x[sl]).requires_grad_()
-        y = bn(tx, None if mask is None else torch.as_tensor(mask[sl]))
-        dx, dw, db = torch.autograd.grad(
-            (y * torch.as_tensor(cot[sl])).sum(), (tx, bn.weight, bn.bias))
-        out.append({'y': y.detach(), 'dx': dx, 'dw': dw, 'db': db,
-                    'mean': bn.running_mean.clone(),
-                    'var': bn.running_var.clone()})
+        tx = torch.as_tensor(x[sl], device=dev).requires_grad_()
+        tmask = None if mask is None else torch.as_tensor(mask[sl],
+                                                          device=dev)
+        tcot = torch.as_tensor(cot[sl], device=dev)
+        if card:
+            ddp.all_sum(torch.zeros(1, device=dev), group)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode('error')
+        try:
+            y = bn(tx, tmask)
+            dx, dw, db = torch.autograd.grad((y * tcot).sum(),
+                                             (tx, bn.weight, bn.bias))
+        finally:
+            if card:
+                torch.cuda.set_sync_debug_mode(0)
+        out.append({k: v.detach().cpu() for k, v in (
+            ('y', y), ('dx', dx), ('dw', dw), ('db', db),
+            ('mean', bn.running_mean), ('var', bn.running_var))})
     ddp.save_rank_result(path, rank, out)
 
 

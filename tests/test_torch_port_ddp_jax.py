@@ -1,9 +1,10 @@
-"""Two gloo ranks of the port against `pcdet_tpu`'s single-device step on
-the same global batch (CPU, f32, the tiny PointPillar and SECOND configs
-with 3 classes, a global batch of 2, one scan a rank, the same random flax
-variables through `weights.state_dict_from_flax`), with `pcdet_tpu`'s
-per-device BatchNorm, `set_bn_groups(2)`, against each rank's own
-statistics, at the tolerances of `tests/test_torch_port_train.py`:
+"""W gloo ranks of the port, W = 2 and 4, against `pcdet_tpu`'s
+single-device step on the same global batch (CPU, f32, the tiny
+PointPillar and SECOND configs with 3 classes, a global batch of W, one
+scan a rank, the same random flax variables through
+`weights.state_dict_from_flax`), with `pcdet_tpu`'s per-device BatchNorm,
+`set_bn_groups(W)`, against each rank's own statistics, at the tolerances
+of `tests/test_torch_port_train.py`:
 
 - the global loss (the ranks' shares summed) to 1e-5 relative and every
   tb term (summed over the ranks) to 1e-5;
@@ -12,7 +13,7 @@ statistics, at the tolerances of `tests/test_torch_port_train.py`:
   against the JAX model run in f64, as `tests/test_torch_port_pointpillar_
   train.py` holds the one-process step (XLA's f32 reductions put JAX's own
   f32 PointPillar gradients up to 4.4e-3 of max off);
-- the BN running statistics, rank 0's (JAX's group 0) on both ranks, to
+- the BN running statistics, rank 0's (JAX's group 0) on every rank, to
   1e-5.
 `set_bn_groups` is set inside the test: the conftest's fixture resets it
 to 1.
@@ -34,22 +35,47 @@ from pcdet_tpu_torch.ops.voxelizer import grid_size
 from pcdet_tpu_torch.train.trainer import build_trainer
 from pcdet_tpu_torch.weights import state_dict_from_flax
 from test_torch_port_pointpillar_train import _jax_f64_grads, _voxelize
-from test_torch_port_train import _random_variables, _scans
+from test_torch_port_train import (CLASSES, _random_variables, _scans,
+                                   make_scene)
 
 torch.set_num_threads(1)
 
-GROUPS = 2
 MODELS = {'pointpillar': (tiny_pointpillar_cfg, JaxPointPillar),
           'second': (tiny_second_cfg, JaxSECONDNet)}
+# (model, W) cases; W = 2 keeps the ids it had before W = 4 came
+CASES = pytest.mark.parametrize('name,world', [
+    ('pointpillar', 2), ('second', 2), ('pointpillar', 4), ('second', 4)],
+    ids=['pointpillar', 'second', 'pointpillar-w4', 'second-w4'])
 
 
-def _jax_step(name):
-    """pcdet_tpu's step on the global batch under set_bn_groups(2): its
-    loss, tb, new BN statistics and gradients (in f64 for PointPillar),
-    and the rank job of the same inputs."""
+def _global_scans(cfg, world):
+    """`_scans`' two scenes at W = 2; at W = 4 two more from the same
+    random stream."""
+    if world == 2:
+        return _scans(cfg)
+    rng = np.random.RandomState(0)
+    p = int(cfg.DATA_CONFIG.MAX_POINTS)
+    g = int(cfg.DATA_CONFIG.MAX_GT_BOXES)
+    points = np.zeros((world, p, 4), np.float32)
+    mask = np.zeros((world, p), bool)
+    gt = np.zeros((world, g, 8), np.float32)
+    for i in range(world):
+        pts, boxes, names = make_scene(rng, CLASSES, num_objects=6,
+                                       x_range=(3, 30), y_range=(-14, 14))
+        n = min(len(pts), p)
+        points[i, :n], mask[i, :n] = pts[:n], True
+        gt[i, :len(boxes), :7] = boxes
+        gt[i, :len(boxes), 7] = [CLASSES.index(x) + 1 for x in names]
+    return points, mask, gt
+
+
+def _jax_step(name, world):
+    """pcdet_tpu's step on the global batch of `world` scans under
+    set_bn_groups(world): its loss, tb, new BN statistics and gradients
+    (in f64 for PointPillar), and the rank job of the same inputs."""
     make_cfg, jax_cls = MODELS[name]
     cfg = make_cfg(num_class=3)
-    points, mask, gt = _scans(cfg)
+    points, mask, gt = _global_scans(cfg, world)
     dc = cfg.DATA_CONFIG
     jmodel = jax_cls(cfg, grid_size(tuple(dc.VOXEL_GENERATOR.VOXEL_SIZE),
                                     tuple(dc.POINT_CLOUD_RANGE)))
@@ -78,7 +104,7 @@ def _jax_step(name):
         [t['bbox_targets'] for t in targets]).astype(np.float32))
     jbatch['voxel_overflow'] = jnp.asarray(batch['voxel_overflow'].numpy())
 
-    jax_layers.set_bn_groups(GROUPS)
+    jax_layers.set_bn_groups(world)
     try:
         def loss_fn(params):
             ret, stats = jmodel.forward(
@@ -107,17 +133,27 @@ def _jax_step(name):
 
 @pytest.fixture(scope='module')
 def runs(tmp_path_factory):
-    pairs = {name: _jax_step(name) for name in sorted(MODELS)}
-    got = ddp_ranks.run_ranks(tmp_path_factory.mktemp('ddp_jax'),
-                              ddp_ranks.step_rank,
-                              [job for _, job in pairs.values()])
-    return {name: ([g[i] for g in got], pairs[name][0])
-            for i, name in enumerate(pairs)}
+    """runs(W) -> {model: (each rank's result, pcdet_tpu's)}, W ranks
+    spawned once for both models."""
+    done = {}
+
+    def get(world):
+        if world not in done:
+            pairs = {name: _jax_step(name, world) for name in sorted(MODELS)}
+            got = ddp_ranks.run_ranks(
+                tmp_path_factory.mktemp('ddp_jax_w%d' % world),
+                ddp_ranks.step_rank, [job for _, job in pairs.values()],
+                world=world)
+            done[world] = {name: ([g[i] for g in got], pairs[name][0])
+                           for i, name in enumerate(pairs)}
+        return done[world]
+    return get
 
 
-@pytest.mark.parametrize('name', sorted(MODELS))
-def test_loss_and_tb_match_jax(runs, name):
-    got, want = runs[name]
+@CASES
+def test_loss_and_tb_match_jax(runs, name, world):
+    got, want = runs(world)[name]
+    assert len(got) == world
     for r in got:
         np.testing.assert_allclose(r['loss'], want['loss'], rtol=1e-5)
         assert sorted(r['tb']) == sorted(want['tb'])
@@ -125,12 +161,12 @@ def test_loss_and_tb_match_jax(runs, name):
         for k, v in want['tb'].items():
             np.testing.assert_allclose(r['tb'][k], v, rtol=1e-5, atol=1e-7,
                                        err_msg=k)
-    assert got[0]['share'] != got[1]['share']
+    assert len({r['share'] for r in got}) == world
 
 
-@pytest.mark.parametrize('name', sorted(MODELS))
-def test_every_gradient_matches_jax(runs, name):
-    got, want = runs[name]
+@CASES
+def test_every_gradient_matches_jax(runs, name, world):
+    got, want = runs(world)[name]
     for r in got:
         assert sorted(r['grads']) == sorted(want['grads'])
         for n, w in want['grads'].items():
@@ -141,9 +177,9 @@ def test_every_gradient_matches_jax(runs, name):
             assert err <= 1e-4 * scale, (n, err / scale)
 
 
-@pytest.mark.parametrize('name', sorted(MODELS))
-def test_bn_running_statistics_match_jax(runs, name):
-    got, want = runs[name]
+@CASES
+def test_bn_running_statistics_match_jax(runs, name, world):
+    got, want = runs(world)[name]
     assert len(want['stats']) == 2 * (1 + 6 if name == 'pointpillar'
                                       else 12 + 6)
     for r in got:

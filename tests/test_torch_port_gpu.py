@@ -55,7 +55,14 @@ SECOND widths), with per-rank and with synced BatchNorm.  The rulebooks
 built on the card (`host_books.build_books_device`, under torch.cuda's
 sync debug mode 'error') equal to the host books, outputs dropped at small
 caps; `SparseBottleneck` (4 launches of B) and `sparse_maxpool3d` on the
-card against the CPU.
+card against the CPU.  `utils.profiler.trace` records kernel A on the
+card.  On two cards or more (the `two_cards` tests skip below two): every
+kernel with its operands on cuda:1, launched from a thread on cuda:0,
+bitwise equal to cuda:0 (chip_smoke.py M4 (a)); kernel A″'s blocks an SM
+on cuda:1 equal whichever card a process asks first; the two-rank step
+over NCCL, one rank a card; synced BatchNorm over NCCL with no host sync
+(torch.cuda's sync debug mode 'error'); the test CLI at `--device cuda:1`
+equal to cuda:0's, nothing allocated on cuda:0.
 """
 import itertools
 
@@ -902,6 +909,13 @@ def test_two_gloo_ranks_on_card_match_one_process(cuda, no_tf32_conv,
     max (the tolerance chip_smoke.py T4 holds the kernels to against plain)
     and the BN running statistics too, kernels B and D launched on both
     ranks, and after 3 steps both ranks' states bitwise equal."""
+    _ranks_match_one_process(tmp_path, mode, 'cuda:0', 'cuda:0', 'gloo')
+
+
+def _ranks_match_one_process(tmp_path, mode, ref_device, rank_device,
+                             backend):
+    """The tiny SECOND step over two ranks (`rank_device`: one device for
+    both, or one card a rank) against one process on `ref_device`."""
     import ddp_ranks
     from tiny_config import tiny_second_cfg
     from pcdet_tpu_torch.train.trainer import build_trainer, make_train_scans
@@ -910,11 +924,13 @@ def test_two_gloo_ranks_on_card_match_one_process(cuda, no_tf32_conv,
     points, mask, gt = make_train_scans(cfg, 2, num_objects=6)
     job = {'cfg': cfg, 'state': build_trainer(cfg, 'cpu', seed=1).model
            .module.state_dict(), 'points': points, 'mask': mask, 'gt': gt,
-           'sync_bn': mode == 'sync', 'device': 'cuda:0'}
+           'sync_bn': mode == 'sync', 'device': ref_device}
     want = ddp_ranks.step_job(job, bn_groups=2 if mode == 'per_rank' else 1)
+    per_rank = isinstance(rank_device, (list, tuple))
     got = [r[0] for r in ddp_ranks.run_ranks(
-        tmp_path, ddp_ranks.step_rank, [dict(job, steps=3)],
-        device='cuda:0')]
+        tmp_path, ddp_ranks.step_rank,
+        [dict(job, steps=3, device='card' if per_rank else rank_device)],
+        device=rank_device, backend=backend)]
     for r in got:
         assert abs(r['loss'] - want['loss']) <= 1e-4 * abs(want['loss'])
         for n, g in want['grads'].items():
@@ -1096,3 +1112,193 @@ def test_bottleneck_and_maxpool_on_card_match_cpu(cuda, no_tf32):
     for a, b in zip(pooled[:4], ref[:4]):
         assert torch.equal(a.cpu(), b)
     assert int(ref.overflow.sum()) > 0
+
+
+# --------------------------------------------------------- two cards ---
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA devices: the check is of a second card')
+    return torch.device('cuda', 0), torch.device('cuda', 1)
+
+
+def test_every_kernel_on_a_second_card_equals_the_first(two_cards, no_tf32):
+    """chip_smoke.py M4 (a) on a smaller book: every kernel (A, A', A'', B,
+    C, D, D', D'', E and E' in f32 and bf16, the selector kernel) with its
+    operands on cuda:1, launched from a new thread whose current device is
+    cuda:0, bitwise equal to the same launch on cuda:0 and within its plain
+    version's tolerance on cuda:1; each launch counted; the thread's
+    current device left at 0 and nothing allocated on cuda:0."""
+    import chip_smoke
+    first, second = two_cards
+    inputs = chip_smoke.card_kernel_inputs(seed=3,
+                                           book=(2, 3000, 2000, 9, 32, 32))
+    want = chip_smoke.card_kernel_outputs(first, inputs)
+    got, launches, current, peak = chip_smoke.kernels_on_second_card(inputs)
+    plain = chip_smoke.card_kernel_outputs(second, inputs, plain=True)
+    for name, (counter, tol) in chip_smoke.CARD_KERNELS.items():
+        assert chip_smoke.outputs_equal(got[name], want[name]), name
+        assert launches.get(counter, 0) > 0, (name, launches)
+        if tol == 0:
+            assert chip_smoke.outputs_equal(got[name], plain[name]), name
+        else:
+            scale = float(plain[name].abs().max())
+            assert scale > 0, name
+            assert float((got[name] - plain[name]).abs().max()) \
+                <= tol * scale, name
+    assert current == (0, 0) and peak == 0
+
+
+def test_kernel_a2_asks_every_card_for_its_carveout(two_cards):
+    """Kernel A''s shared-memory carve-out is a function attribute of each
+    device: a process that first asks cuda:0 and then cuda:1 finds on
+    cuda:1 the blocks an SM that a process asking cuda:1 alone finds, and
+    as many as on cuda:0."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    head = ('import torch; from pcdet_tpu_torch.ops import rotated_overlap '
+            'as ro; ')
+    runs = {'both': head + ('a = ro.sorted_blocks_per_sm(); '
+                            'torch.cuda.set_device(1); '
+                            'print(a, ro.sorted_blocks_per_sm())'),
+            'second': head + ('torch.cuda.set_device(1); '
+                              'print(ro.sorted_blocks_per_sm())')}
+    out = {}
+    for name, code in runs.items():
+        proc = subprocess.run([sys.executable, '-c', code],
+                              cwd=Path(__file__).resolve().parent.parent,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        out[name] = [int(x) for x in proc.stdout.split()]
+    (first, second), (alone,) = out['both'], out['second']
+    assert first == second == alone, out
+
+
+@pytest.mark.parametrize('mode', ['per_rank', 'sync'])
+def test_two_nccl_ranks_on_two_cards_match_one_process(two_cards,
+                                                       no_tf32_conv,
+                                                       tmp_path, mode):
+    """The two-gloo-rank test above over NCCL, one rank on each card."""
+    _ranks_match_one_process(tmp_path, mode, 'cuda:0', list(two_cards),
+                             'nccl')
+
+
+def test_synced_bn_over_nccl_makes_no_host_sync(two_cards, tmp_path):
+    """`BatchNorm` synced over two NCCL ranks, one on each card, in f64,
+    its forward and backward under torch.cuda's sync debug mode 'error'
+    (a host sync raises): the output, the input's gradient, the summed
+    parameter gradients and both ranks' running statistics within 1e-12
+    of max of one process's on the whole batch on the CPU, with and
+    without a mask, channels-last and NCHW."""
+    import ddp_ranks
+    from pcdet_tpu_torch.models.layers import BatchNorm
+    rng = np.random.RandomState(0)
+    cases = []
+    for shape, masked, channel_dim in (((4, 7, 5, 6), True, -1),
+                                       ((4, 9, 6), True, -1),
+                                       ((4, 6, 5, 5), False, 1),
+                                       ((6, 8), False, -1)):
+        c = shape[channel_dim]
+        case = {'x': rng.randn(*shape) * 2 + 1, 'cot': rng.randn(*shape),
+                'scale': rng.uniform(0.5, 1.5, c), 'bias': rng.randn(c) * 0.1,
+                'channel_dim': channel_dim, 'card': True}
+        if masked:
+            case['mask'] = rng.rand(*shape[:-1]) > 0.3
+        cases.append(case)
+    ranks = ddp_ranks.run_ranks(tmp_path, ddp_ranks.bn_rank, cases,
+                                device=list(two_cards), backend='nccl')
+    for i, case in enumerate(cases):
+        x = torch.as_tensor(case['x'])
+        bn = BatchNorm(x.shape[case['channel_dim']],
+                       channel_dim=case['channel_dim']).double()
+        with torch.no_grad():
+            bn.weight.copy_(torch.as_tensor(case['scale']))
+            bn.bias.copy_(torch.as_tensor(case['bias']))
+        bn.train()
+        tx = x.clone().requires_grad_()
+        mask = case.get('mask')
+        y = bn(tx, None if mask is None else torch.as_tensor(mask))
+        dx, dw, db = torch.autograd.grad(
+            (y * torch.as_tensor(case['cot'])).sum(), (tx, bn.weight, bn.bias))
+        got = [r[i] for r in ranks]
+        pairs = [(torch.cat([g['y'] for g in got]), y.detach()),
+                 (torch.cat([g['dx'] for g in got]), dx),
+                 (sum(g['dw'] for g in got), dw),
+                 (sum(g['db'] for g in got), db)]
+        pairs += [(g[k], v) for g in got for k, v in (
+            ('mean', bn.running_mean), ('var', bn.running_var))]
+        for a, b in pairs:
+            assert ddp_ranks.max_rel_err(a, b) <= 1e-12
+
+
+def test_test_cli_on_a_second_card_equals_the_first(two_cards, kitti_tree):
+    """The test CLI at `--device cuda:1` on a checkpoint of the train CLI
+    (pointpillar.yaml at a 216 x 248 grid, B2, 1 epoch): kernel A launches,
+    the detections of result.pkl and the logged AP string equal to those
+    of `--device cuda:0` on the same checkpoint, bit for bit, and nothing
+    allocated on cuda:0 while cuda:1 ran."""
+    import os
+    import pickle
+    import chip_smoke
+    from pcdet_tpu_torch import detect
+    from pcdet_tpu_torch.tools import test, train
+    first, second = two_cards
+    _, sets = kitti_tree
+    cfg = str(detect.DEFAULT_CFG)
+    out = train.main(['--cfg_file', cfg, '--batch_size', '2', '--epochs', '1',
+                      '--workers', '2', '--ckpt_save_interval', '1',
+                      '--log_interval', '1', '--set'] + sets)
+    ckpt = str(out['ckpt_dir'] / 'checkpoint_epoch_1.pth')
+    runs = {}
+    for dev in (second, first):
+        torch.cuda.synchronize(first)
+        torch.cuda.reset_peak_memory_stats(first)
+        held = torch.cuda.memory_allocated(first)
+        before = rotated_overlap.LAUNCHES
+        res = test.main(['--cfg_file', cfg, '--batch_size', '2', '--workers',
+                         '2', '--device', str(dev), '--extra_tag',
+                         'card%d' % dev.index, '--ckpt', ckpt, '--set']
+                        + sets + ['MODEL.TEST.SCORE_THRESH', '0.0'])
+        torch.cuda.synchronize(dev)
+        eval_dir, result = res['results'][1]
+        with open(os.path.join(str(eval_dir), 'result.pkl'), 'rb') as f:
+            annos = pickle.load(f)
+        runs[dev.index] = {
+            'launches': rotated_overlap.LAUNCHES - before, 'annos': annos,
+            'ap': chip_smoke.logged_result(res['log_file']),
+            'result': result,
+            'peak': torch.cuda.max_memory_allocated(first) - held}
+    got, want = runs[1], runs[0]
+    assert got['launches'] > 0 and got['launches'] == want['launches']
+    assert got['peak'] == 0
+    assert got['ap'] == want['ap']
+    assert sorted(got['result']) == sorted(want['result'])
+    for k, v in want['result'].items():
+        if k != 'sec_per_example':
+            assert got['result'][k] == v, k
+    assert len(got['annos']) == len(want['annos']) > 0
+    for a, b in zip(got['annos'], want['annos']):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert np.array_equal(np.asarray(a[k]), np.asarray(b[k])), k
+
+
+def test_trace_records_the_card(cuda, tmp_path):
+    """`utils.profiler.trace` on the card: its Chrome trace holds kernel A's
+    kernel beside the host's ops."""
+    import json
+    from pcdet_tpu_torch.utils import profiler
+    rng = np.random.RandomState(0)
+    corners = rotated_iou.boxes5_to_corners(torch.as_tensor(
+        _boxes5(rng, (1, 512)), device=cuda)).contiguous()
+    with profiler.trace(str(tmp_path)):
+        rotated_overlap.pair_overlap_batched(corners[:, :64].contiguous(),
+                                             corners)
+        torch.cuda.synchronize()
+    files = list(tmp_path.glob('*.pt.trace.json'))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())['traceEvents']
+    kernels = [e['name'] for e in events if e.get('cat') == 'kernel']
+    assert any('rotated_overlap' in k for k in kernels), kernels[:20]

@@ -9,7 +9,8 @@ own copies of pcdet_tpu's framework-free helpers give the same results.
   the data pipeline's (the KITTI dataset and its helpers, the
   augmentations, the DB sampler, `datasets.dataset`, the loader, the host
   voxelizer and native bindings), the data-parallel runtime
-  (`parallel`, `parallel.ddp`), the data tooling (`datasets.splits`,
+  (`parallel`, `parallel.ddp`), the profiler (`utils.profiler`), the data
+  tooling (`datasets.splits`,
   `datasets.converters` with `kitti_writer`), the CLIs (`tools.create_data`,
   `train`, `test`, `convert_to_kitti`) and `chip_smoke` and finds no
   `pcdet_tpu` (nor jax) module
@@ -28,7 +29,8 @@ own copies of pcdet_tpu's framework-free helpers give the same results.
   voxelizer_native.cpp`, `csrc/augmentation_native.cpp`) byte for byte,
   and their functions on random inputs; `SyntheticDataset`'s eval examples (points, point mask,
   padded GT with classes), GT annotations and annotations of predictions at
-  the tiny config and at `second.yaml`; `utils/metrics.py`'s code, and the
+  the tiny config and at `second.yaml`; `utils/metrics.py`'s code,
+  `utils/profiler.py`'s `StepTimer` class, and the
   code of the data tooling's copies (`datasets/converters/`:
   `kitti_writer`, `argoverse`, `nuscenes`, the package's `__init__`;
   `datasets/splits.py`).
@@ -99,7 +101,8 @@ def test_port_loads_no_pcdet_tpu_module():
             'pcdet_tpu_torch.tools.train, '
             'pcdet_tpu_torch.tools.test, '
             'pcdet_tpu_torch.parallel, '
-            'pcdet_tpu_torch.parallel.ddp; '
+            'pcdet_tpu_torch.parallel.ddp, '
+            'pcdet_tpu_torch.utils.profiler; '
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('pcdet_tpu', 'jax', 'flax', 'orbax', 'tensorboardX', "
             "'wandb')); "
@@ -457,6 +460,15 @@ def _code(path):
 def test_metrics_equals_pcdet_tpu():
     assert _code(REPO / 'pcdet_tpu_torch' / 'utils' / 'metrics.py') == \
         _code(REPO / 'pcdet_tpu' / 'utils' / 'metrics.py')
+
+
+def test_step_timer_equals_pcdet_tpu():
+    """`StepTimer`'s code, class statement to its end, is `pcdet_tpu`'s."""
+    def step_timer(path):
+        text = path.read_text()
+        return text[text.index('class StepTimer'):]
+    assert step_timer(REPO / 'pcdet_tpu_torch' / 'utils' / 'profiler.py') == \
+        step_timer(REPO / 'pcdet_tpu' / 'utils' / 'profiler.py')
 
 
 @pytest.mark.parametrize('rel', ['converters/__init__.py',
