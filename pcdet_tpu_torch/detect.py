@@ -41,6 +41,7 @@ from .experiments import between_dataloading_and_feedforward
 from .models.build import SPARSE_MODELS, build_network
 from .ops import host_books
 from .ops.voxelizer import grid_size, voxelize_torch
+from .utils.profiler import span
 from .weights import load_checkpoint, model_state
 
 CFG_DIR = Path(__file__).resolve().parent.parent / 'tools' / 'cfgs'
@@ -133,7 +134,9 @@ class Detector:
     def detect(self, points, point_mask):
         """(B, P, 4) f32 points, (B, P) bool mask on the detector's device
         -> dict boxes (B, post, 7), scores, labels, valid, num (B,)."""
-        return self.model.predict(self.forward(points, point_mask)[1])
+        ret = self.forward(points, point_mask)[1]
+        with span('pcdet.predict'):
+            return self.model.predict(ret)
 
 
 class SparseDetector(Detector):
@@ -152,11 +155,12 @@ class SparseDetector(Detector):
         the host build, one upload: decoded books on the device; under
         PCDET_HOST_BOOKS=0 the same books built on the device
         (`model.device_books`), with no copy."""
-        if not host_books.use_host_books():
-            return self.model.device_books(vox['coordinates'])
-        coords = vox['coordinates'].cpu().numpy()
-        return self.model.upload_books(self.model.build_books(coords),
-                                       coords.shape[1])
+        with span('pcdet.books'):
+            if not host_books.use_host_books():
+                return self.model.device_books(vox['coordinates'])
+            coords = vox['coordinates'].cpu().numpy()
+            return self.model.upload_books(self.model.build_books(coords),
+                                           coords.shape[1])
 
     def upload(self, batch):
         """`Detector.upload`; under cfg.TORCH_VOXEL_GENERATOR the books are
@@ -177,7 +181,9 @@ class SparseDetector(Detector):
     def detect_batch(self, batch):
         """A voxelized batch on the device that may carry the loader's
         `hb_*` books (numpy) -> the predictions of `detect`."""
-        return self.model.predict(self.model.forward(batch))
+        ret = self.model.forward(batch)
+        with span('pcdet.predict'):
+            return self.model.predict(ret)
 
 
 def build_detector(cfg, device, seed=0, loads=None, checkpoint=None,

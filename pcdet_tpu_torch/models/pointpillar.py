@@ -18,6 +18,7 @@ import torch.nn as nn
 
 from ..experiments import BEVSegHead, bev_seg_loss
 from ..utils.box_coder import ResidualCoder
+from ..utils.profiler import span
 from .anchors import AnchorHeadTargets
 from .detector3d import TrainHooks, detector_loss, post_process_from_head
 from .layers import init_weights
@@ -70,11 +71,12 @@ class PointPillarNet(nn.Module):
                                            out_size=bev_out_size)
 
     def forward(self, voxels, num_points, coords, voxel_mask):
-        features = self.vfe(voxels, num_points, coords, voxel_mask)
-        if self.canvas_dtype is not None and not self.training:
-            features = features.to(self.canvas_dtype)
-        canvas = pillar_scatter(features, coords, voxel_mask,
-                                self.grid_ny, self.grid_nx)
+        with span('pcdet.vfe'):
+            features = self.vfe(voxels, num_points, coords, voxel_mask)
+            if self.canvas_dtype is not None and not self.training:
+                features = features.to(self.canvas_dtype)
+            canvas = pillar_scatter(features, coords, voxel_mask,
+                                    self.grid_ny, self.grid_nx)
         ret = self.rpn_head(canvas)
         if self.bev_seg_head is not None:
             ret['bev_seg_logits'] = self.bev_seg_head(

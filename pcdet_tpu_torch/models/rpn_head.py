@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils import loss as loss_ops
+from ..utils.profiler import span
 from .layers import ConvBNReLU, DeconvBNReLU, TorchConv
 
 
@@ -68,7 +69,12 @@ class RPNV2(nn.Module):
         self.conv_cls.bias.fill_(-math.log((1 - prior) / prior))
 
     def forward(self, canvas):
-        """:param canvas: (B, H, W, C) NHWC -> dict of NHWC head outputs."""
+        """:param canvas: (B, H, W, C) NHWC -> dict of NHWC head outputs,
+        in the span `pcdet.rpn`."""
+        with span('pcdet.rpn'):
+            return self._forward(canvas)
+
+    def _forward(self, canvas):
         x_in = canvas.permute(0, 3, 1, 2)              # channels-last NCHW
         x = x_in
         ups = []

@@ -18,6 +18,7 @@ import torch.nn as nn
 
 from ..ops import host_books, sparse
 from ..utils.box_coder import ResidualCoder
+from ..utils.profiler import span
 from .anchors import AnchorHeadTargets
 from .backbones3d import BackBone8x, effective_dtype, resolve_caps
 from .detector3d import TrainHooks, detector_loss, post_process_from_head
@@ -68,7 +69,8 @@ class SECONDNetModule(nn.Module):
         return self.train_dtype if self.training else self.eval_dtype
 
     def forward(self, voxels, num_points, coords, voxel_mask, books):
-        feats = self.vfe(voxels, num_points, coords, voxel_mask)
+        with span('pcdet.vfe'):
+            feats = self.vfe(voxels, num_points, coords, voxel_mask)
         level = sparse.from_voxelizer(feats, coords, voxel_mask,
                                       self.sparse_shape)
         bev, overflow = self.rpn_net(level, books, self.compute_dtype)

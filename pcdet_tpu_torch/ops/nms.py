@@ -8,10 +8,12 @@ of every sample, computes their (block, pre) IoU rows (one launch of the
 rotated-overlap kernel for the whole batch), resolves greedy exactly within
 the block, and kills what the block's keepers suppress.  The loops run
 eagerly: every round, and every frontier step inside a block, reads a flag
-on the host.
+on the host.  Each round is one span `pcdet.nms.round`
+(`utils.profiler.span`).
 """
 import torch
 
+from ..utils.profiler import span
 from . import rotated_iou
 from .rotated_overlap import pair_overlap_batched
 
@@ -70,45 +72,48 @@ def _lazy_greedy_batched(top_boxes, top_valid, thresh, post_max, rotated,
         upd = alive.any(dim=1) & (n < post_max)                    # (G,)
         if not bool(upd.any()):
             break
-        # first `block` alive boxes per group, in rank order
-        cnt = torch.cumsum(alive.long(), dim=1)
-        in_block = alive & (cnt <= block)
-        slot = torch.clamp(cnt - 1, 0, block - 1)
-        blk = torch.sort(torch.where(alive, positions, pre),
-                         dim=1).values[:, :block]                  # (G, B)
-        blk_valid = blk < pre
-        blk_idx = torch.where(blk_valid, blk, 0)
+        with span('pcdet.nms.round'):
+            # first `block` alive boxes per group, in rank order
+            cnt = torch.cumsum(alive.long(), dim=1)
+            in_block = alive & (cnt <= block)
+            slot = torch.clamp(cnt - 1, 0, block - 1)
+            blk = torch.sort(torch.where(alive, positions, pre),
+                             dim=1).values[:, :block]              # (G, B)
+            blk_valid = blk < pre
+            blk_idx = torch.where(blk_valid, blk, 0)
 
-        if rotated:
-            cb = torch.gather(corners, 1, blk_idx[:, :, None, None].expand(
-                g, block, 4, 2)).contiguous()
-            inter = overlap_fn(cb, corners)                        # (G, B, pre)
-        else:
-            bb = torch.gather(top_boxes, 1, blk_idx[:, :, None].expand(
-                g, block, 5))
-            iw = torch.clamp(
-                torch.minimum(bb[:, :, None, 2], top_boxes[:, None, :, 2])
-                - torch.maximum(bb[:, :, None, 0], top_boxes[:, None, :, 0]),
-                min=0)
-            ih = torch.clamp(
-                torch.minimum(bb[:, :, None, 3], top_boxes[:, None, :, 3])
-                - torch.maximum(bb[:, :, None, 1], top_boxes[:, None, :, 1]),
-                min=0)
-            inter = iw * ih
-        area_blk = torch.gather(area, 1, blk_idx)                  # (G, B)
-        iou_blk = inter / torch.clamp(
-            area_blk[:, :, None] + area[:, None, :] - inter, min=1e-8)
+            if rotated:
+                cb = torch.gather(corners, 1, blk_idx[:, :, None, None]
+                                  .expand(g, block, 4, 2)).contiguous()
+                inter = overlap_fn(cb, corners)                # (G, B, pre)
+            else:
+                bb = torch.gather(top_boxes, 1, blk_idx[:, :, None].expand(
+                    g, block, 5))
+                iw = torch.clamp(
+                    torch.minimum(bb[:, :, None, 2], top_boxes[:, None, :, 2])
+                    - torch.maximum(bb[:, :, None, 0],
+                                    top_boxes[:, None, :, 0]), min=0)
+                ih = torch.clamp(
+                    torch.minimum(bb[:, :, None, 3], top_boxes[:, None, :, 3])
+                    - torch.maximum(bb[:, :, None, 1],
+                                    top_boxes[:, None, :, 1]), min=0)
+                inter = iw * ih
+            area_blk = torch.gather(area, 1, blk_idx)              # (G, B)
+            iou_blk = inter / torch.clamp(
+                area_blk[:, :, None] + area[:, None, :] - inter, min=1e-8)
 
-        # exact greedy within each block (rows and columns in rank order)
-        iou_bb = torch.gather(iou_blk, 2,
-                              blk_idx[:, None, :].expand(g, block, block))
-        keep_b = _greedy_suppress_batched(iou_bb, blk_valid, thresh)
+            # exact greedy within each block (rows and columns in rank
+            # order)
+            iou_bb = torch.gather(iou_blk, 2,
+                                  blk_idx[:, None, :].expand(g, block, block))
+            keep_b = _greedy_suppress_batched(iou_bb, blk_valid, thresh)
 
-        kill = ((iou_blk > thresh) & keep_b[:, :, None]).any(dim=1)
-        keep_full = torch.gather(keep_b, 1, slot) & in_block
-        keep = keep | (keep_full & upd[:, None])
-        alive = torch.where(upd[:, None], alive & ~kill & ~in_block, alive)
-        n = n + torch.where(upd, keep_b.sum(dim=1), 0)
+            kill = ((iou_blk > thresh) & keep_b[:, :, None]).any(dim=1)
+            keep_full = torch.gather(keep_b, 1, slot) & in_block
+            keep = keep | (keep_full & upd[:, None])
+            alive = torch.where(upd[:, None], alive & ~kill & ~in_block,
+                                alive)
+            n = n + torch.where(upd, keep_b.sum(dim=1), 0)
     return keep
 
 

@@ -17,6 +17,7 @@ device for the raw-scan entry points.
 import numpy as np
 import torch
 
+from ..utils.profiler import span
 from . import host_native
 
 
@@ -63,7 +64,8 @@ def grid_size(voxel_size, point_cloud_range):
 
 def voxelize_torch(points, point_mask, voxel_size, point_cloud_range,
                    max_num_points, max_voxels):
-    """
+    """In the span `pcdet.voxelize`.
+
     :param points: (B, P, C) f32, padded
     :param point_mask: (B, P) bool, True for real points
     :return: dict of fixed-shape tensors:
@@ -77,6 +79,13 @@ def voxelize_torch(points, point_mask, voxel_size, point_cloud_range,
         voxel_overflow (B,) int32, occupied in-range voxels past the cap
             (the JAX loader's `voxel_overflow` telemetry).
     """
+    with span('pcdet.voxelize'):
+        return _voxelize_torch(points, point_mask, voxel_size,
+                               point_cloud_range, max_num_points, max_voxels)
+
+
+def _voxelize_torch(points, point_mask, voxel_size, point_cloud_range,
+                    max_num_points, max_voxels):
     dev = points.device
     b, p, c = points.shape
     nx, ny, nz = grid_size(voxel_size, point_cloud_range)

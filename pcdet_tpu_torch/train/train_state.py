@@ -24,21 +24,26 @@ import torch
 
 from ..experiments import between_dataloading_and_feedforward
 from ..parallel import ddp
+from ..utils.profiler import span
 
 
 def loss_and_grads(model, params, batch):
-    """The hook, train-mode forward, loss, backward.
+    """The hook, train-mode forward and loss (the span `pcdet.forward`),
+    backward (`pcdet.backward`).
 
     :param params: the tensors to differentiate by (the trained parameters,
         and any input the batch was made from, such as a depth map)
     :return: loss (scalar tensor), tb dict of scalar tensors, grads (one
         per tensor of `params`, in order)
     """
-    batch = between_dataloading_and_feedforward(batch, model.cfg, train=True)
-    model.train_mode()
-    ret = model.forward(batch)
-    loss, tb = getattr(model, 'loss_with_bev', model.loss)(ret, batch)
-    grads = torch.autograd.grad(loss, params)
+    with span('pcdet.forward'):
+        batch = between_dataloading_and_feedforward(batch, model.cfg,
+                                                    train=True)
+        model.train_mode()
+        ret = model.forward(batch)
+        loss, tb = getattr(model, 'loss_with_bev', model.loss)(ret, batch)
+    with span('pcdet.backward'):
+        grads = torch.autograd.grad(loss, params)
     return loss.detach(), {k: v.detach() for k, v in tb.items()}, grads
 
 
@@ -74,8 +79,9 @@ class TrainState:
         by `inputs` (tensors the batch was made from, differentiably) are
         kept in `input_grads`."""
         loss, tb, grads = self.loss_and_grads(batch, inputs)
-        self.optimizer.step(grads)
-        ddp.broadcast_buffers(self.model.module, self.process_group)
+        with span('pcdet.optimizer'):
+            self.optimizer.step(grads)
+            ddp.broadcast_buffers(self.model.module, self.process_group)
         self.step += 1
         tb['loss'] = loss
         return tb

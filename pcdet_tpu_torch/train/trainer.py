@@ -57,6 +57,7 @@ from ..models.layers import set_batch_norm
 from ..ops import host_books
 from ..parallel import ddp
 from ..ops.voxelizer import grid_size, voxelize_torch
+from ..utils.profiler import span
 from .optimization import build_optimizer_and_schedule
 from .train_state import TrainState
 
@@ -218,13 +219,15 @@ class Trainer:
         False, and the model's own host targets."""
         arrays, spec, books = [], None, None
         if hasattr(self.model, 'build_books') and coords is not None:
-            if host_books.use_host_books():               # SECOND, Part-A²
-                coords = coords.cpu().numpy()
-                flat = self.model.build_books(coords, train=True)
-                spec = self.model.host_book_spec(coords.shape[1], train=True)
-                arrays = host_books.wire_arrays(flat, spec)
-            elif not self.revoxelizes:
-                books = self.model.device_books(coords, train=True)
+            with span('pcdet.books'):
+                if host_books.use_host_books():           # SECOND, Part-A²
+                    coords = coords.cpu().numpy()
+                    flat = self.model.build_books(coords, train=True)
+                    spec = self.model.host_book_spec(coords.shape[1],
+                                                     train=True)
+                    arrays = host_books.wire_arrays(flat, spec)
+                elif not self.revoxelizes:
+                    books = self.model.device_books(coords, train=True)
         targets = []
         if anchor_targets:
             labels, reg = self.targets(gt_boxes)

@@ -1,22 +1,36 @@
-"""Profiling and tracing hooks: the port's counterpart of
-`pcdet_tpu.utils.profiler`.
+"""Profiling and tracing hooks.
 
-- `trace(logdir)`: a context manager over `torch.profiler.profile`.  It
-  records host (CPU) activity always and CUDA activity where a card is
-  present, and on exit writes a Chrome trace,
-  `<host>_<pid>.<ms>.pt.trace.json`, into `logdir` (view it in Perfetto,
-  chrome://tracing or TensorBoard's profiler plugin).  It yields the
-  profiler, whose `key_averages()` sum the time by op and kernel.
-- `StepTimer`: a rolling step-time and examples/s meter over the last
-  `window` steps, `pcdet_tpu`'s API and arithmetic on the host clock
-  (`time.perf_counter`).  CUDA launches return before the card finishes,
-  so the caller synchronises (`torch.cuda.synchronize()`, or a fetch of a
-  result) before `toc`, as JAX's callers block on a result.
+- `span(name)`: a named range of the program's host timeline, recorded
+  only while a `torch.profiler` is recording: then it is a
+  `record_function(name)` range, on the profiler's clock, that the device
+  trace shares (Kineto maps CUPTI's timestamps onto it), nested in the
+  span that encloses it.  With no profiler recording it returns one
+  shared no-op context: one attribute read, nothing allocated, nothing
+  dispatched.  The program's spans are named `pcdet.*`: `pcdet.voxelize`,
+  `pcdet.books`, `pcdet.vfe`, `pcdet.rpn`, `pcdet.predict`,
+  `pcdet.nms.round`, `pcdet.forward`, `pcdet.backward`, `pcdet.optimizer`.
+- `trace(logdir)`: the operator's exporter for those spans, a context
+  manager over `torch.profiler.profile`.  It records host (CPU) activity
+  always and CUDA activity where a card is present, and on exit writes a
+  Chrome trace, `<host>_<pid>.<ms>.pt.trace.json`, into `logdir` (view it
+  in Perfetto, chrome://tracing or TensorBoard's profiler plugin), where
+  each span sits above the ops and kernels it launched.  It yields the
+  profiler, whose `key_averages()` sum the time by op, kernel and span.
 """
 import contextlib
-import time
 
 import torch
+from torch.autograd import profiler as autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    # read through the module at each call: `torch.profiler.profile` sets
+    # the flag on start and clears it on stop
+    if autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -29,39 +43,3 @@ def trace(logdir):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(str(logdir))) as prof:
         yield prof
-
-
-class StepTimer:
-    def __init__(self, window=50):
-        self.window = window
-        self.times = []
-        self.counts = []
-        self._last = None
-
-    def tic(self):
-        self._last = time.perf_counter()
-
-    def toc(self, n_examples=1):
-        if self._last is None:
-            return
-        dt = time.perf_counter() - self._last
-        self.times.append(dt)
-        self.counts.append(n_examples)
-        if len(self.times) > self.window:
-            self.times.pop(0)
-            self.counts.pop(0)
-        self._last = None
-
-    @property
-    def sec_per_step(self):
-        return sum(self.times) / max(len(self.times), 1)
-
-    @property
-    def examples_per_sec(self):
-        t = sum(self.times)
-        return sum(self.counts) / t if t > 0 else 0.0
-
-    @property
-    def sec_per_example(self):
-        n = sum(self.counts)
-        return sum(self.times) / n if n > 0 else 0.0

@@ -29,8 +29,7 @@ own copies of pcdet_tpu's framework-free helpers give the same results.
   voxelizer_native.cpp`, `csrc/augmentation_native.cpp`) byte for byte,
   and their functions on random inputs; `SyntheticDataset`'s eval examples (points, point mask,
   padded GT with classes), GT annotations and annotations of predictions at
-  the tiny config and at `second.yaml`; `utils/metrics.py`'s code,
-  `utils/profiler.py`'s `StepTimer` class, and the
+  the tiny config and at `second.yaml`; `utils/metrics.py`'s code, and the
   code of the data tooling's copies (`datasets/converters/`:
   `kitti_writer`, `argoverse`, `nuscenes`, the package's `__init__`;
   `datasets/splits.py`).
@@ -460,15 +459,6 @@ def _code(path):
 def test_metrics_equals_pcdet_tpu():
     assert _code(REPO / 'pcdet_tpu_torch' / 'utils' / 'metrics.py') == \
         _code(REPO / 'pcdet_tpu' / 'utils' / 'metrics.py')
-
-
-def test_step_timer_equals_pcdet_tpu():
-    """`StepTimer`'s code, class statement to its end, is `pcdet_tpu`'s."""
-    def step_timer(path):
-        text = path.read_text()
-        return text[text.index('class StepTimer'):]
-    assert step_timer(REPO / 'pcdet_tpu_torch' / 'utils' / 'profiler.py') == \
-        step_timer(REPO / 'pcdet_tpu' / 'utils' / 'profiler.py')
 
 
 @pytest.mark.parametrize('rel', ['converters/__init__.py',
