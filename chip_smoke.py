@@ -27,15 +27,18 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
      pairs kept (not culled) equal to the plain cull predicate's; its device time
      (queued behind a spin kernel), the time of a call with its launch, the
      plain version's and the bound;
-  3. full-width detect at B2 through the kernel (launch count > 0, num > 0);
-  4. NMS indices with the kernel == with the plain version, same candidates,
-     and the share of pairs kernel A kept in each NMS round (its count,
-     equal to the plain predicate's);
+  3. full-width detect at B2 (kernel F's launch count > 0, num > 0);
+  4. NMS indices through kernel F (one launch a call, every round on the
+     card) == through the eager rounds on kernel A's plain version, same
+     candidates, and the share of pairs kernel A kept in each eager round
+     (its count, equal to the plain predicate's); kernel F against the
+     plain eager rounds at the B2 and B8 NMS shapes: indices equal, its
+     device time (queued), the eager rounds' time and the bound;
   5. the whole detect at B1 in f32: GPU vs CPU (counts equal, boxes 1e-3);
   6. timings: detect frames/s at B2 and B8, the voxelize / model / predict
-     split (predict as top-k + decode and NMS), the NMS round count, a
-     torch.profiler breakdown by kernel and by op; the kernel beside the
-     plain version comes from phase 2.
+     split (predict as top-k + decode and NMS), kernel F's launches and its
+     device rounds a group, a torch.profiler breakdown by kernel and by op;
+     kernel A beside the plain version comes from phase 2.
   S2. gather-GEMM kernels B (f32, FFMA) and C (bf16, tensor cores) vs their
       plain versions on rules of the real B2 books at conv2_1 (K=27, 32 ->
       32) and conv_out (K=3, 64 -> 128), with all-miss rows, n_live 0 and
@@ -44,7 +47,8 @@ voxels, level caps 43520 / 29184 / 12288 / 10240, BEV 200 x 176 x 256,
       and at conv2_1 cuBLAS on the pre-gathered rows (`gemm_only_ms`, the
       math without the gather: a yardstick, not the same function);
   S3. shipped second.yaml detect at B2 under the default loads (launches
-      of C, E or E' as the loads choose, of A one per NMS round, num > 0),
+      of C, E or E' as the loads choose, of kernel F one per NMS call,
+      num > 0),
       with the voxel count, voxelizer overflow and per-level drops;
   S4. the same config in f32 at B1 through kernel B: GPU vs CPU (counts
       equal, boxes 1e-3);
@@ -808,6 +812,30 @@ def run_nms(cand, tc, overlap_fn=None):
         overlap_fn=overlap_fn or ro.pair_overlap_batched)
 
 
+def fused_inputs(cand, tc):
+    """Kernel F's operands for predict's NMS on `candidates`, formed as
+    `nms.nms_bev_batched` forms them: (corners, area, valid)."""
+    from pcdet_tpu_torch.ops import nms, rotated_iou
+    boxes5 = cand['boxes5']
+    g, a = boxes5.shape[:2]
+    pre = min(int(tc.NMS_PRE_MAXSIZE_LAST), a)
+    top_scores, order = nms.topk_stable(
+        torch.where(cand['valid'], cand['rank'], nms.NEG_INF), pre)
+    top = torch.gather(boxes5, 1, order[:, :, None].expand(g, pre, 5))
+    return (rotated_iou.boxes5_to_corners(top).contiguous(),
+            nms._box_area(top).contiguous(),
+            (top_scores > nms.NEG_INF / 2).contiguous())
+
+
+def fused_work(geo, area, valid):
+    """(operations, bytes) of one launch of kernel F: the operands read once
+    and keep and the round counts written once.  The operations are left
+    out: the rounds' data decides them, and the floor is the bytes'."""
+    g, pre = area.shape
+    return 0, (4 * (geo.numel() + area.numel()) + valid.numel() + g * pre
+               + 4 * g)
+
+
 def second_detector(cfg, dev, loads=None):
     """SECOND with random weights from seed 0 and conv_cls's bias zeroed:
     the focal prior puts every score near 0.01, under SCORE_THRESH 0.3."""
@@ -1042,12 +1070,28 @@ def nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
 
+def reset_overlap():
+    """Zero kernel A's and kernel F's launch counters."""
+    from pcdet_tpu_torch.ops import nms_fused as nf
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    ro.LAUNCHES = 0
+    nf.LAUNCHES = 0
+
+
+def overlap_launches():
+    """(kernel A's launches, kernel F's) since `reset_overlap`.  Each launch
+    of F adds 1 to A's counter as well (F is A's fused form), so A's own
+    are the difference."""
+    from pcdet_tpu_torch.ops import nms_fused as nf
+    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    return ro.LAUNCHES - nf.LAUNCHES, nf.LAUNCHES
+
+
 def run_second(dev, cfg, batches=(2, 8)):
     """Phases S1-S5 on SECOND; returns the kernels' JSON entries."""
     from pcdet_tpu_torch import detect as detect_mod
     from pcdet_tpu_torch.ops import cuda_build, host_books, sparse
     from pcdet_tpu_torch.ops import gather_gemm as gg
-    from pcdet_tpu_torch.ops import rotated_overlap as ro
     tc = cfg.MODEL.TEST
     post = int(tc.NMS_POST_MAXSIZE_LAST)
 
@@ -1078,11 +1122,11 @@ def run_second(dev, cfg, batches=(2, 8)):
     det.detect(pts2, mask2)                          # warm-up
     sync()
     reset_launches()
-    ro.LAUNCHES = 0
+    reset_overlap()
     preds = det.detect(pts2, mask2)
     sync()
     counts = nonzero(all_launches())
-    launches_a = ro.LAUNCHES
+    launches_a, launches_f = overlap_launches()
     launches_c = counts.get('gather_gemm_bf16', 0)
     num = second_detect_checks(preds, post, 2)
     with torch.inference_mode():
@@ -1090,13 +1134,14 @@ def run_second(dev, cfg, batches=(2, 8)):
     drops = {k: v.tolist() for k, v in ret['overflow'].items()}
     expect = forward_launches(det.loads, det.model.module.compute_dtype)
     print('[second S3] detect B2 (second.yaml, bf16 sparse stack, loads %s): '
-          'num %s; launches %s (12 convs per batch), kernel A %d (one per '
-          'NMS round); input voxels %s of cap %d, voxelizer overflow %s; '
-          'per-level drops %s'
-          % (tuple(det.loads), num, counts, launches_a,
+          'num %s; launches %s (12 convs per batch), kernel A %d, kernel F '
+          '%d (one per NMS call); input voxels %s of cap %d, voxelizer '
+          'overflow %s; per-level drops %s'
+          % (tuple(det.loads), num, counts, launches_a, launches_f,
              vox['voxel_mask'].sum(1).tolist(), det.max_voxels,
              voxel_overflow(det, pts2, mask2), drops))
     require(launches_c > 0, 'the SECOND path launched no kernel C')
+    require(launches_f > 0, 'the SECOND path launched no kernel F')
     require(counts == expect, 'launches %s, want %s' % (counts, expect))
 
     # S4. f32 config through kernel B: GPU vs CPU at B1 ---------------------
@@ -2499,12 +2544,13 @@ def run_eval_checked(det, dataset, batches, cfg):
     eval_loop.batch_recall = checker
     try:
         reset_launches()
-        ro.LAUNCHES = 0
+        reset_overlap()
         ro.LAUNCHES_SORTED = 0
         result = eval_loop.eval_one_epoch(det, iter(batches), dataset, cfg)
         sync()
-        counts = dict(nonzero(all_launches()), rotated_overlap=ro.LAUNCHES,
-                      rotated_overlap_sorted=ro.LAUNCHES_SORTED)
+        a, f = overlap_launches()
+        counts = dict(nonzero(all_launches()), rotated_overlap=a,
+                      nms_fused=f, rotated_overlap_sorted=ro.LAUNCHES_SORTED)
     finally:
         eval_loop.batch_recall = real
     return result, checker, counts
@@ -2520,16 +2566,17 @@ def eval_checks(name, result, checker, counts):
         '%s %s' % (k, result[k]) for k in keys)))
     recall_a = sum(g['a_launches'] for g in checker.grids)
     print('[eval V2] %s launches: A %d (of them %d for recall, one per batch '
-          'of %d), A\'\' %d; sparse convs %s' % (
+          'of %d), F %d (NMS), A\'\' %d; sparse convs %s' % (
               name, counts['rotated_overlap'], recall_a, len(checker.grids),
-              counts['rotated_overlap_sorted'],
+              counts['nms_fused'], counts['rotated_overlap_sorted'],
               {k: v for k, v in counts.items()
-               if not k.startswith('rotated_overlap')}))
+               if not k.startswith(('rotated_overlap', 'nms_fused'))}))
     require(result['recall/gt'] > 0, '%s: recall/gt is 0' % name)
     require(all(np.isfinite(float(v)) for v in result.values()),
             '%s: a result is not finite' % name)
     require(recall_a == len(checker.grids) > 0,
             '%s: kernel A not launched once per recall grid' % name)
+    require(counts['nms_fused'] > 0, '%s: kernel F not launched' % name)
     require(counts['rotated_overlap_sorted'] == len(checker.grids),
             '%s: kernel A\'\' not launched on every recall grid' % name)
 
@@ -2668,7 +2715,7 @@ def run_eval(dev, g1_launches, cfgs):
     """Phases V1-V4; returns the JSON entries of A' and A''.
 
     :param g1_launches: kernel A's launches at G = 1 (A') in phase 5's B1
-        detect
+        detect (0: kernel F runs its NMS)
     :param cfgs: {name: config} of the evaluations, SECOND's first
     """
     from pcdet_tpu_torch.datasets.synthetic import (SyntheticDataset,
@@ -2819,8 +2866,9 @@ def run_eval(dev, g1_launches, cfgs):
               torch.bincount(lengths.flatten()).tolist(), ops.mean().item(),
               int(ops.max()), A_OPS_PER_PAIR))
 
-    # A' is launched on the main path at the G = 1 NMS shape (phase 5), so
-    # its entry holds that shape's times; the recall group's are printed
+    # A' holds the G = 1 NMS shape's times; phase 5's B1 detect runs its NMS
+    # on kernel F, so A' launches 0 times there; the recall group's times
+    # are printed
     a1, a2 = nms_times["A'"], recall_times["A''"]
     return [
         kernel_entry('rotated_overlap_g1',
@@ -2960,7 +3008,6 @@ def run_pointpillar_train(dev, cfg, steps=5, timed_steps=2):
     from pcdet_tpu_torch import detect as detect_mod
     from pcdet_tpu_torch.datasets.synthetic import (SyntheticDataset,
                                                     eval_batches)
-    from pcdet_tpu_torch.ops import rotated_overlap as ro
     from pcdet_tpu_torch.train import checkpoint
     from pcdet_tpu_torch.train.eval_loop import eval_one_epoch
     from pcdet_tpu_torch.train.train_loop import train_model
@@ -3102,18 +3149,20 @@ def run_pointpillar_train(dev, cfg, steps=5, timed_steps=2):
     eval_cfg.DATA_CONFIG.SYNTHETIC = dict(EVAL_SYNTHETIC)
     dataset = SyntheticDataset(eval_cfg)
     batches = list(eval_batches(dataset, 2))
-    ro.LAUNCHES = 0
+    reset_overlap()
     result = eval_one_epoch(det, iter(batches), dataset, eval_cfg)
     sync()
-    a_launches = ro.LAUNCHES
+    a_launches, f_launches = overlap_launches()
     print('[pp train P4] eval of the checkpoint, %d frames at B2: '
           'recall/gt %s, recall/rcnn_0.5 %s, Car_3d_moderate %s, '
-          'overflow/voxelizer %s, sec_per_example %.4f; kernel A launches %d'
+          'overflow/voxelizer %s, sec_per_example %.4f; kernel A launches %d '
+          '(recall), kernel F %d (NMS)'
           % (len(dataset), result['recall/gt'], result['recall/rcnn_0.5'],
              result.get('Car_3d_moderate'), result.get('overflow/voxelizer'),
-             result['sec_per_example'], a_launches))
-    require(a_launches > 0, 'the checkpoint\'s evaluation launched no '
-            'kernel A')
+             result['sec_per_example'], a_launches, f_launches))
+    require(a_launches > 0 and f_launches > 0, 'the checkpoint\'s '
+            'evaluation launched kernel A %d, kernel F %d times'
+            % (a_launches, f_launches))
     require(all(np.isfinite(float(v)) for v in result.values()),
             'the checkpoint\'s evaluation: a result is not finite')
     # the restored detector against the trained module's own eval detect
@@ -3139,7 +3188,7 @@ def run_pointpillar_train(dev, cfg, steps=5, timed_steps=2):
             'differ by %g, num %s' % (worst, nums))
     del trainer, restored, det
     sync()
-    return a_launches
+    return a_launches, f_launches
 
 
 # ----------------------------------------------------------------------------
@@ -3397,7 +3446,6 @@ def run_cli(dev, workdir=None):
     from pcdet_tpu_torch.datasets.kitti import kitti_eval_cli
     from pcdet_tpu_torch.datasets.kitti.kitti_eval import eval as kitti_eval
     from pcdet_tpu_torch.ops import host_books, sparse
-    from pcdet_tpu_torch.ops import rotated_overlap as ro
     from pcdet_tpu_torch.tools import test as test_cli
     from pcdet_tpu_torch.tools import train as train_cli
     from pcdet_tpu_torch.train.trainer import build_trainer
@@ -3569,11 +3617,11 @@ def run_cli(dev, workdir=None):
                  '--extra_tag', 'chip_smoke', '--device', dev.type, '--ckpt',
                  os.path.join(ckpt_dir, 'checkpoint_epoch_2.pth'),
                  '--set'] + eval_sets
-        ro.LAUNCHES = 0
+        reset_overlap()
         t0 = time.perf_counter()
         tout = test_cli.main(targv)
         sync()
-        a_launches = ro.LAUNCHES
+        a_launches, f_launches = overlap_launches()
         eval_dir, result = tout['results'][2]
         with open(os.path.join(str(eval_dir), 'result.pkl'), 'rb') as f:
             det_annos = pickle.load(f)
@@ -3584,12 +3632,13 @@ def run_cli(dev, workdir=None):
             [copy.deepcopy(i['annos']) for i in infos['val']],
             copy.deepcopy(det_annos), KITTI_CLASSES)
         print('[cli L3] test CLI on checkpoint_epoch_2, %d val frames at B2 '
-              'in %.2f s: kernel A launches %d; recall/gt %s, rcnn_0.5 %s, '
+              'in %.2f s: kernel A launches %d, kernel F %d; recall/gt %s, '
+              'rcnn_0.5 %s, '
               'rcnn_0.7 %s; %d detections; Car_3d_moderate %s; '
               'sec_per_example %.4f; logged AP string == the evaluator on '
               'result.pkl: %s' % (
                   len(det_annos), time.perf_counter() - t0, a_launches,
-                  result['recall/gt'], result['recall/rcnn_0.5'],
+                  f_launches, result['recall/gt'], result['recall/rcnn_0.5'],
                   result['recall/rcnn_0.7'],
                   sum(a['num_example'] for a in det_annos),
                   result.get('Car_3d_moderate'), result['sec_per_example'],
@@ -3606,6 +3655,7 @@ def run_cli(dev, workdir=None):
         require(logged == again.strip(), 'the logged AP string differs from '
                 'the evaluator run again on result.pkl')
         paths['rotated_overlap'] = {'cli_eval': a_launches}
+        paths['nms_fused'] = {'cli_eval': f_launches}
         # --eval_all over L2's directory
         t0 = time.perf_counter()
         aout = test_cli.main(['--cfg_file', pp_cfg, '--batch_size', '2',
@@ -3673,7 +3723,7 @@ def run_cli(dev, workdir=None):
                                                           misses))
         del sout
         reset_launches()
-        ro.LAUNCHES = 0
+        reset_overlap()
         t0 = time.perf_counter()
         seout = test_cli.main(
             ['--cfg_file', second_cfg, '--batch_size', '2', '--workers', '4',
@@ -3682,17 +3732,18 @@ def run_cli(dev, workdir=None):
                  'checkpoint_epoch_1.pth'), '--set'] + s_sets
             + ['MODEL.TEST.SCORE_THRESH', '0.0'])
         sync()
-        eval_counts, s_a = nonzero(all_launches()), ro.LAUNCHES
+        eval_counts = nonzero(all_launches())
+        s_a, s_f = overlap_launches()
         s_result = seout['results'][1][1]
         print('[cli L4] test CLI second.yaml on its checkpoint, 4 val frames '
-              'at B2 in %.2f s: launches %s, kernel A %d; recall/gt %s, '
-              'rcnn_0.5 %s; Car_3d_moderate %s' % (
-                  time.perf_counter() - t0, eval_counts, s_a,
+              'at B2 in %.2f s: launches %s, kernel A %d, kernel F %d; '
+              'recall/gt %s, rcnn_0.5 %s; Car_3d_moderate %s' % (
+                  time.perf_counter() - t0, eval_counts, s_a, s_f,
                   s_result['recall/gt'], s_result['recall/rcnn_0.5'],
                   s_result.get('Car_3d_moderate')))
-        require(eval_counts.get('gather_gemm_bf16', 0) > 0 and s_a > 0,
-                'SECOND test CLI: launches %s, kernel A %d' % (eval_counts,
-                                                                s_a))
+        require(eval_counts.get('gather_gemm_bf16', 0) > 0 and s_a > 0
+                and s_f > 0, 'SECOND test CLI: launches %s, kernel A %d, '
+                'kernel F %d' % (eval_counts, s_a, s_f))
         require(all(np.isfinite(float(v)) for v in s_result.values()),
                 'SECOND test CLI: a result is not finite')
         del seout
@@ -3704,6 +3755,7 @@ def run_cli(dev, workdir=None):
                                   infos['val'][:4])
         sync()
     paths['rotated_overlap']['cli_eval second'] = s_a
+    paths['nms_fused']['cli_eval second'] = s_f
     paths['gather_gemm_f32'] = {'cli_train': train_counts['gather_gemm_f32']
                                 + train_counts['gather_gemm_f32_dgrad']}
     paths['gather_dw'] = {'cli_train': train_counts['gather_dw']}
@@ -3746,20 +3798,19 @@ def parta2_launches(loads, dtype):
 def parta2_run(det, pts, mask):
     """One B-batch through the model with the books built, on the device:
     (the voxelized batch with its books, the forward's outputs, the
-    predictions), kernel A's launches by the proposal NMS and the final."""
-    from pcdet_tpu_torch.ops import rotated_overlap as ro
+    predictions), kernel F's launches by the proposal NMS and the final."""
     with torch.inference_mode():
         vox = det.voxelize(pts, mask)
         vox['books'] = det.books(vox)
         sync()
-        ro.LAUNCHES = 0
+        reset_overlap()
         ret = det.model.forward(vox)
         sync()
-        a_prop = ro.LAUNCHES
-        ro.LAUNCHES = 0
+        f_prop = overlap_launches()[1]
+        reset_overlap()
         preds = det.model.predict(ret)
         sync()
-    return vox, ret, preds, (a_prop, ro.LAUNCHES)
+    return vox, ret, preds, (f_prop, overlap_launches()[1])
 
 
 def parta2_gpu_vs_cpu(tag, cfg, dev, pts, mask):
@@ -3929,7 +3980,7 @@ def parta2_times(tag, det, pts8, mask8, batches, profile=False):
         det.detect(pts, mask)
         sync()
         reset_launches()
-        _, _, _, (a_prop, a_final) = parta2_run(det, pts, mask)
+        _, _, _, (f_prop, f_final) = parta2_run(det, pts, mask)
         counts = nonzero(all_launches())
         batch_ms = []
         for _ in range(3):
@@ -3942,13 +3993,13 @@ def parta2_times(tag, det, pts8, mask8, batches, profile=False):
         t = parta2_split(det, pts, mask)
         print('[parta2 %s B%d] detect %.2f frames/s (median of 3 runs of 5 '
               'batches; ms per batch %s); split (ms): %s; sum of the split '
-              '%.2f; launches a batch: %s, kernel A %d (proposal NMS %d, '
+              '%.2f; launches a batch: %s, kernel F %d (proposal NMS %d, '
               'final NMS %d)' % (
                   tag, b, 1e3 * b / ms, ', '.join('%.2f' % x
                                                   for x in batch_ms),
                   ', '.join('%s %.3f' % kv for kv in t.items()),
-                  sum(t.values()), counts, a_prop + a_final, a_prop,
-                  a_final))
+                  sum(t.values()), counts, f_prop + f_final, f_prop,
+                  f_final))
     if not profile:
         return
     busy, rows, ops = profile_detect(det, pts, mask)
@@ -4044,7 +4095,6 @@ def run_parta2(dev):
     from pcdet_tpu_torch import detect as detect_mod
     from pcdet_tpu_torch.datasets.synthetic import (SyntheticDataset,
                                                     eval_batches)
-    from pcdet_tpu_torch.ops import rotated_overlap as ro
     cfg = detect_mod.load_config(detect_mod.PARTA2_CFG)
     post = int(cfg.MODEL.TEST.NMS_POST_MAXSIZE_LAST)
     pts_np, mask_np = detect_mod.make_scans(cfg, 8, ring_keep=0.35)
@@ -4059,18 +4109,20 @@ def run_parta2(dev):
     det.detect(pts2, mask2)                  # warm-up (cuDNN algorithms)
     sync()
     reset_launches()
-    ro.LAUNCHES = 0
+    reset_overlap()
     preds = det.detect(pts2, mask2)
     sync()
-    counts, a_launches = nonzero(all_launches()), ro.LAUNCHES
+    counts = nonzero(all_launches())
+    a_launches, f_launches = overlap_launches()
     num = second_detect_checks(preds, post, 2)
-    vox, ret, _, (a_prop, a_final) = parta2_run(det, pts2, mask2)
+    vox, ret, _, (f_prop, f_final) = parta2_run(det, pts2, mask2)
     rc = ret['rcnn']
     print('[parta2 R1] PartA2.yaml detect B2 (bf16 UNet, RPN and RCNN, loads '
-          '%s): num %s; launches %s, kernel A %d (proposal NMS %d, final NMS '
-          '%d); input voxels %s of cap %d, voxelizer overflow %s; per-level '
-          'drops %s, RoI pool points past the cap %d; RoIs %s, RoI labels %s'
-          % (tuple(det.loads), num, counts, a_launches, a_prop, a_final,
+          '%s): num %s; launches %s, kernel A %d, kernel F %d (proposal NMS '
+          '%d, final NMS %d); input voxels %s of cap %d, voxelizer overflow '
+          '%s; per-level drops %s, RoI pool points past the cap %d; RoIs %s, RoI labels %s'
+          % (tuple(det.loads), num, counts, a_launches, f_launches, f_prop,
+             f_final,
              vox['voxel_mask'].sum(1).tolist(), det.max_voxels,
              voxel_overflow(det, pts2, mask2),
              {k: v.tolist() for k, v in ret['overflow'].items()
@@ -4081,11 +4133,13 @@ def run_parta2(dev):
     require(counts == parta2_launches(det.loads, torch.bfloat16),
             'launches %s, want %s' % (counts, parta2_launches(
                 det.loads, torch.bfloat16)))
-    require(a_prop > 0 and a_final > 0 and a_launches == a_prop + a_final,
-            'kernel A: %d launches, proposal NMS %d, final NMS %d'
-            % (a_launches, a_prop, a_final))
+    require(f_prop > 0 and f_final > 0 and f_launches == f_prop + f_final
+            and a_launches == 0, 'kernel A %d launches, kernel F %d: '
+            'proposal NMS %d, final NMS %d'
+            % (a_launches, f_launches, f_prop, f_final))
     require(bool(rc['roi_valid'].all()), 'fewer than NMS_POST_MAXSIZE RoIs')
     paths['rotated_overlap'] = {'parta2 detect B2': a_launches}
+    paths['nms_fused'] = {'parta2 detect B2': f_launches}
     paths['gather_gemm_bf16'] = {'parta2 detect B2':
                                  counts['gather_gemm_bf16']}
     parta2_pool_repeat('R1', det, vox, ret)
@@ -4107,21 +4161,23 @@ def run_parta2(dev):
     det.detect(pts2, mask2)
     sync()
     reset_launches()
-    ro.LAUNCHES = 0
+    reset_overlap()
     preds = det.detect(pts2, mask2)
     sync()
-    counts, a_launches = nonzero(all_launches()), ro.LAUNCHES
+    counts = nonzero(all_launches())
+    a_launches, f_launches = overlap_launches()
     num = second_detect_checks(preds, post, 2)
-    vox, ret, _, (a_prop, a_final) = parta2_run(det, pts2, mask2)
+    vox, ret, _, (f_prop, f_final) = parta2_run(det, pts2, mask2)
     print('[parta2 R2] PartA2_fc.yaml detect B2 (FCRCNN on 12^3 grids): num '
-          '%s; launches %s, kernel A %d (proposal NMS %d, final NMS %d); RoI '
-          'pool points past the cap %d' % (
-              num, counts, a_launches, a_prop, a_final,
+          '%s; launches %s, kernel A %d, kernel F %d (proposal NMS %d, final '
+          'NMS %d); RoI pool points past the cap %d' % (
+              num, counts, a_launches, f_launches, f_prop, f_final,
               int(ret['overflow']['roi_pts'])))
     require(counts == parta2_launches(det.loads, torch.bfloat16),
             'launches %s' % counts)
-    require(a_prop > 0 and a_final > 0, 'kernel A did not run both NMS')
+    require(f_prop > 0 and f_final > 0, 'kernel F did not run both NMS')
     paths['rotated_overlap']['parta2_fc detect B2'] = a_launches
+    paths['nms_fused']['parta2_fc detect B2'] = f_launches
     paths['gather_gemm_bf16']['parta2_fc detect B2'] = counts[
         'gather_gemm_bf16']
     parta2_pool_repeat('R2', det, vox, ret)
@@ -4150,6 +4206,7 @@ def run_parta2(dev):
                 % counts.get('gather_gemm_bf16'))
         paths['rotated_overlap']['parta2 eval B%d (R3)' % b] = counts[
             'rotated_overlap']
+        paths['nms_fused']['parta2 eval B%d (R3)' % b] = counts['nms_fused']
         if b == 2:
             oracle_check(dev, dataset, batches, cfg_e)
         splits = [eval_split(det, dataset, batches, cfg_e)[0]
@@ -4257,22 +4314,21 @@ def parta2_train_steps(tag, trainer, batch, steps):
     from pcdet_tpu_torch.models import parta2 as pa
     from pcdet_tpu_torch.ops import gather_dw as gd
     from pcdet_tpu_torch.ops import gather_xwin as gx
-    from pcdet_tpu_torch.ops import rotated_overlap as ro
     model = trainer.model
     had, real = 'proposals' in vars(model), model.proposals
     prop = []
 
     def proposals(*args, **kw):
-        n = ro.LAUNCHES
+        n = overlap_launches()[1]
         out = real(*args, **kw)
-        prop.append(ro.LAUNCHES - n)
+        prop.append(overlap_launches()[1] - n)
         return out
     model.proposals = proposals
     sync()
     reset_launches()
     gd.PAIR_LAUNCHES.clear()
     gx.PAIR_LAUNCHES.clear()
-    ro.LAUNCHES = 0
+    reset_overlap()
     tbs, samplers = [], []
     t0 = time.perf_counter()
     try:
@@ -4287,7 +4343,8 @@ def parta2_train_steps(tag, trainer, batch, steps):
             del model.proposals
     sync()
     wall = time.perf_counter() - t0
-    counts, a_total = nonzero(all_launches()), ro.LAUNCHES
+    counts = nonzero(all_launches())
+    a_total, f_total = overlap_launches()
     losses = [tb['loss'] for tb in tbs]
     print('%s %d steps on one batch in %.2f s: loss %s' % (
         tag, steps, wall, ', '.join('%.5f' % x for x in losses)))
@@ -4299,22 +4356,22 @@ def parta2_train_steps(tag, trainer, batch, steps):
                   {k[9:]: int(v) for k, v in tb.items()
                    if k.startswith('overflow/')}, s['n_fg'], s['n_hard'],
                   s['n_easy'], s['fg_count'], s['hard_num']))
-    print('%s launches over %d steps %s; kernel A %d: proposal NMS rounds '
-          'per step %s, the sampler\'s IoU 1 a step; dW launches by (kernel, '
-          'Cin, Cout) %s; E / E\' by pair %s' % (
-              tag, steps, counts, a_total, prop, dict(sorted(
+    print('%s launches over %d steps %s; kernel A %d (the sampler\'s IoU, 1 '
+          'a step); kernel F %d (the proposal NMS), per step %s; dW launches '
+          'by (kernel, Cin, Cout) %s; E / E\' by pair %s' % (
+              tag, steps, counts, a_total, f_total, prop, dict(sorted(
                   gd.PAIR_LAUNCHES.items())), dict(sorted(
                       gx.PAIR_LAUNCHES.items()))))
     require(all(np.isfinite(tb[k]) for tb in tbs for k in PARTA2_LOSS_TERMS
                 + ('loss',)), '%s a non-finite loss term' % tag)
     require(losses[-1] < losses[0], '%s loss did not fall in %d steps: %s'
             % (tag, steps, losses))
-    require(all(n > 0 for n in prop) and a_total == sum(prop) + steps,
-            '%s kernel A: %d launches, proposal rounds %s' % (tag, a_total,
-                                                               prop))
+    require(all(n > 0 for n in prop) and f_total == sum(prop)
+            and a_total == steps, '%s kernel A: %d launches, kernel F %d, '
+            'a step %s' % (tag, a_total, f_total, prop))
     require('overflow/roi_pts' in tbs[0], '%s no overflow/roi_pts' % tag)
     parta2_fg_checks(tag, tbs, samplers)
-    return losses, counts, a_total, dict(gd.PAIR_LAUNCHES)
+    return losses, counts, (a_total, f_total), dict(gd.PAIR_LAUNCHES)
 
 
 def parta2_record(model):
@@ -4882,8 +4939,8 @@ def run_parta2_train(dev):
               int(cfg.MODEL.RCNN.TARGET_CONFIG.ROI_PER_IMAGE)))
     steps = 5
     parta2_gt_proposals(trainer.model, batch2['gt_boxes'])
-    _, counts, a_total, dw_pairs = parta2_train_steps('[parta2 R5]', trainer,
-                                                      batch2, steps)
+    _, counts, (a_total, f_total), dw_pairs = parta2_train_steps(
+        '[parta2 R5]', trainer, batch2, steps)
     del trainer.model.proposals
     expect = {k: v * steps for k, v in PARTA2_TRAIN_LAUNCHES.items()}
     require(counts == expect, 'launches over %d steps %s, want %s'
@@ -4893,6 +4950,7 @@ def run_parta2_train(dev):
                 "D' (%d, %d) did not launch" % (cin, cout))
     paths['rotated_overlap'] = {'parta2 train B2, %d steps (R5)' % steps:
                                 a_total}
+    paths['nms_fused'] = {'parta2 train B2, %d steps (R5)' % steps: f_total}
     r5 = 'parta2 train B2, %d steps (R5)' % steps
     paths['gather_gemm_f32'] = {r5: counts.get('gather_gemm_f32', 0)
                                 + counts.get('gather_gemm_f32_dgrad', 0)}
@@ -4923,13 +4981,14 @@ def run_parta2_train(dev):
         fc = build_trainer(cfg_fc, dev, seed=0, total_steps=50)
         batch = fc.make_batch(pts2, mask2, gt_np[:2])
         parta2_gt_proposals(fc.model, batch['gt_boxes'])
-        _, counts, fc_a, _ = parta2_train_steps(
+        _, counts, (fc_a, fc_f), _ = parta2_train_steps(
             '[parta2 R7] PartA2_fc.yaml train B2 (FCRCNN, 12^3, dropout %.1f)'
             % float(cfg_fc.MODEL.RCNN.DP_RATIO), fc, batch, 3)
         require(counts == {k: v * 3 for k, v in
                            PARTA2_TRAIN_LAUNCHES.items()},
                 'PartA2_fc launches %s' % counts)
         paths['rotated_overlap']['parta2_fc train B2, 3 steps (R7)'] = fc_a
+        paths['nms_fused']['parta2_fc train B2, 3 steps (R7)'] = fc_f
         del fc, batch
     finally:
         torch.backends.cudnn.allow_tf32 = False
@@ -4977,7 +5036,6 @@ def parta2_cli(dev, root, out_root, sets, val_infos):
 
     from pcdet_tpu_torch import detect as detect_mod
     from pcdet_tpu_torch.datasets.kitti import kitti_eval_cli
-    from pcdet_tpu_torch.ops import rotated_overlap as ro
     from pcdet_tpu_torch.ops import sparse
     from pcdet_tpu_torch.tools import test as test_cli
     from pcdet_tpu_torch.tools import train as train_cli
@@ -4992,7 +5050,7 @@ def parta2_cli(dev, root, out_root, sets, val_infos):
     sparse.xwin_selectors = selectors
     try:
         reset_launches()
-        ro.LAUNCHES = 0
+        reset_overlap()
         t0 = time.perf_counter()
         tout = train_cli.main(
             ['--cfg_file', str(detect_mod.PARTA2_CFG), '--batch_size', '2',
@@ -5000,49 +5058,54 @@ def parta2_cli(dev, root, out_root, sets, val_infos):
              '--log_interval', '1', '--extra_tag', 'chip_smoke', '--device',
              dev.type, '--set'] + sets)
         sync()
-        train_counts, train_a = nonzero(all_launches()), ro.LAUNCHES
+        train_counts = nonzero(all_launches())
+        train_a, train_f = overlap_launches()
     finally:
         sparse.xwin_selectors = real_selectors
     losses = [float(x) for x in log_records(tout['log_file'],
                                             r'iter \d+ loss (\S+) ')]
     overflow = log_records(tout['log_file'], r'loss \S+ lr \S+ (overflow/.*)')
     print('[parta2 R8] train CLI PartA2.yaml B2, 1 epoch of %d steps in %.2f '
-          's: loss %s; %s; launches %s, kernel A %d; selector builds %d, taps '
-          'outside their window %d' % (
+          's: loss %s; %s; launches %s, kernel A %d, kernel F %d; selector '
+          'builds %d, taps outside their window %d' % (
               len(losses), time.perf_counter() - t0, losses, overflow,
-              train_counts, train_a, len(clamped), sum(clamped)))
+              train_counts, train_a, train_f, len(clamped), sum(clamped)))
     require(len(losses) == 2 and all(np.isfinite(losses)),
             'Part-A2 train CLI losses %s' % losses)
     for key in ('gather_gemm_f32', 'gather_gemm_f32_dgrad', 'gather_dw',
                 'gather_dw_seg'):
         require(train_counts.get(key, 0) > 0, 'Part-A2 train CLI: no launch '
                 'of %s' % key)
-    require(train_a > 0 and clamped and sum(clamped) == 0,
-            'Part-A2 train CLI: kernel A %d, %d selector builds, %d taps '
-            'outside their window' % (train_a, len(clamped), sum(clamped)))
+    require(train_a > 0 and train_f > 0 and clamped and sum(clamped) == 0,
+            'Part-A2 train CLI: kernel A %d, kernel F %d, %d selector builds, '
+            '%d taps outside their window' % (train_a, train_f, len(clamped),
+                                              sum(clamped)))
     ckpt = os.path.join(str(tout['ckpt_dir']), 'checkpoint_epoch_1.pth')
     require(os.path.exists(ckpt), 'Part-A2 train CLI wrote no checkpoint')
     del tout
     sync()
     reset_launches()
-    ro.LAUNCHES = 0
+    reset_overlap()
     t0 = time.perf_counter()
     out = test_cli.main(
         ['--cfg_file', str(detect_mod.PARTA2_CFG), '--batch_size', '2',
          '--workers', '4', '--extra_tag', 'chip_smoke', '--device', dev.type,
          '--ckpt', ckpt, '--set'] + sets)
     sync()
-    counts, a_launches = nonzero(all_launches()), ro.LAUNCHES
+    counts = nonzero(all_launches())
+    a_launches, f_launches = overlap_launches()
     eval_dir, result = out['results'][1]
     with open(os.path.join(str(eval_dir), 'result.pkl'), 'rb') as f:
         det_annos = pickle.load(f)
     again, _ = kitti_eval_cli.evaluation(det_annos, val_infos, KITTI_CLASSES)
     logged = logged_result(out['log_file'])
     print('[parta2 R4] test CLI PartA2.yaml on R8\'s checkpoint, '
-          '%d val frames at B2 in %.2f s: launches %s, kernel A %d; recall/gt '
-          '%s, rcnn_0.5 %s, rcnn_0.7 %s; %d detections; Car_3d_moderate %s; '
-          'logged AP string == the evaluator on result.pkl: %s' % (
+          '%d val frames at B2 in %.2f s: launches %s, kernel A %d, kernel F '
+          '%d; recall/gt %s, rcnn_0.5 %s, rcnn_0.7 %s; %d detections; '
+          'Car_3d_moderate %s; logged AP string == the evaluator on '
+          'result.pkl: %s' % (
               len(det_annos), time.perf_counter() - t0, counts, a_launches,
+              f_launches,
               result['recall/gt'], result['recall/rcnn_0.5'],
               result['recall/rcnn_0.7'],
               sum(a['num_example'] for a in det_annos),
@@ -5051,8 +5114,9 @@ def parta2_cli(dev, root, out_root, sets, val_infos):
             'Part-A2 test CLI: %d annos, recall/gt %s'
             % (len(det_annos), result['recall/gt']))
     require(counts.get('gather_gemm_bf16', 0) == PARTA2_CONVS * (
-        -(-len(val_infos) // 2)) and a_launches > 0,
-        'Part-A2 test CLI: launches %s, kernel A %d' % (counts, a_launches))
+        -(-len(val_infos) // 2)) and a_launches > 0 and f_launches > 0,
+        'Part-A2 test CLI: launches %s, kernel A %d, kernel F %d'
+        % (counts, a_launches, f_launches))
     require(all(np.isfinite(float(v)) for v in result.values()),
             'Part-A2 test CLI: a result is not finite')
     require(finite_numbers(logged) and logged == again.strip(),
@@ -5060,6 +5124,8 @@ def parta2_cli(dev, root, out_root, sets, val_infos):
             'evaluator on result.pkl')
     return {'rotated_overlap': {'cli_eval parta2 (R4)': a_launches,
                                 'cli_train parta2 (R8)': train_a},
+            'nms_fused': {'cli_eval parta2 (R4)': f_launches,
+                          'cli_train parta2 (R8)': train_f},
             'gather_gemm_bf16': {'cli_eval parta2 (R4)':
                                  counts['gather_gemm_bf16']},
             'gather_gemm_f32': {'cli_train parta2 (R8)':
@@ -5155,7 +5221,8 @@ def fork_batch(trainer, depth, sem, bev, gt):
 
 def run_fork(dev, smi, cfg_path=ARGO_PL_CFG):
     """Phases F1-F4 (`smi`: the card's name and power limit, for F4's
-    lines); returns kernel A's launches on the fork's paths: {path: n}."""
+    lines); returns kernels A's and F's launches on the fork's paths:
+    {name: {path: n}}."""
     import os
     import pickle
     import tempfile
@@ -5165,7 +5232,6 @@ def run_fork(dev, smi, cfg_path=ARGO_PL_CFG):
     from pcdet_tpu_torch.experiments import (BEVSegEvalAccumulator,
                                              between_dataloading_and_feedforward,
                                              bev_seg_loss)
-    from pcdet_tpu_torch.ops import rotated_overlap as ro
     from pcdet_tpu_torch.tools import create_data
     from pcdet_tpu_torch.tools import test as test_cli
     from pcdet_tpu_torch.tools import train as train_cli
@@ -5174,7 +5240,7 @@ def run_fork(dev, smi, cfg_path=ARGO_PL_CFG):
     here = os.path.dirname(os.path.abspath(__file__))
     cfg_file = os.path.join(here, cfg_path)
     cfg = fork_config(cfg_file)
-    paths = {}
+    paths = {'rotated_overlap': {}, 'nms_fused': {}}
 
     # F1. full-width training from pseudo-LiDAR, B2, 3 steps ---------------
     steps = 3
@@ -5239,18 +5305,21 @@ def run_fork(dev, smi, cfg_path=ARGO_PL_CFG):
         points = paint(points)
     det.detect(points, mask)
     sync()
-    ro.LAUNCHES = 0
+    reset_overlap()
     with torch.inference_mode():
         vox, ret = det.forward(points, mask)
         preds = det.model.predict(ret)
     sync()
-    paths['fork argo detect B2 (F1)'] = ro.LAUNCHES
+    a1, f1 = overlap_launches()
+    paths['rotated_overlap']['fork argo detect B2 (F1)'] = a1
+    paths['nms_fused']['fork argo detect B2 (F1)'] = f1
     logits = ret['bev_seg_logits']
     print('[fork F1] argo detect B2 (conv_cls bias zeroed): num %s, kernel '
-          'A launches (NMS rounds) %d; bev_seg_logits %s %s finite %s' % (
-              preds['num'].tolist(), ro.LAUNCHES, tuple(logits.shape),
+          'A launches %d, kernel F %d (one per NMS call); bev_seg_logits %s '
+          '%s finite %s' % (
+              preds['num'].tolist(), a1, f1, tuple(logits.shape),
               logits.dtype, bool(torch.isfinite(logits).all())))
-    require(ro.LAUNCHES > 0, 'the argo detect launched no kernel A')
+    require(f1 > 0, 'the argo detect launched no kernel F')
     require(tuple(logits.shape) == (2, 200, 200, 2)
             and bool(torch.isfinite(logits).all()), 'BEV logits')
     del trainer, det, batch, vox, ret
@@ -5308,7 +5377,7 @@ def run_fork(dev, smi, cfg_path=ARGO_PL_CFG):
         require(len(losses) == len(bev_losses) == 2
                 and all(np.isfinite(losses + bev_losses)),
                 'train CLI: losses %s, bev_loss %s' % (losses, bev_losses))
-        ro.LAUNCHES = 0
+        reset_overlap()
         t0 = time.perf_counter()
         res = test_cli.main([
             '--cfg_file', cfg_file, '--batch_size', '2', '--workers', '4',
@@ -5316,8 +5385,9 @@ def run_fork(dev, smi, cfg_path=ARGO_PL_CFG):
             os.path.join(str(tout['ckpt_dir']), 'checkpoint_epoch_1.pth'),
             '--set'] + sets + ['MODEL.TEST.SCORE_THRESH', '0.0'])
         sync()
-        a_launches = ro.LAUNCHES
-        paths['fork CLI eval (F3)'] = a_launches
+        a_launches, f_launches = overlap_launches()
+        paths['rotated_overlap']['fork CLI eval (F3)'] = a_launches
+        paths['nms_fused']['fork CLI eval (F3)'] = f_launches
         eval_dir, result = res['results'][1]
         with open(os.path.join(str(eval_dir), 'result.pkl'), 'rb') as f:
             det_annos = pickle.load(f)
@@ -5339,13 +5409,16 @@ def run_fork(dev, smi, cfg_path=ARGO_PL_CFG):
                               ['bev_seg_logits'], item['bev'])
         miou = acc.results()
         print('[fork F3] test CLI on its checkpoint, %d val frames in %.2f '
-              's: kernel A launches %d (NMS rounds and recall); recall/gt '
+              's: kernel A launches %d (recall), kernel F %d (NMS); recall/gt '
               '%s; logged AP string == the evaluator on result.pkl: %s; '
               'BEVSegEvalAccumulator %s' % (
                   len(det_annos), time.perf_counter() - t0, a_launches,
+                  f_launches,
                   result['recall/gt'], logged == again.strip(),
                   {k: round(float(v), 4) for k, v in miou.items()}))
-        require(a_launches > 0, 'the fork test CLI launched no kernel A')
+        require(a_launches > 0 and f_launches > 0, 'the fork test CLI '
+                'launched kernel A %d, kernel F %d times'
+                % (a_launches, f_launches))
         require(logged == again.strip(), 'fork test CLI: the logged AP '
                 'string differs from the evaluator run again on result.pkl')
         require(finite_numbers(logged), 'fork test CLI: non-finite AP')
@@ -5559,7 +5632,6 @@ def ddp_run(job, dev, group=None, rank=0, bn_groups=1):
     counts; in f32 under a group, the gradient all-reduce's ms; in f32,
     `job['steps']` steps (ms, losses, launches, and under a group the
     tensors that differ from rank 0's)."""
-    from pcdet_tpu_torch.ops import rotated_overlap as ro
     from pcdet_tpu_torch.parallel import ddp
     from pcdet_tpu_torch.train.trainer import make_train_scans
     cfg = job['cfg']
@@ -5577,11 +5649,12 @@ def ddp_run(job, dev, group=None, rank=0, bn_groups=1):
                       else {})
             sync()
             reset_launches()
-            ro.LAUNCHES = 0
+            reset_overlap()
             loss, tb, grads = tr.state.loss_and_grads(batch)
             ddp.broadcast_buffers(tr.model.module, group)
             sync()
-            res['launches'] = dict(nonzero(all_launches()), A=ro.LAUNCHES)
+            res['launches'] = dict(nonzero(all_launches()), **dict(zip(
+                'AF', overlap_launches())))
             res['loss'] = float(ddp.all_sum(loss.detach(), group))
             res['share'] = float(loss)
             res['tb'] = {k: float(v) for k, v in
@@ -5622,7 +5695,7 @@ def ddp_run(job, dev, group=None, rank=0, bn_groups=1):
                 # the steps go on from the step above (its BN statistics,
                 # equal on every rank after the broadcast)
                 reset_launches()
-                ro.LAUNCHES = 0
+                reset_overlap()
                 ms, losses = [], []
                 for _ in range(job['steps']):
                     ddp.barrier(group)
@@ -5633,7 +5706,8 @@ def ddp_run(job, dev, group=None, rank=0, bn_groups=1):
                     ms.append(1e3 * (time.perf_counter() - t0))
                     losses.append(float(ddp.reduce_tb(tb, group)['loss']))
                 res['step_launches'] = dict(nonzero(all_launches()),
-                                            A=ro.LAUNCHES)
+                                            **dict(zip('AF',
+                                                       overlap_launches())))
                 res['step_ms'], res['step_losses'] = ms, losses
                 if group is not None:
                     res['unequal'] = unequal_across_ranks(tr, group)
@@ -5775,7 +5849,7 @@ def ddp_report(tag, job, ranks, ref, mode):
         for r, rank in enumerate(ranks):
             res = rank[name]
             keys = ('gather_gemm_f32', 'gather_gemm_f32_dgrad', 'gather_dw',
-                    'gather_dw_seg') + (('A',) if job['model'] == 'parta2'
+                    'gather_dw_seg') + (('A', 'F') if job['model'] == 'parta2'
                                         else ())
             for launches in (res['launches'], res['step_launches']):
                 require(all(launches.get(k, 0) > 0 for k in keys),
@@ -5889,7 +5963,7 @@ def run_ddp(dev):
                                          'gather_gemm_f32_dgrad')),
                     ('gather_dw', ('gather_dw',)),
                     ('gather_dw_seg', ('gather_dw_seg',)),
-                    ('rotated_overlap', ('A',))):
+                    ('rotated_overlap', ('A',)), ('nms_fused', ('F',))):
                 n = sum(counts.get(k, 0) for k in keys)
                 if n:
                     paths.setdefault(entry, {})[where] = n
@@ -6014,7 +6088,6 @@ def run_ddp_cli(dev, workdir):
     import pickle
     from pcdet_tpu_torch import detect as detect_mod
     from pcdet_tpu_torch.datasets.kitti import kitti_eval_cli
-    from pcdet_tpu_torch.ops import rotated_overlap as ro
     from pcdet_tpu_torch.tools import test as test_cli
     from pcdet_tpu_torch.tools import train as train_cli
     from pcdet_tpu_torch.train.checkpoint import restore_train_state
@@ -6077,7 +6150,7 @@ def run_ddp_cli(dev, workdir):
     c = resumed.state.state_dict()
     differ_resumed = differing(c, a)
     del resumed
-    ro.LAUNCHES = 0
+    reset_overlap()
     t0 = time.perf_counter()
     tout = test_cli.main(
         ['--cfg_file', pp_cfg, '--batch_size', '2', '--workers', '4',
@@ -6085,7 +6158,7 @@ def run_ddp_cli(dev, workdir):
          '--set'] + sets + ['MODEL.TEST.SCORE_THRESH', '0.0'])
     sync()
     t_test = time.perf_counter() - t0
-    a_launches = ro.LAUNCHES
+    a_launches, f_launches = overlap_launches()
     ar = first['allreduce_ms']
     for tag, run in (('torchrun, epochs 1-2', first),
                      ('no group, epochs 1-2, beside it', plain)):
@@ -6125,14 +6198,15 @@ def run_ddp_cli(dev, workdir):
     again, _ = kitti_eval_cli.evaluation(det_annos, val_infos, KITTI_CLASSES)
     logged = logged_result(tout['log_file'])
     print('[ddp M3] test CLI on the torchrun checkpoint, %d val frames in '
-          '%.2f s: kernel A launches %d; recall/gt %s; '
+          '%.2f s: kernel A launches %d, kernel F %d; recall/gt %s; '
           'logged AP string == the evaluator on result.pkl: %s' % (
-              len(det_annos), t_test, a_launches,
+              len(det_annos), t_test, a_launches, f_launches,
               result['recall/gt'], logged == again.strip()))
-    require(a_launches > 0 and logged == again.strip()
-            and finite_numbers(logged), 'M3 test CLI: A %d, AP string '
-            'equal %s' % (a_launches, logged == again.strip()))
-    return {'rotated_overlap': {'ddp M3 test CLI': a_launches}}
+    require(a_launches > 0 and f_launches > 0 and logged == again.strip()
+            and finite_numbers(logged), 'M3 test CLI: A %d, F %d, AP string '
+            'equal %s' % (a_launches, f_launches, logged == again.strip()))
+    return {'rotated_overlap': {'ddp M3 test CLI': a_launches},
+            'nms_fused': {'ddp M3 test CLI': f_launches}}
 
 
 # M4: every card of the host ------------------------------------------------
@@ -6461,7 +6535,7 @@ def run_cards_ddp(devices):
                                          'gather_gemm_f32_dgrad')),
                     ('gather_dw', ('gather_dw',)),
                     ('gather_dw_seg', ('gather_dw_seg',)),
-                    ('rotated_overlap', ('A',))):
+                    ('rotated_overlap', ('A',)), ('nms_fused', ('F',))):
                 n = sum(counts.get(k, 0) for k in keys)
                 if n:
                     paths.setdefault(entry, {})[where] = n
@@ -6478,7 +6552,6 @@ def run_cards_cli(world, workdir, device_type='cuda'):
     import pickle
     from pcdet_tpu_torch import detect as detect_mod
     from pcdet_tpu_torch.datasets.kitti import kitti_eval_cli
-    from pcdet_tpu_torch.ops import rotated_overlap as ro
     from pcdet_tpu_torch.tools import test as test_cli
     here = os.path.dirname(os.path.abspath(__file__))
     pp_cfg = str(detect_mod.DEFAULT_CFG)
@@ -6518,7 +6591,7 @@ def run_cards_cli(world, workdir, device_type='cuda'):
                 and run['losses'] and all(np.isfinite(run['losses'])),
                 'M4 train CLI at %d ranks: %s' % (w, run['log'][-2000:]))
     last = os.path.join(runs[world]['out'], 'ckpt', 'checkpoint_epoch_2.pth')
-    ro.LAUNCHES = 0
+    reset_overlap()
     t0 = time.perf_counter()
     tout = test_cli.main(
         ['--cfg_file', pp_cfg, '--batch_size', '2', '--workers', '4',
@@ -6526,23 +6599,25 @@ def run_cards_cli(world, workdir, device_type='cuda'):
          '--set'] + sets
         + ['MODEL.TEST.SCORE_THRESH', '0.0'])
     sync()
-    a_launches = ro.LAUNCHES
+    a_launches, f_launches = overlap_launches()
     eval_dir, result = tout['results'][2]
     with open(os.path.join(str(eval_dir), 'result.pkl'), 'rb') as f:
         det_annos = pickle.load(f)
     again, _ = kitti_eval_cli.evaluation(det_annos, val_infos, KITTI_CLASSES)
     logged = logged_result(tout['log_file'])
     print('[ddp M4 c] test CLI on rank 0\'s checkpoint of %d ranks, %d val '
-          'frames on %s in %.2f s: kernel A launches %d; recall/gt %s; '
-          'logged AP string == the evaluator on result.pkl: %s' % (
+          'frames on %s in %.2f s: kernel A launches %d, kernel F %d; '
+          'recall/gt %s; logged AP string == the evaluator on result.pkl: '
+          '%s' % (
               world, len(det_annos), device_type, time.perf_counter() - t0,
-              a_launches,
+              a_launches, f_launches,
               result['recall/gt'], logged == again.strip()))
-    require(a_launches > 0 and logged == again.strip()
-            and finite_numbers(logged), 'M4 test CLI: A %d, AP string '
-            'equal %s' % (a_launches, logged == again.strip()))
-    return {'rotated_overlap': {'ddp M4 test CLI (%d-rank checkpoint)'
-                                % world: a_launches}}, runs
+    require(a_launches > 0 and f_launches > 0 and logged == again.strip()
+            and finite_numbers(logged), 'M4 test CLI: A %d, F %d, AP string '
+            'equal %s' % (a_launches, f_launches, logged == again.strip()))
+    where = 'ddp M4 test CLI (%d-rank checkpoint)' % world
+    return {'rotated_overlap': {where: a_launches},
+            'nms_fused': {where: f_launches}}, runs
 
 
 def samples_per_s(run, batch):
@@ -6735,7 +6810,6 @@ def detect_both_ways(tag, det, pts, mask, runs=3, n=5):
     (every tensor), the launches equal; frames/s both ways (median of
     `runs` runs of `n` batches).  Returns the device run's launches (the
     sparse kernels' and A's)."""
-    from pcdet_tpu_torch.ops import rotated_overlap as ro
     out = {}
     for way in ('host', 'device'):
         with (device_books_on() if way == 'device'
@@ -6743,10 +6817,10 @@ def detect_both_ways(tag, det, pts, mask, runs=3, n=5):
             det.detect(pts, mask)
             sync()
             reset_launches()
-            ro.LAUNCHES = 0
+            reset_overlap()
             preds = det.detect(pts, mask)
             sync()
-            counts = (nonzero(all_launches()), ro.LAUNCHES)
+            counts = (nonzero(all_launches()), *overlap_launches())
             ms = []
             for _ in range(runs):
                 t0 = time.perf_counter()
@@ -6763,9 +6837,10 @@ def detect_both_ways(tag, det, pts, mask, runs=3, n=5):
             'books' % (tag, hc, dc))
     b = pts.shape[0]
     print('%s detect B%d: predictions equal on host and device books (num '
-          '%s); launches %s, kernel A %d; %.2f frames/s on host books (%.2f '
-          'ms a batch), %.2f on device books (%.2f ms)' % (
-              tag, b, hp['num'].tolist(), dc[0], dc[1], 1e3 * b / hms, hms,
+          '%s); launches %s, kernel A %d, kernel F %d; %.2f frames/s on host '
+          'books (%.2f ms a batch), %.2f on device books (%.2f ms)' % (
+              tag, b, hp['num'].tolist(), dc[0], dc[1], dc[2], 1e3 * b / hms,
+              hms,
               1e3 * b / dms, dms))
     return dc
 
@@ -6815,7 +6890,6 @@ def step_both_ways(cfg, dev, pts, mask, gt):
     (warnings recorded): {way: (loss, tb, grads, books, launches, A)},
     the parameter names and the ops warned of as nondeterministic."""
     import warnings
-    from pcdet_tpu_torch.ops import rotated_overlap as ro
     from pcdet_tpu_torch.train import train_state
     from pcdet_tpu_torch.train.trainer import build_trainer
     out, names = {}, None
@@ -6835,12 +6909,13 @@ def step_both_ways(cfg, dev, pts, mask, gt):
                     parta2_gt_proposals(trainer.model, batch['gt_boxes'])
                     sync()
                     reset_launches()
-                    ro.LAUNCHES = 0
+                    reset_overlap()
                     loss, tb, grads = train_state.loss_and_grads(
                         trainer.model, list(trainer.state.params), batch)
                     sync()
                     out[way] = (loss, tb, grads, batch['books'],
-                                nonzero(all_launches()), ro.LAUNCHES)
+                                nonzero(all_launches()),
+                                overlap_launches())
                     names = trainer.state.optimizer.names
                     del trainer, batch
     finally:
@@ -6859,7 +6934,7 @@ def run_device_books(dev, smi):
     from pcdet_tpu_torch.models.layers import init_weights
     from pcdet_tpu_torch.ops import sparse
     from pcdet_tpu_torch.train.trainer import make_train_scans
-    paths = {'gather_gemm_bf16': {}, 'rotated_overlap': {},
+    paths = {'gather_gemm_bf16': {}, 'rotated_overlap': {}, 'nms_fused': {},
              'gather_gemm_f32': {}, 'gather_dw': {}, 'gather_dw_seg': {}}
     print('[books K] %s' % smi)
 
@@ -6883,14 +6958,16 @@ def run_device_books(dev, smi):
             if b == 2 and not train:
                 level2 = got
         det.max_voxels = caps[False]
-        counts, a = detect_both_ways('[books K1] second.yaml', det, pts, mask)
-        require(counts.get('gather_gemm_bf16', 0) > 0 and a > 0,
-                'K1: detect launched %s, kernel A %d' % (counts, a))
+        counts, a, f = detect_both_ways('[books K1] second.yaml', det, pts,
+                                        mask)
+        require(counts.get('gather_gemm_bf16', 0) > 0 and f > 0,
+                'K1: detect launched %s, kernel F %d' % (counts, f))
         if b == 2:
             path = 'second detect B2, device books (K1)'
             paths['gather_gemm_bf16'][path] = counts.get('gather_gemm_bf16',
                                                          0)
             paths['rotated_overlap'][path] = a
+            paths['nms_fused'][path] = f
     print('[books K1] %.1f s' % (time.perf_counter() - t0))
     mark('K1')
 
@@ -6971,12 +7048,13 @@ def run_device_books(dev, smi):
         books_both_ways('[books K2] PartA2.yaml B2', det,
                         det.voxelize(pts, mask)['coordinates'], train)
     det.max_voxels = caps[False]
-    counts, a = detect_both_ways('[books K2] PartA2.yaml', det, pts, mask)
-    require(counts.get('gather_gemm_bf16', 0) > 0 and a > 0,
-            'K2: detect launched %s, kernel A %d' % (counts, a))
+    counts, a, f = detect_both_ways('[books K2] PartA2.yaml', det, pts, mask)
+    require(counts.get('gather_gemm_bf16', 0) > 0 and f > 0,
+            'K2: detect launched %s, kernel F %d' % (counts, f))
     path = 'parta2 detect B2, device books (K2)'
     paths['gather_gemm_bf16'][path] = counts.get('gather_gemm_bf16', 0)
     paths['rotated_overlap'][path] = a
+    paths['nms_fused'][path] = f
     with device_books_on():
         n = geometric_decoder_equal(det, pts, mask)
     print('[books K2] PartA2.yaml B2 eval forward with the inverse convs\' '
@@ -6987,8 +7065,8 @@ def run_device_books(dev, smi):
     (hl, htb, hg, hb, hc, ha), (dl, dtb, dg, db, dc, da) = (runs['host'],
                                                             runs['device'])
     books_equal('[books K2] train step', db, hb)
-    require(hc == dc and ha == da, 'K2 step launches %s / %d with host '
-            'books, %s / %d with device books' % (hc, ha, dc, da))
+    require(hc == dc and ha == da, 'K2 step launches %s / %s with host '
+            'books, %s / %s with device books' % (hc, ha, dc, da))
     require(torch.equal(dl, hl), 'K2 step loss %r vs %r' % (float(dl),
                                                           float(hl)))
     require(sorted(dtb) == sorted(htb), 'K2 step tb keys')
@@ -7002,7 +7080,8 @@ def run_device_books(dev, smi):
     print('[books K2] PartA2.yaml train step B2 (f32, TF32 off, '
           'deterministic algorithms): loss %.6f equal on host and device '
           'books, %d tb scalars equal, %d of %d gradients bitwise equal%s; '
-          'launches %s, kernel A %d; ops warned of as nondeterministic: %s'
+          'launches %s, kernels A and F %s; ops warned of as '
+          'nondeterministic: %s'
           % (float(hl), len(htb), len(names) - len(apart), len(names),
              ', the rest within %s of their max' % apart if apart else '',
              dc, da, warned or 'none'))
@@ -7014,7 +7093,7 @@ def run_device_books(dev, smi):
                                       + dc.get('gather_gemm_f32_dgrad', 0))
     paths['gather_dw'][path] = dc.get('gather_dw', 0)
     paths['gather_dw_seg'][path] = dc.get('gather_dw_seg', 0)
-    paths['rotated_overlap'][path] = da
+    paths['rotated_overlap'][path], paths['nms_fused'][path] = da
     del runs
     gc.collect()
     torch.cuda.empty_cache()
@@ -7048,7 +7127,8 @@ def main():
         return 2
 
     from pcdet_tpu_torch import detect as detect_mod
-    from pcdet_tpu_torch.ops import cuda_build, host_books, rotated_iou
+    from pcdet_tpu_torch.ops import cuda_build, host_books, nms, rotated_iou
+    from pcdet_tpu_torch.ops import nms_fused as nf
     from pcdet_tpu_torch.ops import rotated_overlap as ro
 
     dev = torch.device('cuda')
@@ -7171,7 +7251,7 @@ def main():
           'around 200 calls, not queued) %.4f ms' % launch_ms)
     sync()
 
-    # 3. full-width detect at B2 through the kernel -----------------------
+    # 3. full-width detect at B2 through the kernels ----------------------
     cfg = detect_mod.load_config()
     tc = cfg.MODEL.TEST
     post = int(tc.NMS_POST_MAXSIZE_LAST)
@@ -7187,14 +7267,14 @@ def main():
     pts2, mask2 = pts8[:2].contiguous(), mask8[:2].contiguous()
     det.detect(pts2, mask2)                    # warm-up (cuDNN algorithms)
     sync()
-    ro.LAUNCHES = 0
+    reset_overlap()
     preds = det.detect(pts2, mask2)
     sync()
-    launches_b2 = ro.LAUNCHES
+    launches_b2, f_b2 = overlap_launches()
     num = preds['num'].tolist()
-    print('[detect B2] num %s, kernel launches (= NMS rounds) %d'
-          % (num, launches_b2))
-    require(launches_b2 > 0, 'the detect path launched no kernel')
+    print('[detect B2] num %s, kernel F launches (one per NMS call) %d, '
+          'kernel A %d' % (num, f_b2, launches_b2))
+    require(f_b2 > 0, 'the detect path launched no kernel F')
     require(all(x > 0 for x in num), 'no detections: %s' % num)
     require(tuple(preds['boxes'].shape) == (2, post, 7), 'boxes shape')
     require(bool(torch.isfinite(preds['boxes']).all())
@@ -7207,7 +7287,7 @@ def main():
         require(bool(((labels >= 1) & (labels <= 3)).all()), 'labels')
         require(bool((preds['boxes'][i, :k, 3:6] > 0).all()), 'box sizes')
 
-    # 4. NMS indices: kernel vs plain, same candidates --------------------
+    # 4. NMS indices: kernel F vs the plain eager rounds, same candidates -
     with torch.inference_mode():
         cand = candidates(det.model, det.model.forward(
             det.voxelize(pts2, mask2)), tc)
@@ -7224,19 +7304,55 @@ def main():
         sel_c, num_c = run_nms(cand, tc, counted)
     sync()
     require(torch.equal(sel_k, sel_p) and torch.equal(num_k, num_p),
-            'NMS indices differ between kernel and plain')
+            'NMS indices differ between kernel F and the plain eager rounds')
     require(torch.equal(sel_c, sel_k) and torch.equal(num_c, num_k),
             'NMS indices differ with the counting launch')
-    print('[nms] kernel and plain select the same indices: num %s, '
-          'valid candidates %s' % (num_k.tolist(),
-                                   cand['valid'].sum(1).tolist()))
-    print('[nms] kernel A, pairs kept (not culled) per NMS round of the B2 detect '
-          '(count, share of the round\'s pairs): %s' % ', '.join(
+    print('[nms] kernel F and the plain eager rounds select the same '
+          'indices: num %s, valid candidates %s' % (
+              num_k.tolist(), cand['valid'].sum(1).tolist()))
+    print('[nms] kernel A, pairs kept (not culled) per eager NMS round of the '
+          'B2 detect (count, share of the round\'s pairs): %s' % ', '.join(
               '%d of %d (%.2f%%)' % (c, n, 100 * c / n)
               for c, _, n in nms_rounds))
     require(all(c == k for c, k, _ in nms_rounds), 'kernel A\'s count of '
             'pairs kept differs from the plain predicate\'s in an NMS '
             'round: %s' % nms_rounds)
+
+    # 4b. kernel F against the plain eager rounds at the B2 and B8 shapes --
+    thresh = float(tc.NMS_THRESH)
+    f_times = {}
+    with torch.inference_mode():
+        cands = {2: cand, 8: candidates(det.model, det.model.forward(
+            det.voxelize(pts8, mask8)), tc)}
+        for b, cb in cands.items():
+            sel_f, num_f = run_nms(cb, tc)
+            sel_e, num_e = run_nms(cb, tc, ro.pair_overlap_batched_plain)
+            sync()
+            require(torch.equal(sel_f, sel_e) and torch.equal(num_f, num_e),
+                    'B%d: NMS indices differ between kernel F and the plain '
+                    'eager rounds' % b)
+            geo, area, valid = fused_inputs(cb, tc)
+            keep, rounds = nf.greedy(geo, area, valid, thresh, post, True)
+            f_ms, f_host = queued_ms(lambda: nf.greedy(
+                geo, area, valid, thresh, post, True), 100)
+            e_ms = cuda_ms(lambda: run_nms(cb, tc,
+                                           ro.pair_overlap_batched_plain), 3)
+            f_times[b] = {'ms': f_ms, 'plain_ms': e_ms,
+                          'work': fused_work(geo, area, valid)}
+            plan = nf.plan(geo.shape[1], True)
+            print('[nms F B%d] G=%d pre=%d: indices equal to the plain eager '
+                  'rounds (num %s); device rounds a group %s; kernel F %.4f '
+                  'ms (queued behind a spin kernel; 100 calls enqueued in '
+                  '%.2f ms), the plain eager rounds %.4f ms a call, bound '
+                  '%.5f ms (%s); plan: %d CTAs a cluster, %d columns, %d B '
+                  'of shared memory' % (
+                      b, geo.shape[0], geo.shape[1], num_f.tolist(),
+                      rounds.tolist(), f_ms, f_host, e_ms,
+                      *bound_ms(*f_times[b]['work']), *plan))
+            require(torch.equal(keep.sum(1).clamp(max=post).to(num_f.dtype),
+                                num_f), 'B%d: kernel F alone keeps %s, '
+                    'nms_bev_batched %s' % (b, keep.sum(1).tolist(),
+                                            num_f.tolist()))
 
     # 5. whole detect at B1, f32: GPU vs CPU ------------------------------
     cfg32 = copy.deepcopy(cfg)
@@ -7247,12 +7363,13 @@ def main():
         with torch.no_grad():
             det32.model.module.rpn_head.conv_cls.bias.zero_()
         t0 = time.perf_counter()
-        ro.LAUNCHES = 0
+        reset_overlap()
         outs[name] = {k: v.cpu() for k, v in det32.detect(
             pts8[:1].to(d), mask8[:1].to(d)).items()}
         if name == 'gpu':
             sync()
-            g1_launches = ro.LAUNCHES      # kernel A at G = 1: A'
+            # kernel A at G = 1 (A'): none since F runs the NMS
+            g1_launches, g1_f = overlap_launches()
         print('[gpu vs cpu] %s detect B1 f32: %.2f s' % (
             name, time.perf_counter() - t0))
         del det32
@@ -7260,8 +7377,9 @@ def main():
     g, c = outs['gpu'], outs['cpu']
     n_g, n_c = int(g['num'][0]), int(c['num'][0])
     box_err = (g['boxes'] - c['boxes']).abs().max().item()
-    print('[gpu vs cpu] num %d vs %d, max |box diff| %.3g; kernel A launches '
-          'at G = 1 (A\') %d' % (n_g, n_c, box_err, g1_launches))
+    print('[gpu vs cpu] num %d vs %d, max |box diff| %.3g; kernel F launches '
+          'at G = 1 %d, kernel A (A\') %d' % (n_g, n_c, box_err, g1_f,
+                                              g1_launches))
     require(n_g == n_c, 'GPU and CPU detection counts differ')
     require(box_err <= 1e-3, 'GPU and CPU boxes differ by %g' % box_err)
 
@@ -7280,14 +7398,17 @@ def main():
             t['nms'] = cuda_ms(lambda: run_nms(cand, tc), iters)
         return t
 
+    f_by_batch = {}
     for b in (2, 8):
         pts, mask = pts8[:b].contiguous(), mask8[:b].contiguous()
         det.detect(pts, mask)
         sync()
-        ro.LAUNCHES = 0
+        reset_overlap()
         det.detect(pts, mask)
         sync()
-        rounds = ro.LAUNCHES
+        launches_f = overlap_launches()[1]
+        f_by_batch[b] = launches_f
+        rounds = nms.last_device_rounds().tolist()
         batch_ms = []                 # three runs of 10 batches each
         for _ in range(3):
             t0 = time.perf_counter()
@@ -7300,10 +7421,10 @@ def main():
         print('[timing B%d] detect %.2f frames/s (median of 3 runs of 10 '
               'batches; ms per batch %s); voxelize %.2f ms, model %.2f ms, '
               'predict %.2f ms (of it top-k + decode %.2f ms, NMS %.2f ms); '
-              'NMS rounds %d' % (
+              'kernel F launches %d, its device rounds a group %s' % (
                   b, 1e3 * b / ms, ', '.join('%.2f' % x for x in batch_ms),
                   split['voxelize'], split['model'], split['predict'],
-                  split['topk_decode'], split['nms'], rounds))
+                  split['topk_decode'], split['nms'], launches_f, rounds))
         busy, rows, ops = profile_detect(det, pts, mask)
         if not rows:
             print('[profile B%d] no device time recorded: not measured' % b)
@@ -7317,9 +7438,10 @@ def main():
         for t, name in ops[:10]:
             print('[profile B%d]   op     %7.3f ms %5.1f%%  %s' % (
                 b, t, 100 * t / busy, name))
-        ovl = sum(t for t, name in rows if 'rotated_overlap' in name)
-        print('[profile B%d] rotated_overlap kernel: %.3f ms per batch '
-              '(%.1f%% of device time)' % (b, ovl, 100 * ovl / busy))
+        for kname in ('nms_fused_kernel', 'rotated_overlap'):
+            t = sum(t for t, name in rows if kname in name)
+            print('[profile B%d] %s: %.3f ms per batch (%.1f%% of device '
+                  'time)' % (b, kname, t, 100 * t / busy))
     sync()
 
     def timed(tag, fn, *args):
@@ -7338,11 +7460,11 @@ def main():
     second[0].update(b_train)
     xwin = timed('load strategies X1-X4', run_xwin, dev,
                  detect_mod.load_config(detect_mod.SECOND_CFG))
-    require(g1_launches > 0, 'the B1 detect launched no kernel A at G = 1')
+    require(g1_f > 0, 'the B1 detect launched no kernel F')
     evals = timed('evaluation V1-V4', run_eval, dev, g1_launches, {
         'second.yaml': eval_config(detect_mod.SECOND_CFG),
         'pointpillar.yaml': eval_config(detect_mod.DEFAULT_CFG)})
-    pp_eval_launches = timed('PointPillar training P1-P4',
+    pp_eval_a, pp_eval_f = timed('PointPillar training P1-P4',
                              run_pointpillar_train, dev,
                              detect_mod.load_config())
     fork_paths = timed('BEVSEG fork F1-F4', run_fork, dev, smi)
@@ -7370,13 +7492,25 @@ def main():
         max_abs_err, kernel_ms, plain_ms, a_work)
     a_entry['launches_by_path'] = {
         'pointpillar detect B2': launches_b2,
-        'pointpillar trained checkpoint eval B2 (P4)': pp_eval_launches,
-        **fork_paths}
-    kernels = ([a_entry] + second + [dw_entry] + xwin + parta2_entries
-               + train_entries + evals)
+        'pointpillar trained checkpoint eval B2 (P4)': pp_eval_a}
+    # kernel F at the B8 NMS shape (the benchmark's) and at B2, each against
+    # the plain eager rounds on the same candidates; it replaces no TPU
+    # kernel
+    f_entry, f_b2_entry = (kernel_entry(
+        name, 'pcdet_tpu_torch/csrc/nms_fused.cu', None, n, 0.0,
+        f_times[b]['ms'], f_times[b]['plain_ms'], f_times[b]['work'])
+        for name, b, n in (('nms_fused', 8, f_by_batch[8]),
+                           ('nms_fused_b2', 2, f_b2)))
+    f_entry['launches_by_path'] = {
+        'pointpillar detect B8': f_by_batch[8],
+        'pointpillar detect B2': f_b2,
+        'pointpillar detect B1 f32 (phase 5)': g1_f,
+        'pointpillar trained checkpoint eval B2 (P4)': pp_eval_f}
+    kernels = ([a_entry, f_entry, f_b2_entry] + second + [dw_entry] + xwin
+               + parta2_entries + train_entries + evals)
     for entry in kernels:
         for paths in (parta2_paths, train_paths, cli_paths, ddp_paths,
-                      books_paths):
+                      books_paths, fork_paths):
             if entry['name'] in paths:
                 entry.setdefault('launches_by_path', {}).update(
                     paths[entry['name']])

@@ -4,21 +4,32 @@ Port of `pcdet_tpu.ops.nms.nms_bev_batched`.  Outputs keep the fixed-shape
 contract: `selected` (G, post_max) int32 indices padded with -1, plus `num`.
 
 Greedy stays exact: each round takes the `block` highest-ranked alive boxes
-of every sample, computes their (block, pre) IoU rows (one launch of the
-rotated-overlap kernel for the whole batch), resolves greedy exactly within
-the block, and kills what the block's keepers suppress.  The loops run
-eagerly: every round, and every frontier step inside a block, reads a flag
-on the host.  Each round is one span `pcdet.nms.round`
+of every sample, computes their (block, pre) IoU rows, resolves greedy
+exactly within the block, and kills what the block's keepers suppress.  On
+CUDA tensors with the default `overlap_fn` the rounds run on the card in one
+launch of kernel F (`nms_fused`), which reads nothing back on the host; its
+rounds a group are `last_device_rounds()`.  On CPU tensors, or with a
+caller's own `overlap_fn`, the rounds run eagerly (`_lazy_greedy_batched`,
+F's oracle): one launch of the overlap function a round, and every round and
+every frontier step inside a block reads a flag on the host.  Each launch of
+F, and each eager round, is one span `pcdet.nms.round`
 (`utils.profiler.span`).
 """
 import torch
 
 from ..utils.profiler import span
-from . import rotated_iou
+from . import nms_fused, rotated_iou
 from .rotated_overlap import pair_overlap_batched
 
 NEG_INF = -1e9
 BLOCK = 64          # boxes resolved per greedy round (JAX's TPU block)
+_LAST_ROUNDS = None
+
+
+def last_device_rounds():
+    """The (G,) int32 rounds each group ran in the last launch of kernel F
+    (on the card, not synchronised), or None before the first."""
+    return _LAST_ROUNDS
 
 
 def topk_stable(x, k):
@@ -61,8 +72,7 @@ def _lazy_greedy_batched(top_boxes, top_valid, thresh, post_max, rotated,
     block = min(BLOCK, pre)
     if rotated:
         corners = rotated_iou.boxes5_to_corners(top_boxes).contiguous()
-    area = ((top_boxes[..., 2] - top_boxes[..., 0])
-            * (top_boxes[..., 3] - top_boxes[..., 1]))            # (G, pre)
+    area = _box_area(top_boxes)                                    # (G, pre)
     positions = torch.arange(pre, device=dev)[None].expand(g, pre)
     keep = torch.zeros((g, pre), dtype=torch.bool, device=dev)
     alive = top_valid.clone()
@@ -117,6 +127,23 @@ def _lazy_greedy_batched(top_boxes, top_valid, thresh, post_max, rotated,
     return keep
 
 
+def _box_area(top_boxes):
+    return ((top_boxes[..., 2] - top_boxes[..., 0])
+            * (top_boxes[..., 3] - top_boxes[..., 1]))
+
+
+def _fused_greedy(top_boxes, top_valid, thresh, post_max, rotated):
+    """`_lazy_greedy_batched`'s keep mask from one launch of kernel F."""
+    global _LAST_ROUNDS
+    geo = (rotated_iou.boxes5_to_corners(top_boxes) if rotated
+           else top_boxes).contiguous()
+    with span('pcdet.nms.round'):
+        keep, _LAST_ROUNDS = nms_fused.greedy(
+            geo, _box_area(top_boxes).contiguous(), top_valid.contiguous(),
+            thresh, post_max, rotated)
+    return keep
+
+
 def nms_bev_batched(boxes5, scores, thresh, pre_max=4096, post_max=500,
                     valid_mask=None, rotated=True,
                     overlap_fn=pair_overlap_batched):
@@ -125,8 +152,9 @@ def nms_bev_batched(boxes5, scores, thresh, pre_max=4096, post_max=500,
     :param boxes5: (G, A, 5) [x1, y1, x2, y2, ry], :param scores: (G, A)
     :param valid_mask: (G, A) bool, boxes to consider
     :param rotated: rotated IoU (nms_gpu) vs axis-aligned (nms_normal_gpu)
-    :param overlap_fn: the rotated pair-overlap function; the kernel wrapper
-        unless a caller compares it with `pair_overlap_batched_plain`
+    :param overlap_fn: the rotated pair-overlap function of the eager
+        rounds; the default takes kernel F on CUDA tensors, another (say
+        `pair_overlap_batched_plain`, or kernel A wrapped) the eager loop
     :return: selected (G, post_max) int32 (-1 pad), num_selected (G,) int32
     """
     g, a = boxes5.shape[0], boxes5.shape[1]
@@ -138,8 +166,11 @@ def nms_bev_batched(boxes5, scores, thresh, pre_max=4096, post_max=500,
     top_valid = top_scores > NEG_INF / 2
     top_boxes = torch.gather(boxes5, 1, order[:, :, None].expand(g, pre_max, 5))
 
-    keep = _lazy_greedy_batched(top_boxes, top_valid, thresh, post_max,
-                                rotated=rotated, overlap_fn=overlap_fn)
+    if boxes5.device.type == 'cuda' and overlap_fn is pair_overlap_batched:
+        keep = _fused_greedy(top_boxes, top_valid, thresh, post_max, rotated)
+    else:
+        keep = _lazy_greedy_batched(top_boxes, top_valid, thresh, post_max,
+                                    rotated=rotated, overlap_fn=overlap_fn)
 
     positions = torch.arange(pre_max, device=boxes5.device)[None]
     keep_rank = torch.where(keep, positions, pre_max)

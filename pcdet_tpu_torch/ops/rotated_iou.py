@@ -27,10 +27,11 @@ def boxes5_to_corners(boxes):
     x1, y1, x2, y2, ang = [boxes[..., i] for i in range(5)]
     cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
     hx, hy = (x2 - x1) / 2, (y2 - y1) / 2
-    sx = torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=boxes.dtype,
-                      device=boxes.device)
-    sy = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=boxes.dtype,
-                      device=boxes.device)
+    # the signs [1, -1, -1, 1] and [1, 1, -1, -1], made on the boxes' device
+    # (a tensor from a list would be a blocking copy from the host)
+    k = torch.arange(4, device=boxes.device)
+    sx = torch.where(k % 3 == 0, 1.0, -1.0).to(boxes.dtype)
+    sy = torch.where(k < 2, 1.0, -1.0).to(boxes.dtype)
     ox = hx[..., None] * sx
     oy = hy[..., None] * sy
     c, s = torch.cos(ang)[..., None], torch.sin(ang)[..., None]
